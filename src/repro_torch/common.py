@@ -1,0 +1,69 @@
+"""Shared utilities: the NEG_INF sentinel, tie-breaking argmax, concave fns,
+index masks and device resolution."""
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+NEG_INF = -1e30
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point builds its tensors on: ``device`` when
+    given, else the card.  Asking for CUDA where there is none raises; the
+    port never falls back to the CPU on its own."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"no CUDA device for {str(dev)!r}: this entry point runs on the "
+            "card unless called with device='cpu'"
+        )
+    return dev
+
+
+def as_float_tensor(x, device=None) -> torch.Tensor:
+    """fp32 tensor of ``x``.  A tensor keeps its device unless ``device``
+    names another; anything else (numpy, lists) goes to
+    :func:`resolve_device`."""
+    if isinstance(x, torch.Tensor):
+        dev = x.device if device is None else resolve_device(device)
+        return x.to(device=dev, dtype=torch.float32)
+    return torch.tensor(x, dtype=torch.float32, device=resolve_device(device))
+
+
+def first_argmax(x: torch.Tensor) -> torch.Tensor:
+    """Index of the first occurrence of the maximum (paper's tie rule);
+    ``torch.argmax`` returns the first maximal index on CPU and CUDA."""
+    return torch.argmax(x)
+
+
+def masked_first_argmax(x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """First argmax over entries where ``valid`` is True."""
+    return torch.argmax(torch.where(valid, x, NEG_INF))
+
+
+CONCAVE_FNS: dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
+    # g(0) = 0 and concave increasing on x >= 0 — paper supports log / sqrt / inverse.
+    "sqrt": lambda x: torch.sqrt(torch.clamp(x, min=0.0)),
+    "log": lambda x: torch.log1p(torch.clamp(x, min=0.0)),
+    "inverse": lambda x: x / (1.0 + torch.clamp(x, min=0.0)),
+}
+
+
+def get_concave(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
+    if name not in CONCAVE_FNS:
+        raise ValueError(f"unknown concave fn {name!r}; choose from {sorted(CONCAVE_FNS)}")
+    return CONCAVE_FNS[name]
+
+
+def mask_from_indices(idxs, n: int, device=None) -> torch.Tensor:
+    """(k,) int indices (possibly with -1 padding) -> (n,) bool mask on
+    ``device`` (default: the device of ``idxs``, or the CPU for a list).
+    Negative and out-of-range indices are dropped."""
+    idxs = torch.as_tensor(idxs, dtype=torch.long)
+    if device is not None:
+        idxs = idxs.to(device)
+    mask = torch.zeros((n,), dtype=torch.bool, device=idxs.device)
+    mask[idxs[(idxs >= 0) & (idxs < n)]] = True
+    return mask

@@ -1,0 +1,27 @@
+# The ported core: the set-function protocol, Facility Location over a dense
+# kernel, the gain-backend registry, NaiveGreedy / LazyGreedy and the
+# SelectionSpec + solve() front door (sequential mode).
+from repro_torch.core.functions.base import SetFunction
+from repro_torch.core.functions.facility_location import FacilityLocation, FLState
+from repro_torch.core.optimizers.backends import (
+    GainBackend,
+    backend_name,
+    choose_backend,
+    full_sweep,
+    kernel_enabled,
+    partial_sweep,
+    register_gain_backend,
+    resolve_backend,
+)
+from repro_torch.core.optimizers.greedy import GreedyResult, lazy_greedy, naive_greedy
+from repro_torch.core.optimizers.spec import (
+    OptimizerSpec,
+    SelectionSpec,
+    family_defaults,
+    optimizer_names,
+    register_family_defaults,
+    register_optimizer,
+    resolve_optimizer,
+    solve,
+)
+from repro_torch.core.similarity import create_kernel, pairwise_sq_dists, sparsify_topk

@@ -1,0 +1,134 @@
+"""Build the port's CUDA kernels at first use and load them with ctypes.
+
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` process for
+``sm_90a`` (all started together), then linked into one shared library with
+a plain C interface.  Nothing includes PyTorch's headers, so a build takes
+seconds.  The library lands in ``kernels/build/`` next to this file (the
+``build/`` pattern in ``.gitignore`` keeps it out of git), named by a hash of
+the sources and flags, so an edited source is never served by a stale build.
+
+Importing this module builds nothing: :func:`load` runs on the first kernel
+launch, so CPU-only machines import the whole package freely.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+
+_HERE = Path(__file__).resolve().parent
+CSRC = _HERE / "csrc"
+BUILD_DIR = _HERE / "build"  # listed in .gitignore via `build/`
+
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")  # the `a`: wgmma/setmaxnreg
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I64 = ctypes.c_int64
+# C signatures of the exported launch functions (see csrc/*.cu); every
+# pointer and the stream are c_void_p, or ctypes would cut them to 32 bits
+_SIGNATURES = {
+    "similarity_launch": (
+        [_P, _P, _P, _P, _P, _I64, _I64, _I64, ctypes.c_int, ctypes.c_float, _P],
+        ctypes.c_int,
+    ),
+    "fl_gains_launch": (
+        [_P, _I64, _I64, _I64, _P, _P, _I64, _I64, _P, _P, _P],
+        ctypes.c_int,
+    ),
+    "repro_cuda_error_string": ([ctypes.c_int], ctypes.c_char_p),
+}
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+# what the last build did: {"seconds", "cached", "library", "ptxas"}
+BUILD_INFO: dict = {}
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (looked in $CUDA_HOME/bin, /usr/local/cuda/bin and "
+            "PATH): the CUDA kernels are built on the machine with the card"
+        )
+    return found
+
+
+def _library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cu")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"librepro_torch_{h.hexdigest()[:16]}.so"
+
+
+def _compile(target: Path) -> list[str]:
+    """nvcc every source in parallel, link into ``target``; returns the
+    ptxas report lines (registers, shared memory, spills)."""
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        procs = []
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = Path(tmp) / (src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+            procs.append((src, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        report, failed = [], []
+        for src, _, p in procs:
+            out, err = p.communicate()
+            report += [f"{src.name}: {line}" for line in (out + err).splitlines() if line.strip()]
+            if p.returncode != 0:
+                failed.append(f"{src.name} (exit {p.returncode})")
+        if failed:
+            raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n" + "\n".join(report))
+        tmp_lib = Path(tmp) / target.name
+        link = subprocess.run(
+            [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp_lib), *(str(o) for _, o, _ in procs)],
+            capture_output=True, text=True,
+        )
+        if link.returncode != 0:
+            raise RuntimeError("nvcc link failed:\n" + link.stdout + link.stderr)
+        os.replace(tmp_lib, target)  # atomic: a concurrent loader sees all or nothing
+    return report
+
+
+def load() -> ctypes.CDLL:
+    """The kernel library, built on first call (thread-safe, once per process)."""
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        target = _library_path()
+        t0 = time.perf_counter()
+        cached = target.exists()
+        report = [] if cached else _compile(target)
+        lib = ctypes.CDLL(str(target))
+        for name, (argtypes, restype) in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = restype
+        BUILD_INFO.update(
+            seconds=time.perf_counter() - t0, cached=cached,
+            library=str(target), ptxas=report,
+        )
+        _lib = lib
+        return lib
+
+
+def check(rc: int, what: str) -> None:
+    """Raise if a launch function returned a CUDA error code."""
+    if rc != 0:
+        msg = load().repro_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
