@@ -3,13 +3,20 @@
 that path against its plain PyTorch version.
 
     python3 chip_smoke.py                  # full size: n=50,000, d=512
-    python3 chip_smoke.py --n 8192 --naive-budget 50 --lazy-budget 200
+    python3 chip_smoke.py --n 8192 --naive-budget 50 --lazy-budget 200 \
+        --mf-n 65536 --mf-lazy-budget 200 --reps 5   # a short check
 
-The main path is the paper's core loop: ``create_kernel`` (CUDA similarity
-kernel) -> ``FacilityLocation`` -> NaiveGreedy and LazyGreedy through
-``SelectionSpec`` + ``solve()`` (CUDA FL-sweep kernel, full and gathered).
-The ground set is CIFAR-10-sized: n items with d features drawn from
-``--seed`` as a 100-component Gaussian mixture, cosine similarity.
+Two paths run, each with its launch counts set to 0 just before it and read
+just after:
+
+- the main path, the paper's core loop: ``create_kernel`` (CUDA similarity
+  kernel) -> ``FacilityLocation`` -> NaiveGreedy and LazyGreedy through
+  ``SelectionSpec`` + ``solve()`` (CUDA FL-sweep kernel, full and gathered).
+  The ground set is CIFAR-10-sized: n items with d features drawn from
+  ``--seed`` as a 100-component Gaussian mixture, cosine similarity.
+- the matrix-free path: ``FacilityLocationMF`` and ``GraphCutMF`` built from
+  features, through the same ``solve()`` (CUDA flmf and gcmf sweeps, full
+  and gathered), on the same features and on a million-point candidate set.
 
 Phases, each of which raises on failure (the exit code is then non-zero):
   1 device   CUDA present; the card's name and power limit
@@ -18,7 +25,12 @@ Phases, each of which raises on failure (the exit code is then non-zero):
   4 main     the main path at full size, its launch counts, and the same
              solves on the plain path, compared step by step
   5 times    each kernel, its plain version and the library call, timed
-             with CUDA events at the main path's shapes
+             with CUDA events at its path's shapes
+  6 mf       the matrix-free path: (a) FacilityLocationMF on phase 4's
+             features, held against phase 4's dense selection and under a
+             1 GB peak; (b) FacilityLocationMF over --mf-n candidates and
+             MF_U represented rows (rbf); (c) GraphCutMF on phase 4's
+             features; each against its plain (use_kernel=False) path
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Details go to chiprun_out/chip_smoke.json.
 Without a CUDA device, or without the repo's ``src/`` beside it, the script
@@ -51,6 +63,20 @@ SIM_TOL = {  # (rtol, atol) of the JAX package's similarity tests
     "rbf": (1e-3, 5e-2),
 }
 FL_TOL = (1e-5, 1e-4)  # fl_gains kernel vs plain: fp32 sums of <= 50k terms
+# flmf / gcmf kernel vs plain: the same sums, over similarities that the
+# kernel's fmaf chain and the plain version's matmul may round differently.
+# Euclidean raises only the absolute bar, to the JAX package's own
+# matrix-free bar (tests/test_matrix_free.py:76): a self pair's d2 ~ 0 comes
+# out of cancellation, and 1 / (1 + sqrt(d2)) turns its rounding into an
+# absolute error of ~1e-3 in one term of the sum.
+MF_TOL = {"dot": (2e-5, 1e-4), "cosine": (2e-5, 1e-4), "rbf": (2e-5, 1e-4),
+          "euclidean": (2e-5, 2e-3)}
+# phase 6 (b): the million-point shape's represented rows and budgets (the
+# budgets stay below MF_U: the representatives are candidates too)
+MF_U = 512
+MF_NAIVE_BUDGET = 100  # also phase 6 (a) and (c)
+MF_BIG_LAZY_BUDGET = 256
+MF_PEAK_LIMIT = 1 << 30  # phase 6 (a): peak device bytes of the kernel path's selection
 NEAR_TIE_REL = 1e-4  # top-two gains this close (relative) may flip the pick
 GAIN_RTOL = 1e-5  # kernel-path vs plain-path gains over the agreeing prefix
 
@@ -106,6 +132,14 @@ def gaussian_mixture(seed: int, n: int, d: int, components: int = 100) -> np.nda
     centers = rng.normal(size=(components, d)).astype(np.float32)
     labels = rng.integers(0, components, size=n)
     return centers[labels] + rng.normal(size=(n, d)).astype(np.float32)
+
+
+def gaussian_mixture_cuda(torch, seed: int, n: int, d: int, components: int = 100):
+    """The same kind of mixture, drawn on the card (a million rows in ms)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    centers = torch.randn((components, d), generator=gen, device="cuda")
+    labels = torch.randint(0, components, (n,), generator=gen, device="cuda")
+    return centers[labels] + torch.randn((n, d), generator=gen, device="cuda")
 
 
 # ---------------------------------------------------------------------------
@@ -174,28 +208,101 @@ def phase_kernels(torch, seed: int) -> None:
                         got, fl_gains_at_plain(sim, cm, idx), *FL_TOL)
 
 
-def _replay_check(torch, name, fn_plain, kern, plain) -> dict:
+def _check_subset(what: str, torch, got, full, idx) -> None:
+    """A gathered sweep must equal the full sweep bit for bit, pads NEG_INF."""
+    from repro_torch.common import NEG_INF
+
+    keep = idx >= 0
+    if not torch.equal(got[keep], full[idx[keep].long()]):
+        raise AssertionError(f"{what}: not bit-equal to the full sweep")
+    if not bool((got[~keep] == NEG_INF).all()):
+        raise AssertionError(f"{what}: pads are not NEG_INF")
+
+
+def phase_mf_kernels(torch, seed: int) -> None:
+    from repro_torch.core import feature_source
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flmf_gains import flmf_gains_at_plain, flmf_gains_plain
+    from repro_torch.kernels.gcmf_gains import gcmf_gains_at_plain, gcmf_gains_plain
+    from repro_torch.kernels.similarity_kernel import _normalize
+
+    log("== phase 3: matrix-free kernels vs plain, small and ragged shapes")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 2)
+    dev = "cuda"
+    lam = torch.tensor(0.4, device=dev)
+    for u, n, d in [(1000, 777, 130), (300, 1500, 512), (129, 1, 8), (1, 300, 13)]:
+        x = torch.randn((u, d), generator=gen, device=dev)
+        y = torch.randn((n, d), generator=gen, device=dev)
+        cm = 0.8 * torch.rand((u,), generator=gen, device=dev)
+        mask = (torch.rand((n,), generator=gen, device=dev) < 0.1).float()
+        total = n * torch.rand((n,), generator=gen, device=dev)
+        diag = torch.rand((n,), generator=gen, device=dev)
+        sets = []
+        for k in (1, 8, 100, 777):
+            idx = torch.randint(0, n, (k,), generator=gen, device=dev)
+            idx[::7] = -1  # padding slots, the first among them
+            sets.append(idx)
+        for metric in SIM_TOL:
+            xm, ym = (_normalize(x), _normalize(y)) if metric == "cosine" else (x, y)
+            xx, yy = (xm * xm).sum(1), (ym * ym).sum(1)
+            full = ops.flmf_gains(xm, ym, xx, yy, cm, metric)
+            torch.cuda.synchronize()
+            check_close(f"flmf_gains {metric} ({u},{n},{d})", full,
+                        flmf_gains_plain(xm, ym, xx, yy, cm, metric), *MF_TOL[metric])
+            gfull = ops.gcmf_gains(ym, yy, mask, total, diag, lam, metric)
+            torch.cuda.synchronize()
+            check_close(f"gcmf_gains {metric} ({n},{d})", gfull,
+                        gcmf_gains_plain(ym, yy, mask, total, diag, lam, metric), *MF_TOL[metric])
+            for idx in sets:
+                k = idx.shape[0]
+                got = ops.flmf_gains_at(xm, ym, xx, yy, cm, idx, metric)
+                torch.cuda.synchronize()
+                _check_subset(f"flmf_gains_at {metric} k={k}", torch, got, full, idx)
+                check_close(f"flmf_gains_at {metric} ({u},{n},{d}) k={k} (bit-equal to flmf_gains)",
+                            got, flmf_gains_at_plain(xm, ym, xx, yy, cm, idx, metric),
+                            *MF_TOL[metric])
+                got = ops.gcmf_gains_at(ym, yy, mask, total, diag, lam, idx, metric)
+                torch.cuda.synchronize()
+                _check_subset(f"gcmf_gains_at {metric} k={k}", torch, got, gfull, idx)
+                check_close(f"gcmf_gains_at {metric} ({n},{d}) k={k} (bit-equal to gcmf_gains)",
+                            got, gcmf_gains_at_plain(ym, yy, mask, total, diag, lam, idx, metric),
+                            *MF_TOL[metric])
+    # the torch path of FeatureSource: subset sweeps bit-equal on the card too
+    x = torch.randn((300, 130), generator=gen, device=dev)
+    y = torch.randn((1500, 130), generator=gen, device=dev)
+    cm = 0.5 * torch.rand((300,), generator=gen, device=dev)
+    idx = torch.randint(0, 1500, (777,), generator=gen, device=dev)
+    idx[::7] = -1
+    for metric in SIM_TOL:
+        src = feature_source(x, y, metric)
+        _check_subset(f"FeatureSource.fl_gains_at {metric}", torch, src.fl_gains_at(cm, idx),
+                      src.fl_gains(cm), idx)
+    log("  ok  FeatureSource torch path: fl_gains_at bit-equal to fl_gains, all metrics")
+
+
+def _replay_check(torch, name, fn_plain, kern, plain, max_steps=None) -> dict:
     """Hold the kernel path's ids against the plain path's.
 
     They must agree at every step before the first step where the plain
     path's top two gains lie within NEAR_TIE_REL of each other, and their
     gains must agree to GAIN_RTOL over the agreeing prefix.  The plain
     path's top two gains are found by replaying its selections through its
-    own gains() sweep."""
+    own gains() sweep, up to the first disagreement; where there is none,
+    up to ``max_steps`` steps (all of them by default)."""
     from repro_torch.common import NEG_INF
-    from repro_torch.core import FLState
 
     ko, po = kern.order.cpu().numpy(), plain.order.cpu().numpy()
     kg, pg = kern.gains.cpu().numpy(), plain.gains.cpu().numpy()
     diff = np.nonzero(ko != po)[0]
     t_dis = int(diff[0]) if diff.size else None
-    u = fn_plain.sim.shape[0]
-    cm = torch.zeros((u,), device="cuda")
+    state = fn_plain.init_state()
     selected = torch.zeros((fn_plain.n,), dtype=torch.bool, device="cuda")
     t_tie, gap = None, None
     steps = int((po >= 0).sum())
+    if t_dis is None and max_steps is not None:
+        steps = min(steps, max_steps)
     for t in range(steps):
-        g = torch.where(selected, NEG_INF, fn_plain.gains(FLState(curmax=cm, n_rows=u)))
+        g = torch.where(selected, NEG_INF, fn_plain.gains(state))
         g1, g2 = (float(v) for v in torch.topk(g, 2).values)
         if g1 - g2 <= NEAR_TIE_REL * abs(g1):
             t_tie, gap = t, g1 - g2
@@ -203,7 +310,7 @@ def _replay_check(torch, name, fn_plain, kern, plain) -> dict:
         if t_dis is not None and t >= t_dis:
             break
         j = int(po[t])
-        cm = torch.maximum(cm, fn_plain.sim[:, j])
+        state = fn_plain.update(state, torch.tensor([j], device="cuda"))
         selected[j] = True
     agree = len(ko) if t_dis is None else t_dis
     if t_dis is not None and (t_tie is None or t_dis < t_tie):
@@ -216,11 +323,12 @@ def _replay_check(torch, name, fn_plain, kern, plain) -> dict:
         t = int(np.nonzero(rel)[0][0])
         raise AssertionError(f"{name}: gains differ beyond rtol {GAIN_RTOL} at step {t}: {kg[t]} vs {pg[t]}")
     log(f"  ok  {name}: ids agree over {agree} steps; first near-tie of the plain path "
-        f"(top two within {NEAR_TIE_REL} rel): {'none' if t_tie is None else t_tie}"
+        f"(top two within {NEAR_TIE_REL} rel): "
+        f"{('none in ' + str(steps) + ' steps') if t_tie is None else t_tie}"
         + ("" if gap is None else f" (gap {gap:.3e})")
         + f"; first disagreement: {'none' if t_dis is None else t_dis}")
     return {"first_near_tie": t_tie, "near_tie_gap": gap, "first_disagreement": t_dis,
-            "agreeing_steps": agree}
+            "agreeing_steps": agree, "replayed_steps": steps}
 
 
 def _timed_solve(torch, spec) -> tuple:
@@ -262,7 +370,7 @@ def phase_main(torch, args) -> dict:
     runs = {}
     for opt, budget in (("NaiveGreedy", args.naive_budget), ("LazyGreedy", args.lazy_budget)):
         runs[opt] = _timed_solve(torch, SelectionSpec(fn, budget, opt))
-    launches = dict(ops.LAUNCHES)
+    launches = {k: ops.LAUNCHES[k] for k in ("similarity", "fl_gains", "fl_gains_at")}
     log(f"  backend_name = {name}; launches on the main path: {launches}")
     for k, v in launches.items():
         if v <= 0:
@@ -314,6 +422,7 @@ def phase_main(torch, args) -> dict:
     log(f"  NaiveGreedy ids[:{common}] = {naive_ids[:common].tolist()}")
     log(f"  LazyGreedy  ids[:{common}] = {lazy_ids[:common].tolist()}")
     out["naive_ids"] = naive_ids.tolist()
+    out["naive_gains"] = runs["NaiveGreedy"][0].gains.cpu().tolist()
     out["lazy_ids"] = lazy_ids.tolist()
     return out, fn, runs["NaiveGreedy"][0]
 
@@ -425,6 +534,287 @@ def phase_times(torch, args, fn, naive_res, main: dict) -> list[dict]:
     return rows
 
 
+def _mf_bytes(*tensors) -> float:
+    return float(sum(4 * t.numel() for t in tensors))
+
+
+def _time_subsets(torch, name, kernel, plain, library, full, n, reps, gen, flops_per_col,
+                  bytes_fixed, bytes_per_col):
+    """Time a gathered sweep at k = 8 and 512 on fresh index sets (so no
+    candidate row stays in L2), held bit-equal to the full sweep."""
+    out = {}
+    for k in (8, 512):
+        sets = [torch.randperm(n, generator=gen, device="cuda")[:k].to(torch.int32)
+                for _ in range(64)]
+        got = kernel(sets[0])
+        _check_subset(f"{name} k={k}", torch, got, full, sets[0])
+        err = check_close(f"{name} k={k} vs plain", got, plain(sets[0]), *MF_TOL["cosine"])
+        it = itertools.cycle(sets)
+        b_ms, b_by = bound(flops_per_col * k, bytes_fixed + bytes_per_col * k)
+        out[k] = {"ms": cuda_ms(torch, lambda: kernel(next(it)), reps),
+                  "plain_ms": cuda_ms(torch, lambda: plain(next(it)), 2, warmup=1),
+                  "library_ms": cuda_ms(torch, lambda: library(next(it)), max(2, reps // 10)),
+                  "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err}
+        log(f"  {name} k={k}: kernel {out[k]['ms']:.4f} ms, plain {out[k]['plain_ms']:.3f} ms, "
+            f"library {out[k]['library_ms']:.4f} ms, bound {b_ms:.5f} ms ({b_by}); "
+            "bit-equal to the full sweep")
+    return out
+
+
+def phase_mf_times(torch, args, naive_res) -> list[dict]:
+    from repro_torch.core import FacilityLocationMF, GraphCutMF, feature_source
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flmf_gains import flmf_gains_at_plain, flmf_gains_plain
+    from repro_torch.kernels.gcmf_gains import gcmf_gains_at_plain, gcmf_gains_plain
+    from repro_torch.kernels.similarity_kernel import inv_two_sigma_sq, metric_epilogue
+
+    log("== phase 5 (matrix-free kernels): times at the matrix-free path's shapes")
+    n, d, reps = args.n, args.d, args.reps
+    big = max(3, reps // 10)  # launches of the kernels that take tens of ms
+    gen = torch.Generator(device="cuda").manual_seed(args.seed + 3)
+    x = torch.as_tensor(gaussian_mixture(args.seed, n, d), device="cuda")
+    # a state the path reaches: the first picks of phase 4's NaiveGreedy
+    picks = naive_res.order[naive_res.order >= 0][: MF_NAIVE_BUDGET].long()
+
+    # ---- flmf at the million-point shape (phase 6 b), first sweep
+    y = gaussian_mixture_cuda(torch, args.seed, args.mf_n, d)
+    src = feature_source(y[:: args.mf_n // MF_U][: MF_U], y, "rbf")
+    u = src.n_rows
+    cm0 = torch.zeros((u,), device="cuda")
+    fl_args = (src.x, src.y, src.xx, src.yy, cm0, "rbf")
+    full = ops.flmf_gains(*fl_args)
+    big_err = check_close(f"flmf_gains ({u},{args.mf_n},{d}) rbf vs plain", full,
+                          flmf_gains_plain(*fl_args), *MF_TOL["rbf"])
+    big_t = {"ms": cuda_ms(torch, lambda: ops.flmf_gains(*fl_args), reps),
+             "plain_ms": cuda_ms(torch, lambda: flmf_gains_plain(*fl_args), 1, warmup=1),
+             "library_ms": cuda_ms(torch, lambda: src.fl_gains(cm0), big, warmup=1)}
+    big_t["bound_ms"], big_t["bound_by"] = bound(
+        2.0 * u * args.mf_n * d, _mf_bytes(src.x, src.y, src.xx, src.yy, cm0) + 4.0 * args.mf_n)
+    log(f"  flmf_gains rbf u={u} n={args.mf_n}: kernel {big_t['ms']:.3f} ms, plain "
+        f"{big_t['plain_ms']:.1f} ms, torch path (library) {big_t['library_ms']:.3f} ms, bound "
+        f"{big_t['bound_ms']:.3f} ms ({big_t['bound_by']})")
+    del y, src, full
+
+    # ---- flmf at u = n (phase 6 a), with the curmax of the first picks
+    fl = FacilityLocationMF.from_features(x, metric="cosine", use_kernel=False)
+    state = fl.init_state()
+    for j in picks:
+        state = fl.update(state, j.reshape(1))
+    src, cm = fl.src, state.curmax
+    fl_args = (src.x, src.y, src.xx, src.yy, cm, "cosine")
+    full = ops.flmf_gains(*fl_args)
+    err = check_close(f"flmf_gains ({n},{n},{d}) cosine vs plain", full, flmf_gains_plain(*fl_args),
+                      *MF_TOL["cosine"])
+    sq = {"ms": cuda_ms(torch, lambda: ops.flmf_gains(*fl_args), big),
+          "plain_ms": cuda_ms(torch, lambda: flmf_gains_plain(*fl_args), 1, warmup=1),
+          "library_ms": cuda_ms(torch, lambda: src.fl_gains(cm), big, warmup=1),
+          "max_abs_err": err}
+    sq["bound_ms"], sq["bound_by"] = bound(2.0 * n * n * d, _mf_bytes(src.x, cm) + 4.0 * n)
+    log(f"  flmf_gains cosine u=n={n}: kernel {sq['ms']:.3f} ms, plain {sq['plain_ms']:.1f} ms, "
+        f"torch path (library) {sq['library_ms']:.3f} ms, bound {sq['bound_ms']:.3f} ms "
+        f"({sq['bound_by']})")
+    fl_at = _time_subsets(
+        torch, f"flmf_gains_at ({n},{n},{d}) cosine",
+        lambda idx: ops.flmf_gains_at(*fl_args[:5], idx, "cosine"),
+        lambda idx: flmf_gains_at_plain(*fl_args[:5], idx, "cosine"),
+        lambda idx: src.fl_gains_at(cm, idx), full, n, reps, gen,
+        flops_per_col=2.0 * n * d, bytes_fixed=_mf_bytes(src.x, cm), bytes_per_col=4.0 * (d + 2))
+
+    # ---- the MF_KERNEL_MIN_N gate: flmf kernel vs the torch path, u = n
+    gate = {}
+    for g_n in (1024, 4096):
+        gsrc = feature_source(torch.randn((g_n, d), generator=gen, device="cuda"), metric="cosine")
+        gcm = 0.5 * torch.rand((g_n,), generator=gen, device="cuda")
+        gate[g_n] = {
+            "kernel_ms": cuda_ms(torch, lambda: ops.flmf_gains(
+                gsrc.x, gsrc.y, gsrc.xx, gsrc.yy, gcm, "cosine"), reps),
+            "torch_ms": cuda_ms(torch, lambda: gsrc.fl_gains(gcm), reps),
+        }
+        log(f"  MF_KERNEL_MIN_N gate, flmf_gains cosine u=n={g_n}, d={d}: kernel "
+            f"{gate[g_n]['kernel_ms']:.4f} ms, torch path {gate[g_n]['torch_ms']:.4f} ms")
+
+    # ---- gcmf at n (phase 6 c), with the mask of the same picks
+    gc = GraphCutMF.from_features(x, lam=0.4, metric="cosine", use_kernel=False)
+    mask = torch.zeros((n,), device="cuda").index_fill_(0, picks, 1.0)
+    gsrc = gc.src
+    gc_args = (gsrc.y, gsrc.yy, mask, gc.total, gc.diag, gc.lam, "cosine")
+    gfull = ops.gcmf_gains(*gc_args)
+    gerr = check_close(f"gcmf_gains ({n},{d}) cosine vs plain", gfull, gcmf_gains_plain(*gc_args),
+                       *MF_TOL["cosine"])
+    inv = inv_two_sigma_sq(d, None)
+
+    def gc_library(rows=None):
+        # one torch.mm of the candidate rows against the ground, then the masked sum
+        yj = gsrc.y if rows is None else gsrc.y[rows]
+        yyj = gsrc.yy if rows is None else gsrc.yy[rows]
+        s = metric_epilogue(torch.mm(yj, gsrc.y.T), yyj, gsrc.yy, "cosine", inv)
+        tot = gc.total if rows is None else gc.total[rows]
+        dg = gc.diag if rows is None else gc.diag[rows]
+        return tot - gc.lam * (2.0 * (s @ mask) + dg)
+
+    n_sel = int(picks.numel())
+    gq = {"ms": cuda_ms(torch, lambda: ops.gcmf_gains(*gc_args), big),
+          "plain_ms": cuda_ms(torch, lambda: gcmf_gains_plain(*gc_args), 1, warmup=1),
+          "library_ms": cuda_ms(torch, gc_library, big, warmup=1), "max_abs_err": gerr,
+          "selected": n_sel}
+    # the function needs the |A| selected columns only (the kernel sweeps all n)
+    gq["bound_ms"], gq["bound_by"] = bound(
+        2.0 * n * n_sel * d, _mf_bytes(gsrc.y, mask, gc.total, gc.diag) + 4.0 * n)
+    gq["bound_full_ms"] = bound(2.0 * n * n * d, 0.0)[0]
+    log(f"  gcmf_gains cosine n={n}, |A|={n_sel}: kernel {gq['ms']:.3f} ms, plain "
+        f"{gq['plain_ms']:.1f} ms, torch.mm + mask sum (library) {gq['library_ms']:.3f} ms, "
+        f"bound {gq['bound_ms']:.4f} ms ({gq['bound_by']}; all n columns: "
+        f"{gq['bound_full_ms']:.3f} ms)")
+    gc_at = _time_subsets(
+        torch, f"gcmf_gains_at ({n},{d}) cosine",
+        lambda idx: ops.gcmf_gains_at(*gc_args[:6], idx, "cosine"),
+        lambda idx: gcmf_gains_at_plain(*gc_args[:6], idx, "cosine"),
+        lambda idx: gc_library(idx.long()), gfull, n, reps, gen,
+        flops_per_col=2.0 * n_sel * d, bytes_fixed=_mf_bytes(mask) + 4.0 * n_sel * d,
+        bytes_per_col=4.0 * (d + 4))
+
+    def row(name, cu, line, shape, t, extra):
+        return {"name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{cu}",
+                "replaces": f"src/repro/kernels/{line}", "shape": shape, "launches": None,
+                "max_abs_err": t["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                "library_ms": t["library_ms"], **extra}
+
+    big_t["max_abs_err"] = big_err
+    return [
+        row("flmf_gains", "flmf_gains.cu", "flmf_gains.py:92",
+            f"x ({u},{d}), y ({args.mf_n},{d}), rbf -> ({args.mf_n},)", big_t,
+            {"library_call": "FeatureSource.fl_gains (torch.matmul tiles + clamp + sum)",
+             "u_eq_n": {"shape": f"({n},{d}) both sides, cosine", **sq},
+             "mf_kernel_min_n_gate": gate}),
+        row("flmf_gains_at", "flmf_gains.cu", "flmf_gains.py:148",
+            f"x ({n},{d}), y ({n},{d}), cosine, idx (8,) -> (8,)", fl_at[8],
+            {"library_call": "FeatureSource.fl_gains_at", "k512": fl_at[512]}),
+        row("gcmf_gains", "gcmf_gains.cu", "gcmf_gains.py:98",
+            f"y ({n},{d}), cosine, |A| = {n_sel} -> ({n},)", gq,
+            {"library_call": "torch.mm(y, y.T) + epilogue + masked sum"}),
+        row("gcmf_gains_at", "gcmf_gains.cu", "gcmf_gains.py:163",
+            f"y ({n},{d}), cosine, |A| = {n_sel}, idx (8,) -> (8,)", gc_at[8],
+            {"library_call": "torch.mm(y[idx], y.T) + epilogue + masked sum",
+             "k512": gc_at[512]}),
+    ]
+
+
+def _mf_pair(torch, label, fn_kern, fn_plain, budget, opt, max_replay) -> tuple[dict, object]:
+    """Solve on the kernel path and on the plain path, and hold them together."""
+    from repro_torch.core import SelectionSpec, backend_name
+    from repro_torch.kernels import ops
+
+    if backend_name(fn_plain) != "torch" or not backend_name(fn_kern).startswith("cuda-"):
+        raise AssertionError(f"{label}: backends {backend_name(fn_kern)} / {backend_name(fn_plain)}")
+    start = dict(ops.LAUNCHES)
+    kern, wall, peak = _timed_solve(torch, SelectionSpec(fn_kern, budget, opt))
+    before = dict(ops.LAUNCHES)
+    plain, pwall, ppeak = _timed_solve(torch, SelectionSpec(fn_plain, budget, opt))
+    for r in (kern, plain):
+        if not (bool(r.gains.isfinite().all()) and r.order.shape == (budget,)):
+            raise AssertionError(f"{label}: malformed result")
+    info = _replay_check(torch, label, fn_plain, kern, plain, max_steps=max_replay)
+    if ops.LAUNCHES != before:
+        raise AssertionError(f"{label}: the plain path launched a kernel")
+    info.update(
+        launches={k: v - start[k] for k, v in before.items() if v != start[k]},
+        backend=backend_name(fn_kern), n_evals=int(kern.n_evals), value=float(kern.value),
+        wall_s=wall, peak_bytes=peak, plain_n_evals=int(plain.n_evals),
+        plain_value=float(plain.value), plain_wall_s=pwall, plain_peak_bytes=ppeak,
+        selected=int((kern.order >= 0).sum()),
+    )
+    log(f"  {label}: kernel path ({info['backend']}, launches {info['launches']}) "
+        f"n_evals={info['n_evals']} "
+        f"f(A)={info['value']:.6f} wall={wall:.3f} s peak={peak / 2**20:.1f} MiB; plain path "
+        f"n_evals={info['plain_n_evals']} f(A)={info['plain_value']:.6f} wall={pwall:.3f} s "
+        f"peak={ppeak / 2**20:.1f} MiB")
+    return info, kern
+
+
+def phase_matrix_free(torch, args, main: dict) -> dict:
+    import dataclasses
+
+    from repro_torch.core import FacilityLocationMF, GraphCutMF
+    from repro_torch.kernels import ops
+
+    n, d = args.n, args.d
+    log(f"== phase 6: matrix-free path: (a) FacilityLocationMF n={n}, d={d}, cosine; "
+        f"(b) FacilityLocationMF u={MF_U}, n={args.mf_n}, rbf; (c) GraphCutMF n={n}, "
+        f"cosine, lambda=0.4")
+    x = torch.as_tensor(gaussian_mixture(args.seed, n, d), device="cuda")
+    out = {}
+    replay = 100  # plain-path sweeps spent looking for a near-tie where the paths agree
+
+    # ---- counts to 0 just before the path, read just after
+    ops.reset_launches()
+
+    # (a) FLMF on phase 4's features: against its plain path and phase 4's dense ids
+    fl = FacilityLocationMF.from_features(x, metric="cosine", use_kernel=True)
+    fl_plain = dataclasses.replace(fl, use_kernel=False)
+    a = {}
+    for opt, budget in (("NaiveGreedy", MF_NAIVE_BUDGET), ("LazyGreedy", args.mf_lazy_budget)):
+        a[opt], res = _mf_pair(torch, f"(a) FLMF {opt} {budget}", fl, fl_plain, budget, opt, replay)
+        if a[opt]["peak_bytes"] >= MF_PEAK_LIMIT:
+            raise AssertionError(f"(a) FLMF {opt}: peak {a[opt]['peak_bytes']} bytes >= 1 GB")
+        if opt == "NaiveGreedy":
+            a["vs_dense"] = _vs_dense(res, main, budget)
+    out["a"] = a
+
+    # (b) the million-point shape: u stride-sampled representatives, rbf
+    y = gaussian_mixture_cuda(torch, args.seed, args.mf_n, d)
+    fb = FacilityLocationMF.from_features(
+        y[:: args.mf_n // MF_U][: MF_U], y, metric="rbf", use_kernel=True)
+    fb_plain = dataclasses.replace(fb, use_kernel=False)
+    b = {"u": fb.src.n_rows, "n": args.mf_n}
+    for opt, budget in (("NaiveGreedy", MF_NAIVE_BUDGET),
+                        ("LazyGreedy", MF_BIG_LAZY_BUDGET)):
+        b[opt], _ = _mf_pair(torch, f"(b) FLMF {opt} {budget}", fb, fb_plain, budget, opt, 20)
+    out["b"] = b
+    del y, fb, fb_plain
+
+    # (c) GraphCutMF: the stateless gcmf sweep every step vs the memoized torch path
+    gc = GraphCutMF.from_features(x, lam=0.4, metric="cosine", use_kernel=True)
+    gc_plain = dataclasses.replace(gc, use_kernel=False)
+    c = {}
+    for opt, budget in (("NaiveGreedy", MF_NAIVE_BUDGET), ("LazyGreedy", args.mf_lazy_budget)):
+        c[opt], _ = _mf_pair(torch, f"(c) GCMF {opt} {budget}", gc, gc_plain, budget, opt, replay)
+    out["c"] = c
+
+    launches = {k: v for k, v in ops.LAUNCHES.items() if k.startswith(("flmf", "gcmf"))}
+    log(f"  launches on the matrix-free path: {launches}")
+    for k, v in launches.items():
+        if v <= 0:
+            raise AssertionError(f"kernel {k} was not launched on the matrix-free path")
+    out["launches"] = launches
+    return out
+
+
+def _vs_dense(res, main: dict, budget: int) -> dict:
+    """FLMF's NaiveGreedy ids against phase 4's dense NaiveGreedy ids, up to
+    the dense plain path's first near-tie; gains to GAIN_RTOL before it."""
+    ko = res.order.cpu().numpy()
+    kg = res.gains.cpu().numpy()
+    do = np.asarray(main["naive_ids"][:budget])
+    dg = np.asarray(main["naive_gains"][:budget], dtype=np.float32)
+    steps = min(len(ko), len(do))
+    diff = np.nonzero(ko[:steps] != do[:steps])[0]
+    t_dis = int(diff[0]) if diff.size else None
+    t_tie = main["NaiveGreedy"]["first_near_tie"]
+    if t_dis is not None and (t_tie is None or t_dis < t_tie):
+        raise AssertionError(f"(a) FLMF vs dense: ids differ at step {t_dis}, before the dense "
+                             f"path's first near-tie ({t_tie})")
+    agree = steps if t_dis is None else t_dis
+    rel = np.abs(kg[:agree] - dg[:agree]) > GAIN_RTOL * np.abs(dg[:agree])
+    if rel.any():
+        t = int(np.nonzero(rel)[0][0])
+        raise AssertionError(f"(a) FLMF vs dense: gains differ beyond rtol {GAIN_RTOL} at step {t}")
+    log(f"  ok  (a) FLMF NaiveGreedy vs phase 4's dense NaiveGreedy: ids agree over {agree} of "
+        f"{steps} steps (dense first near-tie: {t_tie}; first disagreement: {t_dis}); gains "
+        f"within rtol {GAIN_RTOL}")
+    return {"agreeing_steps": agree, "first_disagreement": t_dis, "dense_first_near_tie": t_tie}
+
+
 def parse_args(argv):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -433,6 +823,9 @@ def parse_args(argv):
     p.add_argument("--naive-budget", type=int, default=500)
     p.add_argument("--lazy-budget", type=int, default=5_000)
     p.add_argument("--reps", type=int, default=50, help="timed launches per kernel")
+    p.add_argument("--mf-n", type=int, default=1 << 20,
+                   help="candidates of phase 6 (b), the million-point shape")
+    p.add_argument("--mf-lazy-budget", type=int, default=1_000, help="phase 6 (a) and (c)")
     return p.parse_args(argv)
 
 
@@ -455,10 +848,17 @@ def main(argv=None) -> int:
     device = phase_device(torch)
     build = phase_build()
     phase_kernels(torch, args.seed)
+    phase_mf_kernels(torch, args.seed)
     main_out, fn, naive_res = phase_main(torch, args)
     kernels = phase_times(torch, args, fn, naive_res, main_out)
+    del fn  # phase 6 holds its peak memory against a budget: S (n x n) goes
+    mf_rows = phase_mf_times(torch, args, naive_res)
+    mf_out = phase_matrix_free(torch, args, main_out)
+    for r in mf_rows:
+        r["launches"] = r["launches_on_path"] = mf_out["launches"][r["name"]]
+    kernels += mf_rows
     record = {"device": device, "build": {k: build[k] for k in ("seconds", "cached")},
-              "main": main_out, "kernels": kernels,
+              "main": main_out, "matrix_free": mf_out, "kernels": kernels,
               "seconds": time.perf_counter() - t_start}
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(record, indent=1))

@@ -1,5 +1,5 @@
 """Shared utilities: the NEG_INF sentinel, tie-breaking argmax, concave fns,
-index masks and device resolution."""
+index masks, one-element indices, row padding and device resolution."""
 from __future__ import annotations
 
 from typing import Callable
@@ -67,3 +67,20 @@ def mask_from_indices(idxs, n: int, device=None) -> torch.Tensor:
     mask = torch.zeros((n,), dtype=torch.bool, device=idxs.device)
     mask[idxs[(idxs >= 0) & (idxs < n)]] = True
     return mask
+
+
+def one_index(j, device) -> torch.Tensor:
+    """``j`` (an int or a one-element tensor) as a (1,) int64 tensor on
+    ``device``: indexing with a 0-d tensor would read it back to the host,
+    a one-element index tensor does not."""
+    return torch.as_tensor(j, device=device).reshape(1).to(torch.long)
+
+
+def pad_rows(a: torch.Tensor, rows: int, value=0) -> torch.Tensor:
+    """``a`` with its first axis padded to ``rows`` by ``value`` (``a``
+    itself when it already has that many)."""
+    if a.shape[0] == rows:
+        return a
+    out = a.new_full((rows,) + tuple(a.shape[1:]), value)
+    out[: a.shape[0]] = a
+    return out

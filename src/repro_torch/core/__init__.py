@@ -1,8 +1,14 @@
-# The ported core: the set-function protocol, Facility Location over a dense
-# kernel, the gain-backend registry, NaiveGreedy / LazyGreedy and the
-# SelectionSpec + solve() front door (sequential mode).
+# The ported core: the set-function protocol, Facility Location (dense and
+# matrix-free), Graph Cut (dense, torch path only, and matrix-free), the
+# similarity sources, the gain-backend registry, NaiveGreedy / LazyGreedy and
+# the SelectionSpec + solve() front door (sequential mode).
 from repro_torch.core.functions.base import SetFunction
-from repro_torch.core.functions.facility_location import FacilityLocation, FLState
+from repro_torch.core.functions.facility_location import (
+    FacilityLocation,
+    FacilityLocationMF,
+    FLState,
+)
+from repro_torch.core.functions.graph_cut import GCState, GraphCut, GraphCutMF
 from repro_torch.core.optimizers.backends import (
     GainBackend,
     backend_name,
@@ -25,3 +31,10 @@ from repro_torch.core.optimizers.spec import (
     solve,
 )
 from repro_torch.core.similarity import create_kernel, pairwise_sq_dists, sparsify_topk
+from repro_torch.core.sources import (
+    TILE,
+    DenseSource,
+    FeatureSource,
+    dense_source,
+    feature_source,
+)

@@ -9,6 +9,10 @@ The per-step gain sweeps are the hotspot.  With the kernel backend
 (``use_kernel=True``, or None with a large n on the card) they run through
 the hand-written CUDA sweep in ``repro_torch/kernels/fl_gains.py``, in its
 full and its gathered-subset form.
+
+:class:`FacilityLocationMF` is the matrix-free variant: sim(i, j) is
+answered on demand by a source (``core/sources.py``), and its kernel
+backend runs the fused similarity + sweep of ``kernels/flmf_gains.py``.
 """
 from __future__ import annotations
 
@@ -16,8 +20,15 @@ import dataclasses
 
 import torch
 
-from repro_torch.common import as_float_tensor
+from repro_torch.common import as_float_tensor, one_index
 from repro_torch.core.functions.base import SetFunction
+from repro_torch.core.sources import DenseSource, FeatureSource, dense_source, feature_source
+
+# the sparse k-NN sources wait for their own slice
+KNN_NOT_PORTED = (
+    "k-NN sources (KnnSource, knn_from_features) are not ported to repro_torch yet "
+    "(ROADMAP queue 1, item 6)"
+)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -86,10 +97,7 @@ class FacilityLocation(SetFunction):
         return torch.clamp(cols - state.curmax[:, None], min=0.0).sum(dim=0)
 
     def update(self, state: FLState, j) -> FLState:
-        # index_select, not sim[:, j]: a 0-d index tensor would be read back
-        # to the host
-        j = torch.as_tensor(j, device=self.sim.device).reshape(1)
-        col = self.sim.index_select(1, j)[:, 0]
+        col = self.sim.index_select(1, one_index(j, self.sim.device))[:, 0]
         return FLState(curmax=torch.maximum(state.curmax, col), n_rows=state.n_rows)
 
     def evaluate(self, mask) -> torch.Tensor:
@@ -98,6 +106,112 @@ class FacilityLocation(SetFunction):
         # max over an empty set is 0 (jnp.max(..., initial=0.0) in the JAX package)
         best = torch.clamp(masked.amax(dim=1), min=0.0)
         return best.sum()
+
+    def evaluate_state(self, state: FLState) -> torch.Tensor:
+        return state.curmax.sum()
+
+
+class FLMFKernelSweep:
+    """GainBackend: the matrix-free CUDA sweep, similarity computed in-stream
+    from the features (kernels/flmf_gains.py); dense sources reuse the
+    materialised-matrix kernel (kernels/fl_gains.py)."""
+
+    name = "cuda-flmf"
+
+    def full_sweep(self, fn: "FacilityLocationMF", state: FLState) -> torch.Tensor:
+        from repro_torch.kernels import ops
+
+        src = fn.src
+        if isinstance(src, DenseSource):
+            return ops.fl_gains(src.sim, state.curmax)
+        return ops.flmf_gains(
+            src.x, src.y, src.xx, src.yy, state.curmax, src.metric, src.rbf_sigma
+        )
+
+    def partial_sweep(
+        self, fn: "FacilityLocationMF", state: FLState, idx: torch.Tensor
+    ) -> torch.Tensor:
+        from repro_torch.kernels import ops
+
+        src = fn.src
+        if isinstance(src, DenseSource):
+            return ops.fl_gains_at(src.sim, state.curmax, idx)
+        return ops.flmf_gains_at(
+            src.x, src.y, src.xx, src.yy, state.curmax, idx, src.metric, src.rbf_sigma
+        )
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class FacilityLocationMF(SetFunction):
+    """Matrix-free Facility Location: same objective and memoized statistic
+    as :class:`FacilityLocation`, but sim(i, j) is answered on demand by a
+    source (:class:`~repro_torch.core.sources.FeatureSource` or
+    :class:`~repro_torch.core.sources.DenseSource`), so the (|U|, n) matrix
+    is never written and peak memory is O(n * d) feature bytes."""
+
+    src: object  # FeatureSource | DenseSource
+    n: int
+    # True/False routes the sweeps through the CUDA kernels / plain torch;
+    # None defers to the choose_backend heuristic (backends.py).  Clustered
+    # (labelled) sources always take the torch path.
+    use_kernel: bool | None = False
+
+    @staticmethod
+    def from_features(
+        x,
+        y=None,
+        metric: str = "dot",
+        rbf_sigma: float | None = None,
+        labels=None,
+        use_kernel: bool | None = False,
+        device=None,
+    ) -> "FacilityLocationMF":
+        """FL over features + metric.  ``y`` is the candidate (column) side
+        and defaults to ``x`` itself; ``labels`` switches on the clustered
+        block-masked similarity (paper §8), streamed.  A tensor keeps its
+        device; numpy input goes to ``device`` (default: the card)."""
+        src = feature_source(x, y, metric=metric, rbf_sigma=rbf_sigma, labels=labels, device=device)
+        return FacilityLocationMF(src=src, n=src.n_cols, use_kernel=use_kernel)
+
+    @staticmethod
+    def from_knn(*args, **kwargs) -> "FacilityLocationMF":
+        raise NotImplementedError(KNN_NOT_PORTED)
+
+    @staticmethod
+    def from_dense(sim, use_kernel: bool | None = False, device=None) -> "FacilityLocationMF":
+        """Dense matrix riding the matrix-free contract (interop/testing)."""
+        src = dense_source(sim, device)
+        return FacilityLocationMF(src=src, n=src.n_cols, use_kernel=use_kernel)
+
+    def init_state(self) -> FLState:
+        return FLState(
+            curmax=torch.zeros((self.src.n_rows,), dtype=torch.float32, device=self.src.device),
+            n_rows=self.src.n_rows,
+        )
+
+    def gains(self, state: FLState) -> torch.Tensor:
+        return self.src.fl_gains(state.curmax)
+
+    def gains_at(self, state: FLState, idxs) -> torch.Tensor:
+        return self.src.fl_gains_at(state.curmax, idxs)
+
+    def gain_backend(self) -> FLMFKernelSweep | None:
+        from repro_torch.core.optimizers.backends import kernel_enabled
+
+        if not kernel_enabled(self.use_kernel, self.n, matrix_free=True, device=self.src.device):
+            return None
+        src = self.src
+        if isinstance(src, FeatureSource) and src.col_labels is None:
+            return FLMFKernelSweep()
+        if isinstance(src, DenseSource):
+            return FLMFKernelSweep()
+        return None  # clustered sources stay on the torch path
+
+    def update(self, state: FLState, j) -> FLState:
+        return FLState(curmax=torch.maximum(state.curmax, self.src.col(j)), n_rows=state.n_rows)
+
+    def evaluate(self, mask) -> torch.Tensor:
+        return self.src.masked_rowmax(mask).sum()
 
     def evaluate_state(self, state: FLState) -> torch.Tensor:
         return state.curmax.sum()

@@ -17,7 +17,8 @@ optimizer consumes it*:
 
 Backend names: the default is ``"torch"``; every backend that runs a
 hand-written kernel is named with the prefix ``cuda-`` (``"cuda-fl"`` for
-Facility Location), so name globs such as ``"cuda-*"`` select them all.
+Facility Location, ``"cuda-flmf"`` / ``"cuda-gcmf"`` for the matrix-free
+families), so name globs such as ``"cuda-*"`` select them all.
 
 Backend *choice* is pluggable too: functions built with ``use_kernel=None``
 defer to :func:`choose_backend`, a decision table over (ground-set size,
@@ -121,14 +122,17 @@ def backend_name(fn) -> str:
 # fl_gains kernel-vs-plain sweep time at n=4096 so that it can be set.
 KERNEL_MIN_N = 4096
 
-# Matrix-free sweeps (not ported yet) recompute similarity from feature
-# tiles, so a kernel pays off earlier.  Also not yet measured on the card.
+# Matrix-free sweeps (FacilityLocationMF / GraphCutMF over features)
+# recompute the similarity from feature tiles, so a kernel pays off earlier.
+# The JAX package's value.  chip_smoke.py times the flmf kernel against the
+# torch path at n = 1,024 and 4,096: on the H100 the kernel was ahead at both
+# (PERF.md); below 1,024 is not measured yet, so the gate stays.
 MF_KERNEL_MIN_N = 1024
 
-# A stateless O(n^2)-streamed sweep (GraphCut / Disparity style, not ported
-# yet) recomputes the full matrix every step; past this many selection steps
-# the memoized O(n)-per-step form wins.  Only callers that know the budget
-# (registry factories, schedulers) reach this leg.
+# A stateless O(n^2)-streamed sweep (GraphCutMF's cuda-gcmf) recomputes the
+# full matrix every step; past this many selection steps the memoized
+# O(n)-per-step form wins.  Only callers that know the budget (registry
+# factories, schedulers) reach this leg.  The JAX package's value.
 KERNEL_MAX_BUDGET_FRACTION = 0.25
 
 

@@ -43,7 +43,10 @@ def _where_state(pred, new, old):
     for f in dataclasses.fields(old):
         a, b = getattr(new, f.name), getattr(old, f.name)
         if isinstance(b, torch.Tensor):
-            p = pred.reshape(pred.shape + (1,) * (b.dim() - pred.dim()))
+            if b.dim() < pred.dim():  # a 0-d field under a one-element predicate
+                p = pred.reshape(b.shape)
+            else:
+                p = pred.reshape(pred.shape + (1,) * (b.dim() - pred.dim()))
             kw[f.name] = torch.where(p, a, b)
         else:
             kw[f.name] = b

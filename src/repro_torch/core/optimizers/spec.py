@@ -305,6 +305,7 @@ class SelectionSpec:
         object.__setattr__(self, "stop_if_zero", stop_zero)
         object.__setattr__(self, "stop_if_negative", stop_neg)
         object.__setattr__(self, "use_kernel", use_kernel)
+        self.resolved_fn()  # a backend the family cannot honor raises here
 
     def resolved_fn(self):
         """The function with the spec's backend choice applied (identity when

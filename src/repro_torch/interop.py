@@ -7,10 +7,13 @@ over here; results come back as numpy for comparison.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from repro_torch.common import as_float_tensor
 from repro_torch.core.functions.facility_location import FacilityLocation, FLState
+from repro_torch.core.functions.graph_cut import GCState, GraphCutMF
 from repro_torch.core.optimizers.greedy import GreedyResult
+from repro_torch.core.sources import FeatureSource
 
 
 def facility_location_from_arrays(
@@ -25,6 +28,69 @@ def fl_state_from_arrays(curmax: np.ndarray, device=None) -> FLState:
     """Port :class:`FLState` from a JAX state's ``curmax`` array."""
     cm = as_float_tensor(np.asarray(curmax, np.float32), device)
     return FLState(curmax=cm, n_rows=int(cm.shape[0]))
+
+
+def feature_source_from_arrays(
+    x: np.ndarray,
+    y: np.ndarray,
+    xx: np.ndarray,
+    yy: np.ndarray,
+    metric: str,
+    rbf_sigma: float | None = None,
+    row_labels: np.ndarray | None = None,
+    col_labels: np.ndarray | None = None,
+    device=None,
+) -> FeatureSource:
+    """Port :class:`FeatureSource` from a JAX source's fields, taken as they
+    are (rows already normalised for cosine, norms already computed)."""
+    x_t = as_float_tensor(np.asarray(x, np.float32), device).contiguous()
+    dev = x_t.device
+
+    def lab(a):
+        return None if a is None else torch.as_tensor(np.asarray(a, np.int32), device=dev)
+
+    y_t = as_float_tensor(np.asarray(y, np.float32), dev).contiguous()
+    return FeatureSource(
+        x=x_t, y=y_t,
+        xx=as_float_tensor(np.asarray(xx, np.float32), dev),
+        yy=as_float_tensor(np.asarray(yy, np.float32), dev),
+        row_labels=lab(row_labels), col_labels=lab(col_labels),
+        metric=metric, rbf_sigma=rbf_sigma, d=int(x_t.shape[1]),
+        n_rows=int(x_t.shape[0]), n_cols=int(y_t.shape[0]),
+    )
+
+
+def graph_cut_mf_from_arrays(
+    src: FeatureSource,
+    total: np.ndarray,
+    diag: np.ndarray,
+    lam,
+    use_kernel: bool | None = False,
+) -> GraphCutMF:
+    """Port :class:`GraphCutMF` over a ported square source, with a JAX
+    function's ``total``, ``diag`` and ``lam``."""
+    dev = src.device
+    return GraphCutMF(
+        src=src,
+        total=as_float_tensor(np.asarray(total, np.float32), dev),
+        diag=as_float_tensor(np.asarray(diag, np.float32), dev),
+        lam=as_float_tensor(np.asarray(lam, np.float32), dev).reshape(()),
+        n=src.n_cols,
+        use_kernel=use_kernel,
+    )
+
+
+def gc_state_from_arrays(
+    selsum: np.ndarray, value, selmask: np.ndarray, device=None
+) -> GCState:
+    """Port :class:`GCState` from a JAX state's arrays."""
+    selsum_t = as_float_tensor(np.asarray(selsum, np.float32), device)
+    dev = selsum_t.device
+    return GCState(
+        selsum=selsum_t,
+        value=as_float_tensor(np.asarray(value, np.float32), dev).reshape(()),
+        selmask=as_float_tensor(np.asarray(selmask, np.float32), dev),
+    )
 
 
 def result_to_numpy(res: GreedyResult) -> tuple[np.ndarray, np.ndarray, int, float]:

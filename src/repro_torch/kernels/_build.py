@@ -1,11 +1,12 @@
 """Build the port's CUDA kernels at first use and load them with ctypes.
 
-Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` process for
-``sm_90a`` (all started together), then linked into one shared library with
-a plain C interface.  Nothing includes PyTorch's headers, so a build takes
-seconds.  The library lands in ``kernels/build/`` next to this file (the
-``build/`` pattern in ``.gitignore`` keeps it out of git), named by a hash of
-the sources and flags, so an edited source is never served by a stale build.
+Every ``csrc/*.cu`` file (including the shared ``csrc/*.cuh`` headers) is
+compiled by its own ``nvcc`` process for ``sm_90a`` (all started together),
+then linked into one shared library with a plain C interface.  Nothing
+includes PyTorch's headers, so a build takes seconds.  The library lands in
+``kernels/build/`` next to this file (the ``build/`` pattern in
+``.gitignore`` keeps it out of git), named by a hash of the sources and
+flags, so an edited source is never served by a stale build.
 
 Importing this module builds nothing: :func:`load` runs on the first kernel
 launch, so CPU-only machines import the whole package freely.
@@ -42,6 +43,16 @@ _SIGNATURES = {
         [_P, _I64, _I64, _I64, _P, _P, _I64, _I64, _P, _P, _P],
         ctypes.c_int,
     ),
+    "flmf_gains_launch": (
+        [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, ctypes.c_int, ctypes.c_float,
+         _P, _P, _P],
+        ctypes.c_int,
+    ),
+    "gcmf_gains_launch": (
+        [_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, ctypes.c_int, ctypes.c_float,
+         _P, _P, _P],
+        ctypes.c_int,
+    ),
     "repro_cuda_error_string": ([ctypes.c_int], ctypes.c_char_p),
 }
 
@@ -67,20 +78,20 @@ def _nvcc() -> str:
 
 def _library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(CSRC.glob("*.cu")):
+    for src in sorted(CSRC.glob("*.cu*")):  # the .cuh headers too
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"librepro_torch_{h.hexdigest()[:16]}.so"
 
 
-def _compile(target: Path) -> list[str]:
-    """nvcc every source in parallel, link into ``target``; returns the
-    ptxas report lines (registers, shared memory, spills)."""
+def _compile(target: Path, csrc: Path = CSRC) -> list[str]:
+    """nvcc every source of ``csrc`` in parallel, link into ``target``;
+    returns the ptxas report lines (registers, shared memory, spills)."""
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         procs = []
-        for src in sorted(CSRC.glob("*.cu")):
+        for src in sorted(Path(csrc).glob("*.cu")):
             obj = Path(tmp) / (src.stem + ".o")
             cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
             procs.append((src, obj, subprocess.Popen(

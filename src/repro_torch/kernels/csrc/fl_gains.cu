@@ -19,7 +19,8 @@
 //           so in the full sweep a warp reads 128 contiguous bytes of a row.
 //           Splitting u gives the card enough blocks: at n = 50,000 one
 //           block per 256 columns alone would be ~196 blocks on 132 SMs.
-//   pass 2: one thread adds the partials of its column in chunk order.
+//   pass 2: one thread adds the partials of its column in chunk order
+//           (tile_common.cuh's sum_partials_kernel).
 // A column's summation order therefore depends on u alone: never on n, k,
 // the column's position or the block's shape.  That is what makes the
 // gathered sweep bit-identical to the full sweep at the same index; the
@@ -28,12 +29,9 @@
 // n - 1, as the JAX gather clips.  Every element offset is 64-bit: S at
 // 50,000 x 50,000 holds 2.5e9 elements, beyond INT_MAX.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "tile_common.cuh"
 
 namespace {
-
-constexpr float kNegInf = -1e30f;
 
 __global__ void fl_partial_kernel(const float* __restrict__ sim, int64_t ld, int64_t u,
                                   int64_t n, const float* __restrict__ curmax,
@@ -43,11 +41,7 @@ __global__ void fl_partial_kernel(const float* __restrict__ sim, int64_t ld, int
   const int64_t j = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   const int64_t c = (int64_t)blockIdx.y * blockDim.y + threadIdx.y;
   if (j >= k || c >= nchunks) return;
-  int64_t col = j;
-  if (idx != nullptr) {
-    col = idx[j];
-    col = col < 0 ? 0 : (col >= n ? n - 1 : col);
-  }
+  const int64_t col = tile::gathered(idx, j, n);
   const int64_t r0 = c * rows_per_chunk;
   const int64_t r1 = (r0 + rows_per_chunk < u) ? r0 + rows_per_chunk : u;
   const float* p = sim + r0 * ld + col;
@@ -57,16 +51,6 @@ __global__ void fl_partial_kernel(const float* __restrict__ sim, int64_t ld, int
     acc += fmaxf(__ldg(p) - __ldg(curmax + r), 0.0f);
   }
   partial[c * k + j] = acc;
-}
-
-__global__ void fl_finish_kernel(const float* __restrict__ partial, int64_t nchunks,
-                                 int64_t k, const int32_t* __restrict__ idx,
-                                 float* __restrict__ out) {
-  const int64_t j = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= k) return;
-  float acc = 0.0f;
-  for (int64_t c = 0; c < nchunks; ++c) acc += partial[c * k + j];
-  out[j] = (idx != nullptr && idx[j] < 0) ? kNegInf : acc;
 }
 
 }  // namespace
@@ -92,7 +76,8 @@ extern "C" int fl_gains_launch(const float* sim, int64_t ld, int64_t u, int64_t 
                                            nchunks, partial);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  fl_finish_kernel<<<(unsigned)((k + 255) / 256), 256, 0, s>>>(partial, nchunks, k, idx, out);
+  tile::sum_partials_kernel<<<(unsigned)((k + 255) / 256), 256, 0, s>>>(partial, nchunks, k,
+                                                                         idx, out);
   return (int)cudaGetLastError();
 }
 

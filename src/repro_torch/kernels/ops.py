@@ -2,8 +2,9 @@
 
 On a CUDA tensor each wrapper launches its hand-written kernel (built at
 first use, see ``_build.py``) or raises; it never falls back.  On a CPU
-tensor it runs the kernel's plain PyTorch version, which adds in the same
-order.  Each wrapper checks device, dtype (fp32), shape and contiguity and
+tensor it runs the kernel's plain PyTorch version (the dense FL sweeps' add
+in the kernel's order; the matrix-free ones agree with theirs to a
+tolerance).  Each wrapper checks device, dtype (fp32), shape and contiguity and
 raises on anything its kernel does not take.
 
 ``LAUNCHES`` counts kernel launches per wrapper (one per call that reached
@@ -19,13 +20,33 @@ from repro_torch.kernels.fl_gains import (
     fl_gains_cuda,
     fl_gains_plain,
 )
+from repro_torch.kernels.flmf_gains import (
+    flmf_gains_at_cuda,
+    flmf_gains_at_plain,
+    flmf_gains_cuda,
+    flmf_gains_plain,
+)
+from repro_torch.kernels.gcmf_gains import (
+    gcmf_gains_at_cuda,
+    gcmf_gains_at_plain,
+    gcmf_gains_cuda,
+    gcmf_gains_plain,
+)
 from repro_torch.kernels.similarity_kernel import (
     METRICS,
     similarity_cuda,
     similarity_plain,
 )
 
-LAUNCHES: dict[str, int] = {"similarity": 0, "fl_gains": 0, "fl_gains_at": 0}
+LAUNCHES: dict[str, int] = {
+    "similarity": 0,
+    "fl_gains": 0,
+    "fl_gains_at": 0,
+    "flmf_gains": 0,
+    "flmf_gains_at": 0,
+    "gcmf_gains": 0,
+    "gcmf_gains_at": 0,
+}
 
 
 def reset_launches() -> None:
@@ -59,10 +80,28 @@ def _on_card(*named: tuple[str, torch.Tensor]) -> bool:
     return dev.type == "cuda"
 
 
-def similarity(x, y, metric: str = "dot", rbf_sigma: float | None = None) -> torch.Tensor:
-    """(n, d), (m, d) fp32 -> (n, m) similarity (dot / cosine / euclidean / rbf)."""
+def _check_metric(metric: str) -> None:
     if metric not in METRICS:
         raise ValueError(f"unknown metric {metric!r}; choose from {METRICS}")
+
+
+def _check_len(name: str, t: torch.Tensor, n: int, of: str) -> None:
+    if t.shape[0] != n:
+        raise ValueError(f"{name} {tuple(t.shape)} does not match the {n} {of}")
+
+
+def _check_idx(idx, like: torch.Tensor) -> None:
+    if not isinstance(idx, torch.Tensor) or idx.dtype not in (torch.int32, torch.int64):
+        raise TypeError("idx must be an int32 or int64 torch.Tensor")
+    if idx.dim() != 1:
+        raise ValueError(f"idx must be 1-D, got shape {tuple(idx.shape)}")
+    if idx.device != like.device:
+        raise ValueError(f"idx on {idx.device}, inputs on {like.device}")
+
+
+def similarity(x, y, metric: str = "dot", rbf_sigma: float | None = None) -> torch.Tensor:
+    """(n, d), (m, d) fp32 -> (n, m) similarity (dot / cosine / euclidean / rbf)."""
+    _check_metric(metric)
     _check_f32("x", x, 2)
     _check_f32("y", y, 2)
     if x.shape[1] != y.shape[1]:
@@ -95,14 +134,90 @@ def fl_gains_at(sim, curmax, idx) -> torch.Tensor:
     """Gathered sweep: idx (k,) integer -> gains (k,); idx < 0 -> NEG_INF,
     bit-identical to :func:`fl_gains` at the same indices."""
     on_card = _check_fl(sim, curmax)
-    if not isinstance(idx, torch.Tensor) or idx.dtype not in (torch.int32, torch.int64):
-        raise TypeError("idx must be an int32 or int64 torch.Tensor")
-    if idx.dim() != 1:
-        raise ValueError(f"idx must be 1-D, got shape {tuple(idx.shape)}")
-    if idx.device != sim.device:
-        raise ValueError(f"idx on {idx.device}, sim on {sim.device}")
+    _check_idx(idx, sim)
     if not on_card:
         return fl_gains_at_plain(sim, curmax, idx)
     out = fl_gains_at_cuda(sim, curmax, idx.to(torch.int32).contiguous())
     LAUNCHES["fl_gains_at"] += 1
+    return out
+
+
+def _check_flmf(x, y, xx, yy, curmax, metric) -> bool:
+    _check_metric(metric)
+    _check_f32("x", x, 2)
+    _check_f32("y", y, 2)
+    if x.shape[1] != y.shape[1] or x.shape[1] == 0:
+        raise ValueError(f"feature widths differ or are 0: x {tuple(x.shape)}, y {tuple(y.shape)}")
+    for name, t, like in (("xx", xx, "x"), ("curmax", curmax, "x"), ("yy", yy, "y")):
+        _check_f32(name, t, 1)
+        _check_len(name, t, (x if like == "x" else y).shape[0], f"rows of {like}")
+    return _on_card(("x", x), ("y", y), ("xx", xx), ("yy", yy), ("curmax", curmax))
+
+
+def flmf_gains(x, y, xx, yy, curmax, metric: str = "dot", rbf_sigma: float | None = None):
+    """Matrix-free FL sweep: x (u, d) represented rows, y (n, d) candidates
+    (cosine rows pre-normalised), xx (u,) / yy (n,) their sums of squares,
+    curmax (u,) -> gains (n,): sum_i max(metric(x_i, y_j) - curmax_i, 0)."""
+    if not _check_flmf(x, y, xx, yy, curmax, metric):
+        return flmf_gains_plain(x, y, xx, yy, curmax, metric, rbf_sigma)
+    out = flmf_gains_cuda(x, y, xx, yy, curmax, metric, rbf_sigma)
+    LAUNCHES["flmf_gains"] += 1
+    return out
+
+
+def flmf_gains_at(x, y, xx, yy, curmax, idx, metric: str = "dot", rbf_sigma: float | None = None):
+    """Gathered matrix-free FL sweep: idx (k,) integer -> gains (k,); idx < 0
+    -> NEG_INF, bit-identical to :func:`flmf_gains` at the same indices."""
+    on_card = _check_flmf(x, y, xx, yy, curmax, metric)
+    _check_idx(idx, y)
+    if y.shape[0] == 0 and idx.shape[0]:
+        raise ValueError("flmf_gains_at: y has no rows to gather from")
+    if not on_card:
+        return flmf_gains_at_plain(x, y, xx, yy, curmax, idx, metric, rbf_sigma)
+    idx32 = idx.to(torch.int32).contiguous()
+    out = flmf_gains_at_cuda(x, y, xx, yy, curmax, idx32, metric, rbf_sigma)
+    LAUNCHES["flmf_gains_at"] += 1
+    return out
+
+
+def _check_gcmf(y, yy, selmask, total, diag, lam, metric) -> bool:
+    _check_metric(metric)
+    _check_f32("y", y, 2)
+    if y.shape[1] == 0:
+        raise ValueError(f"y has feature width 0: {tuple(y.shape)}")
+    for name, t in (("yy", yy), ("selmask", selmask), ("total", total), ("diag", diag)):
+        _check_f32(name, t, 1)
+        _check_len(name, t, y.shape[0], "rows of y")
+    if not isinstance(lam, torch.Tensor) or lam.dtype != torch.float32 or lam.numel() != 1:
+        raise TypeError("lam must be a one-element float32 torch.Tensor")
+    return _on_card(("y", y), ("yy", yy), ("selmask", selmask), ("total", total),
+                    ("diag", diag), ("lam", lam))
+
+
+def gcmf_gains(y, yy, selmask, total, diag, lam, metric: str = "dot",
+               rbf_sigma: float | None = None):
+    """Stateless matrix-free GC sweep: y (n, d) ground rows (cosine rows
+    pre-normalised), yy (n,) their sums of squares, selmask (n,) 0/1,
+    total / diag (n,), lam one-element tensor -> gains (n,):
+    total_j - lam * (2 * sum_k metric(y_j, y_k) * m_k + diag_j)."""
+    if not _check_gcmf(y, yy, selmask, total, diag, lam, metric):
+        return gcmf_gains_plain(y, yy, selmask, total, diag, lam, metric, rbf_sigma)
+    out = gcmf_gains_cuda(y, yy, selmask, total, diag, lam, metric, rbf_sigma)
+    LAUNCHES["gcmf_gains"] += 1
+    return out
+
+
+def gcmf_gains_at(y, yy, selmask, total, diag, lam, idx, metric: str = "dot",
+                  rbf_sigma: float | None = None):
+    """Gathered matrix-free GC sweep: idx (k,) integer -> gains (k,); idx < 0
+    -> NEG_INF, bit-identical to :func:`gcmf_gains` at the same indices."""
+    on_card = _check_gcmf(y, yy, selmask, total, diag, lam, metric)
+    _check_idx(idx, y)
+    if y.shape[0] == 0 and idx.shape[0]:
+        raise ValueError("gcmf_gains_at: y has no rows to gather from")
+    if not on_card:
+        return gcmf_gains_at_plain(y, yy, selmask, total, diag, lam, idx, metric, rbf_sigma)
+    idx32 = idx.to(torch.int32).contiguous()
+    out = gcmf_gains_at_cuda(y, yy, selmask, total, diag, lam, idx32, metric, rbf_sigma)
+    LAUNCHES["gcmf_gains_at"] += 1
     return out

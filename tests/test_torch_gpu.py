@@ -11,12 +11,22 @@ import pytest
 import torch
 
 from repro_torch.common import NEG_INF
-from repro_torch.core import SelectionSpec, backend_name, solve
+from repro_torch.core import (
+    FacilityLocationMF,
+    GraphCutMF,
+    SelectionSpec,
+    backend_name,
+    feature_source,
+    solve,
+)
 from repro_torch.core.optimizers.backends import KERNEL_MIN_N
 from repro_torch.interop import facility_location_from_arrays, result_to_numpy
 from repro_torch.kernels import ops
 from repro_torch.kernels.fl_gains import fl_gains_at_plain, fl_gains_plain
-from repro_torch.kernels.similarity_kernel import similarity_plain
+from repro_torch.kernels import flmf_gains as flmf_module
+from repro_torch.kernels.flmf_gains import SCRATCH_BYTES, flmf_gains_at_plain, flmf_gains_plain
+from repro_torch.kernels.gcmf_gains import gcmf_gains_at_plain, gcmf_gains_plain
+from repro_torch.kernels.similarity_kernel import _normalize, similarity_plain
 
 pytestmark = pytest.mark.gpu
 
@@ -29,6 +39,14 @@ SIM_TOL = {
     "euclidean": (1e-3, 5e-2),
     "rbf": (1e-3, 5e-2),
 }
+# flmf / gcmf kernel vs plain: fp32 sums over similarities that the kernel's
+# fmaf chain and the plain version's matmul may round differently; euclidean
+# takes the JAX package's matrix-free bar (tests/test_matrix_free.py:76), as
+# a self pair's d2 ~ 0 comes out of cancellation and 1 / (1 + sqrt(d2))
+# amplifies its rounding
+MF_TOL = {m: dict(rtol=2e-5, atol=1e-4) for m in ("dot", "cosine", "rbf")}
+MF_TOL["euclidean"] = dict(rtol=2e-5, atol=2e-3)
+MF_SHAPES = [(1000, 777, 130), (300, 1500, 512), (129, 1, 8), (1, 300, 13)]
 OPTIMIZERS = [
     ("NaiveGreedy", {}),
     ("LazyGreedy", {"screen_k": 1}),
@@ -113,3 +131,165 @@ def test_card_solve_equals_cpu_kernel_order(cuda, optimizer, params):
     np.testing.assert_array_equal(got[0], want[0])
     np.testing.assert_array_equal(got[1], want[1])
     assert got[2] == want[2]
+
+
+def _assert_subset(got, full, idx):
+    keep = idx >= 0
+    assert torch.equal(got[keep], full[idx[keep].long()])
+    assert bool((got[~keep] == NEG_INF).all())
+
+
+def _mf_inputs(cuda, shape, metric, seed):
+    u, n, d = shape
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn((u, d), generator=g, device=cuda)
+    y = torch.randn((n, d), generator=g, device=cuda)
+    if metric == "cosine":
+        x, y = _normalize(x), _normalize(y)
+    idx = [torch.randint(0, n, (k,), generator=g, device=cuda) for k in (1, 8, 100, 777)]
+    for i in idx:
+        i[::7] = -1
+    return g, x, y, (x * x).sum(1), (y * y).sum(1), idx
+
+
+def _gc_inputs(cuda, g, n):
+    mask = (torch.rand((n,), generator=g, device=cuda) < 0.1).float()
+    total = n * torch.rand((n,), generator=g, device=cuda)
+    diag = torch.rand((n,), generator=g, device=cuda)
+    return mask, total, diag, torch.tensor(0.4, device=cuda)
+
+
+@pytest.mark.parametrize("shape", MF_SHAPES)
+@pytest.mark.parametrize("metric", METRICS)
+def test_flmf_kernels_match_plain(cuda, shape, metric):
+    """The kernel against its plain version, and the gathered kernel equal to
+    the full kernel bit for bit, at ragged shapes (u, n, d not multiples of
+    the tiles) and a one-column case."""
+    g, x, y, xx, yy, idx = _mf_inputs(cuda, shape, metric, 3)
+    cm = 0.8 * torch.rand((shape[0],), generator=g, device=cuda)
+    before = dict(ops.LAUNCHES)
+    full = ops.flmf_gains(x, y, xx, yy, cm, metric)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(full, flmf_gains_plain(x, y, xx, yy, cm, metric), **MF_TOL[metric])
+    for i in idx:
+        got = ops.flmf_gains_at(x, y, xx, yy, cm, i, metric)
+        torch.cuda.synchronize()
+        _assert_subset(got, full, i)
+        torch.testing.assert_close(got, flmf_gains_at_plain(x, y, xx, yy, cm, i, metric), **MF_TOL[metric])
+    assert ops.LAUNCHES["flmf_gains"] == before["flmf_gains"] + 1
+    assert ops.LAUNCHES["flmf_gains_at"] == before["flmf_gains_at"] + len(idx)
+
+
+@pytest.mark.parametrize("shape", MF_SHAPES)
+@pytest.mark.parametrize("metric", METRICS)
+def test_gcmf_kernels_match_plain(cuda, shape, metric):
+    _, n, _ = shape
+    g, _, y, _, yy, idx = _mf_inputs(cuda, shape, metric, 4)
+    mask, total, diag, lam = _gc_inputs(cuda, g, n)
+    before = dict(ops.LAUNCHES)
+    full = ops.gcmf_gains(y, yy, mask, total, diag, lam, metric)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(full, gcmf_gains_plain(y, yy, mask, total, diag, lam, metric),
+                               **MF_TOL[metric])
+    for i in idx:
+        got = ops.gcmf_gains_at(y, yy, mask, total, diag, lam, i, metric)
+        torch.cuda.synchronize()
+        _assert_subset(got, full, i)
+        torch.testing.assert_close(
+            got, gcmf_gains_at_plain(y, yy, mask, total, diag, lam, i, metric), **MF_TOL[metric])
+    assert ops.LAUNCHES["gcmf_gains"] == before["gcmf_gains"] + 1
+    assert ops.LAUNCHES["gcmf_gains_at"] == before["gcmf_gains_at"] + len(idx)
+
+
+@pytest.mark.parametrize("metric", ["cosine", "euclidean"])
+def test_mf_sweeps_in_column_slices_equal_one_launch(cuda, monkeypatch, metric):
+    """A sweep run in slices of 128 columns (the scratch cap at its least)
+    equals the same sweep in one launch bit for bit, full and gathered."""
+    g, x, y, xx, yy, idx = _mf_inputs(cuda, (1000, 777, 130), metric, 7)
+    cm = 0.8 * torch.rand((1000,), generator=g, device=cuda)
+    gc = (y, yy, *_gc_inputs(cuda, g, 777))
+    whole = [ops.flmf_gains(x, y, xx, yy, cm, metric), ops.gcmf_gains(*gc, metric)]
+    whole += [ops.flmf_gains_at(x, y, xx, yy, cm, idx[3], metric),
+              ops.gcmf_gains_at(*gc, idx[3], metric)]
+    monkeypatch.setattr(flmf_module, "SCRATCH_BYTES", 4 * 8 * 128)  # 8 blocks x 128 columns
+    sliced = [ops.flmf_gains(x, y, xx, yy, cm, metric), ops.gcmf_gains(*gc, metric)]
+    sliced += [ops.flmf_gains_at(x, y, xx, yy, cm, idx[3], metric),
+               ops.gcmf_gains_at(*gc, idx[3], metric)]
+    torch.cuda.synchronize()
+    for a, b in zip(whole, sliced):
+        assert torch.equal(a, b)
+
+
+def test_mf_square_sweep_memory_is_capped(cuda):
+    """At n = 2^17 a square sweep's device memory beyond its inputs is the
+    output, the slicing index and the capped partial scratch: O(n), where an
+    uncapped (n / 128, n) scratch would take 512 MiB."""
+    n, d = 1 << 17, 64
+    g = torch.Generator(device=cuda).manual_seed(8)
+    y = _normalize(torch.randn((n, d), generator=g, device=cuda))
+    yy = (y * y).sum(1)
+    cm = 0.5 * torch.rand((n,), generator=g, device=cuda)
+    mask, total, diag, lam = _gc_inputs(cuda, g, n)
+    # total = 0: the gain is then the kernel's own sum (~n / 20 here), held
+    # to rtol; a random total of ~n would cancel it to near 0 and leave its
+    # fp32 rounding (1e-6 of the sum) to an absolute bar
+    gc = (y, yy, mask, torch.zeros_like(total), diag, lam)
+    sweeps = {
+        "flmf": (lambda: ops.flmf_gains(y, y, yy, yy, cm, "cosine"),
+                 lambda: flmf_gains_plain(y, y, yy, yy, cm, "cosine")),
+        "gcmf": (lambda: ops.gcmf_gains(*gc, "cosine"),
+                 lambda: gcmf_gains_plain(*gc, "cosine")),
+    }
+    limit = SCRATCH_BYTES + 2 * 4 * n + (1 << 20)
+    for name, (kernel, plain) in sweeps.items():
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        got = kernel()
+        torch.cuda.synchronize()
+        extra = torch.cuda.max_memory_allocated() - base
+        assert extra <= limit, f"{name}: {extra} bytes beyond the inputs, limit {limit}"
+        torch.testing.assert_close(got, plain(), **MF_TOL["cosine"])
+
+
+@pytest.mark.parametrize("metric", METRICS)
+def test_feature_source_subset_sweep_is_bit_equal_on_the_card(cuda, metric):
+    """The torch path's gathered sweep equals its full sweep bit for bit on
+    the card too (cuBLAS at one fixed tile shape), and so does a column."""
+    g, x, y, _, _, idx = _mf_inputs(cuda, (300, 1500, 130), "dot", 5)
+    src = feature_source(x, y, metric)
+    cm = 0.5 * torch.rand((300,), generator=g, device=cuda)
+    full = src.fl_gains(cm)
+    for i in idx:
+        _assert_subset(src.fl_gains_at(cm, i), full, i)
+    _, _, block = next(src._tiles())  # col(j) is the sweep's own column
+    assert torch.equal(src.col(torch.tensor([17], device=cuda)), block[:, 17])
+
+
+@pytest.mark.parametrize("family", ["fl", "gc"])
+@pytest.mark.parametrize("optimizer,params", OPTIMIZERS)
+def test_mf_card_solve_matches_the_plain_path(cuda, family, optimizer, params):
+    """FacilityLocationMF / GraphCutMF on the card: the CUDA sweeps pick the
+    torch path's ids, with gains to 1e-5."""
+    rng = np.random.default_rng(11)
+    centers = rng.normal(size=(20, 64)).astype(np.float32)
+    x = centers[rng.integers(0, 20, 3000)] + rng.normal(size=(3000, 64)).astype(np.float32)
+    if family == "fl":
+        fn = FacilityLocationMF.from_features(x, metric="cosine", use_kernel=True)
+    else:
+        fn = GraphCutMF.from_features(x, lam=0.4, metric="cosine", use_kernel=True)
+    assert backend_name(fn) == ("cuda-flmf" if family == "fl" else "cuda-gcmf")
+    got = result_to_numpy(solve(SelectionSpec(fn, 20, optimizer, **params)))
+    want = result_to_numpy(solve(SelectionSpec(fn, 20, optimizer, use_kernel=False, **params)))
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_allclose(got[1], want[1], rtol=1e-5, atol=1e-5)
+    assert got[2] == want[2]
+
+
+def test_mf_wrappers_raise_instead_of_falling_back(cuda):
+    x = torch.rand((8, 4), device=cuda)
+    v = torch.rand(8, device=cuda)
+    with pytest.raises(ValueError, match="devices"):
+        ops.flmf_gains(x, x, v, v, torch.rand(8), "dot")
+    with pytest.raises(TypeError, match="lam"):
+        ops.gcmf_gains(x, v, v, v, v, 0.4, "dot")

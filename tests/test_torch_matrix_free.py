@@ -1,0 +1,350 @@
+"""The port's matrix-free path against the JAX package on the CPU: the flmf /
+gcmf kernels' plain versions against the JAX Pallas kernels (interpret
+mode) and oracles, their subset sweeps against their full sweeps bit for
+bit, FacilityLocationMF / GraphCutMF / GraphCut selections against the JAX
+package's, dense against matrix-free inside the port, and the routes this
+slice defers.
+
+Inputs are numpy arrays from a seed, handed to both packages.  Bars: the
+JAX package's own for its matrix-free path (tests/test_matrix_free.py:76),
+2e-5, and 2e-3 for euclidean; ids and n_evals must be equal.  The CUDA
+kernels are held against these plain versions on the card by
+tests/test_torch_gpu.py.
+"""
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import repro.core as J
+from repro.kernels import ops as jops
+from repro_torch.common import NEG_INF
+from repro_torch.core import (
+    FacilityLocation,
+    FacilityLocationMF,
+    GraphCut,
+    GraphCutMF,
+    SelectionSpec,
+    backend_name,
+    create_kernel,
+    solve,
+)
+from repro_torch.core.optimizers.backends import full_sweep, partial_sweep
+from repro_torch.interop import (
+    feature_source_from_arrays,
+    gc_state_from_arrays,
+    graph_cut_mf_from_arrays,
+    result_to_numpy,
+)
+from repro_torch.kernels import ops
+from repro_torch.kernels.flmf_gains import flmf_gains_plain
+from repro_torch.kernels.gcmf_gains import gcmf_gains_plain
+
+METRICS = ["dot", "cosine", "rbf"]
+ALL_METRICS = METRICS + ["euclidean"]
+OPTIMIZERS = [("NaiveGreedy", {}), ("LazyGreedy", {"screen_k": 8})]
+LAM = 0.4
+_JAX: dict = {}
+
+
+def _tol(metric):
+    return 2e-3 if metric == "euclidean" else 2e-5
+
+
+def _close(got, want, tol=2e-5):
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=tol, atol=tol)
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _tricky(seed=0, n=37, d=8):
+    """Non-multiple-of-TILE n, a duplicate row and a zero-norm row (the JAX
+    package's tests/test_matrix_free.py:37)."""
+    x = np.random.default_rng(seed).normal(size=(n, d)).astype(np.float32)
+    x[5] = x[3]
+    x[7] = 0.0
+    return x
+
+
+# -- the kernels' plain versions vs the Pallas kernels and the oracles --------
+
+
+def _flmf_inputs(metric, u=45, n=70, d=12):
+    rng = np.random.default_rng(u + n + d)
+    x = rng.normal(size=(u, d)).astype(np.float32)
+    y = rng.normal(size=(n, d)).astype(np.float32)
+    if metric == "cosine":  # kernel contract: cosine rows arrive normalised
+        x = x / np.linalg.norm(x, axis=1, keepdims=True)
+        y = y / np.linalg.norm(y, axis=1, keepdims=True)
+    return x, y, (x * x).sum(1), (y * y).sum(1), rng.uniform(0, 1, u).astype(np.float32)
+
+
+@pytest.mark.parametrize("metric", ALL_METRICS)
+def test_flmf_plain_matches_jax_kernel_and_oracle(metric):
+    x, y, xx, yy, cm = _flmf_inputs(metric)
+    got = ops.flmf_gains(_t(x), _t(y), _t(xx), _t(yy), _t(cm), metric).numpy()
+    _close(got, jops.flmf_gains(x, y, xx, yy, cm, metric=metric))
+    want = np.asarray(jops.flmf_gains_ref(x, y, cm, metric=metric))
+    _close(got, want)
+    idx = np.array([3, 69, -1, 17], np.int32)
+    at = ops.flmf_gains_at(_t(x), _t(y), _t(xx), _t(yy), _t(cm), _t(idx), metric).numpy()
+    assert at[2] == NEG_INF
+    _close(at[[0, 1, 3]], np.asarray(jops.flmf_gains_at(x, y, xx, yy, cm, idx, metric=metric))[[0, 1, 3]])
+    _close(at[[0, 1, 3]], np.asarray(jops.flmf_gains_at_ref(x, y, cm, idx, metric=metric))[[0, 1, 3]])
+
+
+@pytest.mark.parametrize("metric", ALL_METRICS)
+def test_gcmf_plain_matches_jax_kernel_and_oracle(metric):
+    _, y, _, yy, _ = _flmf_inputs(metric)
+    src = J.feature_source(y, metric=metric)
+    total, diag = np.asarray(src.col_sums()), np.asarray(src.diag())
+    selmask = np.zeros(70, np.float32)
+    selmask[[4, 31, 66]] = 1.0
+    lam = jnp.asarray(LAM, jnp.float32)
+    args = (_t(y), _t(yy), _t(selmask), _t(total), _t(diag), torch.tensor(LAM))
+    got = ops.gcmf_gains(*args, metric).numpy()
+    _close(got, jops.gcmf_gains(y, yy, selmask, total, diag, lam, metric=metric))
+    _close(got, jops.gcmf_gains_ref(y, selmask, total, lam, metric=metric, diag=diag))
+    idx = np.array([0, -1, 42], np.int32)
+    at = ops.gcmf_gains_at(*args, _t(idx), metric).numpy()
+    assert at[1] == NEG_INF
+    want = np.asarray(jops.gcmf_gains_at(y, yy, selmask, total, diag, lam, idx, metric=metric))
+    _close(at[[0, 2]], want[[0, 2]])
+    want = np.asarray(jops.gcmf_gains_at_ref(y, selmask, total, lam, idx, metric=metric, diag=diag))
+    _close(at[[0, 2]], want[[0, 2]])
+
+
+@pytest.mark.parametrize("metric", ALL_METRICS)
+def test_plain_subset_sweeps_are_bit_equal_to_full(metric):
+    """The plain versions' gathered sweeps equal their full sweeps bit for
+    bit, with candidates that change matmul tile and position, duplicates
+    and pads; idx < 0 gives NEG_INF."""
+    x, y, xx, yy, cm = _flmf_inputs(metric, u=200, n=1300, d=12)
+    x, y, xx, yy, cm = map(_t, (x, y, xx, yy, cm))
+    rng = np.random.default_rng(2)
+    mask = _t((rng.uniform(size=1300) < 0.05).astype(np.float32))
+    total, diag = _t(rng.uniform(0, 100, 1300).astype(np.float32)), _t(rng.uniform(size=1300).astype(np.float32))
+    lam = torch.tensor(LAM)
+    fl_full = flmf_gains_plain(x, y, xx, yy, cm, metric)
+    gc_full = gcmf_gains_plain(y, yy, mask, total, diag, lam, metric)
+    for idx in ([1299, 0, -1, 700, 700, 1025, 511, 512], list(range(1300))[::-1], [-1]):
+        idx = torch.tensor(idx, dtype=torch.int32)
+        keep = idx >= 0
+        for got, full in (
+            (ops.flmf_gains_at(x, y, xx, yy, cm, idx, metric), fl_full),
+            (ops.gcmf_gains_at(y, yy, mask, total, diag, lam, idx, metric), gc_full),
+        ):
+            assert torch.equal(got[keep], full[idx[keep].long()])
+            assert bool((got[~keep] == NEG_INF).all())
+
+
+def test_wrappers_check_their_inputs():
+    x = torch.rand((8, 4))
+    v = torch.rand(8)
+    with pytest.raises(ValueError, match="metric"):
+        ops.flmf_gains(x, x, v, v, v, "cityblock")
+    with pytest.raises(ValueError, match="does not match"):
+        ops.flmf_gains(x, x, v, torch.rand(7), v, "dot")
+    with pytest.raises(TypeError, match="float32"):
+        ops.flmf_gains(x.double(), x, v, v, v, "dot")
+    with pytest.raises(TypeError, match="lam"):
+        ops.gcmf_gains(x, v, v, v, v, 0.4, "dot")
+    with pytest.raises(TypeError, match="idx"):
+        ops.gcmf_gains_at(x, v, v, v, v, torch.tensor(0.4), torch.tensor([0.0]), "dot")
+
+
+# -- selection against the JAX package ----------------------------------------
+
+
+def _jax_fn(family, metric, labels=None):
+    key = (family, metric, labels is not None)
+    if key not in _JAX:
+        x = _tricky()
+        if family == "fl":
+            _JAX[key] = J.FacilityLocationMF.from_features(x, metric=metric, labels=labels)
+        else:
+            _JAX[key] = J.GraphCutMF.from_features(x, lam=LAM, metric=metric, labels=labels)
+    return _JAX[key]
+
+
+def _port_fn(jfn, family, use_kernel):
+    """The port's function over the JAX function's own arrays (interop)."""
+    s = jfn.src
+    src = feature_source_from_arrays(
+        np.asarray(s.x), np.asarray(s.y), np.asarray(s.xx), np.asarray(s.yy), s.metric,
+        s.rbf_sigma, None if s.row_labels is None else np.asarray(s.row_labels),
+        None if s.col_labels is None else np.asarray(s.col_labels), device="cpu",
+    )
+    if family == "fl":
+        return FacilityLocationMF(src=src, n=src.n_cols, use_kernel=use_kernel)
+    return graph_cut_mf_from_arrays(src, np.asarray(jfn.total), np.asarray(jfn.diag),
+                                    np.asarray(jfn.lam), use_kernel)
+
+
+def _jax_result(family, metric, optimizer, params, use_kernel, budget=10):
+    key = ("res", family, metric, optimizer, use_kernel, budget)
+    if key not in _JAX:
+        res = J.solve(J.SelectionSpec(_jax_fn(family, metric), budget, optimizer,
+                                      use_kernel=use_kernel, **params))
+        _JAX[key] = (np.asarray(res.order), np.asarray(res.gains), int(res.n_evals))
+    return _JAX[key]
+
+
+def _assert_same(port, jax_res, tol=2e-5):
+    order, gains, n_evals, _ = result_to_numpy(port)
+    np.testing.assert_array_equal(order, jax_res[0])
+    assert n_evals == jax_res[2]
+    _close(gains, jax_res[1], tol)
+
+
+@pytest.mark.parametrize("use_kernel", [True, False])
+@pytest.mark.parametrize("optimizer,params", OPTIMIZERS)
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("family", ["fl", "gc"])
+def test_mf_selection_matches_jax(family, metric, optimizer, params, use_kernel):
+    """FLMF / GCMF through solve(): the JAX package's ids and n_evals, gains
+    to 2e-5; use_kernel=True runs the kernels' plain versions here and the
+    Pallas kernels (interpret mode) on the JAX side."""
+    fn = _port_fn(_jax_fn(family, metric), family, use_kernel)
+    want_backend = {"fl": "cuda-flmf", "gc": "cuda-gcmf"}[family] if use_kernel else "torch"
+    assert backend_name(fn) == want_backend
+    port = solve(SelectionSpec(fn, 10, optimizer, **params))
+    _assert_same(port, _jax_result(family, metric, optimizer, params, use_kernel))
+
+
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("family", ["fl", "gc"])
+def test_from_features_builds_what_jax_builds(family, metric):
+    """The port's own from_features (normalisation, norms, total, diag) gives
+    the JAX package's selection too."""
+    x = _tricky()
+    if family == "fl":
+        fn = FacilityLocationMF.from_features(x, metric=metric, device="cpu")
+    else:
+        fn = GraphCutMF.from_features(x, lam=LAM, metric=metric, device="cpu")
+        jfn = _jax_fn(family, metric)
+        _close(fn.total, jfn.total)
+        _close(fn.diag, jfn.diag)
+    _assert_same(solve(SelectionSpec(fn, 10)), _jax_result(family, metric, "NaiveGreedy", {}, False))
+
+
+@pytest.mark.parametrize("family", ["fl", "gc"])
+def test_clustered_sources_take_the_torch_path(family):
+    """Labelled (clustered) sources never take a kernel route, even asked
+    to, and select what the JAX package selects."""
+    labels = np.random.default_rng(3).integers(0, 3, 37).astype(np.int32)
+    x = _tricky()
+    if family == "fl":
+        fn = FacilityLocationMF.from_features(x, metric="rbf", labels=labels, use_kernel=True,
+                                              device="cpu")
+    else:
+        fn = GraphCutMF.from_features(x, lam=LAM, metric="rbf", labels=labels, use_kernel=True,
+                                      device="cpu")
+    assert backend_name(fn) == "torch"
+    jres = J.solve(J.SelectionSpec(_jax_fn(family, "rbf", labels), 8, "LazyGreedy"))
+    _assert_same(solve(SelectionSpec(fn, 8, "LazyGreedy")),
+                 (np.asarray(jres.order), np.asarray(jres.gains), int(jres.n_evals)))
+
+
+def test_gc_state_hand_over():
+    """A JAX GCState after two updates, handed over, gives the port's
+    GraphCutMF the JAX package's gains and value."""
+    jfn = _jax_fn("gc", "cosine")
+    jst = jfn.update(jfn.update(jfn.init_state(), 3), 20)
+    fn = _port_fn(jfn, "gc", False)
+    st = gc_state_from_arrays(np.asarray(jst.selsum), np.asarray(jst.value),
+                              np.asarray(jst.selmask), device="cpu")
+    _close(fn.gains(st), jfn.gains(jst))
+    _close(fn.evaluate_state(st), jst.value)
+    pst = fn.update(fn.update(fn.init_state(), 3), torch.tensor([20]))
+    for name in ("selsum", "value", "selmask"):
+        _close(getattr(pst, name), getattr(jst, name))
+
+
+@pytest.mark.parametrize("optimizer,params", OPTIMIZERS)
+def test_dense_graph_cut_matches_jax(optimizer, params):
+    """Dense GraphCut (torch path) against the JAX package's."""
+    x = _tricky()
+    sim = np.asarray(J.create_kernel(x, metric="cosine"))
+    jres = J.solve(J.SelectionSpec(J.GraphCut.from_kernel(jnp.asarray(sim), lam=LAM), 10,
+                                   optimizer, **params))
+    fn = GraphCut.from_kernel(sim, lam=LAM, use_kernel=None, device="cpu")
+    assert backend_name(fn) == "torch"
+    _assert_same(solve(SelectionSpec(fn, 10, optimizer, **params)),
+                 (np.asarray(jres.order), np.asarray(jres.gains), int(jres.n_evals)))
+
+
+# -- dense against matrix-free inside the port --------------------------------
+
+
+def _pairs(metric):
+    x = _tricky()
+    S = create_kernel(x, metric=metric, device="cpu")
+    return (
+        (FacilityLocationMF.from_features(x, metric=metric, device="cpu"),
+         FacilityLocation.from_kernel(S)),
+        (GraphCutMF.from_features(x, metric=metric, lam=LAM, device="cpu"),
+         GraphCut.from_kernel(S, lam=LAM)),
+    )
+
+
+@pytest.mark.parametrize("metric", ALL_METRICS)
+def test_sweeps_match_dense_path(metric):
+    """Mirrors the JAX package's tests/test_matrix_free.py:72: full and
+    partial sweeps, one greedy step, and evaluate, on both routes of the
+    matrix-free functions."""
+    tol = _tol(metric)
+    for mf, dense in _pairs(metric):
+        for kernel in (False, True):
+            mfk = dataclasses.replace(mf, use_kernel=kernel)
+            st_mf, st_d = mfk.init_state(), dense.init_state()
+            _close(full_sweep(mfk, st_mf), full_sweep(dense, st_d), tol)
+            j = int(torch.argmax(full_sweep(dense, st_d)))
+            st_mf, st_d = mfk.update(st_mf, j), dense.update(st_d, j)
+            _close(full_sweep(mfk, st_mf), full_sweep(dense, st_d), tol)
+            idx = torch.tensor([0, 3, 5, 7, 36, 12])
+            _close(partial_sweep(mfk, st_mf, idx), partial_sweep(dense, st_d, idx), tol)
+            mask = torch.zeros(37, dtype=torch.bool)
+            mask[[j, 2, 7]] = True
+            _close(mfk.evaluate(mask), dense.evaluate(mask), tol)
+
+
+@pytest.mark.parametrize("optimizer,params", OPTIMIZERS)
+@pytest.mark.parametrize("metric", METRICS)
+def test_selection_matches_dense_path(metric, optimizer, params):
+    for mf, dense in _pairs(metric):
+        r_d = result_to_numpy(solve(SelectionSpec(dense, 5, optimizer, **params)))
+        for kernel in (False, True):
+            r_mf = result_to_numpy(solve(SelectionSpec(mf, 5, optimizer, use_kernel=kernel, **params)))
+            np.testing.assert_array_equal(r_mf[0], r_d[0])
+            _close(r_mf[1], r_d[1])
+            assert r_mf[2] == r_d[2]
+            sel = torch.zeros(37, dtype=torch.bool)
+            sel[torch.from_numpy(r_mf[0]).long()] = True
+            _close(mf.evaluate(sel), r_mf[3], 1e-4)  # f(A) from scratch = telescoped gains
+
+
+# -- deferred routes ----------------------------------------------------------
+
+
+def test_deferred_routes_raise_naming_the_roadmap_items():
+    x = _tricky()
+    S = create_kernel(x, metric="cosine", device="cpu")
+    idx, w = np.zeros((37, 4), np.int32), np.ones((37, 4), np.float32)
+    for call in (lambda: FacilityLocationMF.from_knn(idx, w),
+                 lambda: GraphCutMF.from_knn(idx, w)):
+        with pytest.raises(NotImplementedError, match="item 6"):
+            call()
+    for call in (lambda: GraphCut.from_kernel(S, use_kernel=True),
+                 lambda: GraphCutMF.from_dense(S, use_kernel=True),
+                 lambda: SelectionSpec(GraphCut.from_kernel(S), 3, use_kernel=True)):
+        with pytest.raises(NotImplementedError, match="items 6-7"):
+            call()
+    # None resolves to the torch path on both dense graph-cut routes
+    assert backend_name(GraphCut.from_kernel(S, use_kernel=None)) == "torch"
+    assert backend_name(GraphCutMF.from_dense(S, use_kernel=None)) == "torch"
+    assert backend_name(FacilityLocationMF.from_dense(S, use_kernel=True)) == "cuda-flmf"
