@@ -6,8 +6,8 @@ that path against its plain PyTorch version.
     python3 chip_smoke.py --n 8192 --naive-budget 50 --lazy-budget 200 \
         --mf-n 65536 --mf-lazy-budget 200 --reps 5   # a short check
 
-Two paths run, each with its launch counts set to 0 just before it and read
-just after:
+Three paths run, each with its launch counts set to 0 just before it and
+read just after:
 
 - the main path, the paper's core loop: ``create_kernel`` (CUDA similarity
   kernel) -> ``FacilityLocation`` -> NaiveGreedy and LazyGreedy through
@@ -17,6 +17,10 @@ just after:
 - the matrix-free path: ``FacilityLocationMF`` and ``GraphCutMF`` built from
   features, through the same ``solve()`` (CUDA flmf and gcmf sweeps, full
   and gathered), on the same features and on a million-point candidate set.
+- the dense pairwise path: ``GraphCut`` on the main path's S (CUDA gc
+  sweeps, full and gathered) and ``DisparitySum`` / ``DisparityMin`` /
+  ``DisparityMinSum`` on the JAX package's diversity distances
+  ``1 / max(S_euclidean, 1e-6) - 1`` (CUDA dsum and dmin sweeps).
 
 Phases, each of which raises on failure (the exit code is then non-zero):
   1 device   CUDA present; the card's name and power limit
@@ -31,6 +35,11 @@ Phases, each of which raises on failure (the exit code is then non-zero):
              1 GB peak; (b) FacilityLocationMF over --mf-n candidates and
              MF_U represented rows (rbf); (c) GraphCutMF on phase 4's
              features; each against its plain (use_kernel=False) path
+  7 dense    the dense pairwise path on phase 4's features: (d) GraphCut on
+             phase 4's S; (e) DisparitySum, DisparityMin, DisparityMinSum
+             on the distances; each against its plain path; after its counts
+             are read, the first lazy level where (d)'s LazyGreedy n_evals
+             part between the two paths
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Details go to chiprun_out/chip_smoke.json.
 Without a CUDA device, or without the repo's ``src/`` beside it, the script
@@ -79,6 +88,22 @@ MF_BIG_LAZY_BUDGET = 256
 MF_PEAK_LIMIT = 1 << 30  # phase 6 (a): peak device bytes of the kernel path's selection
 NEAR_TIE_REL = 1e-4  # top-two gains this close (relative) may flip the pick
 GAIN_RTOL = 1e-5  # kernel-path vs plain-path gains over the agreeing prefix
+# gc / dsum kernel vs plain: fp32 row sums of <= 50k terms (the two are
+# built to agree bit for bit; the bar is the tolerance they are held to)
+DENSE_TOL = (1e-5, 1e-5)
+# phase 7 (d): GraphCut's trade-off (the matrix-free GC cell's) and its gain
+# bar, the JAX package's for its gc kernel (tests/test_kernels.py:197-212)
+GC_LAM = 0.4
+GC_GAIN_RTOL = 1e-4
+# phase 7 (d): LazyGreedy's n_evals, kernel path against plain path.  Each
+# level compares the best fresh gain with the largest stale bound left; the
+# two paths sum in other orders, so a decision that sits within rounding of
+# its threshold can go either way without changing any id (on an H100 at
+# n = 50,000: 233,728 against 233,680 at 1,000 steps).  The bar: about
+# twice the largest difference seen.  ``_lazy_levels_apart`` finds the first
+# level where the paths' decisions part and holds it to such a knife edge.
+NEVALS_RTOL = 4e-4
+DMIN_SUM_BUDGET = 100  # phase 7 (e): DisparityMinSum, torch path only
 
 
 def log(msg: str) -> None:
@@ -280,12 +305,15 @@ def phase_mf_kernels(torch, seed: int) -> None:
     log("  ok  FeatureSource torch path: fl_gains_at bit-equal to fl_gains, all metrics")
 
 
-def _replay_check(torch, name, fn_plain, kern, plain, max_steps=None) -> dict:
+def _replay_check(torch, name, fn_plain, kern, plain, max_steps=None,
+                  gain_rtol=GAIN_RTOL) -> dict:
     """Hold the kernel path's ids against the plain path's.
 
     They must agree at every step before the first step where the plain
     path's top two gains lie within NEAR_TIE_REL of each other, and their
-    gains must agree to GAIN_RTOL over the agreeing prefix.  The plain
+    gains must agree to ``gain_rtol`` over the agreeing prefix.  An exact
+    tie (the Disparity family's all-zero first step) where both paths pick
+    the same id is no near-tie: both take its first index.  The plain
     path's top two gains are found by replaying its selections through its
     own gains() sweep, up to the first disagreement; where there is none,
     up to ``max_steps`` steps (all of them by default)."""
@@ -304,7 +332,7 @@ def _replay_check(torch, name, fn_plain, kern, plain, max_steps=None) -> dict:
     for t in range(steps):
         g = torch.where(selected, NEG_INF, fn_plain.gains(state))
         g1, g2 = (float(v) for v in torch.topk(g, 2).values)
-        if g1 - g2 <= NEAR_TIE_REL * abs(g1):
+        if g1 - g2 <= NEAR_TIE_REL * abs(g1) and (g1 != g2 or t == t_dis):
             t_tie, gap = t, g1 - g2
             break
         if t_dis is not None and t >= t_dis:
@@ -318,17 +346,20 @@ def _replay_check(torch, name, fn_plain, kern, plain, max_steps=None) -> dict:
             f"{name}: kernel path picks {ko[t_dis]} at step {t_dis}, plain path {po[t_dis]}, "
             f"before any near-tie (first near-tie: {t_tie})"
         )
-    rel = np.abs(kg[:agree] - pg[:agree]) > GAIN_RTOL * np.abs(pg[:agree])
+    rel = np.abs(kg[:agree] - pg[:agree]) > gain_rtol * np.abs(pg[:agree])
     if rel.any():
         t = int(np.nonzero(rel)[0][0])
-        raise AssertionError(f"{name}: gains differ beyond rtol {GAIN_RTOL} at step {t}: {kg[t]} vs {pg[t]}")
+        raise AssertionError(f"{name}: gains differ beyond rtol {gain_rtol} at step {t}: {kg[t]} vs {pg[t]}")
     log(f"  ok  {name}: ids agree over {agree} steps; first near-tie of the plain path "
         f"(top two within {NEAR_TIE_REL} rel): "
         f"{('none in ' + str(steps) + ' steps') if t_tie is None else t_tie}"
         + ("" if gap is None else f" (gap {gap:.3e})")
-        + f"; first disagreement: {'none' if t_dis is None else t_dis}")
+        + f"; first disagreement: "
+        + ("none" if t_dis is None else f"{t_dis} (gains {kg[t_dis]!r} / {pg[t_dis]!r})"))
     return {"first_near_tie": t_tie, "near_tie_gap": gap, "first_disagreement": t_dis,
-            "agreeing_steps": agree, "replayed_steps": steps}
+            "agreeing_steps": agree, "replayed_steps": steps,
+            # the picks' gains where the paths part, kernel path first
+            "gains_at_first_disagreement": None if t_dis is None else [float(kg[t_dis]), float(pg[t_dis])]}
 
 
 def _timed_solve(torch, spec) -> tuple:
@@ -538,26 +569,31 @@ def _mf_bytes(*tensors) -> float:
     return float(sum(4 * t.numel() for t in tensors))
 
 
-def _time_subsets(torch, name, kernel, plain, library, full, n, reps, gen, flops_per_col,
-                  bytes_fixed, bytes_per_col):
+def _time_subsets(torch, name, kernel, plain, library, full, n, reps, gen, work, tol,
+                  work_all=None):
     """Time a gathered sweep at k = 8 and 512 on fresh index sets (so no
-    candidate row stays in L2), held bit-equal to the full sweep."""
+    candidate row stays in L2), held bit-equal to the full sweep.  ``work(k)``
+    gives the (operations, bytes) the function needs, ``work_all(k)`` those
+    of a sweep over every column where the data lets it need fewer."""
     out = {}
     for k in (8, 512):
         sets = [torch.randperm(n, generator=gen, device="cuda")[:k].to(torch.int32)
                 for _ in range(64)]
         got = kernel(sets[0])
         _check_subset(f"{name} k={k}", torch, got, full, sets[0])
-        err = check_close(f"{name} k={k} vs plain", got, plain(sets[0]), *MF_TOL["cosine"])
+        err = check_close(f"{name} k={k} vs plain", got, plain(sets[0]), *tol)
         it = itertools.cycle(sets)
-        b_ms, b_by = bound(flops_per_col * k, bytes_fixed + bytes_per_col * k)
+        b_ms, b_by = bound(*work(k))
         out[k] = {"ms": cuda_ms(torch, lambda: kernel(next(it)), reps),
                   "plain_ms": cuda_ms(torch, lambda: plain(next(it)), 2, warmup=1),
                   "library_ms": cuda_ms(torch, lambda: library(next(it)), max(2, reps // 10)),
                   "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err}
+        if work_all is not None:
+            out[k]["bound_all_columns_ms"] = bound(*work_all(k))[0]
         log(f"  {name} k={k}: kernel {out[k]['ms']:.4f} ms, plain {out[k]['plain_ms']:.3f} ms, "
-            f"library {out[k]['library_ms']:.4f} ms, bound {b_ms:.5f} ms ({b_by}); "
-            "bit-equal to the full sweep")
+            f"library {out[k]['library_ms']:.4f} ms, bound {b_ms:.5f} ms ({b_by}"
+            + ("" if work_all is None else f"; all columns {out[k]['bound_all_columns_ms']:.5f} ms")
+            + "); bit-equal to the full sweep")
     return out
 
 
@@ -618,7 +654,8 @@ def phase_mf_times(torch, args, naive_res) -> list[dict]:
         lambda idx: ops.flmf_gains_at(*fl_args[:5], idx, "cosine"),
         lambda idx: flmf_gains_at_plain(*fl_args[:5], idx, "cosine"),
         lambda idx: src.fl_gains_at(cm, idx), full, n, reps, gen,
-        flops_per_col=2.0 * n * d, bytes_fixed=_mf_bytes(src.x, cm), bytes_per_col=4.0 * (d + 2))
+        work=lambda k: (2.0 * n * d * k, _mf_bytes(src.x, cm) + 4.0 * (d + 2) * k),
+        tol=MF_TOL["cosine"])
 
     # ---- the MF_KERNEL_MIN_N gate: flmf kernel vs the torch path, u = n
     gate = {}
@@ -670,8 +707,8 @@ def phase_mf_times(torch, args, naive_res) -> list[dict]:
         lambda idx: ops.gcmf_gains_at(*gc_args[:6], idx, "cosine"),
         lambda idx: gcmf_gains_at_plain(*gc_args[:6], idx, "cosine"),
         lambda idx: gc_library(idx.long()), gfull, n, reps, gen,
-        flops_per_col=2.0 * n_sel * d, bytes_fixed=_mf_bytes(mask) + 4.0 * n_sel * d,
-        bytes_per_col=4.0 * (d + 4))
+        work=lambda k: (2.0 * n_sel * d * k, _mf_bytes(mask) + 4.0 * n_sel * d + 4.0 * (d + 4) * k),
+        tol=MF_TOL["cosine"])
 
     def row(name, cu, line, shape, t, extra):
         return {"name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{cu}",
@@ -700,21 +737,24 @@ def phase_mf_times(torch, args, naive_res) -> list[dict]:
     ]
 
 
-def _mf_pair(torch, label, fn_kern, fn_plain, budget, opt, max_replay) -> tuple[dict, object]:
-    """Solve on the kernel path and on the plain path, and hold them together."""
+def _solve_pair(torch, label, fn_kern, fn_plain, budget, opt, max_replay, gain_rtol=GAIN_RTOL,
+             **stops) -> tuple[dict, object, object]:
+    """Solve on the kernel path and on the plain path (stop rules ``stops``
+    over the family's defaults), and hold them together."""
     from repro_torch.core import SelectionSpec, backend_name
     from repro_torch.kernels import ops
 
     if backend_name(fn_plain) != "torch" or not backend_name(fn_kern).startswith("cuda-"):
         raise AssertionError(f"{label}: backends {backend_name(fn_kern)} / {backend_name(fn_plain)}")
     start = dict(ops.LAUNCHES)
-    kern, wall, peak = _timed_solve(torch, SelectionSpec(fn_kern, budget, opt))
+    kern, wall, peak = _timed_solve(torch, SelectionSpec(fn_kern, budget, opt, **stops))
     before = dict(ops.LAUNCHES)
-    plain, pwall, ppeak = _timed_solve(torch, SelectionSpec(fn_plain, budget, opt))
+    plain, pwall, ppeak = _timed_solve(torch, SelectionSpec(fn_plain, budget, opt, **stops))
     for r in (kern, plain):
         if not (bool(r.gains.isfinite().all()) and r.order.shape == (budget,)):
             raise AssertionError(f"{label}: malformed result")
-    info = _replay_check(torch, label, fn_plain, kern, plain, max_steps=max_replay)
+    info = _replay_check(torch, label, fn_plain, kern, plain, max_steps=max_replay,
+                         gain_rtol=gain_rtol)
     if ops.LAUNCHES != before:
         raise AssertionError(f"{label}: the plain path launched a kernel")
     info.update(
@@ -729,7 +769,87 @@ def _mf_pair(torch, label, fn_kern, fn_plain, budget, opt, max_replay) -> tuple[
         f"f(A)={info['value']:.6f} wall={wall:.3f} s peak={peak / 2**20:.1f} MiB; plain path "
         f"n_evals={info['plain_n_evals']} f(A)={info['plain_value']:.6f} wall={pwall:.3f} s "
         f"peak={ppeak / 2**20:.1f} MiB")
-    return info, kern
+    return info, kern, plain
+
+
+def _lazy_levels_apart(torch, label, fns, budget, screen_k=8) -> dict:
+    """Find the first lazy level where two LazyGreedy runs decide apart.
+
+    Reruns each of ``fns`` with its sweeps recorded, rebuilds every step's
+    levels (the stale bounds, the best fresh gain ``best`` and the largest
+    stale bound left ``rest`` after each level) exactly as the engine
+    computes them, and checks that the rebuilt accept tests (``best >= rest
+    - 1e-6``) end each step where the engine ended it.  Returns the first
+    step whose level count differs between the runs, with both runs' accept
+    tests at the level where one of them stopped; on both, best and rest
+    must lie within GC_GAIN_RTOL of each other there (a decision within the
+    gains' bar of its threshold, not a gain apart)."""
+    from repro_torch.common import NEG_INF
+    from repro_torch.core import SelectionSpec, solve
+    from repro_torch.core.optimizers import greedy
+
+    full, part, stop = greedy.full_sweep, greedy.partial_sweep, greedy._should_stop
+    runs = []
+    for fn in fns:
+        rec = {"levels": [[]]}  # per step, the (idx, gains) of each level
+
+        def rec_full(f, s, rec=rec):
+            g = full(f, s)
+            rec.setdefault("init", g.float().cpu())  # the engine's initial bounds
+            return g
+
+        def rec_part(f, s, idx, rec=rec):
+            g = part(f, s, idx)
+            rec["levels"][-1].append((idx.long().cpu(), g.float().cpu()))
+            return g
+
+        def rec_stop(*a, rec=rec):
+            rec["levels"].append([])
+            return stop(*a)
+
+        greedy.full_sweep, greedy.partial_sweep, greedy._should_stop = rec_full, rec_part, rec_stop
+        try:
+            res = solve(SelectionSpec(fn, budget, "LazyGreedy", screen_k=screen_k))
+        finally:
+            greedy.full_sweep, greedy.partial_sweep, greedy._should_stop = full, part, stop
+        order = res.order.cpu()
+        ub, n = rec["init"].clone(), rec["init"].shape[0]
+        selected = torch.zeros((n,), dtype=torch.bool)
+        steps = []
+        for i, levels in enumerate(rec["levels"][: int((order >= 0).sum())]):
+            sv = torch.sort(torch.where(selected, NEG_INF, ub), descending=True).values
+            best, hi, tests = torch.tensor(NEG_INF), 0, []
+            for idx, g in levels:
+                g = torch.where(selected[idx], NEG_INF, g)
+                best = torch.maximum(best, g.max())
+                hi += idx.numel()
+                rest = sv[hi] if hi < n else torch.tensor(NEG_INF)
+                tests.append((float(best), float(rest), bool(best >= rest - 1e-6)))
+                ub[idx] = g
+            ends = [t[2] for t in tests]
+            if not (hi == n or ends[-1]) or any(ends[:-1]):
+                raise AssertionError(f"{label}: rebuilt accept tests do not end step {i} where the "
+                                     f"engine did: {tests}")
+            steps.append(tests)
+            selected[int(order[i])] = True
+        runs.append(steps)
+    kern, plain = runs
+    for i, (a, b) in enumerate(zip(kern, plain)):
+        if len(a) != len(b):
+            lvl = min(len(a), len(b)) - 1
+            info = {"step": i, "levels": [len(a), len(b)], "level": lvl,
+                    # (best fresh gain, largest stale bound left, accepted), kernel path first
+                    "kernel": a[lvl], "plain": b[lvl]}
+            log(f"  {label}: per-step evaluations equal over the first {i} steps; at step {i} "
+                f"the kernel path runs {len(a)} levels, the plain path {len(b)}; at level {lvl} "
+                f"(best, rest, accepted) kernel {a[lvl]}, plain {b[lvl]}")
+            for best, rest, _ in (a[lvl], b[lvl]):
+                if abs(best - rest) > GC_GAIN_RTOL * abs(best):
+                    raise AssertionError(f"{label}: the runs part at step {i}, level {lvl}, on an "
+                                         f"accept test that is not within rtol {GC_GAIN_RTOL} of "
+                                         f"its threshold: {info}")
+            return info
+    raise AssertionError(f"{label}: n_evals differ but no step's level count does")
 
 
 def phase_matrix_free(torch, args, main: dict) -> dict:
@@ -754,7 +874,8 @@ def phase_matrix_free(torch, args, main: dict) -> dict:
     fl_plain = dataclasses.replace(fl, use_kernel=False)
     a = {}
     for opt, budget in (("NaiveGreedy", MF_NAIVE_BUDGET), ("LazyGreedy", args.mf_lazy_budget)):
-        a[opt], res = _mf_pair(torch, f"(a) FLMF {opt} {budget}", fl, fl_plain, budget, opt, replay)
+        a[opt], res, _ = _solve_pair(torch, f"(a) FLMF {opt} {budget}", fl, fl_plain, budget, opt,
+                                  replay)
         if a[opt]["peak_bytes"] >= MF_PEAK_LIMIT:
             raise AssertionError(f"(a) FLMF {opt}: peak {a[opt]['peak_bytes']} bytes >= 1 GB")
         if opt == "NaiveGreedy":
@@ -769,7 +890,7 @@ def phase_matrix_free(torch, args, main: dict) -> dict:
     b = {"u": fb.src.n_rows, "n": args.mf_n}
     for opt, budget in (("NaiveGreedy", MF_NAIVE_BUDGET),
                         ("LazyGreedy", MF_BIG_LAZY_BUDGET)):
-        b[opt], _ = _mf_pair(torch, f"(b) FLMF {opt} {budget}", fb, fb_plain, budget, opt, 20)
+        b[opt], _, _ = _solve_pair(torch, f"(b) FLMF {opt} {budget}", fb, fb_plain, budget, opt, 20)
     out["b"] = b
     del y, fb, fb_plain
 
@@ -778,7 +899,8 @@ def phase_matrix_free(torch, args, main: dict) -> dict:
     gc_plain = dataclasses.replace(gc, use_kernel=False)
     c = {}
     for opt, budget in (("NaiveGreedy", MF_NAIVE_BUDGET), ("LazyGreedy", args.mf_lazy_budget)):
-        c[opt], _ = _mf_pair(torch, f"(c) GCMF {opt} {budget}", gc, gc_plain, budget, opt, replay)
+        c[opt], _, _ = _solve_pair(torch, f"(c) GCMF {opt} {budget}", gc, gc_plain, budget, opt,
+                                replay)
     out["c"] = c
 
     launches = {k: v for k, v in ops.LAUNCHES.items() if k.startswith(("flmf", "gcmf"))}
@@ -815,6 +937,249 @@ def _vs_dense(res, main: dict, budget: int) -> dict:
     return {"agreeing_steps": agree, "first_disagreement": t_dis, "dense_first_near_tie": t_tie}
 
 
+def phase_dense_kernels(torch, seed: int) -> dict:
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.disp_gains import dmin_gains_plain, dsum_gains_plain
+    from repro_torch.kernels.gc_gains import gc_gains_at_plain, gc_gains_plain
+
+    log("== phase 3: dense pairwise kernels vs plain, small and ragged shapes")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 4)
+    lam = torch.tensor(GC_LAM, device="cuda")
+    bit_equal = {"gc_gains": True, "dsum_gains": True}
+    # 9000: a ragged n whose rows span 35 passes of the block (9000 = 35 * 256 + 40)
+    for n in (8, 100, 257, 4096, 9000):
+        s = torch.rand((n, n), generator=gen, device="cuda")
+        mask = (torch.rand((n,), generator=gen, device="cuda") < 0.3).float()
+        total = s.sum(dim=0)
+        full = ops.gc_gains(s, mask, total, lam)
+        torch.cuda.synchronize()
+        want = gc_gains_plain(s, mask, total, lam)
+        check_close(f"gc_gains ({n},{n})", full, want, *DENSE_TOL)
+        bit_equal["gc_gains"] &= bool(torch.equal(full, want))
+        for k in (1, 8, 100, 777):
+            idx = torch.randint(0, n + 3, (k,), generator=gen, device="cuda")
+            idx[::7] = -1  # padding slots, the first among them
+            idx[1::5] = idx[0]  # duplicates; idx >= n reads row n - 1
+            got = ops.gc_gains_at(s, mask, total, lam, idx)
+            torch.cuda.synchronize()
+            _check_subset(f"gc_gains_at ({n},{n}) k={k}", torch, got, full, torch.clamp(idx, max=n - 1))
+            check_close(f"gc_gains_at ({n},{n}) k={k} (bit-equal to gc_gains, pads NEG_INF)",
+                        got, gc_gains_at_plain(s, mask, total, lam, idx), *DENSE_TOL)
+        got = ops.dsum_gains(s, mask)
+        torch.cuda.synchronize()
+        want = dsum_gains_plain(s, mask)
+        check_close(f"dsum_gains ({n},{n})", got, want, *DENSE_TOL)
+        bit_equal["dsum_gains"] &= bool(torch.equal(got, want))
+        count, curmin = mask.sum().to(torch.int32), torch.tensor(0.05, device="cuda")
+        got = ops.dmin_gains(s, mask, count, curmin)
+        torch.cuda.synchronize()
+        if not torch.equal(got, dmin_gains_plain(s, mask, count, curmin)):
+            raise AssertionError(f"dmin_gains ({n},{n}): not bit-equal to its plain version")
+        empty = ops.dmin_gains(s, torch.zeros_like(mask), torch.zeros_like(count),
+                               torch.zeros_like(curmin))
+        if not bool((empty == 0).all()):
+            raise AssertionError(f"dmin_gains ({n},{n}): |A| = 0 must give all zeros")
+        log(f"  ok  dmin_gains ({n},{n}): bit-equal to its plain version; all zeros at |A| = 0")
+    log(f"  gc_gains / dsum_gains bit-equal to their plain versions at every shape: {bit_equal}")
+    return bit_equal
+
+
+def phase_dense_pairwise(torch, args, S) -> tuple[dict, object]:
+    import dataclasses
+
+    from repro_torch.core import (
+        DisparityMin, DisparityMinSum, DisparitySum, GraphCut, SelectionSpec, create_kernel, solve,
+    )
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.similarity_kernel import similarity_plain
+
+    n, d = args.n, args.d
+    log(f"== phase 7: dense pairwise path, n={n}, d={d}: (d) GraphCut on phase 4's S, "
+        f"lambda={GC_LAM}; (e) DisparitySum, DisparityMin, DisparityMinSum on 1 / max(S_euclidean, "
+        "1e-6) - 1")
+    x = torch.as_tensor(gaussian_mixture(args.seed, n, d), device="cuda")
+    out = {}
+    replay = 100
+    peaks = []
+
+    # ---- counts to 0 just before the path, read just after
+    ops.reset_launches()
+
+    # (d) GraphCut on phase 4's cosine S: gc_gains every naive step, gc_gains_at every lazy level
+    gc = GraphCut.from_kernel(S, lam=GC_LAM, use_kernel=True)
+    gc_plain = dataclasses.replace(gc, use_kernel=False)
+    dd = {}
+    for opt, budget in (("NaiveGreedy", MF_NAIVE_BUDGET), ("LazyGreedy", args.mf_lazy_budget)):
+        dd[opt], kern, _ = _solve_pair(torch, f"(d) GraphCut {opt} {budget}", gc, gc_plain, budget,
+                                    opt, replay, gain_rtol=GC_GAIN_RTOL)
+        peaks.append(dd[opt]["peak_bytes"])
+        if opt == "NaiveGreedy":
+            dd["picks"] = kern.order[kern.order >= 0].tolist()
+    lazy = dd["LazyGreedy"]
+    ne, pe = lazy["n_evals"], lazy["plain_n_evals"]
+    log(f"  (d) GraphCut LazyGreedy n_evals: kernel path {ne}, plain path {pe} "
+        f"(difference {ne - pe})")
+    if abs(ne - pe) > NEVALS_RTOL * pe:
+        raise AssertionError(f"(d) GraphCut LazyGreedy: n_evals {ne} on the kernel path, {pe} on "
+                             f"the plain path, beyond rtol {NEVALS_RTOL}")
+    out["d"] = dd
+
+    # (e) the diversity distances of the JAX package's selection stage
+    # (src/repro/data/selection.py:67-70), inverted in place: one more n x n
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    D = create_kernel(x, metric="euclidean", use_pallas=True)
+    D.clamp_(min=1e-6).reciprocal_().sub_(1.0)
+    torch.cuda.synchronize()
+    e = {"distances_s": time.perf_counter() - t0}
+    rows = min(1024, n)
+    want = 1.0 / torch.clamp(similarity_plain(x[:rows], x, "euclidean"), min=1e-6) - 1.0
+    e["D_first_rows_err"] = check_close(f"D first {rows} rows vs the plain similarity, inverted",
+                                        D[:rows], want, 1e-4, 5e-2)
+    del want, x
+
+    ds = DisparitySum.from_distance(D, use_kernel=True)
+    e["DisparitySum"], kern, _ = _solve_pair(
+        torch, f"(e) DisparitySum NaiveGreedy {args.naive_budget}", ds,
+        dataclasses.replace(ds, use_kernel=False), args.naive_budget, "NaiveGreedy", replay)
+    e["DisparitySum"]["picks"] = kern.order[kern.order >= 0].tolist()
+    # the surrogate gain min_{k in A} d_jk - f(A) is negative from the third
+    # pick on: the dispersion greedy runs to its budget regardless
+    dm = DisparityMin.from_distance(D, use_kernel=True)
+    e["DisparityMin"], kern, plain = _solve_pair(
+        torch, f"(e) DisparityMin NaiveGreedy {args.naive_budget}", dm,
+        dataclasses.replace(dm, use_kernel=False), args.naive_budget, "NaiveGreedy", replay,
+        stopIfNegativeGain=False)
+    if not (torch.equal(kern.order, plain.order) and torch.equal(kern.gains, plain.gains)):
+        raise AssertionError("(e) DisparityMin: kernel path's ids and gains not bit-equal to the plain path's")
+    log("  ok  (e) DisparityMin: ids and gains bit-equal to the plain path's at every step")
+    e["DisparityMin"]["picks"] = kern.order[kern.order >= 0].tolist()
+    peaks += [e["DisparitySum"]["peak_bytes"], e["DisparityMin"]["peak_bytes"]]
+
+    dms = DisparityMinSum.from_distance(D)
+    res, wall, peak = _timed_solve(
+        torch, SelectionSpec(dms, DMIN_SUM_BUDGET, stopIfNegativeGain=False))
+    sel = res.order[res.order >= 0]
+    if not (bool(res.gains.isfinite().all()) and res.order.shape == (DMIN_SUM_BUDGET,)):
+        raise AssertionError("(e) DisparityMinSum: malformed result")
+    mask = torch.zeros((n,), dtype=torch.bool, device="cuda").index_fill_(0, sel.long(), True)
+    value, direct = float(res.value), float(dms.evaluate(mask))
+    if abs(value - direct) > 1e-4 * abs(direct):
+        raise AssertionError(f"(e) DisparityMinSum: telescoped f(A) {value} != evaluate {direct}")
+    e["DisparityMinSum"] = {"wall_s": wall, "peak_bytes": peak, "selected": int(sel.numel()),
+                            "value": value, "evaluate": direct}
+    peaks.append(peak)
+    log(f"  (e) DisparityMinSum NaiveGreedy {DMIN_SUM_BUDGET} (torch path): wall={wall:.3f} s "
+        f"peak={peak / 2**30:.2f} GiB; f(A)={value:.6f} telescoped, {direct:.6f} evaluated")
+    out["e"] = e
+
+    launches = {k: ops.LAUNCHES[k] for k in ("gc_gains", "gc_gains_at", "dsum_gains", "dmin_gains")}
+    log(f"  launches on the dense pairwise path: {launches}; peak device memory "
+        f"{max(peaks) / 2**30:.2f} GiB (S and D resident)")
+    for k, v in launches.items():
+        if v <= 0:
+            raise AssertionError(f"kernel {k} was not launched on the dense pairwise path")
+    out["launches"] = launches
+    out["peak_bytes"] = max(peaks)
+
+    # ---- after the counts are read: where (d)'s LazyGreedy n_evals part
+    if ne != pe:
+        lazy["levels_apart"] = _lazy_levels_apart(
+            torch, "(d) GraphCut LazyGreedy", (gc, gc_plain), args.mf_lazy_budget)
+    return out, D
+
+
+def phase_dense_times(torch, args, S, D, dense: dict) -> list[dict]:
+    from repro_torch.core import DisparityMin
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.disp_gains import dmin_finish, dmin_gains_plain, dsum_gains_plain
+    from repro_torch.kernels.gc_gains import gc_gains_at_plain, gc_gains_plain
+
+    log("== phase 5 (dense pairwise kernels): times at phase 7's shapes")
+    n, reps = S.shape[0], args.reps
+    few = max(3, reps // 10)
+    gen = torch.Generator(device="cuda").manual_seed(args.seed + 5)
+
+    def mask_of(picks):
+        ids = torch.tensor(picks, dtype=torch.long, device="cuda")
+        return ids, torch.zeros((n,), device="cuda").index_fill_(0, ids, 1.0)
+
+    def timed(name, kernel, plain, library, tol, exact, a, extra):
+        got = kernel()
+        want = plain()
+        err = check_close(f"{name} ({n},{n}) vs plain, |A| = {a}", got, want, *tol)
+        if exact and not torch.equal(got, want):
+            raise AssertionError(f"{name}: not bit-equal to its plain version at full size")
+        t = {"ms": cuda_ms(torch, kernel, reps), "plain_ms": cuda_ms(torch, plain, few, warmup=1),
+             "library_ms": cuda_ms(torch, library, reps), "max_abs_err": err,
+             "bit_equal_to_plain": bool(torch.equal(got, want)), "selected": a}
+        # this mask needs the |A| selected columns (and the n-vectors); a
+        # sweep over every column reads all of the n x n matrix
+        t["bound_ms"], t["bound_by"] = bound(3.0 * n * a, 4.0 * (n * a + extra * n))
+        t["bound_all_columns_ms"] = bound(3.0 * n * n, 4.0 * (n * n + extra * n))[0]
+        log(f"  {name} ({n},{n}), |A|={a}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.3f} ms, "
+            f"library {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}; "
+            f"all columns {t['bound_all_columns_ms']:.4f} ms)")
+        return t, got
+
+    # gc at the mask of (d)'s NaiveGreedy picks
+    gids, gmask = mask_of(dense["d"]["picks"])
+    a = int(gids.numel())
+    lam = torch.tensor(GC_LAM, device="cuda")
+    total = S.sum(dim=0)
+    diag = torch.diagonal(S)
+    two = 2.0 * gmask
+    gc_args = (S, gmask, total, lam)
+    gq, gfull = timed("gc_gains", lambda: ops.gc_gains(*gc_args), lambda: gc_gains_plain(*gc_args),
+                      lambda: total - lam * (torch.mv(S, two) + diag), DENSE_TOL, False, a, 4)
+    gc_at = _time_subsets(
+        torch, f"gc_gains_at ({n},{n}), |A|={a}",
+        lambda idx: ops.gc_gains_at(*gc_args, idx), lambda idx: gc_gains_at_plain(*gc_args, idx),
+        lambda idx: total[idx.long()] - lam * (torch.mv(S.index_select(0, idx), two)
+                                               + diag[idx.long()]),
+        gfull, n, reps, gen,
+        work=lambda k: (3.0 * k * a, 4.0 * (k * a + 4 * k + n)),
+        tol=DENSE_TOL, work_all=lambda k: (3.0 * k * n, 4.0 * (k * n + 3 * k + n)))
+
+    # dsum at the mask of (e)'s DisparitySum picks
+    sids, smask = mask_of(dense["e"]["DisparitySum"]["picks"])
+    sq, _ = timed("dsum_gains", lambda: ops.dsum_gains(D, smask), lambda: dsum_gains_plain(D, smask),
+                  lambda: torch.mv(D, smask), DENSE_TOL, False, int(sids.numel()), 2)
+
+    # dmin at the state of (e)'s DisparityMin picks
+    mids, mmask = mask_of(dense["e"]["DisparityMin"]["picks"])
+    count = torch.tensor(int(mids.numel()), dtype=torch.int32, device="cuda")
+    curmin = DisparityMin(dist=D, n=n).evaluate(mmask.bool()).reshape(())
+    mq, _ = timed("dmin_gains", lambda: ops.dmin_gains(D, mmask, count, curmin),
+                  lambda: dmin_gains_plain(D, mmask, count, curmin),
+                  lambda: dmin_finish(D.index_select(1, mids).amin(dim=1), count, curmin),
+                  (0.0, 0.0), True, int(mids.numel()), 2)
+
+    def row(name, cu, line, shape, t, extra):
+        return {"name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{cu}",
+                "replaces": f"src/repro/kernels/{line}", "shape": shape, "launches": None,
+                "max_abs_err": t["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                "library_ms": t["library_ms"], "bound_all_columns_ms": t["bound_all_columns_ms"],
+                **extra}
+
+    return [
+        row("gc_gains", "gc_gains.cu", "gc_gains.py:67",
+            f"sim ({n},{n}) cosine, |A| = {a} -> ({n},)", gq,
+            {"library_call": "total - lam * (torch.mv(S, 2 m) + diag)",
+             "bit_equal_to_plain": gq["bit_equal_to_plain"]}),
+        row("gc_gains_at", "gc_gains.cu", "gc_gains.py:125",
+            f"sim ({n},{n}), |A| = {a}, idx (8,) -> (8,)", gc_at[8],
+            {"library_call": "index_select + torch.mv + diag", "k512": gc_at[512]}),
+        row("dsum_gains", "disp_gains.cu", "disp_gains.py:56",
+            f"dist ({n},{n}), |A| = {sq['selected']} -> ({n},)", sq,
+            {"library_call": "torch.mv(D, m)", "bit_equal_to_plain": sq["bit_equal_to_plain"]}),
+        row("dmin_gains", "disp_gains.cu", "disp_gains.py:106",
+            f"dist ({n},{n}), |A| = {mq['selected']} -> ({n},)", mq,
+            {"library_call": "D.index_select(1, A).amin(1) + finish"}),
+    ]
+
+
 def parse_args(argv):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -844,22 +1209,32 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    from repro_torch.kernels import ops
+
     t_start = time.perf_counter()
     device = phase_device(torch)
     build = phase_build()
     phase_kernels(torch, args.seed)
     phase_mf_kernels(torch, args.seed)
+    dense_bits = phase_dense_kernels(torch, args.seed)
     main_out, fn, naive_res = phase_main(torch, args)
     kernels = phase_times(torch, args, fn, naive_res, main_out)
-    del fn  # phase 6 holds its peak memory against a budget: S (n x n) goes
+    dense_out, D = phase_dense_pairwise(torch, args, fn.sim)
+    dense_out["phase3_bit_equal"] = dense_bits
+    dense_rows = phase_dense_times(torch, args, fn.sim, D, dense_out)
+    del fn, D  # phase 6 holds its peak memory against a budget: S and D (n x n) go
     mf_rows = phase_mf_times(torch, args, naive_res)
     mf_out = phase_matrix_free(torch, args, main_out)
-    for r in mf_rows:
-        r["launches"] = r["launches_on_path"] = mf_out["launches"][r["name"]]
-    kernels += mf_rows
+    for rows, path in ((mf_rows, mf_out), (dense_rows, dense_out)):
+        for r in rows:
+            r["launches"] = r["launches_on_path"] = path["launches"][r["name"]]
+    kernels += mf_rows + dense_rows
+    missing = set(ops.LAUNCHES) ^ {r["name"] for r in kernels}
+    if missing:
+        raise AssertionError(f"kernels line and LAUNCHES differ: {sorted(missing)}")
     record = {"device": device, "build": {k: build[k] for k in ("seconds", "cached")},
-              "main": main_out, "matrix_free": mf_out, "kernels": kernels,
-              "seconds": time.perf_counter() - t_start}
+              "main": main_out, "matrix_free": mf_out, "dense_pairwise": dense_out,
+              "kernels": kernels, "seconds": time.perf_counter() - t_start}
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     log(f"total {record['seconds']:.1f} s; details in {OUT_DIR / 'chip_smoke.json'}")

@@ -1,8 +1,17 @@
 # The ported core: the set-function protocol, Facility Location (dense and
-# matrix-free), Graph Cut (dense, torch path only, and matrix-free), the
-# similarity sources, the gain-backend registry, NaiveGreedy / LazyGreedy and
-# the SelectionSpec + solve() front door (sequential mode).
+# matrix-free), Graph Cut (dense and matrix-free), the Disparity family
+# (Sum, Min, MinSum), the similarity sources, the gain-backend registry,
+# NaiveGreedy / LazyGreedy and the SelectionSpec + solve() front door
+# (sequential mode).
 from repro_torch.core.functions.base import SetFunction
+from repro_torch.core.functions.disparity import (
+    DisparityMin,
+    DisparityMinSum,
+    DisparitySum,
+    DMinState,
+    DMinSumState,
+    DSumState,
+)
 from repro_torch.core.functions.facility_location import (
     FacilityLocation,
     FacilityLocationMF,

@@ -10,12 +10,13 @@ S_ij``.  The gain is then
 :class:`GraphCutMF` is the matrix-free variant: the ground kernel lives
 behind a source (``core/sources.py``) and the memoized statistics
 (``total``, ``diag``, incremental ``selsum``) are built by streaming it —
-the (n, n) matrix is never written.  Its kernel backend is the stateless
-CUDA sweep of ``kernels/gcmf_gains.py``, which recomputes the whole sweep
-from the selection mask (O(n^2 d) per call, against the memoized O(n)).
+the (n, n) matrix is never written.
 
-The dense graph-cut kernels (the JAX package's ``kernels/gc_gains.py``) are
-not ported yet, so dense GraphCut runs its torch path only.
+Both have a stateless kernel backend that recomputes the whole sweep from
+the selection mask: dense GraphCut (and GraphCutMF over a dense source)
+streams S through ``kernels/gc_gains.py`` (O(n^2) bytes per call), a
+feature source recomputes S through ``kernels/gcmf_gains.py`` (O(n^2 d)
+operations per call), against the memoized O(n) ``gains()``.
 """
 from __future__ import annotations
 
@@ -26,12 +27,7 @@ import torch
 from repro_torch.common import as_float_tensor, one_index
 from repro_torch.core.functions.base import SetFunction
 from repro_torch.core.functions.facility_location import KNN_NOT_PORTED
-from repro_torch.core.sources import DenseSource, FeatureSource, dense_source, feature_source
-
-DENSE_GC_KERNEL_NOT_PORTED = (
-    "the dense graph-cut kernels (gc_gains, gc_gains_at) are not ported to repro_torch yet "
-    "(ROADMAP queue 2, items 6-7); build with use_kernel=False or None for the torch path"
-)
+from repro_torch.core.sources import DenseSource, dense_source, feature_source
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -57,21 +53,41 @@ def _updated(state: GCState, j: torch.Tensor, col: torch.Tensor, gain_j) -> GCSt
     )
 
 
+class GCKernelSweep:
+    """GainBackend: one pass over the dense ground kernel recomputing the
+    sweep from the selection mask (masked row sums + diagonal + combine;
+    see kernels/gc_gains.py), full and gathered.  Each call streams all of
+    S: it serves one-shot sweeps, while the memoized O(n) ``gains()``
+    remains the faster choice inside long greedy loops."""
+
+    name = "cuda-gc"
+
+    @staticmethod
+    def _sim(fn) -> torch.Tensor:
+        return fn.sim_ground if isinstance(fn, GraphCut) else fn.src.sim
+
+    def full_sweep(self, fn, state: GCState) -> torch.Tensor:
+        from repro_torch.kernels import ops
+
+        return ops.gc_gains(self._sim(fn), state.selmask, fn.total, fn.lam)
+
+    def partial_sweep(self, fn, state: GCState, idx: torch.Tensor) -> torch.Tensor:
+        from repro_torch.kernels import ops
+
+        return ops.gc_gains_at(self._sim(fn), state.selmask, fn.total, fn.lam, idx)
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class GraphCut(SetFunction):
-    """Graph Cut over a materialised ground kernel.  Runs its torch path
-    only: ``use_kernel=True`` raises (the dense kernels are not ported yet),
-    and ``use_kernel=None`` resolves to the torch path."""
+    """Graph Cut over a materialised ground kernel.  ``use_kernel=True``
+    routes sweeps through the CUDA kernels (:class:`GCKernelSweep`), None
+    defers to the choose_backend table (backends.py)."""
 
     sim_ground: torch.Tensor  # (n, n) kernel among ground-set elements
     total: torch.Tensor  # (n,) sum_{i in U} S_ij  (modular representation term)
     lam: torch.Tensor  # 0-d trade-off
     n: int
     use_kernel: bool | None = False
-
-    def __post_init__(self):
-        if self.use_kernel:
-            raise NotImplementedError(DENSE_GC_KERNEL_NOT_PORTED)
 
     @staticmethod
     def from_kernel(
@@ -111,6 +127,12 @@ class GraphCut(SetFunction):
         j = one_index(j, self.sim_ground.device)
         col = self.sim_ground.index_select(1, j)[:, 0]
         return _updated(state, j, col, self.gains_at(state, j))
+
+    def gain_backend(self) -> GCKernelSweep | None:
+        from repro_torch.core.optimizers.backends import kernel_enabled
+
+        on = kernel_enabled(self.use_kernel, self.n, device=self.sim_ground.device)
+        return GCKernelSweep() if on else None
 
     def evaluate(self, mask) -> torch.Tensor:
         m = torch.as_tensor(mask, device=self.sim_ground.device).to(torch.float32)
@@ -153,10 +175,10 @@ class GraphCutMF(SetFunction):
     and ``diag`` are computed at build time by streaming the source (O(n d)
     memory); each update streams one similarity column.
 
-    ``use_kernel=True`` routes feature sources through the CUDA sweep and
-    raises for a dense source (its kernels are not ported yet); ``None``
-    picks the CUDA sweep for unlabelled feature sources by the
-    choose_backend table and the torch path otherwise."""
+    ``use_kernel=True`` routes unlabelled feature sources through the
+    matrix-free CUDA sweep and dense sources through the dense one (as the
+    JAX package does); ``None`` picks them by the choose_backend table.
+    Clustered sources stay on the torch path."""
 
     src: object  # square FeatureSource | DenseSource over the ground set
     total: torch.Tensor  # (n,) sum_{i in U} S_ij
@@ -164,10 +186,6 @@ class GraphCutMF(SetFunction):
     lam: torch.Tensor  # 0-d trade-off
     n: int
     use_kernel: bool | None = False
-
-    def __post_init__(self):
-        if self.use_kernel and isinstance(self.src, DenseSource):
-            raise NotImplementedError(DENSE_GC_KERNEL_NOT_PORTED)
 
     @staticmethod
     def from_features(
@@ -221,13 +239,16 @@ class GraphCutMF(SetFunction):
         j = one_index(j, self.src.device)
         return _updated(state, j, self.src.col(j), self.gains_at(state, j))
 
-    def gain_backend(self) -> GCMFKernelSweep | None:
+    def gain_backend(self) -> GCMFKernelSweep | GCKernelSweep | None:
         from repro_torch.core.optimizers.backends import kernel_enabled
 
-        if not isinstance(self.src, FeatureSource) or self.src.col_labels is not None:
-            return None  # dense and clustered sources stay on the torch path
-        on = kernel_enabled(self.use_kernel, self.n, matrix_free=True, device=self.src.device)
-        return GCMFKernelSweep() if on else None
+        if not kernel_enabled(self.use_kernel, self.n, matrix_free=True, device=self.src.device):
+            return None
+        if isinstance(self.src, DenseSource):
+            return GCKernelSweep()
+        if self.src.col_labels is None:
+            return GCMFKernelSweep()
+        return None  # clustered sources stay on the torch path
 
     def evaluate(self, mask) -> torch.Tensor:
         m = torch.as_tensor(mask, device=self.src.device).to(torch.float32)

@@ -6,12 +6,22 @@ over here; results come back as numpy for comparison.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
 from repro_torch.common import as_float_tensor
+from repro_torch.core.functions.disparity import (
+    DisparityMin,
+    DisparityMinSum,
+    DisparitySum,
+    DMinState,
+    DMinSumState,
+    DSumState,
+)
 from repro_torch.core.functions.facility_location import FacilityLocation, FLState
-from repro_torch.core.functions.graph_cut import GCState, GraphCutMF
+from repro_torch.core.functions.graph_cut import GCState, GraphCut, GraphCutMF
 from repro_torch.core.optimizers.greedy import GreedyResult
 from repro_torch.core.sources import FeatureSource
 
@@ -91,6 +101,89 @@ def gc_state_from_arrays(
         value=as_float_tensor(np.asarray(value, np.float32), dev).reshape(()),
         selmask=as_float_tensor(np.asarray(selmask, np.float32), dev),
     )
+
+
+def graph_cut_from_arrays(
+    sim: np.ndarray, total: np.ndarray, lam, use_kernel: bool | None = False, device=None
+) -> GraphCut:
+    """Port :class:`GraphCut` from a JAX function's ``sim_ground``, ``total``
+    and ``lam``, on ``device`` (default: the card)."""
+    sim_t = as_float_tensor(np.asarray(sim, np.float32), device).contiguous()
+    dev = sim_t.device
+    return GraphCut(
+        sim_ground=sim_t,
+        total=as_float_tensor(np.asarray(total, np.float32), dev),
+        lam=as_float_tensor(np.asarray(lam, np.float32), dev).reshape(()),
+        n=int(sim_t.shape[0]),
+        use_kernel=use_kernel,
+    )
+
+
+def disparity_sum_from_arrays(
+    dist: np.ndarray, use_kernel: bool | None = False, device=None
+) -> DisparitySum:
+    """Port :class:`DisparitySum` over an (n, n) distance array."""
+    return DisparitySum.from_distance(np.asarray(dist, np.float32), use_kernel, device)
+
+
+def disparity_min_from_arrays(
+    dist: np.ndarray, use_kernel: bool | None = False, device=None
+) -> DisparityMin:
+    """Port :class:`DisparityMin` over an (n, n) distance array."""
+    return DisparityMin.from_distance(np.asarray(dist, np.float32), use_kernel, device)
+
+
+def disparity_min_sum_from_arrays(dist: np.ndarray, device=None) -> DisparityMinSum:
+    """Port :class:`DisparityMinSum` over an (n, n) distance array."""
+    return DisparityMinSum.from_distance(np.asarray(dist, np.float32), device)
+
+
+def _tensor(a, dtype: torch.dtype, device) -> torch.Tensor:
+    return torch.as_tensor(np.array(a), device=device).to(dtype)
+
+
+def dsum_state_from_arrays(selsum: np.ndarray, selmask: np.ndarray, device=None) -> DSumState:
+    """Port :class:`DSumState` from a JAX state's arrays."""
+    selsum_t = as_float_tensor(np.asarray(selsum, np.float32), device)
+    return DSumState(selsum=selsum_t, selmask=_tensor(selmask, torch.float32, selsum_t.device))
+
+
+def dmin_state_from_arrays(
+    mind: np.ndarray, curmin, count, selmask: np.ndarray, device=None
+) -> DMinState:
+    """Port :class:`DMinState` from a JAX state's arrays."""
+    mind_t = as_float_tensor(np.asarray(mind, np.float32), device)
+    dev = mind_t.device
+    return DMinState(
+        mind=mind_t,
+        curmin=_tensor(curmin, torch.float32, dev).reshape(()),
+        count=_tensor(count, torch.int32, dev).reshape(()),
+        selmask=_tensor(selmask, torch.float32, dev),
+    )
+
+
+def dmin_sum_state_from_arrays(
+    t: np.ndarray, selected: np.ndarray, count, value, device=None
+) -> DMinSumState:
+    """Port :class:`DMinSumState` from a JAX state's arrays."""
+    t_t = as_float_tensor(np.asarray(t, np.float32), device)
+    dev = t_t.device
+    return DMinSumState(
+        t=t_t,
+        selected=_tensor(selected, torch.bool, dev),
+        count=_tensor(count, torch.int32, dev).reshape(()),
+        value=_tensor(value, torch.float32, dev).reshape(()),
+    )
+
+
+def state_to_arrays(state) -> dict[str, np.ndarray]:
+    """A port state's tensor fields as numpy arrays, by field name (the JAX
+    state's names), for the way back."""
+    return {
+        f.name: getattr(state, f.name).cpu().numpy()
+        for f in dataclasses.fields(state)
+        if isinstance(getattr(state, f.name), torch.Tensor)
+    }
 
 
 def result_to_numpy(res: GreedyResult) -> tuple[np.ndarray, np.ndarray, int, float]:

@@ -23,12 +23,16 @@ import threading
 import time
 from pathlib import Path
 
+from repro_torch.kernels.row_reduce import THREADS as ROW_REDUCE_THREADS
+
 _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE / "build"  # listed in .gitignore via `build/`
 
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")  # the `a`: wgmma/setmaxnreg
-NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              # the row reduction's block width has one source, its plain version
+              f"-DROW_REDUCE_THREADS={ROW_REDUCE_THREADS}")
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -53,6 +57,9 @@ _SIGNATURES = {
          _P, _P, _P],
         ctypes.c_int,
     ),
+    "gc_gains_launch": ([_P, _I64, _P, _P, _P, _P, _I64, _P, _P], ctypes.c_int),
+    "dsum_gains_launch": ([_P, _I64, _P, _P, _P], ctypes.c_int),
+    "dmin_gains_launch": ([_P, _I64, _P, _P, _P, _P, _P], ctypes.c_int),
     "repro_cuda_error_string": ([ctypes.c_int], ctypes.c_char_p),
 }
 

@@ -1,0 +1,85 @@
+// The fixed-order row reduction shared by the dense pairwise sweeps
+// (gc_gains.cu, disp_gains.cu):
+//   res_r = reduce over k = 0 .. n-1 of step(M[g_r, k], m_k, k, g_r)
+// for rows g_r of a row-major (n, n) fp32 matrix M and a mask m (n,).
+//
+// What bounds these sweeps on the H100: bytes.  A full sweep reads M once
+// and does ~3 fp32 operations per element: at n = 50,000 that is 10 GB, or
+// 2.985 ms at 3.35 TB/s, against 0.11 ms of operations at 67 TFLOP/s.
+//
+// Order, which the bit contracts rest on: one block of THREADS threads
+// reduces a row.  Thread t walks the row's elements k = t, t + THREADS,
+// t + 2 THREADS, ... in increasing k, so each warp load is 128 contiguous
+// bytes; then the partials meet in a halving tree: inside each warp lane i
+// takes lane i + h for h = 16, 8, 4, 2, 1 (__shfl_down_sync), and warp 0
+// combines the warp results the same way.  A row's result therefore
+// depends on n, its own elements and the mask alone: never on how many
+// rows the sweep reads, which ones, or where they sit.
+// kernels/row_reduce.py repeats this order in plain PyTorch, and THREADS
+// comes from there (kernels/_build.py passes it as ROW_REDUCE_THREADS).
+//
+// The matrix is read with __ldcs (streamed, evict first) so that the mask
+// stays in L2.  Every element offset is 64-bit: 50,000^2 elements lie
+// beyond INT_MAX.
+
+#pragma once
+
+#include "tile_common.cuh"
+
+#ifndef ROW_REDUCE_THREADS
+#error "ROW_REDUCE_THREADS is set by kernels/_build.py from kernels/row_reduce.py"
+#endif
+
+namespace rowred {
+namespace {
+
+constexpr int THREADS = ROW_REDUCE_THREADS;
+constexpr int WARPS = THREADS / 32;
+static_assert(THREADS % 32 == 0 && (WARPS & (WARPS - 1)) == 0 && WARPS <= 32,
+              "a power-of-two number of warps, at most 32");
+constexpr int UNROLL = 8;  // element loads in flight per thread
+constexpr float kBig = 1e30f;  // DisparityMin's BIG (core/functions/disparity.py)
+
+// Reduce row g of mat with Op (init(), step, combine); the result lands in
+// thread 0's return value.  Every thread of the block calls it.
+template <class Op>
+__device__ __forceinline__ float reduce_row(const float* __restrict__ mat, int64_t n,
+                                            const float* __restrict__ m, int64_t g) {
+  __shared__ float red[WARPS];
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  const float* row = mat + g * n;
+  float acc = Op::init();
+  for (int64_t base = 0; base < n; base += (int64_t)THREADS * UNROLL) {
+    float mv[UNROLL];
+    float sv[UNROLL];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const int64_t c = base + u * THREADS + t;
+      const bool ok = c < n;
+      mv[u] = ok ? __ldg(m + c) : 0.0f;
+      sv[u] = ok ? __ldcs(row + c) : 0.0f;
+    }
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const int64_t c = base + u * THREADS + t;
+      if (c < n) acc = Op::step(acc, sv[u], mv[u], c, g);  // nothing past n is added
+    }
+  }
+#pragma unroll
+  for (int h = 16; h > 0; h >>= 1) acc = Op::combine(acc, __shfl_down_sync(0xffffffffu, acc, h));
+  if (lane == 0) red[warp] = acc;
+  __syncthreads();
+  float v = Op::init();
+  if (warp == 0) {
+    v = lane < WARPS ? red[lane] : Op::init();
+#pragma unroll
+    for (int h = WARPS / 2; h > 0; h >>= 1)
+      v = Op::combine(v, __shfl_down_sync(0xffffffffu, v, h));
+  }
+  return v;
+}
+
+}  // namespace
+}  // namespace rowred

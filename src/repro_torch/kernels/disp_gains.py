@@ -1,0 +1,77 @@
+"""Dense disparity (dispersion) gain sweeps, stateless, from the selection
+mask: the CUDA kernels' launchers and their plain versions.
+
+- ``dsum_gains`` (the port of ``repro/kernels/disp_gains.py::
+  dsum_gains_pallas``): ``gains_j = sum_k D[j, k] * m_k``, DisparitySum.
+- ``dmin_gains`` (the port of ``dmin_gains_pallas``): ``gains_j =
+  min(surr_j, BIG) - curmin`` with ``surr_j = 0`` while ``count == 0``,
+  else ``min_{k: m_k > 0} D[j, k]``, DisparityMin's farthest-point
+  surrogate.  ``count`` (int32) and ``curmin`` (fp32) are one-element
+  tensors on the inputs' device, read by the kernel there.
+
+The kernels (``csrc/disp_gains.cu``) and the plain versions below reduce in
+``row_reduce``'s fixed order with the same rounding steps, so they agree
+bit for bit.  The min does not depend on order at all: ``dmin_gains``
+equals the memoized DisparityMin path bit for bit.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.row_reduce import reduce_rows
+
+BIG = 1e30  # DisparityMin's "no selected element" distance (core/functions/disparity.py)
+
+
+def _sum_step(acc, s, m, cols, g):
+    return acc + s * m
+
+
+def _min_step(acc, s, m, cols, g):
+    return torch.minimum(acc, torch.where(m > 0.0, s, BIG))
+
+
+def dmin_finish(mind: torch.Tensor, count: torch.Tensor, curmin: torch.Tensor) -> torch.Tensor:
+    """The surrogate gain from the masked min ``mind``: ``min(count == 0 ?
+    0 : mind, BIG) - curmin`` (also DisparityMin's memoized gains)."""
+    surrogate = torch.where(count.reshape(()) == 0, 0.0, mind)
+    return torch.clamp(surrogate, max=BIG) - curmin.reshape(())
+
+
+def dsum_gains_plain(dist: torch.Tensor, selmask: torch.Tensor) -> torch.Tensor:
+    """dist (n, n), selmask (n,) -> gains (n,) fp32, in plain PyTorch; holds
+    one (n, 256) block of dist at a time."""
+    return reduce_rows(dist, None, selmask, _sum_step, torch.add, 0.0)
+
+
+def dmin_gains_plain(
+    dist: torch.Tensor, selmask: torch.Tensor, count: torch.Tensor, curmin: torch.Tensor
+) -> torch.Tensor:
+    """dist (n, n), selmask (n,), count / curmin one-element -> gains (n,)
+    fp32, in plain PyTorch."""
+    return dmin_finish(reduce_rows(dist, None, selmask, _min_step, torch.minimum, BIG),
+                       count, curmin)
+
+
+def _launch(name: str, dist: torch.Tensor, *args: torch.Tensor) -> torch.Tensor:
+    n = dist.shape[0]
+    out = torch.empty((n,), dtype=torch.float32, device=dist.device)
+    if n == 0:
+        return out
+    rc = getattr(_build.load(), f"{name}_launch")(
+        dist.data_ptr(), n, *(a.data_ptr() for a in args), out.data_ptr(),
+        torch.cuda.current_stream(dist.device).cuda_stream,
+    )
+    _build.check(rc, f"{name} kernel")
+    return out
+
+
+def dsum_gains_cuda(dist, selmask) -> torch.Tensor:
+    """Launch the DisparitySum sweep on checked CUDA tensors (see ``ops.dsum_gains``)."""
+    return _launch("dsum_gains", dist, selmask)
+
+
+def dmin_gains_cuda(dist, selmask, count, curmin) -> torch.Tensor:
+    """Launch the DisparityMin sweep on checked CUDA tensors (see ``ops.dmin_gains``)."""
+    return _launch("dmin_gains", dist, selmask, count, curmin)

@@ -2,10 +2,10 @@
 
 On a CUDA tensor each wrapper launches its hand-written kernel (built at
 first use, see ``_build.py``) or raises; it never falls back.  On a CPU
-tensor it runs the kernel's plain PyTorch version (the dense FL sweeps' add
-in the kernel's order; the matrix-free ones agree with theirs to a
-tolerance).  Each wrapper checks device, dtype (fp32), shape and contiguity and
-raises on anything its kernel does not take.
+tensor it runs the kernel's plain PyTorch version (the dense FL, GC and
+disparity sweeps add in the kernel's order; the matrix-free ones agree with
+theirs to a tolerance).  Each wrapper checks device, dtype (fp32), shape
+and contiguity and raises on anything its kernel does not take.
 
 ``LAUNCHES`` counts kernel launches per wrapper (one per call that reached
 the card), so a run can prove that its path went through the kernels.
@@ -14,6 +14,12 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.disp_gains import (
+    dmin_gains_cuda,
+    dmin_gains_plain,
+    dsum_gains_cuda,
+    dsum_gains_plain,
+)
 from repro_torch.kernels.fl_gains import (
     fl_gains_at_cuda,
     fl_gains_at_plain,
@@ -25,6 +31,12 @@ from repro_torch.kernels.flmf_gains import (
     flmf_gains_at_plain,
     flmf_gains_cuda,
     flmf_gains_plain,
+)
+from repro_torch.kernels.gc_gains import (
+    gc_gains_at_cuda,
+    gc_gains_at_plain,
+    gc_gains_cuda,
+    gc_gains_plain,
 )
 from repro_torch.kernels.gcmf_gains import (
     gcmf_gains_at_cuda,
@@ -46,6 +58,10 @@ LAUNCHES: dict[str, int] = {
     "flmf_gains_at": 0,
     "gcmf_gains": 0,
     "gcmf_gains_at": 0,
+    "gc_gains": 0,
+    "gc_gains_at": 0,
+    "dsum_gains": 0,
+    "dmin_gains": 0,
 }
 
 
@@ -97,6 +113,17 @@ def _check_idx(idx, like: torch.Tensor) -> None:
         raise ValueError(f"idx must be 1-D, got shape {tuple(idx.shape)}")
     if idx.device != like.device:
         raise ValueError(f"idx on {idx.device}, inputs on {like.device}")
+
+
+def _check_scalar(name: str, t, dtype: torch.dtype) -> None:
+    if not isinstance(t, torch.Tensor) or t.dtype != dtype or t.numel() != 1:
+        raise TypeError(f"{name} must be a one-element {dtype} torch.Tensor")
+
+
+def _check_square(name: str, t) -> None:
+    _check_f32(name, t, 2)
+    if t.shape[0] != t.shape[1]:
+        raise ValueError(f"{name} must be square (n, n), got shape {tuple(t.shape)}")
 
 
 def similarity(x, y, metric: str = "dot", rbf_sigma: float | None = None) -> torch.Tensor:
@@ -188,8 +215,7 @@ def _check_gcmf(y, yy, selmask, total, diag, lam, metric) -> bool:
     for name, t in (("yy", yy), ("selmask", selmask), ("total", total), ("diag", diag)):
         _check_f32(name, t, 1)
         _check_len(name, t, y.shape[0], "rows of y")
-    if not isinstance(lam, torch.Tensor) or lam.dtype != torch.float32 or lam.numel() != 1:
-        raise TypeError("lam must be a one-element float32 torch.Tensor")
+    _check_scalar("lam", lam, torch.float32)
     return _on_card(("y", y), ("yy", yy), ("selmask", selmask), ("total", total),
                     ("diag", diag), ("lam", lam))
 
@@ -220,4 +246,70 @@ def gcmf_gains_at(y, yy, selmask, total, diag, lam, idx, metric: str = "dot",
     idx32 = idx.to(torch.int32).contiguous()
     out = gcmf_gains_at_cuda(y, yy, selmask, total, diag, lam, idx32, metric, rbf_sigma)
     LAUNCHES["gcmf_gains_at"] += 1
+    return out
+
+
+def _check_gc(sim, selmask, total, lam) -> bool:
+    _check_square("sim", sim)
+    for name, t in (("selmask", selmask), ("total", total)):
+        _check_f32(name, t, 1)
+        _check_len(name, t, sim.shape[0], "rows of sim")
+    _check_scalar("lam", lam, torch.float32)
+    return _on_card(("sim", sim), ("selmask", selmask), ("total", total), ("lam", lam))
+
+
+def gc_gains(sim, selmask, total, lam) -> torch.Tensor:
+    """Stateless dense GC sweep: sim (n, n) ground kernel, selmask (n,) 0/1,
+    total (n,), lam one-element tensor -> gains (n,):
+    total_j - lam * sum_k sim_jk * (2 * m_k + [j == k])."""
+    if not _check_gc(sim, selmask, total, lam):
+        return gc_gains_plain(sim, selmask, total, lam)
+    out = gc_gains_cuda(sim, selmask, total, lam)
+    LAUNCHES["gc_gains"] += 1
+    return out
+
+
+def gc_gains_at(sim, selmask, total, lam, idx) -> torch.Tensor:
+    """Gathered dense GC sweep: idx (k,) integer -> gains (k,); idx < 0 ->
+    NEG_INF, idx >= n reads row n - 1; bit-identical to :func:`gc_gains` at
+    the same indices."""
+    on_card = _check_gc(sim, selmask, total, lam)
+    _check_idx(idx, sim)
+    if sim.shape[0] == 0 and idx.shape[0]:
+        raise ValueError("gc_gains_at: sim has no rows to gather from")
+    if not on_card:
+        return gc_gains_at_plain(sim, selmask, total, lam, idx)
+    out = gc_gains_at_cuda(sim, selmask, total, lam, idx.to(torch.int32).contiguous())
+    LAUNCHES["gc_gains_at"] += 1
+    return out
+
+
+def _check_disp(dist, selmask) -> None:
+    _check_square("dist", dist)
+    _check_f32("selmask", selmask, 1)
+    _check_len("selmask", selmask, dist.shape[0], "rows of dist")
+
+
+def dsum_gains(dist, selmask) -> torch.Tensor:
+    """DisparitySum sweep: dist (n, n), selmask (n,) 0/1 -> gains (n,):
+    sum_k dist_jk * m_k."""
+    _check_disp(dist, selmask)
+    if not _on_card(("dist", dist), ("selmask", selmask)):
+        return dsum_gains_plain(dist, selmask)
+    out = dsum_gains_cuda(dist, selmask)
+    LAUNCHES["dsum_gains"] += 1
+    return out
+
+
+def dmin_gains(dist, selmask, count, curmin) -> torch.Tensor:
+    """DisparityMin sweep: dist (n, n), selmask (n,) 0/1, count one-element
+    int32 |A|, curmin one-element fp32 f(A) -> gains (n,):
+    min(count == 0 ? 0 : min_{k: m_k > 0} dist_jk, BIG) - curmin."""
+    _check_disp(dist, selmask)
+    _check_scalar("count", count, torch.int32)
+    _check_scalar("curmin", curmin, torch.float32)
+    if not _on_card(("dist", dist), ("selmask", selmask), ("count", count), ("curmin", curmin)):
+        return dmin_gains_plain(dist, selmask, count, curmin)
+    out = dmin_gains_cuda(dist, selmask, count, curmin)
+    LAUNCHES["dmin_gains"] += 1
     return out

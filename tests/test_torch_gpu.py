@@ -12,6 +12,8 @@ import torch
 
 from repro_torch.common import NEG_INF
 from repro_torch.core import (
+    DisparityMin,
+    DisparitySum,
     FacilityLocationMF,
     GraphCutMF,
     SelectionSpec,
@@ -20,9 +22,15 @@ from repro_torch.core import (
     solve,
 )
 from repro_torch.core.optimizers.backends import KERNEL_MIN_N
-from repro_torch.interop import facility_location_from_arrays, result_to_numpy
+from repro_torch.interop import (
+    facility_location_from_arrays,
+    graph_cut_from_arrays,
+    result_to_numpy,
+)
 from repro_torch.kernels import ops
+from repro_torch.kernels.disp_gains import dmin_gains_plain, dsum_gains_plain
 from repro_torch.kernels.fl_gains import fl_gains_at_plain, fl_gains_plain
+from repro_torch.kernels.gc_gains import gc_gains_at_plain, gc_gains_plain
 from repro_torch.kernels import flmf_gains as flmf_module
 from repro_torch.kernels.flmf_gains import SCRATCH_BYTES, flmf_gains_at_plain, flmf_gains_plain
 from repro_torch.kernels.gcmf_gains import gcmf_gains_at_plain, gcmf_gains_plain
@@ -293,3 +301,99 @@ def test_mf_wrappers_raise_instead_of_falling_back(cuda):
         ops.flmf_gains(x, x, v, v, torch.rand(8), "dot")
     with pytest.raises(TypeError, match="lam"):
         ops.gcmf_gains(x, v, v, v, v, 0.4, "dot")
+
+
+# -- the dense pairwise kernels: gc, gc_at, dsum, dmin ---------------------------
+
+DENSE_N = [8, 100, 257, 4096, 9000]  # 9000 = 35 * 256 + 40: ragged across the block
+
+
+def _dense_inputs(cuda, n, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    s = torch.rand((n, n), generator=g, device=cuda)
+    mask = (torch.rand((n,), generator=g, device=cuda) < 0.3).float()
+    return g, s, mask
+
+
+@pytest.mark.parametrize("n", DENSE_N)
+def test_gc_kernels_equal_plain_bit_for_bit(cuda, n):
+    """Kernel and plain version reduce each row in the same order with the
+    same roundings; the gathered kernel equals the full kernel at the same
+    index, with duplicates, pads and indices >= n (read as row n - 1)."""
+    g, s, mask = _dense_inputs(cuda, n, 20)
+    total, lam = s.sum(dim=0), torch.tensor(0.4, device=cuda)
+    before = dict(ops.LAUNCHES)
+    full = ops.gc_gains(s, mask, total, lam)
+    torch.cuda.synchronize()
+    assert torch.equal(full, gc_gains_plain(s, mask, total, lam))
+    for k in (1, 8, 100, 777):
+        idx = torch.randint(0, n + 3, (k,), generator=g, device=cuda)
+        idx[::7] = -1
+        idx[1::5] = idx[0]  # duplicates
+        got = ops.gc_gains_at(s, mask, total, lam, idx)
+        torch.cuda.synchronize()
+        _assert_subset(got, full, torch.clamp(idx, max=n - 1))
+        assert torch.equal(got, gc_gains_at_plain(s, mask, total, lam, idx))
+    assert ops.LAUNCHES["gc_gains"] == before["gc_gains"] + 1
+    assert ops.LAUNCHES["gc_gains_at"] == before["gc_gains_at"] + 4
+
+
+@pytest.mark.parametrize("n", DENSE_N)
+def test_disp_kernels_equal_plain_bit_for_bit(cuda, n):
+    _, d, mask = _dense_inputs(cuda, n, 21)
+    count = mask.sum().to(torch.int32)
+    curmin = torch.tensor(0.05, device=cuda)
+    got = ops.dsum_gains(d, mask)
+    torch.cuda.synchronize()
+    assert torch.equal(got, dsum_gains_plain(d, mask))
+    got = ops.dmin_gains(d, mask, count, curmin)
+    torch.cuda.synchronize()
+    assert torch.equal(got, dmin_gains_plain(d, mask, count, curmin))
+    empty = ops.dmin_gains(d, torch.zeros_like(mask), torch.zeros_like(count), torch.zeros_like(curmin))
+    assert torch.equal(empty, torch.zeros_like(empty))  # |A| = 0: every gain is 0
+
+
+@pytest.mark.parametrize("optimizer,params", OPTIMIZERS)
+def test_dense_pairwise_card_solves(cuda, optimizer, params):
+    """GraphCut and DisparitySum on the card (CUDA sweeps) equal the CPU's
+    use_kernel=True selection exactly (the plain versions add in the
+    kernels' order); DisparityMin's kernel path equals its own torch path
+    bit for bit, ids and gains."""
+    rng = np.random.default_rng(12)
+    x = rng.normal(size=(KERNEL_MIN_N, 32)).astype(np.float32)
+    sim = (x @ x.T / 32.0).astype(np.float32)
+    sq = (x * x).sum(1)
+    dist = np.sqrt(np.maximum(sq[:, None] + sq[None, :] - 2.0 * x @ x.T, 0.0)).astype(np.float32)
+    total = sim.sum(axis=0)  # one total for both devices: the gains then come from the sweeps alone
+    for make in (lambda dev: graph_cut_from_arrays(sim, total, 0.3, use_kernel=True, device=dev),
+                 lambda dev: DisparitySum.from_distance(dist, use_kernel=True, device=dev)):
+        got = result_to_numpy(solve(SelectionSpec(make("cuda"), 20, optimizer, **params)))
+        want = result_to_numpy(solve(SelectionSpec(make("cpu"), 20, optimizer, **params)))
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_array_equal(got[1], want[1])
+        assert got[2] == want[2]
+    fn = DisparityMin.from_distance(dist, use_kernel=True, device="cuda")
+    assert backend_name(fn) == "cuda-dmin"
+    before = ops.LAUNCHES["dmin_gains"]
+    got = result_to_numpy(solve(SelectionSpec(fn, 20, optimizer, stopIfNegativeGain=False, **params)))
+    assert ops.LAUNCHES["dmin_gains"] > before
+    want = result_to_numpy(solve(SelectionSpec(fn, 20, optimizer, use_kernel=False,
+                                               stopIfNegativeGain=False, **params)))
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+
+
+def test_dense_wrappers_raise_instead_of_falling_back(cuda):
+    s = torch.rand((8, 8), device=cuda)
+    v = torch.rand(8, device=cuda)
+    lam, cnt = torch.tensor(0.4, device=cuda), torch.tensor(1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="devices"):
+        ops.gc_gains(s, v, torch.rand(8), lam)
+    with pytest.raises(ValueError, match="idx on"):
+        ops.gc_gains_at(s, v, v, lam, torch.tensor([0]))
+    with pytest.raises(TypeError, match="float32"):
+        ops.dsum_gains(s.half(), v)
+    with pytest.raises(ValueError, match="devices"):
+        ops.dmin_gains(s, v, cnt.cpu(), lam)
+    with pytest.raises(TypeError, match="count"):
+        ops.dmin_gains(s, v, cnt.long(), lam)

@@ -339,12 +339,12 @@ def test_deferred_routes_raise_naming_the_roadmap_items():
                  lambda: GraphCutMF.from_knn(idx, w)):
         with pytest.raises(NotImplementedError, match="item 6"):
             call()
-    for call in (lambda: GraphCut.from_kernel(S, use_kernel=True),
-                 lambda: GraphCutMF.from_dense(S, use_kernel=True),
-                 lambda: SelectionSpec(GraphCut.from_kernel(S), 3, use_kernel=True)):
-        with pytest.raises(NotImplementedError, match="items 6-7"):
-            call()
-    # None resolves to the torch path on both dense graph-cut routes
+    # the dense graph-cut routes are ported: use_kernel=True takes the gc
+    # kernels (their plain versions on the CPU), None the torch path here
+    for fn in (GraphCut.from_kernel(S, use_kernel=True),
+               GraphCutMF.from_dense(S, use_kernel=True),
+               SelectionSpec(GraphCut.from_kernel(S), 3, use_kernel=True).resolved_fn()):
+        assert backend_name(fn) == "cuda-gc"
     assert backend_name(GraphCut.from_kernel(S, use_kernel=None)) == "torch"
     assert backend_name(GraphCutMF.from_dense(S, use_kernel=None)) == "torch"
     assert backend_name(FacilityLocationMF.from_dense(S, use_kernel=True)) == "cuda-flmf"
