@@ -6,7 +6,7 @@ that path against its plain PyTorch version.
     python3 chip_smoke.py --n 8192 --naive-budget 50 --lazy-budget 200 \
         --mf-n 65536 --mf-lazy-budget 200 --reps 5   # a short check
 
-Three paths run, each with its launch counts set to 0 just before it and
+Four paths run, each with its launch counts set to 0 just before it and
 read just after:
 
 - the main path, the paper's core loop: ``create_kernel`` (CUDA similarity
@@ -21,6 +21,10 @@ read just after:
   sweeps, full and gathered) and ``DisparitySum`` / ``DisparityMin`` /
   ``DisparityMinSum`` on the JAX package's diversity distances
   ``1 / max(S_euclidean, 1e-6) - 1`` (CUDA dsum and dmin sweeps).
+- the coverage path: ``FeatureBased`` on post-ReLU features and
+  ``SetCover`` / ``ProbabilisticSetCover`` on a 1,000-concept tagger over
+  the million-point candidate set (CUDA fb sweeps, full and gathered, and
+  sc and psc sweeps).
 
 Phases, each of which raises on failure (the exit code is then non-zero):
   1 device   CUDA present; the card's name and power limit
@@ -40,6 +44,11 @@ Phases, each of which raises on failure (the exit code is then non-zero):
              on the distances; each against its plain path; after its counts
              are read, the first lazy level where (d)'s LazyGreedy n_evals
              part between the two paths
+  8 coverage the coverage path over --mf-n candidates, d features: (f)
+             FeatureBased on relu(x), sqrt; (g) SetCover on the tags
+             p > 0.5 and (h) ProbabilisticSetCover on p of the tagger
+             p = sigmoid(x W + b); each against its plain (use_kernel=False)
+             path, SetCover exactly (ids, gains, n_evals)
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Details go to chiprun_out/chip_smoke.json.
 Without a CUDA device, or without the repo's ``src/`` beside it, the script
@@ -104,6 +113,15 @@ GC_GAIN_RTOL = 1e-4
 # level where the paths' decisions part and holds it to such a knife edge.
 NEVALS_RTOL = 4e-4
 DMIN_SUM_BUDGET = 100  # phase 7 (e): DisparityMinSum, torch path only
+CONCAVES = ("sqrt", "log", "inverse")
+# fb / fb_at / sc / psc kernel vs plain: fp32 sums of <= 1,000 terms in
+# one order (built to agree bit for bit; log1p is CUDA's log1pf on both)
+COVER_TOL = (1e-5, 1e-5)
+# phase 8 (g, h): the tagger's concepts and logit bias.  x W has variance
+# |x|^2 / d ~ 2 for the mixture's rows (centre and noise each N(0, 1)), so
+# p > 0.5 on P(N(0, 2) > 2.9) ~ 2% of the concepts: ~20 tags per item
+TAGS = 1000
+TAG_BIAS = -2.9
 
 
 def log(msg: str) -> None:
@@ -114,8 +132,9 @@ def max_err(got, want) -> float:
     return float((got.double() - want.double()).abs().max()) if got.numel() else 0.0
 
 
-def check_close(what: str, got, want, rtol: float, atol: float) -> float:
-    """Raise unless |got - want| <= atol + rtol * |want| everywhere."""
+def check_close(what: str, got, want, rtol: float, atol: float, quiet: bool = False) -> float:
+    """Raise unless |got - want| <= atol + rtol * |want| everywhere; logs
+    the check unless ``quiet``."""
     if got.shape != want.shape:
         raise AssertionError(f"{what}: shape {tuple(got.shape)} != {tuple(want.shape)}")
     g, w = got.double(), want.double()
@@ -127,7 +146,8 @@ def check_close(what: str, got, want, rtol: float, atol: float) -> float:
         raise AssertionError(
             f"{what}: {int(bad.sum())} elements outside rtol={rtol} atol={atol}; max abs err {err:.3e}"
         )
-    log(f"  ok  {what}: max abs err {err:.3e} (rtol {rtol}, atol {atol})")
+    if not quiet:
+        log(f"  ok  {what}: max abs err {err:.3e} (rtol {rtol}, atol {atol})")
     return err
 
 
@@ -1180,6 +1200,280 @@ def phase_dense_times(torch, args, S, D, dense: dict) -> list[dict]:
     ]
 
 
+def phase_cover_kernels(torch, seed: int) -> dict:
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.fb_gains import fb_gains_at_plain, fb_gains_plain
+    from repro_torch.kernels.sc_gains import psc_gains_plain, sc_gains_plain
+
+    log("== phase 3: coverage kernels vs plain, small and ragged shapes")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 6)
+    bit_equal = {f"fb_gains {c}": True for c in CONCAVES}
+    bit_equal.update(sc_gains=True, psc_gains=True)
+    worst = {}
+
+    def hold(what, key, got, want):
+        err = check_close(what, got, want, *COVER_TOL, quiet=True)
+        worst[key] = max(worst.get(key, 0.0), err)
+        if not torch.equal(got, want):
+            bit_equal[key] = False
+
+    shapes = list(itertools.product((1, 7, 257, 4097), (1, 33, 255, 257, 1000)))
+    for n, F in shapes:
+        feats = torch.rand((n, F), generator=gen, device="cuda")
+        acc = 3.0 * torch.rand((F,), generator=gen, device="cuda")
+        w = 0.5 + torch.rand((F,), generator=gen, device="cuda")
+        sets = []
+        for k in (1, 8, 100, 777):
+            idx = torch.randint(0, n + 3, (k,), generator=gen, device="cuda")
+            idx[::7] = -1  # padding slots, the first among them
+            idx[1::5] = idx[0]  # duplicates; idx >= n reads row n - 1
+            sets.append(idx)
+        for concave in CONCAVES:
+            full = ops.fb_gains(feats, acc, w, concave)
+            torch.cuda.synchronize()
+            hold(f"fb_gains {concave} ({n},{F})", f"fb_gains {concave}", full,
+                 fb_gains_plain(feats, acc, w, concave))
+            for idx in sets:
+                got = ops.fb_gains_at(feats, acc, w, idx, concave)
+                torch.cuda.synchronize()
+                what = f"fb_gains_at {concave} ({n},{F}) k={idx.shape[0]}"
+                _check_subset(what, torch, got, full, torch.clamp(idx, max=n - 1))
+                err = check_close(what, got, fb_gains_at_plain(feats, acc, w, idx, concave),
+                                  *COVER_TOL, quiet=True)
+                worst["fb_gains_at"] = max(worst.get("fb_gains_at", 0.0), err)
+        cover = (torch.rand((n, F), generator=gen, device="cuda") < 0.3).float()
+        covered = torch.rand((F,), generator=gen, device="cuda")  # fractional
+        got = ops.sc_gains(cover, covered, w)
+        torch.cuda.synchronize()
+        hold(f"sc_gains ({n},{F})", "sc_gains", got, sc_gains_plain(cover, covered, w))
+        miss = torch.rand((F,), generator=gen, device="cuda")
+        got = ops.psc_gains(feats, miss, w)
+        torch.cuda.synchronize()
+        hold(f"psc_gains ({n},{F})", "psc_gains", got, psc_gains_plain(feats, w * miss))
+    log(f"  ok  fb_gains, fb_gains_at, sc_gains, psc_gains at {len(shapes)} shapes, n in (1, 7, "
+        f"257, 4097) x F in (1, 33, 255, 257, 1000), three concaves, k in (1, 8, 100, 777) with "
+        f"pads, duplicates and idx >= n: within rtol {COVER_TOL[0]} atol {COVER_TOL[1]}; max abs "
+        f"err {json.dumps(worst)}; fb_gains_at bit-equal to fb_gains")
+    log(f"  bit-equal to their plain versions at every shape: {bit_equal}")
+    return {"bit_equal": bit_equal, "max_abs_err": worst}
+
+
+def _tag_probs(torch, x, seed: int):
+    """The tagger's membership probabilities sigmoid(x W + b), W (d, TAGS) ~
+    N(0, 1/d) from the seed's generator, formed in place on the logits."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 7)
+    w = torch.randn((x.shape[1], TAGS), generator=gen, device="cuda") / float(np.sqrt(x.shape[1]))
+    return torch.matmul(x, w).add_(TAG_BIAS).sigmoid_()
+
+
+def phase_coverage(torch, args) -> tuple[dict, dict]:
+    import dataclasses
+
+    from repro_torch.core import FeatureBased, ProbabilisticSetCover, SetCover
+    from repro_torch.kernels import ops
+
+    n, d = args.mf_n, args.d
+    log(f"== phase 8: coverage path, n={n}, d={d}: (f) FeatureBased on relu(x), sqrt; (g) SetCover "
+        f"and (h) ProbabilisticSetCover on a {TAGS}-concept tagger sigmoid(x W {TAG_BIAS:+})")
+    x = gaussian_mixture_cuda(torch, args.seed, n, d)
+    out, fns, replay = {}, {}, 100
+
+    # ---- counts to 0 just before the path, read just after
+    ops.reset_launches()
+
+    # (f) FeatureBased over post-ReLU activations: fb_gains every naive step,
+    # fb_gains_at every lazy level
+    fb = FeatureBased.from_features(torch.relu(x), concave="sqrt", use_kernel=True)
+    fb_plain = dataclasses.replace(fb, use_kernel=False)
+    f = {"feats_bytes": fb.feats.numel() * 4}
+    for opt, budget in (("NaiveGreedy", MF_NAIVE_BUDGET), ("LazyGreedy", args.mf_lazy_budget)):
+        f[opt], kern, _ = _solve_pair(torch, f"(f) FeatureBased {opt} {budget}", fb, fb_plain,
+                                      budget, opt, replay)
+        f[opt]["picks"] = kern.order[kern.order >= 0].tolist()
+    picks = f["LazyGreedy"]["picks"]
+    state = fb.init_state()
+    for j in picks:
+        state = fb.update(state, j)
+    mask = torch.zeros((n,), dtype=torch.bool, device="cuda")
+    mask[torch.tensor(picks, device="cuda")] = True
+    f["evaluate_state"], f["evaluate"] = float(fb.evaluate_state(state)), float(fb.evaluate(mask))
+    if abs(f["evaluate_state"] - f["evaluate"]) > GAIN_RTOL * abs(f["evaluate"]):
+        raise AssertionError(f"(f) FeatureBased: evaluate_state {f['evaluate_state']} != evaluate "
+                             f"{f['evaluate']} on the LazyGreedy selection")
+    log(f"  ok  (f) FeatureBased evaluate_state {f['evaluate_state']:.6f}, evaluate "
+        f"{f['evaluate']:.6f} on the LazyGreedy selection (rtol {GAIN_RTOL})")
+    out["f"], fns["fb"] = f, (fb, fb_plain)
+    del state, mask
+
+    # (g), (h): the tagger's probabilities; SetCover on the tags p > 0.5
+    p = _tag_probs(torch, x, args.seed)
+    del x
+    sc = SetCover.from_cover((p > 0.5).float(), use_kernel=True)
+    psc = ProbabilisticSetCover.from_probs(p, use_kernel=True)
+    del p
+    tags = sc.cover.sum(dim=1)
+    g = {"tags_per_item_mean": float(tags.mean()), "tags_per_item_max": float(tags.max()),
+         "concepts_carried": int((sc.cover.amax(dim=0) > 0).sum())}
+    del tags
+    log(f"  tagger: {g['tags_per_item_mean']:.2f} tags per item on average (p > 0.5; max "
+        f"{g['tags_per_item_max']:.0f}); {g['concepts_carried']} of {TAGS} concepts carried by "
+        "some item")
+    sc_plain = dataclasses.replace(sc, use_kernel=False)
+    for opt, budget in (("NaiveGreedy", MF_NAIVE_BUDGET), ("LazyGreedy", args.mf_lazy_budget)):
+        g[opt], kern, plain = _solve_pair(torch, f"(g) SetCover {opt} {budget}", sc, sc_plain,
+                                          budget, opt, replay)
+        # unit weights, binary cover: integer gains, exact in any order
+        if not (torch.equal(kern.order, plain.order) and torch.equal(kern.gains, plain.gains)
+                and int(kern.n_evals) == int(plain.n_evals)):
+            raise AssertionError(f"(g) SetCover {opt}: kernel path not equal to the torch path in "
+                                 "ids, gains and n_evals")
+        g[opt]["picks"] = kern.order[kern.order >= 0].tolist()
+        log(f"  ok  (g) SetCover {opt}: ids, gains and n_evals equal to the torch path's at every "
+            f"step; {g[opt]['selected']} picks, f(A) = {g[opt]['value']:.0f} of {TAGS} concepts")
+    out["g"], fns["sc"] = g, (sc, sc_plain)
+
+    psc_plain = dataclasses.replace(psc, use_kernel=False)
+    h = {}
+    for opt, budget in (("NaiveGreedy", MF_NAIVE_BUDGET), ("LazyGreedy", args.mf_lazy_budget)):
+        h[opt], kern, _ = _solve_pair(torch, f"(h) ProbabilisticSetCover {opt} {budget}", psc,
+                                      psc_plain, budget, opt, replay)
+        h[opt]["picks"] = kern.order[kern.order >= 0].tolist()
+    out["h"], fns["psc"] = h, (psc, psc_plain)
+
+    launches = {k: ops.LAUNCHES[k] for k in ("fb_gains", "fb_gains_at", "sc_gains", "psc_gains")}
+    peaks = [r[o]["peak_bytes"] for r in (f, g, h) for o in ("NaiveGreedy", "LazyGreedy")]
+    log(f"  launches on the coverage path: {launches}; peak device memory "
+        f"{max(peaks) / 2**30:.2f} GiB")
+    # at least one full sweep per NaiveGreedy step that ran, one gathered sweep
+    least = {"fb_gains": f["NaiveGreedy"]["selected"], "sc_gains": g["NaiveGreedy"]["selected"],
+             "psc_gains": h["NaiveGreedy"]["selected"], "fb_gains_at": 1}
+    for k, v in launches.items():
+        if v < least[k]:
+            raise AssertionError(f"kernel {k} launched {v} times on the coverage path, fewer than "
+                                 f"{least[k]}")
+    out["launches"], out["peak_bytes"] = launches, max(peaks)
+
+    # ---- after the counts are read: LazyGreedy n_evals across the two paths
+    for label, key, pair in (("(f) FeatureBased", "f", fns["fb"]),
+                             ("(h) ProbabilisticSetCover", "h", fns["psc"])):
+        lazy = out[key]["LazyGreedy"]
+        ne, pe = lazy["n_evals"], lazy["plain_n_evals"]
+        log(f"  {label} LazyGreedy n_evals: kernel path {ne}, plain path {pe} (difference {ne - pe})")
+        if abs(ne - pe) > NEVALS_RTOL * pe:
+            raise AssertionError(f"{label} LazyGreedy: n_evals {ne} on the kernel path, {pe} on the "
+                                 f"plain path, beyond rtol {NEVALS_RTOL}")
+        if ne != pe:
+            lazy["levels_apart"] = _lazy_levels_apart(torch, f"{label} LazyGreedy", pair,
+                                                      args.mf_lazy_budget)
+    return out, fns
+
+
+def phase_cover_times(torch, args, fns: dict, cover: dict) -> list[dict]:
+    import dataclasses
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.fb_gains import fb_gains_at_plain, fb_gains_plain
+    from repro_torch.kernels.sc_gains import psc_gains_plain, sc_gains_plain
+
+    log("== phase 5 (coverage kernels): times at phase 8's shapes")
+    reps = args.reps
+    few = max(3, reps // 10)
+    gen = torch.Generator(device="cuda").manual_seed(args.seed + 8)
+
+    def state_after(fn, picks):
+        state = fn.init_state()
+        for j in picks:
+            state = fn.update(state, j)
+        return state
+
+    def timed(name, kernel, plain, library, torch_path, flops, nbytes):
+        got, want = kernel(), plain()
+        err = check_close(f"{name} vs plain", got, want, *COVER_TOL)
+        t = {"ms": cuda_ms(torch, kernel, reps), "plain_ms": cuda_ms(torch, plain, few, warmup=1),
+             "library_ms": None if library is None else cuda_ms(torch, library, reps),
+             "torch_backend_ms": cuda_ms(torch, torch_path, few, warmup=1),
+             "max_abs_err": err, "bit_equal_to_plain": bool(torch.equal(got, want))}
+        t["bound_ms"], t["bound_by"] = bound(flops, nbytes)
+        log(f"  {name}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.3f} ms, library "
+            + ("none" if library is None else f"{t['library_ms']:.4f} ms")
+            + f", torch backend {t['torch_backend_ms']:.3f} ms, bound {t['bound_ms']:.4f} ms "
+            f"({t['bound_by']}); bit-equal to plain: {t['bit_equal_to_plain']}")
+        return t, got
+
+    # fb, every concave, at the state of (f)'s NaiveGreedy picks
+    fb, _ = fns["fb"]
+    n, F = fb.feats.shape
+    fpicks = cover["f"]["NaiveGreedy"]["picks"]
+    state = state_after(fb, fpicks)
+    # per element: add, max, concave, subtract, multiply, add
+    fb_work = (6.0 * n * F, 4.0 * (n * F + 3 * F + n))
+    fbt = {}
+    for concave in CONCAVES:
+        fn = dataclasses.replace(fb, concave=concave)
+        fb_args = (fn.feats, state.acc, fn.w, concave)
+        fbt[concave], full = timed(
+            f"fb_gains {concave} ({n},{F}), |A|={len(fpicks)}",
+            lambda: ops.fb_gains(*fb_args), lambda: fb_gains_plain(*fb_args), None,
+            lambda: fn.gains(state), *fb_work)
+        if concave == "sqrt":
+            fb_at = _time_subsets(
+                torch, f"fb_gains_at ({n},{F}) sqrt",
+                lambda idx: ops.fb_gains_at(*fb_args[:3], idx, "sqrt"),
+                lambda idx: fb_gains_at_plain(*fb_args[:3], idx, "sqrt"),
+                lambda idx: fn.gains_at(state, idx), full, n, reps, gen,
+                work=lambda k: (6.0 * k * F, 4.0 * (k * F + 3 * F + 2 * k)), tol=COVER_TOL)
+
+    # sc at the state of (g)'s NaiveGreedy picks: binary covered, unit weights
+    sc, _ = fns["sc"]
+    m = sc.cover.shape[1]
+    spicks = cover["g"]["NaiveGreedy"]["picks"]
+    sstate = state_after(sc, spicks)
+    sc_args = (sc.cover, sstate.covered, sc.w)
+    # sum_u w_u max(G_ju - c_u, 0) = G @ (w (1 - c)) for a binary G and c
+    wfree = sc.w * (1.0 - sstate.covered)
+    sct, _ = timed(f"sc_gains ({n},{m}), |A|={len(spicks)}",
+                   lambda: ops.sc_gains(*sc_args), lambda: sc_gains_plain(*sc_args),
+                   lambda: torch.mv(sc.cover, wfree), lambda: sc.gains(sstate),
+                   3.0 * n * m, 4.0 * (n * m + 2 * m + n))
+    check_close("sc_gains vs torch.mv(G, w (1 - covered)), binary G and covered",
+                ops.sc_gains(*sc_args), torch.mv(sc.cover, wfree), 0.0, 0.0)
+
+    # psc at the state of (h)'s NaiveGreedy picks
+    psc, _ = fns["psc"]
+    ppicks = cover["h"]["NaiveGreedy"]["picks"]
+    pstate = state_after(psc, ppicks)
+    psc_args = (psc.probs, pstate.miss, psc.w)
+    wm = psc.w * pstate.miss
+    pst, _ = timed(f"psc_gains ({n},{m}), |A|={len(ppicks)}",
+                   lambda: ops.psc_gains(*psc_args), lambda: psc_gains_plain(psc.probs, wm),
+                   lambda: torch.mv(psc.probs, wm), lambda: psc.gains(pstate),
+                   2.0 * n * m, 4.0 * (n * m + 2 * m + n))
+
+    def row(name, cu, line, shape, t, extra):
+        return {"name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{cu}",
+                "replaces": f"src/repro/kernels/{line}", "shape": shape, "launches": None,
+                "max_abs_err": t["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                "library_ms": t["library_ms"], **extra}
+
+    return [
+        row("fb_gains", "fb_gains.cu", "fb_gains.py:52", f"feats ({n},{F}) relu, sqrt -> ({n},)",
+            fbt["sqrt"], {"library_call": None, "torch_backend_ms": fbt["sqrt"]["torch_backend_ms"],
+                          "bit_equal_to_plain": fbt["sqrt"]["bit_equal_to_plain"],
+                          "log": fbt["log"], "inverse": fbt["inverse"]}),
+        row("fb_gains_at", "fb_gains.cu", "fb_gains.py:86",
+            f"feats ({n},{F}), sqrt, idx (8,) -> (8,)", fb_at[8],
+            {"library_call": "FeatureBased.gains_at (the torch path)", "k512": fb_at[512]}),
+        row("sc_gains", "sc_gains.cu", "sc_gains.py:46", f"cover ({n},{m}) binary, unit w -> ({n},)",
+            sct, {"library_call": "torch.mv(G, w * (1 - covered)), binary G and covered",
+                  "torch_backend_ms": sct["torch_backend_ms"],
+                  "bit_equal_to_plain": sct["bit_equal_to_plain"]}),
+        row("psc_gains", "sc_gains.cu", "sc_gains.py:91", f"probs ({n},{m}) -> ({n},)", pst,
+            {"library_call": "torch.mv(P, w * miss)", "torch_backend_ms": pst["torch_backend_ms"],
+             "bit_equal_to_plain": pst["bit_equal_to_plain"]}),
+    ]
+
+
 def parse_args(argv):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -1189,8 +1483,9 @@ def parse_args(argv):
     p.add_argument("--lazy-budget", type=int, default=5_000)
     p.add_argument("--reps", type=int, default=50, help="timed launches per kernel")
     p.add_argument("--mf-n", type=int, default=1 << 20,
-                   help="candidates of phase 6 (b), the million-point shape")
-    p.add_argument("--mf-lazy-budget", type=int, default=1_000, help="phase 6 (a) and (c)")
+                   help="candidates of phase 6 (b) and phase 8, the million-point shape")
+    p.add_argument("--mf-lazy-budget", type=int, default=1_000,
+                   help="LazyGreedy budget of phases 6 (a) and (c), 7 (d) and 8")
     return p.parse_args(argv)
 
 
@@ -1217,6 +1512,7 @@ def main(argv=None) -> int:
     phase_kernels(torch, args.seed)
     phase_mf_kernels(torch, args.seed)
     dense_bits = phase_dense_kernels(torch, args.seed)
+    cover_bits = phase_cover_kernels(torch, args.seed)
     main_out, fn, naive_res = phase_main(torch, args)
     kernels = phase_times(torch, args, fn, naive_res, main_out)
     dense_out, D = phase_dense_pairwise(torch, args, fn.sim)
@@ -1225,15 +1521,23 @@ def main(argv=None) -> int:
     del fn, D  # phase 6 holds its peak memory against a budget: S and D (n x n) go
     mf_rows = phase_mf_times(torch, args, naive_res)
     mf_out = phase_matrix_free(torch, args, main_out)
-    for rows, path in ((mf_rows, mf_out), (dense_rows, dense_out)):
+    t_cover = time.perf_counter()
+    cover_out, cover_fns = phase_coverage(torch, args)
+    cover_out["phase3"] = cover_bits
+    cover_rows = phase_cover_times(torch, args, cover_fns, cover_out)
+    del cover_fns
+    cover_out["seconds"] = time.perf_counter() - t_cover
+    log(f"phase 8 and its times: {cover_out['seconds']:.1f} s")
+    for rows, path in ((mf_rows, mf_out), (dense_rows, dense_out), (cover_rows, cover_out)):
         for r in rows:
             r["launches"] = r["launches_on_path"] = path["launches"][r["name"]]
-    kernels += mf_rows + dense_rows
+    kernels += mf_rows + dense_rows + cover_rows
     missing = set(ops.LAUNCHES) ^ {r["name"] for r in kernels}
     if missing:
         raise AssertionError(f"kernels line and LAUNCHES differ: {sorted(missing)}")
     record = {"device": device, "build": {k: build[k] for k in ("seconds", "cached")},
               "main": main_out, "matrix_free": mf_out, "dense_pairwise": dense_out,
+              "coverage": cover_out,
               "kernels": kernels, "seconds": time.perf_counter() - t_start}
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(record, indent=1))

@@ -1,5 +1,6 @@
 """Shared utilities: the NEG_INF sentinel, tie-breaking argmax, concave fns,
-index masks, one-element indices, row padding and device resolution."""
+index masks, one-element indices, row padding, row blocks and device
+resolution."""
 from __future__ import annotations
 
 from typing import Callable
@@ -84,3 +85,21 @@ def pad_rows(a: torch.Tensor, rows: int, value=0) -> torch.Tensor:
     out = a.new_full((rows,) + tuple(a.shape[1:]), value)
     out[: a.shape[0]] = a
     return out
+
+
+ROW_BLOCK = 1 << 16  # rows per block of the coverage families' streamed torch paths
+
+
+def map_row_blocks(fn: Callable[[torch.Tensor], torch.Tensor], mat: torch.Tensor,
+                   rows: torch.Tensor | None = None) -> torch.Tensor:
+    """``fn`` over blocks of at most :data:`ROW_BLOCK` rows of ``mat`` (all
+    rows, or the rows ``rows``), concatenated: a torch path whose gains
+    form (n, m) temporaries holds one (ROW_BLOCK, m) block of them at a
+    time."""
+    k = mat.shape[0] if rows is None else rows.shape[0]
+    if k <= ROW_BLOCK:
+        return fn(mat if rows is None else mat[rows])
+    return torch.cat([
+        fn(mat[lo : lo + ROW_BLOCK] if rows is None else mat[rows[lo : lo + ROW_BLOCK]])
+        for lo in range(0, k, ROW_BLOCK)
+    ])

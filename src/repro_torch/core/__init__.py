@@ -1,8 +1,9 @@
 # The ported core: the set-function protocol, Facility Location (dense and
 # matrix-free), Graph Cut (dense and matrix-free), the Disparity family
-# (Sum, Min, MinSum), the similarity sources, the gain-backend registry,
-# NaiveGreedy / LazyGreedy and the SelectionSpec + solve() front door
-# (sequential mode).
+# (Sum, Min, MinSum), FeatureBased, SetCover and ProbabilisticSetCover (with
+# their information measures in core/info/), the similarity sources, the
+# gain-backend registry, NaiveGreedy / LazyGreedy and the SelectionSpec +
+# solve() front door (sequential mode).
 from repro_torch.core.functions.base import SetFunction
 from repro_torch.core.functions.disparity import (
     DisparityMin,
@@ -17,7 +18,14 @@ from repro_torch.core.functions.facility_location import (
     FacilityLocationMF,
     FLState,
 )
+from repro_torch.core.functions.feature_based import FBState, FeatureBased
 from repro_torch.core.functions.graph_cut import GCState, GraphCut, GraphCutMF
+from repro_torch.core.functions.set_cover import (
+    ProbabilisticSetCover,
+    PSCState,
+    SCState,
+    SetCover,
+)
 from repro_torch.core.optimizers.backends import (
     GainBackend,
     backend_name,

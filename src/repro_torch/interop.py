@@ -21,7 +21,15 @@ from repro_torch.core.functions.disparity import (
     DSumState,
 )
 from repro_torch.core.functions.facility_location import FacilityLocation, FLState
+from repro_torch.core.functions.feature_based import FBState, FeatureBased
 from repro_torch.core.functions.graph_cut import GCState, GraphCut, GraphCutMF
+from repro_torch.core.functions.set_cover import (
+    ProbabilisticSetCover,
+    PSCState,
+    SCState,
+    SetCover,
+    probs_of,
+)
 from repro_torch.core.optimizers.greedy import GreedyResult
 from repro_torch.core.sources import FeatureSource
 
@@ -174,6 +182,54 @@ def dmin_sum_state_from_arrays(
         count=_tensor(count, torch.int32, dev).reshape(()),
         value=_tensor(value, torch.float32, dev).reshape(()),
     )
+
+
+def feature_based_from_arrays(
+    feats: np.ndarray, w: np.ndarray, concave: str = "sqrt", use_kernel: bool | None = False,
+    device=None,
+) -> FeatureBased:
+    """Port :class:`FeatureBased` from a JAX function's ``feats`` (already
+    clamped at 0) and ``w``."""
+    return FeatureBased.from_features(np.asarray(feats, np.float32), np.asarray(w, np.float32),
+                                      concave, use_kernel, device)
+
+
+def set_cover_from_arrays(
+    cover: np.ndarray, w: np.ndarray, use_kernel: bool | None = False, device=None
+) -> SetCover:
+    """Port :class:`SetCover` from a JAX function's ``cover`` and ``w``."""
+    return SetCover.from_cover(np.asarray(cover, np.float32), np.asarray(w, np.float32),
+                               use_kernel, device)
+
+
+def probabilistic_set_cover_from_arrays(
+    log_miss: np.ndarray, w: np.ndarray, use_kernel: bool | None = False, device=None
+) -> ProbabilisticSetCover:
+    """Port :class:`ProbabilisticSetCover` from a JAX function's ``log_miss``
+    and ``w``, taking ``log_miss`` as it is (not recomputed from
+    probabilities), so both packages hold the same bits; ``probs`` is formed
+    from it with the JAX package's expression."""
+    lm = as_float_tensor(np.asarray(log_miss, np.float32), device).contiguous()
+    return ProbabilisticSetCover(
+        log_miss=lm, probs=probs_of(lm),
+        w=as_float_tensor(np.asarray(w, np.float32), lm.device),
+        n=int(lm.shape[0]), use_kernel=use_kernel,
+    )
+
+
+def fb_state_from_arrays(acc: np.ndarray, device=None) -> FBState:
+    """Port :class:`FBState` from a JAX state's ``acc`` array."""
+    return FBState(acc=as_float_tensor(np.asarray(acc, np.float32), device))
+
+
+def sc_state_from_arrays(covered: np.ndarray, device=None) -> SCState:
+    """Port :class:`SCState` from a JAX state's ``covered`` array."""
+    return SCState(covered=as_float_tensor(np.asarray(covered, np.float32), device))
+
+
+def psc_state_from_arrays(miss: np.ndarray, device=None) -> PSCState:
+    """Port :class:`PSCState` from a JAX state's ``miss`` array."""
+    return PSCState(miss=as_float_tensor(np.asarray(miss, np.float32), device))
 
 
 def state_to_arrays(state) -> dict[str, np.ndarray]:

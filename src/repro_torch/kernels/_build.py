@@ -60,6 +60,11 @@ _SIGNATURES = {
     "gc_gains_launch": ([_P, _I64, _P, _P, _P, _P, _I64, _P, _P], ctypes.c_int),
     "dsum_gains_launch": ([_P, _I64, _P, _P, _P], ctypes.c_int),
     "dmin_gains_launch": ([_P, _I64, _P, _P, _P, _P, _P], ctypes.c_int),
+    "fb_gains_launch": (
+        [_P, _I64, _I64, _P, _P, ctypes.c_int, _P, _I64, _P, _P, _P], ctypes.c_int,
+    ),
+    "sc_gains_launch": ([_P, _I64, _I64, _P, _P, _P, _P], ctypes.c_int),
+    "psc_gains_launch": ([_P, _I64, _I64, _P, _P, _P], ctypes.c_int),
     "repro_cuda_error_string": ([ctypes.c_int], ctypes.c_char_p),
 }
 

@@ -1,5 +1,7 @@
-// The fixed-order row reduction shared by the dense pairwise sweeps
-// (gc_gains.cu, disp_gains.cu):
+// The fixed-order row reductions shared by the port's row sweeps.
+//
+// The block layout, for the dense pairwise sweeps (gc_gains.cu,
+// disp_gains.cu):
 //   res_r = reduce over k = 0 .. n-1 of step(M[g_r, k], m_k, k, g_r)
 // for rows g_r of a row-major (n, n) fp32 matrix M and a mask m (n,).
 //
@@ -21,6 +23,17 @@
 // The matrix is read with __ldcs (streamed, evict first) so that the mask
 // stays in L2.  Every element offset is 64-bit: 50,000^2 elements lie
 // beyond INT_MAX.
+//
+// The warp layout, for the coverage sweeps (fb_gains.cu, sc_gains.cu):
+//   res_r = sum over f = 0 .. F-1 of op.term(X[g_r, f], f)
+// for rows g_r of a row-major (n, F) fp32 matrix X with F in the hundreds
+// to thousands and n up to millions.  A block per row would spend most of
+// its time in its tree and in block scheduling there, so one warp sums a
+// row: lane l adds the terms of f = l, l + 32, l + 64, ... in increasing f
+// (each warp load 128 contiguous bytes, UNROLL loads in flight per lane),
+// then the in-warp halving tree (lane i takes lane i + h, h = 16 .. 1).
+// The order depends on F alone; kernels/row_reduce.py::reduce_rows_warp
+// repeats it.
 
 #pragma once
 
@@ -79,6 +92,58 @@ __device__ __forceinline__ float reduce_row(const float* __restrict__ mat, int64
       v = Op::combine(v, __shfl_down_sync(0xffffffffu, v, h));
   }
   return v;
+}
+
+// ---- the warp layout -------------------------------------------------------
+
+constexpr int WARP_ROWS = 8;  // rows (warps) per block of the warp layout
+
+// Sum op.term(row[f], f) over f = 0 .. F-1 in the warp layout; the result
+// lands in lane 0's return value.  Every lane of the warp calls it.
+template <class Op>
+__device__ __forceinline__ float reduce_row_warp(const float* __restrict__ row, int64_t F,
+                                                 const Op op) {
+  const int lane = threadIdx.x & 31;
+  float acc = 0.0f;
+  for (int64_t base = 0; base < F; base += 32 * UNROLL) {
+    float sv[UNROLL];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const int64_t f = base + u * 32 + lane;
+      sv[u] = f < F ? __ldcs(row + f) : 0.0f;
+    }
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const int64_t f = base + u * 32 + lane;
+      if (f < F) acc = __fadd_rn(acc, op.term(sv[u], f));  // nothing past F is added
+    }
+  }
+#pragma unroll
+  for (int h = 16; h > 0; h >>= 1) acc = __fadd_rn(acc, __shfl_down_sync(0xffffffffu, acc, h));
+  return acc;
+}
+
+// out[r] = the warp-layout sum of row g_r of X (n, F), g_r = r (idx null,
+// the full sweep, k == n) or idx[r] clipped to [0, n) (the gathered sweep,
+// whose slots with idx[r] < 0 return NEG_INF).  One warp per slot.
+template <class Op>
+__global__ void __launch_bounds__(WARP_ROWS * 32)
+    warp_rows_kernel(const float* __restrict__ x, int64_t n, int64_t F, Op op,
+                     const int32_t* __restrict__ idx, int64_t k, float* __restrict__ out) {
+  const int64_t slot = (int64_t)blockIdx.x * WARP_ROWS + (threadIdx.x >> 5);
+  if (slot >= k) return;  // the whole warp leaves together
+  const int64_t g = tile::gathered(idx, slot, n);
+  const float acc = reduce_row_warp(x + g * F, F, op);
+  if ((threadIdx.x & 31) == 0) out[slot] = (idx != nullptr && idx[slot] < 0) ? tile::kNegInf : acc;
+}
+
+template <class Op>
+int launch_warp_rows(const float* x, int64_t n, int64_t F, const Op op, const int32_t* idx,
+                     int64_t k, float* out, cudaStream_t s) {
+  if (k <= 0 || n <= 0 || F <= 0) return (int)cudaErrorInvalidValue;
+  const int64_t blocks = (k + WARP_ROWS - 1) / WARP_ROWS;
+  warp_rows_kernel<Op><<<(unsigned)blocks, WARP_ROWS * 32, 0, s>>>(x, n, F, op, idx, k, out);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace

@@ -2,9 +2,9 @@
 
 On a CUDA tensor each wrapper launches its hand-written kernel (built at
 first use, see ``_build.py``) or raises; it never falls back.  On a CPU
-tensor it runs the kernel's plain PyTorch version (the dense FL, GC and
-disparity sweeps add in the kernel's order; the matrix-free ones agree with
-theirs to a tolerance).  Each wrapper checks device, dtype (fp32), shape
+tensor it runs the kernel's plain PyTorch version (the dense FL, GC,
+disparity and coverage sweeps add in the kernel's order; the matrix-free
+ones agree with theirs to a tolerance).  Each wrapper checks device, dtype (fp32), shape
 and contiguity and raises on anything its kernel does not take.
 
 ``LAUNCHES`` counts kernel launches per wrapper (one per call that reached
@@ -14,11 +14,18 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.common import CONCAVE_FNS
 from repro_torch.kernels.disp_gains import (
     dmin_gains_cuda,
     dmin_gains_plain,
     dsum_gains_cuda,
     dsum_gains_plain,
+)
+from repro_torch.kernels.fb_gains import (
+    fb_gains_at_cuda,
+    fb_gains_at_plain,
+    fb_gains_cuda,
+    fb_gains_plain,
 )
 from repro_torch.kernels.fl_gains import (
     fl_gains_at_cuda,
@@ -44,6 +51,12 @@ from repro_torch.kernels.gcmf_gains import (
     gcmf_gains_cuda,
     gcmf_gains_plain,
 )
+from repro_torch.kernels.sc_gains import (
+    psc_gains_cuda,
+    psc_gains_plain,
+    sc_gains_cuda,
+    sc_gains_plain,
+)
 from repro_torch.kernels.similarity_kernel import (
     METRICS,
     similarity_cuda,
@@ -62,6 +75,10 @@ LAUNCHES: dict[str, int] = {
     "gc_gains_at": 0,
     "dsum_gains": 0,
     "dmin_gains": 0,
+    "fb_gains": 0,
+    "fb_gains_at": 0,
+    "sc_gains": 0,
+    "psc_gains": 0,
 }
 
 
@@ -99,6 +116,11 @@ def _on_card(*named: tuple[str, torch.Tensor]) -> bool:
 def _check_metric(metric: str) -> None:
     if metric not in METRICS:
         raise ValueError(f"unknown metric {metric!r}; choose from {METRICS}")
+
+
+def _check_concave(concave: str) -> None:
+    if concave not in CONCAVE_FNS:
+        raise ValueError(f"unknown concave fn {concave!r}; choose from {sorted(CONCAVE_FNS)}")
 
 
 def _check_len(name: str, t: torch.Tensor, n: int, of: str) -> None:
@@ -312,4 +334,74 @@ def dmin_gains(dist, selmask, count, curmin) -> torch.Tensor:
         return dmin_gains_plain(dist, selmask, count, curmin)
     out = dmin_gains_cuda(dist, selmask, count, curmin)
     LAUNCHES["dmin_gains"] += 1
+    return out
+
+
+def _check_cols(mat_name: str, mat, **vecs) -> None:
+    """``mat`` an fp32 (n, F) matrix with F > 0, each of ``vecs`` an fp32
+    (F,) vector."""
+    _check_f32(mat_name, mat, 2)
+    if mat.shape[1] == 0:
+        raise ValueError(f"{mat_name} has no columns: {tuple(mat.shape)}")
+    for name, t in vecs.items():
+        _check_f32(name, t, 1)
+        _check_len(name, t, mat.shape[1], f"columns of {mat_name}")
+
+
+def _check_fb(feats, acc, w, concave) -> bool:
+    _check_concave(concave)
+    _check_cols("feats", feats, acc=acc, w=w)
+    return _on_card(("feats", feats), ("acc", acc), ("w", w))
+
+
+def fb_gains(feats, acc, w, concave: str = "sqrt") -> torch.Tensor:
+    """FeatureBased sweep: feats (n, F) non-negative, acc (F,) feature mass
+    m_f(A), w (F,) weights -> gains (n,): sum_f w_f (g(acc_f + X_jf) -
+    g(acc_f)), g the ``concave`` of ``common.CONCAVE_FNS``."""
+    if not _check_fb(feats, acc, w, concave):
+        return fb_gains_plain(feats, acc, w, concave)
+    out = fb_gains_cuda(feats, acc, w, concave)
+    LAUNCHES["fb_gains"] += 1
+    return out
+
+
+def fb_gains_at(feats, acc, w, idx, concave: str = "sqrt") -> torch.Tensor:
+    """Gathered FeatureBased sweep: idx (k,) integer -> gains (k,); idx < 0
+    -> NEG_INF, idx >= n reads row n - 1; bit-identical to :func:`fb_gains`
+    at the same indices."""
+    on_card = _check_fb(feats, acc, w, concave)
+    _check_idx(idx, feats)
+    if feats.shape[0] == 0 and idx.shape[0]:
+        raise ValueError("fb_gains_at: feats has no rows to gather from")
+    if not on_card:
+        return fb_gains_at_plain(feats, acc, w, idx, concave)
+    out = fb_gains_at_cuda(feats, acc, w, idx.to(torch.int32).contiguous(), concave)
+    LAUNCHES["fb_gains_at"] += 1
+    return out
+
+
+def sc_gains(cover, covered, w) -> torch.Tensor:
+    """SetCover sweep: cover (n, m) 0/1 incidence, covered (m,) covered
+    indicator, w (m,) concept weights -> gains (n,):
+    sum_u w_u max(G_ju - covered_u, 0)."""
+    _check_cols("cover", cover, covered=covered, w=w)
+    if not _on_card(("cover", cover), ("covered", covered), ("w", w)):
+        return sc_gains_plain(cover, covered, w)
+    out = sc_gains_cuda(cover, covered, w)
+    LAUNCHES["sc_gains"] += 1
+    return out
+
+
+def psc_gains(probs, miss, w) -> torch.Tensor:
+    """ProbabilisticSetCover sweep: probs (n, m), miss (m,) the memoized
+    miss probabilities prod_{i in A} (1 - p_iu), w (m,) -> gains (n,):
+    sum_u (w_u miss_u) p_ju, with w * miss formed once here, on the
+    inputs' device."""
+    _check_cols("probs", probs, miss=miss, w=w)
+    on_card = _on_card(("probs", probs), ("miss", miss), ("w", w))
+    wm = w * miss
+    if not on_card:
+        return psc_gains_plain(probs, wm)
+    out = psc_gains_cuda(probs, wm)
+    LAUNCHES["psc_gains"] += 1
     return out

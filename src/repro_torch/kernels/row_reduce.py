@@ -1,7 +1,8 @@
-"""The fixed-order row reduction of the dense pairwise sweeps
-(``csrc/row_reduce.cuh``), in plain PyTorch.
+"""The fixed-order row reductions of ``csrc/row_reduce.cuh``, in plain
+PyTorch.
 
-The kernel reduces each row of an (n, n) matrix with one block of
+The block layout (the dense pairwise sweeps, :func:`reduce_rows`): the
+kernel reduces each row of an (n, n) matrix with one block of
 :data:`THREADS` threads (``_build`` compiles it with this module's value): thread t takes the elements k = t, t + THREADS, ...
 in increasing k, then the partials meet in a halving tree, lane i taking
 lane i + h for h = 16, 8, 4, 2, 1 inside each warp of :data:`WARP` threads
@@ -12,6 +13,12 @@ that order with elementwise operations only, so
   with it (the gathered sweeps equal the full sweeps bit for bit), and
 - with the same rounding steps as the kernel's, it equals the kernel bit
   for bit.
+
+The warp layout (the coverage sweeps over an (n, F) matrix,
+:func:`reduce_rows_warp`): one warp of :data:`WARP` lanes sums a row, lane
+l taking the columns f = l, l + WARP, ... in increasing f, then the
+in-warp halving tree.  The order depends on F alone, with the same two
+consequences.
 """
 from __future__ import annotations
 
@@ -58,3 +65,21 @@ def reduce_rows(
         cols = torch.arange(lo, lo + w, device=dev)[None, :]
         acc[:, :w] = step(acc[:, :w], s, m[lo : lo + w], cols, g)
     return _halve(_halve(acc.reshape(k, THREADS // WARP, WARP), combine), combine)
+
+
+def reduce_rows_warp(
+    mat: torch.Tensor,
+    rows: torch.Tensor | None,
+    term: Callable[[torch.Tensor, int, int], torch.Tensor],
+) -> torch.Tensor:
+    """Sum ``term`` over the rows of ``mat`` (n, F) in the warp layout: all
+    rows (``rows`` None) or the rows ``rows`` (k,) int64, indices already in
+    [0, n).  ``term(s, lo, hi)`` maps a (k, hi - lo) block ``s`` of the
+    columns lo .. hi - 1 to the values to add.  Holds the gathered rows (for
+    ``rows``) and one (k, WARP) block of terms at a time."""
+    sub = mat if rows is None else mat.index_select(0, rows)
+    acc = mat.new_zeros((sub.shape[0], WARP))
+    for lo in range(0, mat.shape[1], WARP):
+        hi = min(lo + WARP, mat.shape[1])
+        acc[:, : hi - lo] = acc[:, : hi - lo] + term(sub[:, lo:hi], lo, hi)
+    return _halve(acc, torch.add)

@@ -15,8 +15,11 @@ from repro_torch.core import (
     DisparityMin,
     DisparitySum,
     FacilityLocationMF,
+    FeatureBased,
     GraphCutMF,
+    ProbabilisticSetCover,
     SelectionSpec,
+    SetCover,
     backend_name,
     feature_source,
     solve,
@@ -29,11 +32,13 @@ from repro_torch.interop import (
 )
 from repro_torch.kernels import ops
 from repro_torch.kernels.disp_gains import dmin_gains_plain, dsum_gains_plain
+from repro_torch.kernels.fb_gains import fb_gains_at_plain, fb_gains_plain
 from repro_torch.kernels.fl_gains import fl_gains_at_plain, fl_gains_plain
 from repro_torch.kernels.gc_gains import gc_gains_at_plain, gc_gains_plain
 from repro_torch.kernels import flmf_gains as flmf_module
 from repro_torch.kernels.flmf_gains import SCRATCH_BYTES, flmf_gains_at_plain, flmf_gains_plain
 from repro_torch.kernels.gcmf_gains import gcmf_gains_at_plain, gcmf_gains_plain
+from repro_torch.kernels.sc_gains import psc_gains_plain, sc_gains_plain
 from repro_torch.kernels.similarity_kernel import _normalize, similarity_plain
 
 pytestmark = pytest.mark.gpu
@@ -397,3 +402,119 @@ def test_dense_wrappers_raise_instead_of_falling_back(cuda):
         ops.dmin_gains(s, v, cnt.cpu(), lam)
     with pytest.raises(TypeError, match="count"):
         ops.dmin_gains(s, v, cnt.long(), lam)
+
+
+# -- the coverage kernels: fb, fb_at, sc, psc ------------------------------------
+
+# ragged row widths across the warp's 32 lanes and its 8-load unroll
+COVER_SHAPES = [(1, 1), (7, 33), (257, 255), (4097, 257), (4097, 1000)]
+COVER_TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("concave", ["sqrt", "log", "inverse"])
+@pytest.mark.parametrize("shape", COVER_SHAPES)
+def test_fb_kernels_match_plain(cuda, shape, concave):
+    """Kernel and plain version sum each row in the same order; sqrt and
+    the division round as IEEE on both, log1p is CUDA's log1pf on both
+    (held to 1e-5).  The gathered kernel equals the full kernel bit for bit
+    at the same index, with duplicates, pads and indices >= n."""
+    n, F = shape
+    g = torch.Generator(device=cuda).manual_seed(30)
+    feats = torch.rand((n, F), generator=g, device=cuda)
+    acc = 3.0 * torch.rand((F,), generator=g, device=cuda)
+    w = 0.5 + torch.rand((F,), generator=g, device=cuda)
+    before = dict(ops.LAUNCHES)
+    full = ops.fb_gains(feats, acc, w, concave)
+    torch.cuda.synchronize()
+    want = fb_gains_plain(feats, acc, w, concave)
+    torch.testing.assert_close(full, want, **COVER_TOL)
+    if concave != "log":
+        assert torch.equal(full, want)
+    for k in (1, 8, 100, 777):
+        idx = torch.randint(0, n + 3, (k,), generator=g, device=cuda)
+        idx[::7] = -1
+        idx[1::5] = idx[0]  # duplicates
+        got = ops.fb_gains_at(feats, acc, w, idx, concave)
+        torch.cuda.synchronize()
+        _assert_subset(got, full, torch.clamp(idx, max=n - 1))
+        torch.testing.assert_close(got, fb_gains_at_plain(feats, acc, w, idx, concave), **COVER_TOL)
+    assert ops.LAUNCHES["fb_gains"] == before["fb_gains"] + 1
+    assert ops.LAUNCHES["fb_gains_at"] == before["fb_gains_at"] + 4
+
+
+@pytest.mark.parametrize("shape", COVER_SHAPES)
+def test_sc_kernels_equal_plain_bit_for_bit(cuda, shape):
+    """Products and sums in the same order with the same roundings: sc (a
+    fractional covered, non-unit weights) and psc equal their plain versions
+    bit for bit."""
+    n, m = shape
+    g = torch.Generator(device=cuda).manual_seed(31)
+    cover = (torch.rand((n, m), generator=g, device=cuda) < 0.3).float()
+    covered = torch.rand((m,), generator=g, device=cuda)
+    w = 0.5 + torch.rand((m,), generator=g, device=cuda)
+    probs = torch.rand((n, m), generator=g, device=cuda)
+    miss = torch.rand((m,), generator=g, device=cuda)
+    before = dict(ops.LAUNCHES)
+    got = ops.sc_gains(cover, covered, w)
+    torch.cuda.synchronize()
+    assert torch.equal(got, sc_gains_plain(cover, covered, w))
+    got = ops.psc_gains(probs, miss, w)
+    torch.cuda.synchronize()
+    assert torch.equal(got, psc_gains_plain(probs, w * miss))
+    assert ops.LAUNCHES["sc_gains"] == before["sc_gains"] + 1
+    assert ops.LAUNCHES["psc_gains"] == before["psc_gains"] + 1
+
+
+@pytest.mark.parametrize("optimizer,params", OPTIMIZERS)
+def test_coverage_card_solves(cuda, optimizer, params):
+    """SetCover with unit weights: the card's kernel path, its torch path and
+    the CPU agree exactly (integer gains).  FeatureBased (inverse): the
+    card's kernel path equals the CPU's use_kernel=True path exactly (IEEE
+    division on both, one order; torch's CPU sqrt is not correctly rounded
+    and its log1p is not CUDA's, so those concaves agree across devices to
+    ulps only).  ProbabilisticSetCover: the kernel path against the card's torch
+    path, ids equal and gains to 1e-5."""
+    rng = np.random.default_rng(13)
+    n, m = KERNEL_MIN_N, 200
+    cover = (rng.uniform(size=(n, m)) < 0.02).astype(np.float32)
+    feats = rng.uniform(0, 1, size=(n, m)).astype(np.float32)
+    probs = rng.uniform(0, 0.05, size=(n, m)).astype(np.float32)
+    runs = {}
+    for dev, uk in (("cuda", True), ("cuda", False), ("cpu", True)):
+        sc = SetCover.from_cover(cover, use_kernel=uk, device=dev)
+        runs[dev, uk] = result_to_numpy(solve(SelectionSpec(sc, 30, optimizer, **params)))
+    for key in (("cuda", False), ("cpu", True)):
+        for a, b in zip(runs["cuda", True][:3], runs[key][:3]):
+            np.testing.assert_array_equal(a, b)
+    fb = [FeatureBased.from_features(feats, concave="inverse", use_kernel=True, device=dev)
+          for dev in ("cuda", "cpu")]
+    got, want = (result_to_numpy(solve(SelectionSpec(f, 30, optimizer, **params))) for f in fb)
+    for a, b in zip(got[:3], want[:3]):
+        np.testing.assert_array_equal(a, b)
+    psc = ProbabilisticSetCover.from_probs(probs, use_kernel=True, device="cuda")
+    assert backend_name(psc) == "cuda-psc"
+    before = ops.LAUNCHES["psc_gains"]
+    got = result_to_numpy(solve(SelectionSpec(psc, 30, optimizer, **params)))
+    assert ops.LAUNCHES["psc_gains"] > before
+    want = result_to_numpy(solve(SelectionSpec(psc, 30, optimizer, use_kernel=False, **params)))
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_allclose(got[1], want[1], rtol=1e-5)
+
+
+def test_coverage_wrappers_raise_instead_of_falling_back(cuda):
+    x = torch.rand((8, 6), device=cuda)
+    v = torch.rand(6, device=cuda)
+    with pytest.raises(TypeError, match="float32"):
+        ops.fb_gains(x.to(torch.bfloat16), v, v)  # bf16 feats are not ported
+    with pytest.raises(TypeError, match="float32"):
+        ops.fb_gains_at(x, v.double(), v, torch.tensor([0], device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.sc_gains(torch.rand((6, 8), device=cuda).T, v, v)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.psc_gains(x[:, ::2], v[:3], v[:3])
+    with pytest.raises(TypeError, match="float32"):
+        ops.psc_gains(x.half(), v, v)
+    with pytest.raises(ValueError, match="devices"):
+        ops.sc_gains(x, v, torch.rand(6))
+    with pytest.raises(ValueError, match="idx on"):
+        ops.fb_gains_at(x, v, v, torch.tensor([0]))
