@@ -6,7 +6,7 @@ that path against its plain PyTorch version.
     python3 chip_smoke.py --n 8192 --naive-budget 50 --lazy-budget 200 \
         --mf-n 65536 --mf-lazy-budget 200 --reps 5   # a short check
 
-Four paths run, each with its launch counts set to 0 just before it and
+Five paths run, each with its launch counts set to 0 just before it and
 read just after:
 
 - the main path, the paper's core loop: ``create_kernel`` (CUDA similarity
@@ -25,11 +25,19 @@ read just after:
   ``SetCover`` / ``ProbabilisticSetCover`` on a 1,000-concept tagger over
   the million-point candidate set (CUDA fb sweeps, full and gathered, and
   sc and psc sweeps).
+- the guided path: the fused dot similarity + FL sweep along a
+  ``FacilityLocationMF`` selection over the million-point set, clustered
+  FacilityLocation on the main path's S masked by ``kmeans`` labels (CUDA
+  FL sweeps) and its matrix-free form, and the information measures (FL,
+  GC, LogDet, Concave-Over-Modular) with a query and a private set;
+  ``gccg`` runs the CUDA gc sweeps.
 
 Phases, each of which raises on failure (the exit code is then non-zero):
   1 device   CUDA present; the card's name and power limit
   2 build    nvcc every kernel source for sm_90a; ptxas registers/spills
   3 kernels  each kernel against its plain version at small and ragged shapes
+             (the fused sweep in fp32 and bf16, with its column-slice bit
+             identity)
   4 main     the main path at full size, its launch counts, and the same
              solves on the plain path, compared step by step
   5 times    each kernel, its plain version and the library call, timed
@@ -49,6 +57,14 @@ Phases, each of which raises on failure (the exit code is then non-zero):
              p > 0.5 and (h) ProbabilisticSetCover on p of the tagger
              p = sigmoid(x W + b); each against its plain (use_kernel=False)
              path, SetCover exactly (ids, gains, n_evals)
+  9 guided   (i) the fused sweep at every state of a FacilityLocationMF (dot)
+             NaiveGreedy over --mf-n unit relu(mixture) rows, against
+             flmf_gains, in fp32 and bf16, and against its plain version;
+             (j) kmeans on phase 4's features, dense clustered FL on phase
+             4's S (rebuilt) against its plain path, and the matrix-free
+             clustered FL against the dense one; (k) FLQMI / FLVMI / FLCG /
+             FLCMI, gccg (against its plain path), GCMI, COM, LogDet and
+             logdet_mi on S with 100 query and 100 private items
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Details go to chiprun_out/chip_smoke.json.
 Without a CUDA device, or without the repo's ``src/`` beside it, the script
@@ -122,6 +138,17 @@ COVER_TOL = (1e-5, 1e-5)
 # p > 0.5 on P(N(0, 2) > 2.9) ~ 2% of the concepts: ~20 tags per item
 TAGS = 1000
 TAG_BIAS = -2.9
+# phase 3: the fused sweep at tests/test_kernels.py's FUSED_SHAPES (u, n, d)
+# and ragged ones; held to the matrix-free dot bar against its plain version
+FUSED_SHAPES = [(40, 60, 16), (300, 700, 128), (256, 512, 300), (513, 1025, 80)]
+FUSED_RAGGED = [(129, 1, 8), (1, 300, 13), (700, 5000, 512)]
+# phase 9 (i): kernel vs plain version on unit rows, whose dot products lie
+# in [0, 1]: fp32 sums of 512 terms in two orders
+FUSED_PLAIN_TOL = (1e-5, 1e-4)
+CLUSTERS, KMEANS_ITERS = 100, 25  # phase 9 (j): the mixture's component count
+GUIDED = 100  # phase 9 (k): |Q| = |P|
+GUIDED_BUDGET = 500  # phase 9 (k): the FL, GC and COM measures' NaiveGreedy budget
+LOGDET_BUDGET = 100  # phase 9 (k): well under the cosine S's rank d + 1
 
 
 def log(msg: str) -> None:
@@ -935,26 +962,32 @@ def phase_matrix_free(torch, args, main: dict) -> dict:
 def _vs_dense(res, main: dict, budget: int) -> dict:
     """FLMF's NaiveGreedy ids against phase 4's dense NaiveGreedy ids, up to
     the dense plain path's first near-tie; gains to GAIN_RTOL before it."""
+    return _vs_reference("(a) FLMF NaiveGreedy vs phase 4's dense NaiveGreedy", res,
+                         main["naive_ids"][:budget], main["naive_gains"][:budget],
+                         main["NaiveGreedy"]["first_near_tie"])
+
+
+def _vs_reference(label: str, res, ref_ids, ref_gains, t_tie) -> dict:
+    """A selection's ids against a reference run's, up to the reference's
+    first near-tie ``t_tie`` (None: none seen); gains to GAIN_RTOL before it."""
     ko = res.order.cpu().numpy()
     kg = res.gains.cpu().numpy()
-    do = np.asarray(main["naive_ids"][:budget])
-    dg = np.asarray(main["naive_gains"][:budget], dtype=np.float32)
+    do = np.asarray(ref_ids)
+    dg = np.asarray(ref_gains, dtype=np.float32)
     steps = min(len(ko), len(do))
     diff = np.nonzero(ko[:steps] != do[:steps])[0]
     t_dis = int(diff[0]) if diff.size else None
-    t_tie = main["NaiveGreedy"]["first_near_tie"]
     if t_dis is not None and (t_tie is None or t_dis < t_tie):
-        raise AssertionError(f"(a) FLMF vs dense: ids differ at step {t_dis}, before the dense "
-                             f"path's first near-tie ({t_tie})")
+        raise AssertionError(f"{label}: ids differ at step {t_dis}, before the reference's first "
+                             f"near-tie ({t_tie})")
     agree = steps if t_dis is None else t_dis
     rel = np.abs(kg[:agree] - dg[:agree]) > GAIN_RTOL * np.abs(dg[:agree])
     if rel.any():
         t = int(np.nonzero(rel)[0][0])
-        raise AssertionError(f"(a) FLMF vs dense: gains differ beyond rtol {GAIN_RTOL} at step {t}")
-    log(f"  ok  (a) FLMF NaiveGreedy vs phase 4's dense NaiveGreedy: ids agree over {agree} of "
-        f"{steps} steps (dense first near-tie: {t_tie}; first disagreement: {t_dis}); gains "
-        f"within rtol {GAIN_RTOL}")
-    return {"agreeing_steps": agree, "first_disagreement": t_dis, "dense_first_near_tie": t_tie}
+        raise AssertionError(f"{label}: gains differ beyond rtol {GAIN_RTOL} at step {t}")
+    log(f"  ok  {label}: ids agree over {agree} of {steps} steps (reference's first near-tie: "
+        f"{t_tie}; first disagreement: {t_dis}); gains within rtol {GAIN_RTOL}")
+    return {"agreeing_steps": agree, "first_disagreement": t_dis, "reference_first_near_tie": t_tie}
 
 
 def phase_dense_kernels(torch, seed: int) -> dict:
@@ -1474,6 +1507,420 @@ def phase_cover_times(torch, args, fns: dict, cover: dict) -> list[dict]:
     ]
 
 
+def phase_fused_kernels(torch, seed: int) -> dict:
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.fused_fl_sweep import fused_fl_sweep_plain
+
+    log("== phase 3: fused FL sweep vs plain, fp32 and bf16, small and ragged shapes")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 9)
+    worst = {}
+    bits = {"bf16_equals_widened_fp32": True, "fp32_equals_flmf_dot": True}
+    shapes = FUSED_SHAPES + FUSED_RAGGED
+    for (u, n, d), dtype in itertools.product(shapes, (torch.float32, torch.bfloat16)):
+        x = torch.randn((u, d), generator=gen, device="cuda").to(dtype)
+        y = torch.randn((n, d), generator=gen, device="cuda").to(dtype)
+        cm = 3.0 * torch.rand((u,), generator=gen, device="cuda")
+        got = ops.fused_fl_sweep(x, y, cm)
+        torch.cuda.synchronize()
+        key = str(dtype).split(".")[-1]
+        err = check_close(f"fused_fl_sweep {key} ({u},{n},{d})", got,
+                          fused_fl_sweep_plain(x, y, cm), *MF_TOL["dot"], quiet=True)
+        worst[key] = max(worst.get(key, 0.0), err)
+        xf, yf = x.float(), y.float()
+        if dtype == torch.bfloat16:
+            bits["bf16_equals_widened_fp32"] &= bool(torch.equal(got, ops.fused_fl_sweep(xf, yf, cm)))
+        else:
+            bits["fp32_equals_flmf_dot"] &= bool(torch.equal(got, ops.flmf_gains(
+                xf, yf, (xf * xf).sum(1), (yf * yf).sum(1), cm, "dot")))
+        # a column's value does not depend on where it sits: slices and gathers
+        idx = torch.randint(0, n, (min(n, 777),), generator=gen, device="cuda")
+        for what, ys, want in (("slice", y[n // 3 :], got[n // 3 :]),
+                               ("tail", y[max(n - 130, 0) :], got[max(n - 130, 0) :]),
+                               ("gather", y[idx], got[idx])):
+            if not torch.equal(ops.fused_fl_sweep(x, ys.contiguous(), cm), want):
+                raise AssertionError(f"fused_fl_sweep {key} ({u},{n},{d}): a {what} of y is not "
+                                     "bit-equal to the full sweep")
+    log(f"  ok  fused_fl_sweep at {len(shapes)} shapes (tests/test_kernels.py's FUSED_SHAPES + "
+        f"ragged), fp32 and bf16: within rtol {MF_TOL['dot'][0]} atol {MF_TOL['dot'][1]} of the "
+        f"plain version, max abs err {json.dumps(worst)}; slices and gathers of y bit-equal to "
+        f"the full sweep; {json.dumps(bits)}")
+    return {"max_abs_err": worst, **bits}
+
+
+def _unit_relu_rows(torch, seed: int, n: int, d: int):
+    """relu(mixture) rows scaled to unit length, drawn on the card: dot
+    similarities lie in [0, 1]."""
+    y = gaussian_mixture_cuda(torch, seed, n, d).relu_()
+    return y.div_(torch.linalg.norm(y, dim=1, keepdim=True).clamp_(min=1e-12))
+
+
+def _fused_replay(torch, label: str, fl, x, y, res) -> tuple[dict, object]:
+    """Replay a FacilityLocationMF (dot) NaiveGreedy run: at every state it
+    reached, ``fused_fl_sweep(x, y)`` against ``flmf_gains`` on the run's own
+    source within MF_TOL["dot"], and the same first argmax over unselected
+    candidates (the run's pick) up to the first near-tie of the flmf gains."""
+    from repro_torch.common import NEG_INF
+    from repro_torch.kernels import ops
+
+    src, state = fl.src, fl.init_state()
+    picks = res.order[res.order >= 0].tolist()
+    selected = torch.zeros((fl.n,), dtype=torch.bool, device="cuda")
+    worst, bit_equal, t_tie, gap = 0.0, True, None, None
+    for t, j in enumerate(picks):
+        gf = ops.fused_fl_sweep(x, y, state.curmax)
+        gm = ops.flmf_gains(src.x, src.y, src.xx, src.yy, state.curmax, "dot")
+        worst = max(worst, check_close(f"{label} state {t}", gf, gm, *MF_TOL["dot"], quiet=True))
+        bit_equal &= bool(torch.equal(gf, gm))
+        if t_tie is None:
+            top = torch.topk(torch.where(selected, NEG_INF, gm), 2)
+            g1, g2 = (float(v) for v in top.values)
+            if g1 - g2 <= NEAR_TIE_REL * abs(g1):
+                t_tie, gap = t, g1 - g2
+            else:
+                jf = int(torch.argmax(torch.where(selected, NEG_INF, gf)))
+                if not jf == int(top.indices[0]) == j:
+                    raise AssertionError(f"{label}: at state {t} the fused sweep's argmax is {jf}, "
+                                         f"flmf's {int(top.indices[0])}, the run picked {j}")
+        state = fl.update(state, torch.tensor([j], device="cuda"))
+        selected[j] = True
+    log(f"  ok  {label}: fused_fl_sweep against flmf_gains(dot) at all {len(picks)} states of the "
+        f"run, max abs err {worst:.3e} (rtol {MF_TOL['dot'][0]}, atol {MF_TOL['dot'][1]}), "
+        f"bit-equal: {bit_equal}; argmax = the run's pick up to the first near-tie "
+        f"({'none' if t_tie is None else t_tie}"
+        + ("" if gap is None else f", gap {gap:.3e}") + ")")
+    return ({"states": len(picks), "max_abs_err": worst, "bit_equal_to_flmf": bit_equal,
+             "first_near_tie": t_tie, "near_tie_gap": gap}, state)
+
+
+def phase_fused(torch, args) -> tuple[dict, dict]:
+    import dataclasses
+
+    from repro_torch.core import FacilityLocationMF, SelectionSpec, backend_name
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.fused_fl_sweep import fused_fl_sweep_plain
+
+    n, d, u = args.mf_n, args.d, MF_U
+    log(f"== phase 9 (i): fused sweep along FacilityLocationMF (dot) NaiveGreedy "
+        f"{MF_NAIVE_BUDGET}, u={u}, n={n}, d={d}, unit relu(mixture) rows, fp32 and bf16")
+    y = _unit_relu_rows(torch, args.seed, n, d)
+    x = y[:: n // u][:u].contiguous()
+    y16, x16 = y.bfloat16(), x.bfloat16()
+    out, states = {}, {}
+
+    # ---- counts to 0 just before the path, read just after
+    ops.reset_launches()
+    for key, (xk, yk) in (("float32", (x, y)), ("bfloat16", (x16, y16))):
+        # the bf16 run selects over the widened features, the fused sweep reads bf16
+        fl = FacilityLocationMF.from_features(xk.float(), yk.float(), metric="dot", use_kernel=True)
+        if backend_name(fl) != "cuda-flmf":
+            raise AssertionError(f"(i) FLMF backend {backend_name(fl)!r}, expected 'cuda-flmf'")
+        res, wall, peak = _timed_solve(torch, SelectionSpec(fl, MF_NAIVE_BUDGET, "NaiveGreedy"))
+        if not (bool(res.gains.isfinite().all()) and res.order.shape == (MF_NAIVE_BUDGET,)):
+            raise AssertionError("(i) FLMF NaiveGreedy: malformed result")
+        out[key], final = _fused_replay(torch, f"(i) {key}", fl, xk, yk, res)
+        out[key].update(wall_s=wall, peak_bytes=peak, selected=int((res.order >= 0).sum()),
+                        value=float(res.value))
+        states[key] = (xk, yk, fl.init_state().curmax, final.curmax)
+        del fl
+    launches = {k: ops.LAUNCHES[k] for k in ("fused_fl_sweep", "flmf_gains")}
+    log(f"  launches on the fused path: {launches}")
+    if launches["fused_fl_sweep"] < MF_NAIVE_BUDGET:
+        raise AssertionError(f"fused_fl_sweep launched {launches['fused_fl_sweep']} times, fewer "
+                             f"than {MF_NAIVE_BUDGET}")
+    out["launches"] = launches
+
+    # ---- after the counts are read: the plain version, and the times
+    for key, (xk, yk, cm0, cm1) in states.items():
+        for label, cm in (("first", cm0), ("last", cm1)):
+            out[key][f"plain_{label}_state_err"] = check_close(
+                f"(i) {key} fused_fl_sweep vs plain at the {label} state",
+                ops.fused_fl_sweep(xk, yk, cm), fused_fl_sweep_plain(xk, yk, cm), *FUSED_PLAIN_TOL)
+    reps = max(3, args.reps // 5)
+    cm = states["float32"][3]
+    t = {"ms": cuda_ms(torch, lambda: ops.fused_fl_sweep(x, y, cm), reps),
+         "bf16_ms": cuda_ms(torch, lambda: ops.fused_fl_sweep(x16, y16, states["bfloat16"][3]), reps),
+         "flmf_dot_ms": cuda_ms(torch, lambda: ops.flmf_gains(
+             x, y, (x * x).sum(1), (y * y).sum(1), cm, "dot"), reps),
+         "plain_ms": cuda_ms(torch, lambda: fused_fl_sweep_plain(x, y, cm), 1, warmup=1),
+         "library_ms": cuda_ms(torch, lambda: (x @ y.T - cm[:, None]).clamp_min(0).sum(0), 3,
+                               warmup=1)}
+    t["bound_ms"], t["bound_by"] = bound(2.0 * u * n * d, 4.0 * (u * d + n * d + u + n))
+    t["bf16_bound_ms"] = bound(2.0 * u * n * d, 2.0 * (u * d + n * d) + 4.0 * (u + n))[0]
+    log(f"  fused_fl_sweep u={u} n={n} d={d}: fp32 {t['ms']:.3f} ms, bf16 {t['bf16_ms']:.3f} ms, "
+        f"flmf_gains(dot) {t['flmf_dot_ms']:.3f} ms, plain {t['plain_ms']:.1f} ms, "
+        f"(x @ y.T - cm).clamp_min(0).sum(0) (library) {t['library_ms']:.3f} ms, bound "
+        f"{t['bound_ms']:.3f} ms ({t['bound_by']})")
+    row = {"name": "fused_fl_sweep", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/fused_fl_sweep.cu",
+           "replaces": "src/repro/kernels/fused_fl_sweep.py:59",
+           "shape": f"x ({u},{d}), y ({n},{d}) fp32, unit rows -> ({n},)",
+           "launches": launches["fused_fl_sweep"], "launches_on_path": launches["fused_fl_sweep"],
+           "max_abs_err": max(out["float32"]["plain_first_state_err"],
+                              out["float32"]["plain_last_state_err"]),
+           "library_call": "(x @ y.T - cm[:, None]).clamp_min(0).sum(0), no TF32", **t}
+    out["times"] = t
+    del y, x, y16, x16, states
+    return out, row
+
+
+def _mixture_draw(seed: int, d: int, component: int, count: int, rng) -> np.ndarray:
+    """``count`` fresh points of one component of ``gaussian_mixture(seed)``
+    (its centres are the generator's first draw), noise from ``rng``."""
+    centers = np.random.default_rng(seed).normal(size=(100, d)).astype(np.float32)
+    return centers[component] + rng.normal(size=(count, d)).astype(np.float32)
+
+
+def phase_clustered(torch, args, S) -> dict:
+    import dataclasses
+
+    from repro_torch.core import (
+        FacilityLocation, FacilityLocationMF, SelectionSpec, backend_name, clustered,
+        clustered_matrix_free, kmeans,
+    )
+    from repro_torch.kernels import ops
+
+    n, d = args.n, args.d
+    log(f"== phase 9 (j): clustered mode, n={n}, d={d}: kmeans k={CLUSTERS}, dense clustered FL "
+        f"NaiveGreedy {args.naive_budget} / LazyGreedy {args.lazy_budget}, matrix-free clustered "
+        f"FL NaiveGreedy {MF_NAIVE_BUDGET}")
+    x = torch.as_tensor(gaussian_mixture(args.seed, n, d), device="cuda")
+    out = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    labels = kmeans(x, CLUSTERS, KMEANS_ITERS)
+    torch.cuda.synchronize()
+    sizes = torch.bincount(labels, minlength=CLUSTERS)
+    out["kmeans"] = {"seconds": time.perf_counter() - t0, "k": CLUSTERS, "iters": KMEANS_ITERS,
+                     "nonempty": int((sizes > 0).sum()), "largest": int(sizes.max()),
+                     "smallest_nonempty": int(sizes[sizes > 0].min())}
+    if labels.shape != (n,) or int(labels.min()) < 0 or int(labels.max()) >= CLUSTERS:
+        raise AssertionError("(j) kmeans: malformed labels")
+    log(f"  kmeans(k={CLUSTERS}, iters={KMEANS_ITERS}): {out['kmeans']['seconds']:.3f} s; "
+        f"{out['kmeans']['nonempty']} clusters non-empty, sizes {out['kmeans']['smallest_nonempty']}"
+        f"..{out['kmeans']['largest']}")
+
+    # ---- counts to 0 just before the path, read just after
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    fn = clustered(FacilityLocation.from_kernel, S, labels, use_kernel=True)
+    torch.cuda.synchronize()
+    out["build_s"], out["build_peak_bytes"] = time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+    log(f"  clustered(FacilityLocation.from_kernel, S, labels): {out['build_s']:.3f} s, peak "
+        f"{out['build_peak_bytes'] / 2**30:.2f} GiB (S, the mask and the masked S)")
+    if backend_name(fn) != "cuda-fl":
+        raise AssertionError(f"(j) clustered FL backend {backend_name(fn)!r}, expected 'cuda-fl'")
+    fn_plain = dataclasses.replace(fn, use_kernel=False)
+    for opt, budget in (("NaiveGreedy", args.naive_budget), ("LazyGreedy", args.lazy_budget)):
+        out[opt], kern, _ = _solve_pair(torch, f"(j) clustered FL {opt} {budget}", fn, fn_plain,
+                                        budget, opt, 100)
+        if opt == "NaiveGreedy":
+            naive = kern
+    launches = {k: ops.LAUNCHES[k] for k in ("fl_gains", "fl_gains_at")}
+    log(f"  launches on the dense clustered path: {launches}")
+    for k, v in launches.items():
+        if v <= 0:
+            raise AssertionError(f"kernel {k} was not launched on the dense clustered path")
+    out["launches"] = launches
+    lazy = out["LazyGreedy"]
+    ne, pe = lazy["n_evals"], lazy["plain_n_evals"]
+    log(f"  (j) LazyGreedy n_evals: kernel path {ne}, plain path {pe} (difference {ne - pe})")
+    if abs(ne - pe) > NEVALS_RTOL * pe:
+        raise AssertionError(f"(j) clustered FL LazyGreedy: n_evals {ne} / {pe} beyond rtol "
+                             f"{NEVALS_RTOL}")
+    del fn, fn_plain
+
+    # the matrix-free clustered mixture (torch path), against the dense one
+    mf = clustered_matrix_free(FacilityLocationMF.from_features, x, labels, metric="cosine")
+    res, wall, peak = _timed_solve(torch, SelectionSpec(mf, MF_NAIVE_BUDGET, "NaiveGreedy"))
+    if not bool(res.gains.isfinite().all()):
+        raise AssertionError("(j) clustered FLMF: non-finite gains")
+    info = _vs_reference("(j) clustered FLMF NaiveGreedy vs the dense clustered NaiveGreedy", res,
+                         naive.order[:MF_NAIVE_BUDGET].tolist(),
+                         naive.gains[:MF_NAIVE_BUDGET].tolist(),
+                         out["NaiveGreedy"]["first_near_tie"])
+    out["matrix_free"] = {**info, "backend": backend_name(mf), "wall_s": wall, "peak_bytes": peak}
+    log(f"  (j) clustered FLMF NaiveGreedy {MF_NAIVE_BUDGET} ({backend_name(mf)} path): wall "
+        f"{wall:.3f} s, peak {peak / 2**20:.1f} MiB")
+    out["peak_bytes"] = max(out["build_peak_bytes"], out["NaiveGreedy"]["peak_bytes"],
+                            out["LazyGreedy"]["peak_bytes"])
+    return out
+
+
+def _run(torch, label, fn, budget, **stops) -> tuple[dict, object]:
+    """One timed NaiveGreedy solve, checked for shape and finite gains."""
+    from repro_torch.core import SelectionSpec
+
+    res, wall, peak = _timed_solve(torch, SelectionSpec(fn, budget, "NaiveGreedy", **stops))
+    if not (bool(res.gains.isfinite().all()) and res.order.shape == (budget,)):
+        raise AssertionError(f"{label}: malformed result")
+    sel = res.order[res.order >= 0]
+    info = {"wall_s": wall, "peak_bytes": peak, "selected": int(sel.numel()),
+            "value": float(res.value), "min_gain": float(res.gains[: sel.numel()].min())}
+    log(f"  {label}: {info['selected']} picks, f(A) = {info['value']:.6f}, smallest gain "
+        f"{info['min_gain']:.3e}, wall {wall:.3f} s, peak {peak / 2**30:.2f} GiB")
+    return info, res
+
+
+def _mask_of(torch, res, n):
+    return torch.zeros((n,), dtype=torch.bool, device="cuda").index_fill_(
+        0, res.order[res.order >= 0].long(), True)
+
+
+def phase_guided(torch, args, S) -> dict:
+    import dataclasses
+
+    from repro_torch.core import (
+        FLCG, FLCMI, FLQMI, FLVMI, GCMI, ConcaveOverModular, LogDet, create_kernel, gccg,
+        logdet_mi,
+    )
+    from repro_torch.kernels import ops
+
+    n, d = args.n, args.d
+    rng = np.random.default_rng(args.seed + 9)
+    cq, cp = (int(c) for c in rng.choice(100, size=2, replace=False))
+    log(f"== phase 9 (k): guided selection on phase 4's S, n={n}: Q = {GUIDED} items of mixture "
+        f"component {cq}, P = {GUIDED} of component {cp}")
+    x = torch.as_tensor(gaussian_mixture(args.seed, n, d), device="cuda")
+    Q = torch.as_tensor(_mixture_draw(args.seed, d, cq, GUIDED, rng), device="cuda")
+    P = torch.as_tensor(_mixture_draw(args.seed, d, cp, GUIDED, rng), device="cuda")
+    out = {"query_component": cq, "private_component": cp}
+
+    def kern(a, b):
+        return create_kernel(a, b, metric="cosine", use_pallas=True)
+
+    S_vq, S_vp, S_qq = kern(x, Q), kern(x, P), kern(Q, Q)
+    S_qv = S_vq.T.contiguous()
+    del x
+
+    # ---- counts to 0 just before the path, read just after
+    ops.reset_launches()
+    for label, fn in (("FLQMI", FLQMI.build(S_qv)), ("FLVMI", FLVMI.build(S, S_vq)),
+                      ("FLCG", FLCG.build(S, S_vp)), ("FLCMI", FLCMI.build(S, S_vq, S_vp))):
+        out[label], res = _run(torch, f"(k) {label} NaiveGreedy {GUIDED_BUDGET}", fn,
+                               GUIDED_BUDGET, stopIfZeroGain=False)
+        direct = float(fn.evaluate(_mask_of(torch, res, n)))
+        out[label]["evaluate"] = direct
+        if abs(direct - out[label]["value"]) > 1e-4 * abs(direct):
+            raise AssertionError(f"(k) {label}: telescoped f(A) {out[label]['value']} != evaluate "
+                                 f"{direct}")
+        if label == "FLVMI":
+            vmi = res
+        if label == "FLQMI":
+            qmi_fn, qmi = fn, res
+    log("  ok  (k) FL measures: telescoped f(A) equals evaluate within rtol 1e-4")
+
+    # identities of the JAX tests, on the card
+    empty = torch.zeros((n, 1), device="cuda")
+    _, cmi = _run(torch, f"(k) FLCMI with an empty P NaiveGreedy {MF_NAIVE_BUDGET}",
+                  FLCMI.build(S, S_vq, empty), MF_NAIVE_BUDGET, stopIfZeroGain=False)
+    if not (torch.equal(cmi.order, vmi.order[:MF_NAIVE_BUDGET])
+            and torch.equal(cmi.gains, vmi.gains[:MF_NAIVE_BUDGET])):
+        raise AssertionError("(k) FLCMI with an empty P: not FLVMI's ids and gains")
+    log(f"  ok  (k) FLCMI with an empty P: FLVMI's ids and gains, bit for bit, over "
+        f"{MF_NAIVE_BUDGET} steps (tests/test_info.py:274)")
+    state, mask = qmi_fn.init_state(), torch.zeros((n,), dtype=torch.bool, device="cuda")
+    worst = 0.0
+    for j in qmi.order[:5].tolist():
+        g, oracle = float(qmi_fn.gains(state)[j]), float(qmi_fn.marginal_gain(mask, j))
+        worst = max(worst, abs(g - oracle) / max(abs(oracle), 1e-30))
+        state, mask[j] = qmi_fn.update(state, torch.tensor([j], device="cuda")), True
+    _, sat = _run(torch, f"(k) FLQMI eta=0 NaiveGreedy {2 * GUIDED}", FLQMI.build(S_qv, eta=0.0),
+                  2 * GUIDED, stopIfZeroGain=False)
+    g0, gq = float(sat.gains[0]), float(sat.gains[GUIDED])
+    if worst > 1e-4 or not gq < 0.25 * g0 + 1e-6:
+        raise AssertionError(f"(k) FLQMI: gain identity off by {worst:.3e} relative, or eta = 0 "
+                             f"gains do not saturate ({gq} after |Q| picks against {g0})")
+    out["FLQMI"].update(gain_identity_max_rel=worst, eta0_first_gain=g0, eta0_gain_after_Q=gq)
+    log(f"  ok  (k) FLQMI: gains(state)[j] = f(A + j) - f(A) within {worst:.3e} relative over 5 "
+        f"picks; at eta = 0 the gain after |Q| = {GUIDED} picks is {gq:.4f} against {g0:.4f} "
+        "first (tests/test_info.py:235)")
+
+    # gccg: a GraphCut, kernel path against plain path
+    gc = gccg(S, S_vp, lam=GC_LAM, nu=1.0, use_kernel=True)
+    gc_plain = dataclasses.replace(gc, use_kernel=False)
+    out["gccg"] = {}
+    for opt, budget in (("NaiveGreedy", MF_NAIVE_BUDGET), ("LazyGreedy", args.mf_lazy_budget)):
+        out["gccg"][opt], _, _ = _solve_pair(torch, f"(k) gccg {opt} {budget}", gc, gc_plain,
+                                             budget, opt, 100, gain_rtol=GC_GAIN_RTOL)
+    launches = {k: ops.LAUNCHES[k] for k in ("gc_gains", "gc_gains_at")}
+    log(f"  launches on the guided path: {launches}")
+    for k, v in launches.items():
+        if v <= 0:
+            raise AssertionError(f"kernel {k} was not launched on the guided path")
+    out["launches"] = launches
+    # ---- after the counts are read: where the two LazyGreedy runs' n_evals
+    # part.  gccg's gains (~2.5e4) have ulps far above the engine's 1e-6
+    # accept margin, so the two summation orders decide some levels apart;
+    # the first such level must be a knife edge (see _lazy_levels_apart)
+    lazy = out["gccg"]["LazyGreedy"]
+    ne, pe = lazy["n_evals"], lazy["plain_n_evals"]
+    log(f"  (k) gccg LazyGreedy n_evals: kernel path {ne}, plain path {pe} (difference {ne - pe})")
+    if ne != pe:
+        lazy["levels_apart"] = _lazy_levels_apart(torch, "(k) gccg LazyGreedy", (gc, gc_plain),
+                                                  args.mf_lazy_budget)
+    del gc, gc_plain
+
+    # the modular and concave measures (bare-tensor states)
+    gcmi = GCMI.build(S_vq, lam=0.5)
+    out["GCMI"], res = _run(torch, f"(k) GCMI NaiveGreedy {GUIDED_BUDGET}", gcmi, GUIDED_BUDGET)
+    top = torch.sort(-gcmi.qsum, stable=True).indices[:GUIDED_BUDGET]
+    if not torch.equal(res.order.long(), top):
+        raise AssertionError("(k) GCMI: the picks are not the top query sums (pure retrieval)")
+    com = ConcaveOverModular.build(S_vq, eta=1.0, concave="sqrt")
+    out["COM"], res = _run(torch, f"(k) COM sqrt NaiveGreedy {GUIDED_BUDGET}", com, GUIDED_BUDGET)
+    direct = float(com.evaluate(_mask_of(torch, res, n)))
+    if abs(direct - out["COM"]["value"]) > 1e-4 * abs(direct):
+        raise AssertionError(f"(k) COM: telescoped f(A) {out['COM']['value']} != evaluate {direct}")
+    log("  ok  (k) GCMI picks the top query sums; COM's telescoped f(A) equals evaluate")
+
+    # LogDet and logdet_mi on the cosine S (rank <= d + 1), against float64 log dets
+    for label, fn in (("LogDet", LogDet.from_kernel(S, LOGDET_BUDGET)),
+                      ("logdet_mi", logdet_mi(S, S_vq, S_qq, eta=1.0, max_select=LOGDET_BUDGET))):
+        out[label], res = _run(torch, f"(k) {label} NaiveGreedy {LOGDET_BUDGET}", fn, LOGDET_BUDGET,
+                               stopIfZeroGain=False, stopIfNegativeGain=False)
+        a = res.order[res.order >= 0].long()
+        S64 = S[a][:, a].double()
+        want = float(torch.linalg.slogdet(S64)[1])
+        if label == "logdet_mi":
+            vq = S_vq[a].double()
+            schur = S64 - vq @ torch.linalg.solve(S_qq.double() + 1e-6 * torch.eye(
+                GUIDED, dtype=torch.float64, device="cuda"), vq.T)
+            want -= float(torch.linalg.slogdet(schur)[1])
+        out[label]["float64"] = want
+        err = abs(out[label]["value"] - want)
+        out[label]["float64_abs_err"] = err
+        if err > 1e-3 * abs(want) + 1e-2:
+            raise AssertionError(f"(k) {label}: f(A) {out[label]['value']} against the float64 log "
+                                 f"det {want}")
+        log(f"  ok  (k) {label}: f(A) {out[label]['value']:.6f}, float64 log det of the picks "
+            f"{want:.6f} (abs err {err:.3e}; smallest gain {out[label]['min_gain']:.3e})")
+    out["peak_bytes"] = max(v["peak_bytes"] for v in out.values()
+                            if isinstance(v, dict) and "peak_bytes" in v)
+    return out
+
+
+def phase_slice5(torch, args) -> tuple[dict, dict]:
+    """Phase 9: the fused sweep (i), clustered mode (j) and guided selection
+    (k); S is rebuilt with the similarity kernel once phases 6-8 are done."""
+    from repro_torch.core import create_kernel
+
+    t0 = time.perf_counter()
+    out = {}
+    out["i"], row = phase_fused(torch, args)
+    x = torch.as_tensor(gaussian_mixture(args.seed, args.n, args.d), device="cuda")
+    S = create_kernel(x, metric="cosine", use_pallas=True)
+    del x
+    out["j"] = phase_clustered(torch, args, S)
+    out["k"] = phase_guided(torch, args, S)
+    del S
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 9: {out['seconds']:.1f} s; peak device memory (j) {out['j']['peak_bytes'] / 2**30:.2f}"
+        f" GiB, (k) {out['k']['peak_bytes'] / 2**30:.2f} GiB")
+    return out, row
+
+
 def parse_args(argv):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -1483,9 +1930,9 @@ def parse_args(argv):
     p.add_argument("--lazy-budget", type=int, default=5_000)
     p.add_argument("--reps", type=int, default=50, help="timed launches per kernel")
     p.add_argument("--mf-n", type=int, default=1 << 20,
-                   help="candidates of phase 6 (b) and phase 8, the million-point shape")
+                   help="candidates of phases 6 (b), 8 and 9 (i), the million-point shape")
     p.add_argument("--mf-lazy-budget", type=int, default=1_000,
-                   help="LazyGreedy budget of phases 6 (a) and (c), 7 (d) and 8")
+                   help="LazyGreedy budget of phases 6 (a) and (c), 7 (d), 8 and 9 (k)")
     return p.parse_args(argv)
 
 
@@ -1513,6 +1960,7 @@ def main(argv=None) -> int:
     phase_mf_kernels(torch, args.seed)
     dense_bits = phase_dense_kernels(torch, args.seed)
     cover_bits = phase_cover_kernels(torch, args.seed)
+    fused_bits = phase_fused_kernels(torch, args.seed)
     main_out, fn, naive_res = phase_main(torch, args)
     kernels = phase_times(torch, args, fn, naive_res, main_out)
     dense_out, D = phase_dense_pairwise(torch, args, fn.sim)
@@ -1528,16 +1976,18 @@ def main(argv=None) -> int:
     del cover_fns
     cover_out["seconds"] = time.perf_counter() - t_cover
     log(f"phase 8 and its times: {cover_out['seconds']:.1f} s")
+    guided_out, fused_row = phase_slice5(torch, args)
+    guided_out["phase3"] = fused_bits
     for rows, path in ((mf_rows, mf_out), (dense_rows, dense_out), (cover_rows, cover_out)):
         for r in rows:
             r["launches"] = r["launches_on_path"] = path["launches"][r["name"]]
-    kernels += mf_rows + dense_rows + cover_rows
+    kernels += mf_rows + dense_rows + cover_rows + [fused_row]
     missing = set(ops.LAUNCHES) ^ {r["name"] for r in kernels}
     if missing:
         raise AssertionError(f"kernels line and LAUNCHES differ: {sorted(missing)}")
     record = {"device": device, "build": {k: build[k] for k in ("seconds", "cached")},
               "main": main_out, "matrix_free": mf_out, "dense_pairwise": dense_out,
-              "coverage": cover_out,
+              "coverage": cover_out, "guided": guided_out,
               "kernels": kernels, "seconds": time.perf_counter() - t_start}
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(record, indent=1))

@@ -1,10 +1,17 @@
 # The ported core: the set-function protocol, Facility Location (dense and
 # matrix-free), Graph Cut (dense and matrix-free), the Disparity family
-# (Sum, Min, MinSum), FeatureBased, SetCover and ProbabilisticSetCover (with
-# their information measures in core/info/), the similarity sources, the
-# gain-backend registry, NaiveGreedy / LazyGreedy and the SelectionSpec +
-# solve() front door (sequential mode).
+# (Sum, Min, MinSum), FeatureBased, SetCover, ProbabilisticSetCover, LogDet,
+# the clustered mixtures, the information measures (core/info/), the
+# similarity kernels with kmeans and the extended V ∪ Q ∪ P kernel, the
+# similarity sources, the gain-backend registry, NaiveGreedy / LazyGreedy,
+# the SelectionSpec + solve() front door (sequential mode) and the
+# deprecated maximize() shim.
 from repro_torch.core.functions.base import SetFunction
+from repro_torch.core.functions.clustered import (
+    cluster_mask,
+    clustered,
+    clustered_matrix_free,
+)
 from repro_torch.core.functions.disparity import (
     DisparityMin,
     DisparityMinSum,
@@ -20,6 +27,7 @@ from repro_torch.core.functions.facility_location import (
 )
 from repro_torch.core.functions.feature_based import FBState, FeatureBased
 from repro_torch.core.functions.graph_cut import GCState, GraphCut, GraphCutMF
+from repro_torch.core.functions.log_det import LogDet, LogDetState
 from repro_torch.core.functions.set_cover import (
     ProbabilisticSetCover,
     PSCState,
@@ -36,6 +44,7 @@ from repro_torch.core.optimizers.backends import (
     register_gain_backend,
     resolve_backend,
 )
+from repro_torch.core.optimizers.api import maximize
 from repro_torch.core.optimizers.greedy import GreedyResult, lazy_greedy, naive_greedy
 from repro_torch.core.optimizers.spec import (
     OptimizerSpec,
@@ -47,11 +56,41 @@ from repro_torch.core.optimizers.spec import (
     resolve_optimizer,
     solve,
 )
-from repro_torch.core.similarity import create_kernel, pairwise_sq_dists, sparsify_topk
+from repro_torch.core.similarity import (
+    build_extended_kernel,
+    create_kernel,
+    kmeans,
+    pairwise_sq_dists,
+    sparsify_topk,
+)
 from repro_torch.core.sources import (
     TILE,
     DenseSource,
     FeatureSource,
     dense_source,
     feature_source,
+)
+from repro_torch.core.info import (
+    FLCG,
+    FLCMI,
+    FLQMI,
+    FLVMI,
+    GCMI,
+    ConcaveOverModular,
+    ConditionedFunction,
+    DifferenceFunction,
+    gccg,
+    gccmi,
+    generic_cg,
+    generic_cmi,
+    generic_mi,
+    logdet_cg,
+    logdet_cmi,
+    logdet_mi,
+    psc_cg,
+    psc_cmi,
+    psc_mi,
+    sc_cg,
+    sc_cmi,
+    sc_mi,
 )

@@ -37,20 +37,25 @@ class GreedyResult:
 
 
 def _where_state(pred, new, old):
-    """Select ``new`` where the scalar/row predicate holds, field by field
-    (states are dataclasses of tensors and static ints)."""
-    kw = {}
-    for f in dataclasses.fields(old):
-        a, b = getattr(new, f.name), getattr(old, f.name)
-        if isinstance(b, torch.Tensor):
-            if b.dim() < pred.dim():  # a 0-d field under a one-element predicate
-                p = pred.reshape(b.shape)
-            else:
-                p = pred.reshape(pred.shape + (1,) * (b.dim() - pred.dim()))
-            kw[f.name] = torch.where(p, a, b)
+    """Select ``new`` where the scalar/row predicate holds, leaf by leaf over
+    the state's tree, as ``jax.tree.map`` does in the JAX package: a state
+    is a tensor, a dataclass of fields, or a tuple / list of states (the
+    difference combinator's pair); non-tensor leaves (static ints) keep
+    ``old``'s value."""
+    if isinstance(old, torch.Tensor):
+        if old.dim() < pred.dim():  # a 0-d leaf under a one-element predicate
+            p = pred.reshape(old.shape)
         else:
-            kw[f.name] = b
-    return type(old)(**kw)
+            p = pred.reshape(pred.shape + (1,) * (old.dim() - pred.dim()))
+        return torch.where(p, new, old)
+    if dataclasses.is_dataclass(old):
+        return type(old)(**{
+            f.name: _where_state(pred, getattr(new, f.name), getattr(old, f.name))
+            for f in dataclasses.fields(old)
+        })
+    if isinstance(old, (tuple, list)):
+        return type(old)(_where_state(pred, a, b) for a, b in zip(new, old))
+    return old
 
 
 def _should_stop(gj, stop_if_zero: bool, stop_if_negative: bool):

@@ -23,6 +23,7 @@ from repro_torch.core.functions.disparity import (
 from repro_torch.core.functions.facility_location import FacilityLocation, FLState
 from repro_torch.core.functions.feature_based import FBState, FeatureBased
 from repro_torch.core.functions.graph_cut import GCState, GraphCut, GraphCutMF
+from repro_torch.core.functions.log_det import LogDet, LogDetState
 from repro_torch.core.functions.set_cover import (
     ProbabilisticSetCover,
     PSCState,
@@ -30,6 +31,9 @@ from repro_torch.core.functions.set_cover import (
     SetCover,
     probs_of,
 )
+from repro_torch.core.info.com import ConcaveOverModular
+from repro_torch.core.info.fl import FLCG, FLCMI, FLQMI, FLVMI
+from repro_torch.core.info.gc import GCMI
 from repro_torch.core.optimizers.greedy import GreedyResult
 from repro_torch.core.sources import FeatureSource
 
@@ -232,9 +236,99 @@ def psc_state_from_arrays(miss: np.ndarray, device=None) -> PSCState:
     return PSCState(miss=as_float_tensor(np.asarray(miss, np.float32), device))
 
 
-def state_to_arrays(state) -> dict[str, np.ndarray]:
-    """A port state's tensor fields as numpy arrays, by field name (the JAX
-    state's names), for the way back."""
+def log_det_from_arrays(L: np.ndarray, max_select: int | None = None, device=None) -> LogDet:
+    """Port :class:`LogDet` over a JAX function's ``L`` and ``max_select``."""
+    return LogDet.from_kernel(np.asarray(L, np.float32), max_select, device)
+
+
+def log_det_state_from_arrays(C: np.ndarray, d2: np.ndarray, count, value,
+                              device=None) -> LogDetState:
+    """Port :class:`LogDetState` from a JAX state's arrays."""
+    C_t = as_float_tensor(np.asarray(C, np.float32), device)
+    dev = C_t.device
+    return LogDetState(
+        C=C_t,
+        d2=as_float_tensor(np.asarray(d2, np.float32), dev),
+        count=_tensor(count, torch.int32, dev).reshape(()),
+        value=_tensor(value, torch.float32, dev).reshape(()),
+    )
+
+
+def _f32(a, device) -> torch.Tensor:
+    return as_float_tensor(np.asarray(a, np.float32), device)
+
+
+def flvmi_from_arrays(sim: np.ndarray, qmax: np.ndarray, device=None) -> FLVMI:
+    """Port :class:`FLVMI` from a JAX function's ``sim`` and (eta-scaled) ``qmax``."""
+    sim_t = _f32(sim, device).contiguous()
+    return FLVMI(sim=sim_t, qmax=_f32(qmax, sim_t.device), n=int(sim_t.shape[1]))
+
+
+def flqmi_from_arrays(sim_qv: np.ndarray, modular: np.ndarray, device=None) -> FLQMI:
+    """Port :class:`FLQMI` from a JAX function's ``sim_qv`` and ``modular``."""
+    sim_t = _f32(sim_qv, device).contiguous()
+    return FLQMI(sim_qv=sim_t, modular=_f32(modular, sim_t.device), n=int(sim_t.shape[1]))
+
+
+def flcg_from_arrays(sim: np.ndarray, pmax: np.ndarray, device=None) -> FLCG:
+    """Port :class:`FLCG` from a JAX function's ``sim`` and (nu-scaled) ``pmax``."""
+    sim_t = _f32(sim, device).contiguous()
+    return FLCG(sim=sim_t, pmax=_f32(pmax, sim_t.device), n=int(sim_t.shape[1]))
+
+
+def flcmi_from_arrays(sim: np.ndarray, qmax: np.ndarray, pmax: np.ndarray,
+                      device=None) -> FLCMI:
+    """Port :class:`FLCMI` from a JAX function's ``sim``, ``qmax`` and ``pmax``."""
+    sim_t = _f32(sim, device).contiguous()
+    dev = sim_t.device
+    return FLCMI(sim=sim_t, qmax=_f32(qmax, dev), pmax=_f32(pmax, dev), n=int(sim_t.shape[1]))
+
+
+def gcmi_from_arrays(qsum: np.ndarray, device=None) -> GCMI:
+    """Port :class:`GCMI` from a JAX function's ``qsum``."""
+    q = _f32(qsum, device)
+    return GCMI(qsum=q, n=int(q.shape[0]))
+
+
+def com_from_arrays(sim_vq: np.ndarray, modular: np.ndarray, concave: str = "sqrt",
+                    device=None) -> ConcaveOverModular:
+    """Port :class:`ConcaveOverModular` from a JAX function's ``sim_vq``,
+    ``modular`` and ``concave``."""
+    sim_t = _f32(sim_vq, device).contiguous()
+    return ConcaveOverModular(sim_vq=sim_t, modular=_f32(modular, sim_t.device),
+                              n=int(sim_t.shape[0]), concave=concave)
+
+
+def state_from_arrays(arrays, like):
+    """Port any state from the arrays of a JAX state, shaped by ``like`` (the
+    port function's ``init_state()``): a bare tensor state (GCMI's running
+    value, COM's ``acc``) takes one array, a tuple state (the difference
+    combinator's pair) a tuple of states, a dataclass state an object with
+    the same field names (the JAX state itself) or a dict.  Each tensor
+    takes ``like``'s dtype and device; static fields keep ``like``'s."""
+    if isinstance(like, torch.Tensor):
+        return _tensor(arrays, like.dtype, like.device).reshape(like.shape)
+    if isinstance(like, (tuple, list)):
+        return type(like)(state_from_arrays(a, s) for a, s in zip(arrays, like))
+    kw = {}
+    for f in dataclasses.fields(like):
+        v = getattr(like, f.name)
+        if isinstance(v, torch.Tensor) or dataclasses.is_dataclass(v):
+            a = arrays[f.name] if isinstance(arrays, dict) else getattr(arrays, f.name)
+            kw[f.name] = state_from_arrays(a, v)
+        else:
+            kw[f.name] = v
+    return type(like)(**kw)
+
+
+def state_to_arrays(state):
+    """A port state as numpy, for the way back: a dataclass state as a dict
+    of its tensor fields by name (the JAX state's names), a bare tensor
+    state as one array, a tuple state as a tuple of these."""
+    if isinstance(state, torch.Tensor):
+        return state.cpu().numpy()
+    if isinstance(state, (tuple, list)):
+        return tuple(state_to_arrays(s) for s in state)
     return {
         f.name: getattr(state, f.name).cpu().numpy()
         for f in dataclasses.fields(state)

@@ -65,6 +65,9 @@ _SIGNATURES = {
     ),
     "sc_gains_launch": ([_P, _I64, _I64, _P, _P, _P, _P], ctypes.c_int),
     "psc_gains_launch": ([_P, _I64, _I64, _P, _P, _P], ctypes.c_int),
+    "fused_fl_sweep_launch": (
+        [_P, ctypes.c_int, _P, ctypes.c_int, _P, _I64, _I64, _I64, _P, _P, _P], ctypes.c_int,
+    ),
     "repro_cuda_error_string": ([ctypes.c_int], ctypes.c_char_p),
 }
 

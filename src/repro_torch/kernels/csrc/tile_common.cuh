@@ -1,15 +1,17 @@
 // Building blocks shared by the port's kernels: the 128 x 128 x 8
 // register-blocked fp32 SGEMM tile (similarity.cu, flmf_gains.cu,
-// gcmf_gains.cu), the metric epilogue applied to its accumulators in
-// registers, and the in-order sum of per-block partials (fl_gains.cu,
-// flmf_gains.cu).
+// gcmf_gains.cu, fused_fl_sweep.cu), the metric epilogue applied to its
+// accumulators in registers, and the in-order sum of per-block partials
+// (fl_gains.cu, flmf_gains.cu, fused_fl_sweep.cu).
 //
 // The tile: one block of 256 threads owns a 128 x 128 output tile; K strips
 // of 8 are staged through shared memory transposed (k-major), so each thread
 // reads its 8 + 8 operands as four float4s and keeps an 8 x 8 accumulator
 // tile in registers.  Each accumulator is one fmaf chain over k = 0 .. d-1
 // in order, so an element's value depends on its two feature rows alone,
-// never on where in the tile (or in which tile) they sit.
+// never on where in the tile (or in which tile) they sit.  The operands may
+// be fp32 or bf16: a bf16 value is widened to fp32 exactly in the loader,
+// so the tile's arithmetic is the fp32 tile's on the widened values.
 
 #pragma once
 
@@ -29,6 +31,17 @@ constexpr int GROUPS = 16;  // thread groups along each tile axis (16 x 16 threa
 constexpr float kNegInf = -1e30f;
 
 enum Metric { kDot = 0, kCosine = 1, kEuclidean = 2, kRbf = 3 };
+
+// A bf16 element as its 16 bits: the high half of the fp32 it widens to.
+struct bf16_t {
+  uint16_t bits;
+};
+
+__device__ __forceinline__ float load_f32(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float load_f32(const bf16_t* p) {
+  const unsigned short b = __ldg(reinterpret_cast<const unsigned short*>(p));
+  return __uint_as_float(static_cast<uint32_t>(b) << 16);
+}
 
 template <int METRIC>
 __device__ __forceinline__ float epilogue(float acc, float xx, float yy, float inv2s2) {
@@ -51,7 +64,8 @@ __device__ __forceinline__ int tile_pos(int t, int i) {
 // rows this thread loads: row threadIdx.x / 2 of the block's A and B tiles
 // (a gather is the caller's choice of pointer).  A row whose flag is false
 // lies past a ragged edge: it is never read and loads zeros.
-__device__ __forceinline__ void mainloop(const float* a_row, bool a_ok, const float* b_row,
+template <typename TA, typename TB>
+__device__ __forceinline__ void mainloop(const TA* a_row, bool a_ok, const TB* b_row,
                                          bool b_ok, int64_t d, float (&As)[BK][BM],
                                          float (&Bs)[BK][BN], float (&acc)[8][8]) {
   const int tid = threadIdx.x;
@@ -63,8 +77,8 @@ __device__ __forceinline__ void mainloop(const float* a_row, bool a_ok, const fl
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
       const int64_t gk = k0 + lk + q;
-      As[lk + q][lr] = (a_ok && gk < d) ? __ldg(a_row + gk) : 0.0f;
-      Bs[lk + q][lr] = (b_ok && gk < d) ? __ldg(b_row + gk) : 0.0f;
+      As[lk + q][lr] = (a_ok && gk < d) ? load_f32(a_row + gk) : 0.0f;
+      Bs[lk + q][lr] = (b_ok && gk < d) ? load_f32(b_row + gk) : 0.0f;
     }
     __syncthreads();
 #pragma unroll

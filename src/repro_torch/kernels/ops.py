@@ -4,8 +4,9 @@ On a CUDA tensor each wrapper launches its hand-written kernel (built at
 first use, see ``_build.py``) or raises; it never falls back.  On a CPU
 tensor it runs the kernel's plain PyTorch version (the dense FL, GC,
 disparity and coverage sweeps add in the kernel's order; the matrix-free
-ones agree with theirs to a tolerance).  Each wrapper checks device, dtype (fp32), shape
-and contiguity and raises on anything its kernel does not take.
+and fused ones agree with theirs to a tolerance).  Each wrapper checks device, dtype
+(fp32; the fused sweep also takes bf16 features), shape and contiguity and raises on
+anything its kernel does not take.
 
 ``LAUNCHES`` counts kernel launches per wrapper (one per call that reached
 the card), so a run can prove that its path went through the kernels.
@@ -38,6 +39,11 @@ from repro_torch.kernels.flmf_gains import (
     flmf_gains_at_plain,
     flmf_gains_cuda,
     flmf_gains_plain,
+)
+from repro_torch.kernels.fused_fl_sweep import (
+    DTYPES as FUSED_DTYPES,
+    fused_fl_sweep_cuda,
+    fused_fl_sweep_plain,
 )
 from repro_torch.kernels.gc_gains import (
     gc_gains_at_cuda,
@@ -79,6 +85,7 @@ LAUNCHES: dict[str, int] = {
     "fb_gains_at": 0,
     "sc_gains": 0,
     "psc_gains": 0,
+    "fused_fl_sweep": 0,
 }
 
 
@@ -404,4 +411,29 @@ def psc_gains(probs, miss, w) -> torch.Tensor:
         return psc_gains_plain(probs, wm)
     out = psc_gains_cuda(probs, wm)
     LAUNCHES["psc_gains"] += 1
+    return out
+
+
+def fused_fl_sweep(x, y, curmax) -> torch.Tensor:
+    """Fused dot similarity + FL sweep: x (u, d) represented rows and y (n, d)
+    candidates, each fp32 or bf16 (read as they are, no fp32 copy), curmax
+    (u,) fp32 -> gains (n,) fp32: sum_i max(<x_i, y_j> - curmax_i, 0).
+    Cosine callers pre-normalise the rows."""
+    for name, t in (("x", x), ("y", y)):
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor, got {type(t).__name__}")
+        if t.dtype not in FUSED_DTYPES:
+            raise TypeError(f"{name} must be float32 or bfloat16, got {t.dtype}")
+        if t.dim() != 2:
+            raise ValueError(f"{name} must be 2-D, got shape {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if x.shape[1] != y.shape[1] or x.shape[1] == 0:
+        raise ValueError(f"feature widths differ or are 0: x {tuple(x.shape)}, y {tuple(y.shape)}")
+    _check_f32("curmax", curmax, 1)
+    _check_len("curmax", curmax, x.shape[0], "rows of x")
+    if not _on_card(("x", x), ("y", y), ("curmax", curmax)):
+        return fused_fl_sweep_plain(x, y, curmax)
+    out = fused_fl_sweep_cuda(x, y, curmax)
+    LAUNCHES["fused_fl_sweep"] += 1
     return out

@@ -37,6 +37,7 @@ from repro_torch.kernels.fl_gains import fl_gains_at_plain, fl_gains_plain
 from repro_torch.kernels.gc_gains import gc_gains_at_plain, gc_gains_plain
 from repro_torch.kernels import flmf_gains as flmf_module
 from repro_torch.kernels.flmf_gains import SCRATCH_BYTES, flmf_gains_at_plain, flmf_gains_plain
+from repro_torch.kernels.fused_fl_sweep import fused_fl_sweep_plain
 from repro_torch.kernels.gcmf_gains import gcmf_gains_at_plain, gcmf_gains_plain
 from repro_torch.kernels.sc_gains import psc_gains_plain, sc_gains_plain
 from repro_torch.kernels.similarity_kernel import _normalize, similarity_plain
@@ -518,3 +519,63 @@ def test_coverage_wrappers_raise_instead_of_falling_back(cuda):
         ops.sc_gains(x, v, torch.rand(6))
     with pytest.raises(ValueError, match="idx on"):
         ops.fb_gains_at(x, v, v, torch.tensor([0]))
+
+
+# the fused sweep against its plain version: the same fp32 sums over dot
+# products that the kernel's fmaf chain and the plain version's matmul round
+# differently (the matrix-free dot bar)
+FUSED_SHAPES = [(40, 60, 16), (300, 700, 128), (513, 1025, 80), (129, 1, 8), (1, 300, 13),
+                (700, 5000, 512)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", FUSED_SHAPES)
+def test_fused_fl_sweep_kernel_matches_plain(cuda, shape, dtype):
+    """On the card: the fused kernel against its plain version; a bf16 sweep
+    equals the fp32 sweep of the widened features bit for bit, and an fp32
+    sweep equals flmf_gains(dot) bit for bit (the same tile and order)."""
+    u, n, d = shape
+    gen = torch.Generator(device=cuda).manual_seed(u * 7 + n)
+    x = torch.randn((u, d), generator=gen, device=cuda).to(dtype)
+    y = torch.randn((n, d), generator=gen, device=cuda).to(dtype)
+    cm = 2.0 * torch.rand((u,), generator=gen, device=cuda)
+    before = ops.LAUNCHES["fused_fl_sweep"]
+    got = ops.fused_fl_sweep(x, y, cm)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["fused_fl_sweep"] == before + 1
+    torch.testing.assert_close(got, fused_fl_sweep_plain(x, y, cm), **MF_TOL["dot"])
+    xf, yf = x.float(), y.float()
+    assert torch.equal(got, ops.fused_fl_sweep(xf, yf, cm))
+    assert torch.equal(ops.fused_fl_sweep(x, yf, cm), got)
+    assert torch.equal(got, ops.flmf_gains(xf, yf, (xf * xf).sum(1), (yf * yf).sum(1), cm, "dot"))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_fl_sweep_column_slices_bit_identical(cuda, dtype, monkeypatch):
+    """fused(y)[cols] == fused(y[cols]) bit for bit, for slices, gathers and
+    a sweep cut into column slices by a small scratch cap."""
+    from repro_torch.kernels import flmf_gains as flmf_module
+
+    gen = torch.Generator(device=cuda).manual_seed(29)
+    u, n, d = 300, 3000, 72
+    x = torch.randn((u, d), generator=gen, device=cuda).to(dtype)
+    y = torch.randn((n, d), generator=gen, device=cuda).to(dtype)
+    cm = torch.rand((u,), generator=gen, device=cuda)
+    full = ops.fused_fl_sweep(x, y, cm)
+    for lo, hi in ((0, 1), (5, 517), (128, 2048), (2999, 3000)):
+        assert torch.equal(ops.fused_fl_sweep(x, y[lo:hi].contiguous(), cm), full[lo:hi])
+    idx = torch.randint(0, n, (777,), generator=gen, device=cuda)
+    assert torch.equal(ops.fused_fl_sweep(x, y[idx].contiguous(), cm), full[idx])
+    monkeypatch.setattr(flmf_module, "SCRATCH_BYTES", 3 * 4 * 128 * 3)  # 384-column slices
+    assert torch.equal(ops.fused_fl_sweep(x, y, cm), full)
+
+
+def test_fused_fl_sweep_raises_instead_of_falling_back(cuda):
+    x, y, cm = (torch.rand((8, 4), device=cuda), torch.rand((6, 4), device=cuda),
+                torch.rand(8, device=cuda))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ops.fused_fl_sweep(x.half(), y, cm)
+    with pytest.raises(ValueError, match="devices"):
+        ops.fused_fl_sweep(x, y.cpu(), cm)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.fused_fl_sweep(x, torch.rand((4, 6), device=cuda).T, cm)
