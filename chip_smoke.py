@@ -37,7 +37,9 @@ Phases, each of which raises on failure (the exit code is then non-zero):
   2 build    nvcc every kernel source for sm_90a; ptxas registers/spills
   3 kernels  each kernel against its plain version at small and ragged shapes
              (the fused sweep in fp32 and bf16, with its column-slice bit
-             identity)
+             identity; dmin and gcmf at the selection sizes where their
+             branches and column blocks change), and the mask compaction
+             against torch.nonzero at n = 2^20
   4 main     the main path at full size, its launch counts, and the same
              solves on the plain path, compared step by step
   5 times    each kernel, its plain version and the library call, timed
@@ -339,6 +341,46 @@ def phase_mf_kernels(torch, seed: int) -> None:
                 check_close(f"gcmf_gains_at {metric} ({n},{d}) k={k} (bit-equal to gcmf_gains)",
                             got, gcmf_gains_at_plain(ym, yy, mask, total, diag, lam, idx, metric),
                             *MF_TOL[metric])
+    # gcmf at the edges of its 128-column blocks of selected columns: a
+    # column lost or added at a block edge would move a gain by a whole term.
+    # d = 130 (ragged across the 8-wide K strips), as tests/test_torch_gpu.py.
+    # At d = 512 the two versions' fp32 roundings alone part beyond MF_TOL on
+    # a few gains, whatever the block edges: signed dot products that cancel
+    # to a gain near 0 (4.9e-4 at |A| = 128), and the euclidean self pair,
+    # whose d2 residual 1 / (1 + sqrt(d2)) amplifies (4.4e-3 at |A| = 1);
+    # PERF.md, open questions.
+    n, d = 300, 130
+    y = torch.randn((n, d), generator=gen, device=dev)
+    total = n * torch.rand((n,), generator=gen, device=dev)
+    diag = torch.rand((n,), generator=gen, device=dev)
+    sets = []
+    for k in (1, 8, 100, 777):
+        idx = torch.randint(0, n, (k,), generator=gen, device=dev)
+        idx[::7] = -1
+        sets.append(idx)
+    for metric in SIM_TOL:
+        ym = _normalize(y) if metric == "cosine" else y
+        yy = (ym * ym).sum(1)
+        for a in (0, 1, 127, 128, 129, n):
+            mask = _count_mask(torch, gen, n, a)
+            args = (ym, yy, mask, total, diag, lam)
+            gfull = ops.gcmf_gains(*args, metric)
+            torch.cuda.synchronize()
+            check_close(f"gcmf_gains {metric} ({n},{d}) |A| = {a}", gfull,
+                        gcmf_gains_plain(*args, metric), *MF_TOL[metric], quiet=True)
+            if a == 0 and not torch.equal(gfull, total - lam * diag):
+                raise AssertionError(f"gcmf_gains {metric} ({n},{d}): |A| = 0 must give "
+                                     "total - lam * diag")
+            for idx in sets:
+                got = ops.gcmf_gains_at(*args, idx, metric)
+                torch.cuda.synchronize()
+                _check_subset(f"gcmf_gains_at {metric} ({n},{d}) |A| = {a} k={idx.shape[0]}",
+                              torch, got, gfull, idx)
+                check_close(f"gcmf_gains_at {metric} |A| = {a} k={idx.shape[0]}", got,
+                            gcmf_gains_at_plain(*args, idx, metric), *MF_TOL[metric], quiet=True)
+    log(f"  ok  gcmf_gains / gcmf_gains_at ({n},{d}), every metric, |A| = 0, 1, 127, 128, 129, "
+        f"{n}: within MF_TOL of their plain versions, gathered bit-equal to full at k = 1, 8, "
+        "100, 777 with pads; total - lam * diag at |A| = 0")
     # the torch path of FeatureSource: subset sweeps bit-equal on the card too
     x = torch.randn((300, 130), generator=gen, device=dev)
     y = torch.randn((1500, 130), generator=gen, device=dev)
@@ -617,11 +659,13 @@ def _mf_bytes(*tensors) -> float:
 
 
 def _time_subsets(torch, name, kernel, plain, library, full, n, reps, gen, work, tol,
-                  work_all=None):
+                  work_all=None, library_selected=None):
     """Time a gathered sweep at k = 8 and 512 on fresh index sets (so no
     candidate row stays in L2), held bit-equal to the full sweep.  ``work(k)``
     gives the (operations, bytes) the function needs, ``work_all(k)`` those
-    of a sweep over every column where the data lets it need fewer."""
+    of a sweep over every column where the data lets it need fewer;
+    ``library_selected`` is a second library call, over the selected
+    columns only."""
     out = {}
     for k in (8, 512):
         sets = [torch.randperm(n, generator=gen, device="cuda")[:k].to(torch.int32)
@@ -637,8 +681,15 @@ def _time_subsets(torch, name, kernel, plain, library, full, n, reps, gen, work,
                   "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err}
         if work_all is not None:
             out[k]["bound_all_columns_ms"] = bound(*work_all(k))[0]
+        if library_selected is not None:
+            check_close(f"{name} k={k}: the selected-columns library call", library_selected(sets[0]),
+                        got, *tol, quiet=True)
+            out[k]["selected_library_ms"] = cuda_ms(torch, lambda: library_selected(next(it)), reps)
         log(f"  {name} k={k}: kernel {out[k]['ms']:.4f} ms, plain {out[k]['plain_ms']:.3f} ms, "
-            f"library {out[k]['library_ms']:.4f} ms, bound {b_ms:.5f} ms ({b_by}"
+            f"library {out[k]['library_ms']:.4f} ms"
+            + ("" if library_selected is None
+               else f", over the selected columns {out[k]['selected_library_ms']:.4f} ms")
+            + f", bound {b_ms:.5f} ms ({b_by}"
             + ("" if work_all is None else f"; all columns {out[k]['bound_all_columns_ms']:.5f} ms")
             + "); bit-equal to the full sweep")
     return out
@@ -649,6 +700,7 @@ def phase_mf_times(torch, args, naive_res) -> list[dict]:
     from repro_torch.kernels import ops
     from repro_torch.kernels.flmf_gains import flmf_gains_at_plain, flmf_gains_plain
     from repro_torch.kernels.gcmf_gains import gcmf_gains_at_plain, gcmf_gains_plain
+    from repro_torch.kernels.select_cols import select_cols
     from repro_torch.kernels.similarity_kernel import inv_two_sigma_sq, metric_epilogue
 
     log("== phase 5 (matrix-free kernels): times at the matrix-free path's shapes")
@@ -736,26 +788,41 @@ def phase_mf_times(torch, args, naive_res) -> list[dict]:
         dg = gc.diag if rows is None else gc.diag[rows]
         return tot - gc.lam * (2.0 * (s @ mask) + dg)
 
+    def gc_library_selected(rows=None):
+        # one torch.mm of the candidate rows against the selected rows only,
+        # then the mask-weighted sum over them
+        yj = gsrc.y if rows is None else gsrc.y[rows]
+        yyj = gsrc.yy if rows is None else gsrc.yy[rows]
+        s = metric_epilogue(torch.mm(yj, gsrc.y[picks].T), yyj, gsrc.yy[picks], "cosine", inv)
+        tot = gc.total if rows is None else gc.total[rows]
+        dg = gc.diag if rows is None else gc.diag[rows]
+        return tot - gc.lam * (2.0 * (s @ mask[picks]) + dg)
+
+    check_close("the selected-columns library call vs the gcmf kernel", gc_library_selected(),
+                gfull, *MF_TOL["cosine"])
     n_sel = int(picks.numel())
     gq = {"ms": cuda_ms(torch, lambda: ops.gcmf_gains(*gc_args), big),
           "plain_ms": cuda_ms(torch, lambda: gcmf_gains_plain(*gc_args), 1, warmup=1),
-          "library_ms": cuda_ms(torch, gc_library, big, warmup=1), "max_abs_err": gerr,
-          "selected": n_sel}
-    # the function needs the |A| selected columns only (the kernel sweeps all n)
+          "library_ms": cuda_ms(torch, gc_library, big, warmup=1),
+          "selected_library_ms": cuda_ms(torch, gc_library_selected, reps),
+          "select_cols_ms": cuda_ms(torch, lambda: select_cols(mask, "nonzero"), reps),
+          "max_abs_err": gerr, "selected": n_sel}
+    # the function needs the |A| selected columns only
     gq["bound_ms"], gq["bound_by"] = bound(
         2.0 * n * n_sel * d, _mf_bytes(gsrc.y, mask, gc.total, gc.diag) + 4.0 * n)
     gq["bound_full_ms"] = bound(2.0 * n * n * d, 0.0)[0]
-    log(f"  gcmf_gains cosine n={n}, |A|={n_sel}: kernel {gq['ms']:.3f} ms, plain "
+    log(f"  gcmf_gains cosine n={n}, |A|={n_sel}: kernel {gq['ms']:.4f} ms, plain "
         f"{gq['plain_ms']:.1f} ms, torch.mm + mask sum (library) {gq['library_ms']:.3f} ms, "
-        f"bound {gq['bound_ms']:.4f} ms ({gq['bound_by']}; all n columns: "
-        f"{gq['bound_full_ms']:.3f} ms)")
+        f"over the selected columns {gq['selected_library_ms']:.4f} ms, bound "
+        f"{gq['bound_ms']:.4f} ms ({gq['bound_by']}; all n columns: {gq['bound_full_ms']:.3f} ms); "
+        f"of its time the compaction {gq['select_cols_ms']:.4f} ms")
     gc_at = _time_subsets(
         torch, f"gcmf_gains_at ({n},{d}) cosine",
         lambda idx: ops.gcmf_gains_at(*gc_args[:6], idx, "cosine"),
         lambda idx: gcmf_gains_at_plain(*gc_args[:6], idx, "cosine"),
         lambda idx: gc_library(idx.long()), gfull, n, reps, gen,
         work=lambda k: (2.0 * n_sel * d * k, _mf_bytes(mask) + 4.0 * n_sel * d + 4.0 * (d + 4) * k),
-        tol=MF_TOL["cosine"])
+        tol=MF_TOL["cosine"], library_selected=lambda idx: gc_library_selected(idx.long()))
 
     def row(name, cu, line, shape, t, extra):
         return {"name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{cu}",
@@ -776,11 +843,14 @@ def phase_mf_times(torch, args, naive_res) -> list[dict]:
             {"library_call": "FeatureSource.fl_gains_at", "k512": fl_at[512]}),
         row("gcmf_gains", "gcmf_gains.cu", "gcmf_gains.py:98",
             f"y ({n},{d}), cosine, |A| = {n_sel} -> ({n},)", gq,
-            {"library_call": "torch.mm(y, y.T) + epilogue + masked sum"}),
+            {"library_call": "torch.mm(y, y.T) + epilogue + masked sum",
+             "selected_library_call": "torch.mm(y, y[A].T) + epilogue + @ m[A]",
+             **{k: gq[k] for k in ("selected_library_ms", "select_cols_ms", "bound_full_ms")}}),
         row("gcmf_gains_at", "gcmf_gains.cu", "gcmf_gains.py:163",
             f"y ({n},{d}), cosine, |A| = {n_sel}, idx (8,) -> (8,)", gc_at[8],
             {"library_call": "torch.mm(y[idx], y.T) + epilogue + masked sum",
-             "k512": gc_at[512]}),
+             "selected_library_call": "torch.mm(y[idx], y[A].T) + epilogue + @ m[A]",
+             "selected_library_ms": gc_at[8]["selected_library_ms"], "k512": gc_at[512]}),
     ]
 
 
@@ -819,7 +889,7 @@ def _solve_pair(torch, label, fn_kern, fn_plain, budget, opt, max_replay, gain_r
     return info, kern, plain
 
 
-def _lazy_levels_apart(torch, label, fns, budget, screen_k=8) -> dict:
+def _lazy_levels_apart(torch, label, fns, budget, screen_k=8, must_part=True) -> dict | None:
     """Find the first lazy level where two LazyGreedy runs decide apart.
 
     Reruns each of ``fns`` with its sweeps recorded, rebuilds every step's
@@ -830,7 +900,8 @@ def _lazy_levels_apart(torch, label, fns, budget, screen_k=8) -> dict:
     step whose level count differs between the runs, with both runs' accept
     tests at the level where one of them stopped; on both, best and rest
     must lie within GC_GAIN_RTOL of each other there (a decision within the
-    gains' bar of its threshold, not a gain apart)."""
+    gains' bar of its threshold, not a gain apart).  Where no step's level
+    count differs, raises, or returns None when not ``must_part``."""
     from repro_torch.common import NEG_INF
     from repro_torch.core import SelectionSpec, solve
     from repro_torch.core.optimizers import greedy
@@ -896,7 +967,10 @@ def _lazy_levels_apart(torch, label, fns, budget, screen_k=8) -> dict:
                                          f"accept test that is not within rtol {GC_GAIN_RTOL} of "
                                          f"its threshold: {info}")
             return info
-    raise AssertionError(f"{label}: n_evals differ but no step's level count does")
+    if must_part:
+        raise AssertionError(f"{label}: n_evals differ but no step's level count does")
+    log(f"  {label}: per-step evaluations equal over the first {budget} steps")
+    return None
 
 
 def phase_matrix_free(torch, args, main: dict) -> dict:
@@ -956,6 +1030,14 @@ def phase_matrix_free(torch, args, main: dict) -> dict:
         if v <= 0:
             raise AssertionError(f"kernel {k} was not launched on the matrix-free path")
     out["launches"] = launches
+
+    # ---- after the counts are read: where (c)'s LazyGreedy n_evals part,
+    # over the steps where the two paths' ids agree
+    lazy = c["LazyGreedy"]
+    if lazy["n_evals"] != lazy["plain_n_evals"]:
+        lazy["levels_apart"] = _lazy_levels_apart(
+            torch, "(c) GCMF LazyGreedy", (gc, gc_plain), max(1, lazy["agreeing_steps"]),
+            must_part=False)
     return out
 
 
@@ -1032,9 +1114,55 @@ def phase_dense_kernels(torch, seed: int) -> dict:
                                torch.zeros_like(curmin))
         if not bool((empty == 0).all()):
             raise AssertionError(f"dmin_gains ({n},{n}): |A| = 0 must give all zeros")
-        log(f"  ok  dmin_gains ({n},{n}): bit-equal to its plain version; all zeros at |A| = 0")
+        # the gather / stream crossover at 8 |A| = n, and every item selected
+        for k in sorted({1, n // 8 - 1, n // 8, n // 8 + 1, n} - {0}):
+            kmask = _count_mask(torch, gen, n, k)
+            kcount = torch.tensor(k, dtype=torch.int32, device="cuda")
+            got = ops.dmin_gains(s, kmask, kcount, curmin)
+            torch.cuda.synchronize()
+            if not torch.equal(got, dmin_gains_plain(s, kmask, kcount, curmin)):
+                raise AssertionError(f"dmin_gains ({n},{n}) |A| = {k} "
+                                     f"({'gather' if 8 * k < n else 'stream'}): not bit-equal "
+                                     "to its plain version")
+        log(f"  ok  dmin_gains ({n},{n}): bit-equal to its plain version at a random mask and at "
+            f"|A| = 1, n/8 - 1, n/8, n/8 + 1, n (both branches); all zeros at |A| = 0")
     log(f"  gc_gains / dsum_gains bit-equal to their plain versions at every shape: {bit_equal}")
     return bit_equal
+
+
+def _count_mask(torch, gen, n: int, k: int):
+    """A 0/1 fp32 mask of k items in random places, on the card."""
+    mask = torch.zeros((n,), device="cuda")
+    mask[torch.randperm(n, generator=gen, device="cuda")[:k]] = 1.0
+    return mask
+
+
+def phase_select_cols(torch, seed: int) -> dict:
+    """The mask compaction that the dmin and gcmf kernels read their
+    selected columns through, against torch.nonzero at n = 2^20."""
+    from repro_torch.kernels.select_cols import select_cols
+
+    log("== phase 3: the mask compaction vs torch.nonzero, n = 2^20")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 6)
+    n = 1 << 20
+    r = torch.rand((n,), generator=gen, device="cuda")
+    masks = {"empty": torch.zeros((n,), device="cuda"), "one": _count_mask(torch, gen, n, 1),
+             "1%": torch.where(r < 0.01, 1.0, 0.0), "signed 50%": torch.where(r < 0.5, r - 0.25, 0.0),
+             "full": torch.ones((n,), device="cuda")}
+    counts = {}
+    for label, mask in masks.items():
+        for pred in ("positive", "nonzero"):
+            sel, count = select_cols(mask, pred)
+            again, _ = select_cols(mask, pred)
+            want = torch.nonzero(mask > 0 if pred == "positive" else mask != 0).flatten()
+            k = int(count)
+            if k != want.numel() or not torch.equal(sel[:k].long(), want):
+                raise AssertionError(f"select_cols {pred} {label}: not torch.nonzero")
+            if not torch.equal(again[:k], sel[:k]):
+                raise AssertionError(f"select_cols {pred} {label}: differs on a rerun")
+            counts[f"{pred} {label}"] = k
+    log(f"  ok  select_cols: equal to torch.nonzero and the same on a rerun, counts {counts}")
+    return counts
 
 
 def phase_dense_pairwise(torch, args, S) -> tuple[dict, object]:
@@ -1147,6 +1275,7 @@ def phase_dense_times(torch, args, S, D, dense: dict) -> list[dict]:
     from repro_torch.kernels import ops
     from repro_torch.kernels.disp_gains import dmin_finish, dmin_gains_plain, dsum_gains_plain
     from repro_torch.kernels.gc_gains import gc_gains_at_plain, gc_gains_plain
+    from repro_torch.kernels.select_cols import select_cols
 
     log("== phase 5 (dense pairwise kernels): times at phase 7's shapes")
     n, reps = S.shape[0], args.reps
@@ -1207,6 +1336,13 @@ def phase_dense_times(torch, args, S, D, dense: dict) -> list[dict]:
                   lambda: dmin_gains_plain(D, mmask, count, curmin),
                   lambda: dmin_finish(D.index_select(1, mids).amin(dim=1), count, curmin),
                   (0.0, 0.0), True, int(mids.numel()), 2)
+    # the kernel gathers the |A| selected columns (8 |A| < n): each 4-byte
+    # element costs a 32-byte sector, so its floor is 32 n |A| bytes
+    mq["sector_floor_ms"] = 1e3 * 32.0 * n * mq["selected"] / PEAK_BYTES_PER_S
+    mq["branch"] = "gather" if 8 * mq["selected"] < n else "stream"
+    mq["select_cols_ms"] = cuda_ms(torch, lambda: select_cols(mmask, "positive"), reps)
+    log(f"  dmin_gains: {mq['branch']} branch; sector floor {mq['sector_floor_ms']:.4f} ms; "
+        f"of its time the compaction (select_cols, n = {n}) {mq['select_cols_ms']:.4f} ms")
 
     def row(name, cu, line, shape, t, extra):
         return {"name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{cu}",
@@ -1229,7 +1365,8 @@ def phase_dense_times(torch, args, S, D, dense: dict) -> list[dict]:
             {"library_call": "torch.mv(D, m)", "bit_equal_to_plain": sq["bit_equal_to_plain"]}),
         row("dmin_gains", "disp_gains.cu", "disp_gains.py:106",
             f"dist ({n},{n}), |A| = {mq['selected']} -> ({n},)", mq,
-            {"library_call": "D.index_select(1, A).amin(1) + finish"}),
+            {"library_call": "D.index_select(1, A).amin(1) + finish",
+             **{k: mq[k] for k in ("sector_floor_ms", "branch", "select_cols_ms")}}),
     ]
 
 
@@ -1959,12 +2096,14 @@ def main(argv=None) -> int:
     phase_kernels(torch, args.seed)
     phase_mf_kernels(torch, args.seed)
     dense_bits = phase_dense_kernels(torch, args.seed)
+    select_counts = phase_select_cols(torch, args.seed)
     cover_bits = phase_cover_kernels(torch, args.seed)
     fused_bits = phase_fused_kernels(torch, args.seed)
     main_out, fn, naive_res = phase_main(torch, args)
     kernels = phase_times(torch, args, fn, naive_res, main_out)
     dense_out, D = phase_dense_pairwise(torch, args, fn.sim)
     dense_out["phase3_bit_equal"] = dense_bits
+    dense_out["phase3_select_cols_counts"] = select_counts
     dense_rows = phase_dense_times(torch, args, fn.sim, D, dense_out)
     del fn, D  # phase 6 holds its peak memory against a budget: S and D (n x n) go
     mf_rows = phase_mf_times(torch, args, naive_res)

@@ -15,8 +15,9 @@ the (n, n) matrix is never written.
 Both have a stateless kernel backend that recomputes the whole sweep from
 the selection mask: dense GraphCut (and GraphCutMF over a dense source)
 streams S through ``kernels/gc_gains.py`` (O(n^2) bytes per call), a
-feature source recomputes S through ``kernels/gcmf_gains.py`` (O(n^2 d)
-operations per call), against the memoized O(n) ``gains()``.
+feature source recomputes the selected columns of S through
+``kernels/gcmf_gains.py`` (O(n |A| d) operations per call), against the
+memoized O(n) ``gains()``.
 """
 from __future__ import annotations
 
@@ -145,7 +146,7 @@ class GraphCut(SetFunction):
 class GCMFKernelSweep:
     """GainBackend: the stateless matrix-free CUDA sweep, similarity computed
     in-stream from the features (kernels/gcmf_gains.py).  Each call costs
-    O(n^2 d): it serves one-shot sweeps, while the memoized O(n) ``gains()``
+    O(n |A| d): it serves one-shot sweeps, while the memoized O(n) ``gains()``
     remains the faster choice inside long greedy loops."""
 
     name = "cuda-gcmf"

@@ -29,10 +29,14 @@ _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE / "build"  # listed in .gitignore via `build/`
 
+SELECT_CHUNK = 4096  # mask elements per block of csrc/select_cols.cu's scan
+
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")  # the `a`: wgmma/setmaxnreg
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               # the row reduction's block width has one source, its plain version
-              f"-DROW_REDUCE_THREADS={ROW_REDUCE_THREADS}")
+              f"-DROW_REDUCE_THREADS={ROW_REDUCE_THREADS}",
+              # the compaction's chunk, by which kernels/select_cols.py sizes its scratch
+              f"-DSELECT_CHUNK={SELECT_CHUNK}")
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -53,13 +57,14 @@ _SIGNATURES = {
         ctypes.c_int,
     ),
     "gcmf_gains_launch": (
-        [_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, ctypes.c_int, ctypes.c_float,
+        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, ctypes.c_int, ctypes.c_float,
          _P, _P, _P],
         ctypes.c_int,
     ),
     "gc_gains_launch": ([_P, _I64, _P, _P, _P, _P, _I64, _P, _P], ctypes.c_int),
     "dsum_gains_launch": ([_P, _I64, _P, _P, _P], ctypes.c_int),
-    "dmin_gains_launch": ([_P, _I64, _P, _P, _P, _P, _P], ctypes.c_int),
+    "dmin_gains_launch": ([_P, _I64, _P, _P, _P, _P, _P, _P, _P], ctypes.c_int),
+    "select_cols_launch": ([_P, _I64, ctypes.c_int, _P, _P, _P], ctypes.c_int),
     "fb_gains_launch": (
         [_P, _I64, _I64, _P, _P, ctypes.c_int, _P, _I64, _P, _P, _P], ctypes.c_int,
     ),

@@ -5,14 +5,24 @@ directories of kernel sources (an older checkout's
     python -m repro_torch.kernels.compare_kernels [--kernels NAME,...] OTHER_CSRC [OTHER_CSRC ...]
 
 Every library is built with the same nvcc flags and loaded into one
-process.  At the dense path's shapes (chip_smoke.py phases 4 and 7: n =
-50,000, d = 512), each kernel named (``similarity``, dot and cosine; the
-dense pairwise full sweeps ``gc_gains``, ``dsum_gains``, ``dmin_gains`` on a
-random (n, n) matrix and a mask of 500 ones) is timed forward and back
-(this, B, C, C, B, this) in each of two rounds, ten launches each with CUDA
-events, so a drift of clock or power falls on all alike.  All outputs of a
-kernel must be equal bit for bit.  Prints the kernels' ptxas lines, then
-one JSON line with every time; exits non-zero on a mismatch.
+process, and each is called through its own C signature: sources older
+than the mask compaction (``csrc/select_cols.cu``) take ``dmin_gains`` and
+``gcmf_gains`` without its list and count.  At the dense path's shapes
+(chip_smoke.py phases 4, 6 and 7: n = 50,000, d = 512), each kernel named
+(``similarity``, dot and cosine; the dense pairwise full sweeps
+``gc_gains``, ``dsum_gains``, ``dmin_gains`` on a random (n, n) matrix and
+a mask of 500 ones, ``dmin_gains`` also at n / 4 ones, where it streams
+every column; ``gcmf_gains`` and ``gcmf_gains_at`` at k = 8 and 512 on
+cosine features with a mask of 100 ones, including the compaction) is
+timed forward and back (this, B, C, C, B, this) in each of two rounds, ten
+launches each with CUDA events, so a drift of clock or power falls on all
+alike.  Each library's output must be the same after the timed launches as
+before them.  Across libraries the outputs must be equal bit for bit,
+except gcmf's: its sum over the selected columns runs in another order
+than a sum over every column, by design, so its outputs are held to the
+kernel-vs-plain bar (rtol 2e-5, atol 1e-4) across libraries.  Prints the
+kernels' ptxas lines, then one JSON line with every time; exits non-zero on
+a mismatch.
 """
 from __future__ import annotations
 
@@ -26,40 +36,72 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.flmf_gains import TILE_ROWS
+from repro_torch.kernels.gcmf_gains import slice_width
+from repro_torch.kernels.select_cols import PREDICATES
 from repro_torch.kernels.similarity_kernel import _METRIC_CODE, _normalize, inv_two_sigma_sq
 
 N, D = 50_000, 512  # the dense path's shape (chip_smoke.py phase 4)
 N_SEL = 500  # selected items in the dense pairwise sweeps' mask (phase 7 (e)'s budget)
+GC_SEL = 100  # selected items in the gcmf sweeps' mask (phase 6 (c)'s budget)
+GC_TOL = (2e-5, 1e-4)  # gcmf across libraries: chip_smoke.py's MF_TOL for cosine
 REPS, ROUNDS = 10, 2
-KERNELS = ("similarity", "gc_gains", "dsum_gains", "dmin_gains")
+KERNELS = ("similarity", "gc_gains", "dsum_gains", "dmin_gains", "gcmf_gains", "gcmf_gains_at")
+_P, _I64 = ctypes.c_void_p, ctypes.c_int64
+# the C signatures of sources older than the compaction (no sel / nsel)
+_BEFORE_SELECT_COLS = {
+    "dmin_gains_launch": ([_P, _I64, _P, _P, _P, _P, _P], ctypes.c_int),
+    "gcmf_gains_launch": (
+        [_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, ctypes.c_int, ctypes.c_float, _P, _P, _P],
+        ctypes.c_int,
+    ),
+}
 
 
 def _library(csrc: Path, name: str, kernels) -> ctypes.CDLL:
+    """Build ``csrc`` and bind the launch functions of ``kernels`` through
+    the library's own signatures; ``lib.compacts`` says whether it has the
+    compaction."""
     target = _build.BUILD_DIR / f"compare_{name}.so"
     for line in _build._compile(target, csrc):
         if any(k in line for k in kernels) and ("registers" in line or "spill" in line):
             print(f"{name}: {line}", file=sys.stderr)
     lib = ctypes.CDLL(str(target))
-    for k in kernels:
-        argtypes, restype = _build._SIGNATURES[f"{k}_launch"]
+    lib.compacts = hasattr(lib, "select_cols_launch")
+    sigs = _build._SIGNATURES if lib.compacts else {**_build._SIGNATURES, **_BEFORE_SELECT_COLS}
+    for k in {k.removesuffix("_at") for k in kernels} | ({"select_cols"} if lib.compacts else set()):
+        argtypes, restype = sigs[f"{k}_launch"]
         getattr(lib, f"{k}_launch").argtypes = argtypes
         getattr(lib, f"{k}_launch").restype = restype
     return lib
 
 
+def _compacted(lib, mask, pred, stream):
+    """Run the compaction of ``lib`` on ``mask``: (error code, sel, nsel)."""
+    n = mask.shape[0]
+    sel = torch.empty((n,), dtype=torch.int32, device="cuda")
+    blk = torch.empty((-(-n // _build.SELECT_CHUNK) + 1,), dtype=torch.int32, device="cuda")
+    rc = lib.select_cols_launch(mask.data_ptr(), n, PREDICATES[pred], sel.data_ptr(),
+                                blk.data_ptr(), stream)
+    return rc, sel, blk[-1:]
+
+
 def _cases(kernels, stream):
-    """Yield (label, output shape, launch(lib, out) -> CUDA error code)."""
+    """Yield (label, output shape, tolerance across libraries or None for
+    bit equality, launch(lib, out) -> CUDA error code)."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     if "similarity" in kernels:
         x = torch.randn((N, D), generator=gen, device="cuda")
         for metric in ("dot", "cosine"):
             xm = _normalize(x).contiguous() if metric == "cosine" else x
             xx = (xm * xm).sum(1)
-            yield f"similarity {metric}", (N, N), lambda lib, out, xm=xm, xx=xx, metric=metric: (
+            yield f"similarity {metric}", (N, N), None, lambda lib, out, xm=xm, xx=xx, metric=metric: (
                 lib.similarity_launch(xm.data_ptr(), xm.data_ptr(), xx.data_ptr(), xx.data_ptr(),
                                       out.data_ptr(), N, N, D, _METRIC_CODE[metric],
                                       inv_two_sigma_sq(D, None), stream))
         del x, xm, xx
+    if set(kernels) & {"gcmf_gains", "gcmf_gains_at"}:
+        yield from _gcmf_cases(kernels, stream, gen)
     if not set(kernels) & {"gc_gains", "dsum_gains", "dmin_gains"}:
         return
     mat = torch.rand((N, N), generator=gen, device="cuda")
@@ -70,16 +112,74 @@ def _cases(kernels, stream):
     count = torch.tensor(N_SEL, dtype=torch.int32, device="cuda")
     curmin = torch.tensor(0.05, device="cuda")
     if "gc_gains" in kernels:
-        yield "gc_gains", (N,), lambda lib, out: lib.gc_gains_launch(
+        yield "gc_gains", (N,), None, lambda lib, out: lib.gc_gains_launch(
             mat.data_ptr(), N, mask.data_ptr(), total.data_ptr(), lam.data_ptr(), None, N,
             out.data_ptr(), stream)
     if "dsum_gains" in kernels:
-        yield "dsum_gains", (N,), lambda lib, out: lib.dsum_gains_launch(
+        yield "dsum_gains", (N,), None, lambda lib, out: lib.dsum_gains_launch(
             mat.data_ptr(), N, mask.data_ptr(), out.data_ptr(), stream)
     if "dmin_gains" in kernels:
-        yield "dmin_gains", (N,), lambda lib, out: lib.dmin_gains_launch(
-            mat.data_ptr(), N, mask.data_ptr(), count.data_ptr(), curmin.data_ptr(),
-            out.data_ptr(), stream)
+        wide = torch.zeros((N,), device="cuda")  # 8 |A| >= n: the stream branch
+        wide[torch.randperm(N, generator=gen, device="cuda")[: N // 4]] = 1.0
+        for label, m, cnt in (("dmin_gains", mask, count),
+                              ("dmin_gains |A| = n/4", wide,
+                               torch.tensor(N // 4, dtype=torch.int32, device="cuda"))):
+
+            def dmin(lib, out, m=m, cnt=cnt):
+                if not lib.compacts:
+                    return lib.dmin_gains_launch(mat.data_ptr(), N, m.data_ptr(), cnt.data_ptr(),
+                                                 curmin.data_ptr(), out.data_ptr(), stream)
+                rc, sel, nsel = _compacted(lib, m, "positive", stream)
+                return rc or lib.dmin_gains_launch(
+                    mat.data_ptr(), N, m.data_ptr(), sel.data_ptr(), nsel.data_ptr(),
+                    cnt.data_ptr(), curmin.data_ptr(), out.data_ptr(), stream)
+
+            yield label, (N,), None, dmin
+
+
+def _gcmf_cases(kernels, stream, gen):
+    """gcmf at phase 6 (c)'s shapes: cosine features, a mask of GC_SEL ones;
+    the full sweep in the launcher's candidate slices, the gathered one at
+    k = 8 and 512."""
+    y = _normalize(torch.randn((N, D), generator=gen, device="cuda")).contiguous()
+    yy = (y * y).sum(1)
+    mask = torch.zeros((N,), device="cuda")
+    mask[torch.randperm(N, generator=gen, device="cuda")[:GC_SEL]] = 1.0
+    total = N * torch.rand((N,), generator=gen, device="cuda")
+    diag = torch.rand((N,), generator=gen, device="cuda")
+    lam = torch.tensor(0.4, device="cuda")
+    nblocks = -(-N // TILE_ROWS)
+    cols = slice_width(N, nblocks)
+    partial = torch.empty((nblocks, cols), device="cuda")
+    every = torch.arange(N, dtype=torch.int32, device="cuda")
+
+    def gcmf(lib, out, idx):
+        j = out.shape[0]
+        if idx is None and j > cols:
+            idx = every
+        head = [y.data_ptr(), yy.data_ptr(), mask.data_ptr()]
+        if lib.compacts:
+            rc, sel, nsel = _compacted(lib, mask, "nonzero", stream)
+            if rc:
+                return rc
+            head += [sel.data_ptr(), nsel.data_ptr()]
+        for lo in range(0, j, cols):
+            hi = min(j, lo + cols)
+            rc = lib.gcmf_gains_launch(
+                *head, total.data_ptr(), diag.data_ptr(), lam.data_ptr(),
+                None if idx is None else idx[lo:hi].data_ptr(), N, hi - lo, D,
+                _METRIC_CODE["cosine"], inv_two_sigma_sq(D, None), partial.data_ptr(),
+                out[lo:hi].data_ptr(), stream)
+            if rc:
+                return rc
+        return 0
+
+    if "gcmf_gains" in kernels:
+        yield "gcmf_gains", (N,), GC_TOL, lambda lib, out: gcmf(lib, out, None)
+    if "gcmf_gains_at" in kernels:
+        for k in (8, 512):
+            idx = torch.randperm(N, generator=gen, device="cuda")[:k].to(torch.int32)
+            yield f"gcmf_gains_at k={k}", (k,), GC_TOL, lambda lib, out, idx=idx: gcmf(lib, out, idx)
 
 
 def main(argv=None) -> int:
@@ -100,7 +200,7 @@ def main(argv=None) -> int:
                          capture_output=True, text=True).stdout.strip()
     result = {"card": gpu, "n": N, "d": D, "reps": REPS, "ms": {}}
     ok = True
-    for label, shape, launch in _cases(args.kernels, stream):
+    for label, shape, tol, launch in _cases(args.kernels, stream):
         outs = {k: torch.empty(shape, device="cuda") for k in libs}
 
         def run(which):
@@ -111,6 +211,7 @@ def main(argv=None) -> int:
         times = {k: [] for k in libs}
         for which in libs:  # warm up (and fill every output)
             run(which)
+        first = {k: v.clone() for k, v in outs.items()}
         for _ in range(ROUNDS):
             for which in order:
                 start = torch.cuda.Event(enable_timing=True)
@@ -121,11 +222,19 @@ def main(argv=None) -> int:
                 end.record()
                 end.synchronize()
                 times[which].append(start.elapsed_time(end) / REPS)
-        equal = all(torch.equal(outs["this"], out) for out in outs.values())
-        ok &= equal
-        result["ms"][label] = {**times, "bit_equal": equal}
-        print(f"{label}: {times} ms, bit-equal {equal}", file=sys.stderr, flush=True)
-        del outs
+        repeatable = all(torch.equal(first[k], outs[k]) for k in libs)
+        if tol is None:
+            agree = all(torch.equal(outs["this"], out) for out in outs.values())
+            held = {"bit_equal": agree}
+        else:
+            agree = all(torch.allclose(out, outs["this"], rtol=tol[0], atol=tol[1])
+                        for out in outs.values())
+            held = {"within_tol": agree, "max_abs_err": max(
+                float((out.double() - outs["this"].double()).abs().max()) for out in outs.values())}
+        ok &= repeatable and agree
+        result["ms"][label] = {**times, "repeatable": repeatable, **held}
+        print(f"{label}: {times} ms, repeatable {repeatable}, {held}", file=sys.stderr, flush=True)
+        del outs, first
     print(json.dumps(result))
     return 0 if ok else 1
 

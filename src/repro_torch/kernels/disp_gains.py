@@ -9,10 +9,13 @@ mask: the CUDA kernels' launchers and their plain versions.
   surrogate.  ``count`` (int32) and ``curmin`` (fp32) are one-element
   tensors on the inputs' device, read by the kernel there.
 
-The kernels (``csrc/disp_gains.cu``) and the plain versions below reduce in
-``row_reduce``'s fixed order with the same rounding steps, so they agree
-bit for bit.  The min does not depend on order at all: ``dmin_gains``
-equals the memoized DisparityMin path bit for bit.
+The dsum kernel (``csrc/disp_gains.cu``) and its plain version below reduce
+in ``row_reduce``'s fixed order with the same rounding steps, so they agree
+bit for bit.  The dmin kernel reads only the selected columns (compacted on
+the device by ``select_cols``) while 8 |A| < n, and streams every row
+above that; the min does not depend on order at all, so either way it
+equals the plain version below and the memoized DisparityMin path bit for
+bit.
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.row_reduce import reduce_rows
+from repro_torch.kernels.select_cols import select_cols_cuda
 
 BIG = 1e30  # DisparityMin's "no selected element" distance (core/functions/disparity.py)
 
@@ -73,5 +77,9 @@ def dsum_gains_cuda(dist, selmask) -> torch.Tensor:
 
 
 def dmin_gains_cuda(dist, selmask, count, curmin) -> torch.Tensor:
-    """Launch the DisparityMin sweep on checked CUDA tensors (see ``ops.dmin_gains``)."""
-    return _launch("dmin_gains", dist, selmask, count, curmin)
+    """Launch the DisparityMin sweep on checked CUDA tensors (see
+    ``ops.dmin_gains``): the compaction of the columns m > 0, then the sweep."""
+    if dist.shape[0] == 0:
+        return torch.empty((0,), dtype=torch.float32, device=dist.device)
+    sel, nsel = select_cols_cuda(selmask, "positive")
+    return _launch("dmin_gains", dist, selmask, sel, nsel, count, curmin)

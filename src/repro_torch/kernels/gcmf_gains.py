@@ -9,12 +9,14 @@ idx < 0 return NEG_INF), without writing the (n, n) similarity.  ``total``
 and ``diag`` arrive precomputed (GraphCutMF's memoized statistics); ``lam``
 is a one-element tensor on the inputs' device, read by the kernel there.
 
-The kernel (``csrc/gcmf_gains.cu``) sums each candidate's row in a fixed
-order that depends on n alone, so its gathered sweep equals its full sweep
-bit for bit at the same index.  The plain versions stream the similarity of
-the ground rows to fixed-width tiles of candidates (``similarity_tiles``)
-and add with ``sum``, which holds the same property; kernel and plain
-version round differently and agree to a tolerance.
+The kernel (``csrc/gcmf_gains.cu``) computes only the selected columns (m_c
+!= 0, compacted on the device by ``select_cols``) and sums each candidate's
+row over them in a fixed order that depends on the mask alone, so its
+gathered sweep equals its full sweep bit for bit at the same index.  The
+plain versions stream the similarity of the ground rows to fixed-width
+tiles of candidates (``similarity_tiles``) and add with ``sum``, which
+holds the same property; kernel and plain version round differently and
+agree to a tolerance.
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ import torch
 from repro_torch.common import NEG_INF
 from repro_torch.kernels import _build
 from repro_torch.kernels.flmf_gains import TILE_ROWS, column_slice
+from repro_torch.kernels.select_cols import select_cols_cuda
 from repro_torch.kernels.similarity_kernel import (
     _METRIC_CODE,
     inv_two_sigma_sq,
@@ -63,28 +66,41 @@ def gcmf_gains_at_plain(
     return torch.where(idx < 0, NEG_INF, g)
 
 
+def slice_width(j: int, nblocks: int) -> int:
+    """Candidates per launch of a j-candidate sweep over ``nblocks`` column
+    blocks: ``column_slice``'s cap on the scratch, spread evenly over the
+    fewest launches, in multiples of 128 (no short last launch, which would
+    run its few blocks alone on the card)."""
+    cap = column_slice(nblocks)
+    launches = -(-j // cap)
+    return TILE_ROWS * -(-j // (TILE_ROWS * launches))
+
+
 def _launch(y, yy, selmask, total, diag, lam, idx, metric, rbf_sigma) -> torch.Tensor:
     n, d = y.shape
     j = n if idx is None else idx.shape[0]
     out = torch.empty((j,), dtype=torch.float32, device=y.device)
     if j == 0:
         return out
+    # the selected columns' count stays on the card, so the partial scratch is
+    # sized for the most column blocks, every column selected
     nblocks = -(-n // TILE_ROWS)
-    cols = column_slice(nblocks)
+    cols = slice_width(j, nblocks)
     if idx is None and j > cols:
         # sliced through an index: the gathered sweep equals the full sweep
         idx = torch.arange(j, dtype=torch.int32, device=y.device)
     # scratch from the caching allocator (see flmf_gains._launch)
     partial = torch.empty((nblocks, min(j, cols)), dtype=torch.float32, device=y.device)
+    sel, nsel = select_cols_cuda(selmask, "nonzero")
     lib = _build.load()
     stream = torch.cuda.current_stream(y.device).cuda_stream
     for lo in range(0, j, cols):
         hi = min(j, lo + cols)
         rc = lib.gcmf_gains_launch(
-            y.data_ptr(), yy.data_ptr(), selmask.data_ptr(), total.data_ptr(), diag.data_ptr(),
-            lam.data_ptr(), None if idx is None else idx[lo:hi].data_ptr(), n, hi - lo, d,
-            _METRIC_CODE[metric], inv_two_sigma_sq(d, rbf_sigma), partial.data_ptr(),
-            out[lo:hi].data_ptr(), stream,
+            y.data_ptr(), yy.data_ptr(), selmask.data_ptr(), sel.data_ptr(), nsel.data_ptr(),
+            total.data_ptr(), diag.data_ptr(), lam.data_ptr(),
+            None if idx is None else idx[lo:hi].data_ptr(), n, hi - lo, d, _METRIC_CODE[metric],
+            inv_two_sigma_sq(d, rbf_sigma), partial.data_ptr(), out[lo:hi].data_ptr(), stream,
         )
         _build.check(rc, "gcmf_gains kernel")
     return out

@@ -47,7 +47,9 @@ from repro_torch.interop import (
     state_to_arrays,
 )
 from repro_torch.kernels import ops
+from repro_torch.kernels.disp_gains import BIG, dmin_finish, dmin_gains_plain
 from repro_torch.kernels.gc_gains import gc_gains_plain
+from repro_torch.kernels.select_cols import select_cols
 
 GC_TOL = dict(rtol=1e-4, atol=1e-4)
 SUM_TOL = dict(rtol=1e-5, atol=1e-5)
@@ -127,17 +129,51 @@ def test_dsum_plain_matches_jax_kernel_and_oracle(n):
     np.testing.assert_allclose(got, np.asarray(jops.dsum_gains_ref(d, m)), **SUM_TOL)
 
 
-@pytest.mark.parametrize("n", SHAPES)
-def test_dmin_plain_equals_jax_kernel_and_oracle_bit_for_bit(n):
+# DisparityMin selections: |A| = 0, 1, the CUDA kernel's gather / stream
+# crossover at 8 |A| = n (n/8 - 1 gathers, n/8 and n/8 + 1 stream), every
+# item, and a random 30% of the items
+DMIN_SELECTIONS = ["0", "1", "n/8-1", "n/8", "n/8+1", "n", "random"]
+
+
+def _dmin_inputs(n, which):
     rng = np.random.default_rng(n + 2)
     d = _dist(n, rng)
-    m = (rng.uniform(size=n) < 0.3).astype(np.float32)
+    if which == "random":
+        m = (rng.uniform(size=n) < 0.3).astype(np.float32)
+    else:
+        k = {"0": 0, "1": 1, "n/8-1": n // 8 - 1, "n/8": n // 8, "n/8+1": n // 8 + 1, "n": n}[which]
+        m = np.zeros(n, np.float32)
+        m[rng.permutation(n)[:k]] = 1.0
     count = int(m.sum())
     curmin = float(rng.uniform(0, 1)) if count else 0.0
+    return d, m, count, curmin
+
+
+@pytest.mark.parametrize("which", DMIN_SELECTIONS)
+@pytest.mark.parametrize("n", SHAPES)
+def test_dmin_plain_equals_jax_kernel_and_oracle_bit_for_bit(n, which):
+    d, m, count, curmin = _dmin_inputs(n, which)
     got = ops.dmin_gains(_t(d), _t(m), torch.tensor(count, dtype=torch.int32),
                          torch.tensor(curmin)).numpy()
     np.testing.assert_array_equal(got, np.asarray(jops.dmin_gains(d, m, count, curmin)))
     np.testing.assert_array_equal(got, np.asarray(jops.dmin_gains_ref(d, m, count, curmin)))
+
+
+@pytest.mark.parametrize("which", DMIN_SELECTIONS)
+@pytest.mark.parametrize("n", SHAPES)
+def test_dmin_gather_form_equals_plain_bit_for_bit(n, which):
+    """The plain model of the CUDA kernel's gather branch: the min over the
+    compacted selected columns alone (BIG for none), then the finish, equals
+    the masked min over every column bit for bit (a min has no order)."""
+    d, m, count, curmin = _dmin_inputs(n, which)
+    dist, mask = _t(d), _t(m)
+    count, curmin = torch.tensor(count, dtype=torch.int32), torch.tensor(curmin)
+    sel, k = select_cols(mask, "positive")
+    sel = sel[: int(k)].long()
+    assert torch.equal(sel, torch.nonzero(mask > 0).flatten())
+    mind = dist.index_select(1, sel).amin(1) if sel.numel() else torch.full((n,), BIG)
+    assert torch.equal(dmin_finish(mind, count, curmin),
+                       dmin_gains_plain(dist, mask, count, curmin))
 
 
 def test_dmin_empty_selection_is_zero():

@@ -40,6 +40,7 @@ from repro_torch.kernels.flmf_gains import SCRATCH_BYTES, flmf_gains_at_plain, f
 from repro_torch.kernels.fused_fl_sweep import fused_fl_sweep_plain
 from repro_torch.kernels.gcmf_gains import gcmf_gains_at_plain, gcmf_gains_plain
 from repro_torch.kernels.sc_gains import psc_gains_plain, sc_gains_plain
+from repro_torch.kernels.select_cols import select_cols
 from repro_torch.kernels.similarity_kernel import _normalize, similarity_plain
 
 pytestmark = pytest.mark.gpu
@@ -215,6 +216,59 @@ def test_gcmf_kernels_match_plain(cuda, shape, metric):
     assert ops.LAUNCHES["gcmf_gains_at"] == before["gcmf_gains_at"] + len(idx)
 
 
+def _count_mask(cuda, g, n, k):
+    """A 0/1 mask of k items in random places."""
+    mask = torch.zeros((n,), device=cuda)
+    mask[torch.randperm(n, generator=g, device=cuda)[:k]] = 1.0
+    return mask
+
+
+@pytest.mark.parametrize("count", ["0", "1", "127", "128", "129", "n"])
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("n", [300, 256])
+def test_gcmf_kernels_at_column_block_edges(cuda, n, metric, count):
+    """The kernel computes only the selected columns, 128 compacted columns
+    to a block: at |A| one short of, at and one past a block, with none and
+    with every column selected, the gathered sweep (k = 1, 8, 100, 777, pads
+    included) equals the full sweep bit for bit and both match the plain
+    versions; with none selected every gain is total - lam * diag."""
+    g, _, y, _, yy, idx = _mf_inputs(cuda, (1, n, 130), metric, 9)
+    _, total, diag, lam = _gc_inputs(cuda, g, n)
+    mask = _count_mask(cuda, g, n, n if count == "n" else int(count))
+    args = (y, yy, mask, total, diag, lam)
+    full = ops.gcmf_gains(*args, metric)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(full, gcmf_gains_plain(*args, metric), **MF_TOL[metric])
+    if count == "0":
+        assert torch.equal(full, total - lam * diag)
+    for i in idx:
+        got = ops.gcmf_gains_at(*args, i, metric)
+        torch.cuda.synchronize()
+        _assert_subset(got, full, i)
+        torch.testing.assert_close(got, gcmf_gains_at_plain(*args, i, metric), **MF_TOL[metric])
+
+
+@pytest.mark.parametrize("pred", ["positive", "nonzero"])
+def test_select_cols_kernel_equals_nonzero(cuda, pred):
+    """The compaction on the card equals torch.nonzero at n = 2^20 (256
+    scan blocks) and at a ragged n, for empty, single, sparse, dense and
+    full masks with negative entries, and gives the same list on a rerun."""
+    g = torch.Generator(device=cuda).manual_seed(10)
+    for n in (1 << 20, 4096 * 3 + 17):
+        r = torch.rand((n,), generator=g, device=cuda)
+        for mask in (torch.zeros((n,), device=cuda), _count_mask(cuda, g, n, 1),
+                     torch.where(r < 0.01, 1.0, 0.0), torch.where(r < 0.5, r - 0.25, 0.0),
+                     torch.ones((n,), device=cuda)):
+            sel, count = select_cols(mask, pred)
+            again, _ = select_cols(mask, pred)
+            torch.cuda.synchronize()
+            want = torch.nonzero(mask > 0 if pred == "positive" else mask != 0).flatten()
+            k = int(count)
+            assert k == want.numel()
+            assert torch.equal(sel[:k].long(), want)
+            assert torch.equal(again[:k], sel[:k])
+
+
 @pytest.mark.parametrize("metric", ["cosine", "euclidean"])
 def test_mf_sweeps_in_column_slices_equal_one_launch(cuda, monkeypatch, metric):
     """A sweep run in slices of 128 columns (the scratch cap at its least)
@@ -357,6 +411,22 @@ def test_disp_kernels_equal_plain_bit_for_bit(cuda, n):
     assert torch.equal(got, dmin_gains_plain(d, mask, count, curmin))
     empty = ops.dmin_gains(d, torch.zeros_like(mask), torch.zeros_like(count), torch.zeros_like(curmin))
     assert torch.equal(empty, torch.zeros_like(empty))  # |A| = 0: every gain is 0
+
+
+@pytest.mark.parametrize("count", ["1", "n/8-1", "n/8", "n/8+1", "n"])
+@pytest.mark.parametrize("n", DENSE_N)
+def test_dmin_kernel_both_branches_equal_plain_bit_for_bit(cuda, n, count):
+    """The kernel gathers the selected columns while 8 |A| < n (|A| = 1,
+    n/8 - 1) and streams every column from 8 |A| = n on (n/8, n/8 + 1, n);
+    either way it equals its plain version bit for bit."""
+    g, d, _ = _dense_inputs(cuda, n, 22)
+    k = {"1": 1, "n/8-1": n // 8 - 1, "n/8": n // 8, "n/8+1": n // 8 + 1, "n": n}[count]
+    mask = _count_mask(cuda, g, n, k)
+    cnt = torch.tensor(k, dtype=torch.int32, device=cuda)
+    curmin = torch.tensor(0.05 if k else 0.0, device=cuda)
+    got = ops.dmin_gains(d, mask, cnt, curmin)
+    torch.cuda.synchronize()
+    assert torch.equal(got, dmin_gains_plain(d, mask, cnt, curmin))
 
 
 @pytest.mark.parametrize("optimizer,params", OPTIMIZERS)
