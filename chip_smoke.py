@@ -35,11 +35,16 @@ read just after:
 Phases, each of which raises on failure (the exit code is then non-zero):
   1 device   CUDA present; the card's name and power limit
   2 build    nvcc every kernel source for sm_90a; ptxas registers/spills
+             (a cached library's from the report its build kept); the
+             pipelined SGEMM kernels (similarity, fused) spill nothing, and
+             their resident blocks per SM
   3 kernels  each kernel against its plain version at small and ragged shapes
              (the fused sweep in fp32 and bf16, with its column-slice bit
              identity; dmin and gcmf at the selection sizes where their
-             branches and column blocks change), and the mask compaction
-             against torch.nonzero at n = 2^20
+             branches and column blocks change; similarity and the fused
+             sweep on rows that are not 16-byte aligned, bit-equal to the
+             same call on aligned rows), and the mask compaction against
+             torch.nonzero at n = 2^20
   4 main     the main path at full size, its launch counts, and the same
              solves on the plain path, compared step by step
   5 times    each kernel, its plain version and the library call, timed
@@ -60,7 +65,7 @@ Phases, each of which raises on failure (the exit code is then non-zero):
              p = sigmoid(x W + b); each against its plain (use_kernel=False)
              path, SetCover exactly (ids, gains, n_evals)
   9 guided   (i) the fused sweep at every state of a FacilityLocationMF (dot)
-             NaiveGreedy over --mf-n unit relu(mixture) rows, against
+             NaiveGreedy over --mf-n unit relu(mixture) rows, bit-equal to
              flmf_gains, in fp32 and bf16, and against its plain version;
              (j) kmeans on phase 4's features, dense clustered FL on phase
              4's S (rebuilt) against its plain path, and the matrix-free
@@ -75,8 +80,10 @@ exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import itertools
 import json
+import re
 import subprocess
 import sys
 import time
@@ -147,6 +154,12 @@ FUSED_RAGGED = [(129, 1, 8), (1, 300, 13), (700, 5000, 512)]
 # phase 9 (i): kernel vs plain version on unit rows, whose dot products lie
 # in [0, 1]: fp32 sums of 512 terms in two orders
 FUSED_PLAIN_TOL = (1e-5, 1e-4)
+# phase 2: the sources on the pipelined SGEMM mainloop (csrc/sgemm_pipe.cuh)
+PIPE_SOURCES = ("similarity.cu", "fused_fl_sweep.cu")
+# phase 3: widths for rows that are not 16-byte aligned (below one 32-k strip,
+# not a multiple of it, a multiple of it) and row counts below one 128 tile
+UNALIGNED_D = (1, 13, 72, 130, 512)
+UNALIGNED_ROWS = (37, 101)
 CLUSTERS, KMEANS_ITERS = 100, 25  # phase 9 (j): the mixture's component count
 GUIDED = 100  # phase 9 (k): |Q| = |P|
 GUIDED_BUDGET = 500  # phase 9 (k): the FL, GC and COM measures' NaiveGreedy budget
@@ -232,6 +245,43 @@ def phase_device(torch) -> dict:
     return {"kind": name, "count": torch.cuda.device_count(), "nvidia_smi": smi}
 
 
+def _ptxas_functions(report: list[str], sources) -> list[dict]:
+    """Registers and spill bytes of every function ptxas compiled from
+    ``sources``, read from the build's ``-Xptxas -v`` report."""
+    funcs, cur = [], None
+    for line in report:
+        src = line.split(":", 1)[0]
+        if src not in sources:
+            continue
+        if m := re.search(r"Compiling entry function '(\S+)'", line):
+            cur = {"source": src, "function": m.group(1)}
+            funcs.append(cur)
+        elif cur is not None and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                                                 line)):
+            cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+        elif cur is not None and (m := re.search(r"Used (\d+) registers", line)):
+            cur["registers"] = int(m.group(1))
+    return funcs
+
+
+def _pipe_blocks_per_sm() -> dict:
+    """Resident blocks per SM of the pipelined kernels' variants, from the
+    CUDA occupancy calculator at their dynamic shared memory."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.similarity_kernel import _METRIC_CODE
+
+    lib, b, out = _build.load(), ctypes.c_int(), {}
+    for metric, vec in itertools.product(("dot", "rbf"), (1, 0)):
+        _build.check(lib.similarity_blocks_per_sm(_METRIC_CODE[metric], vec, ctypes.byref(b)),
+                     "similarity occupancy")
+        out[f"similarity {metric} vec={vec}"] = b.value
+    for (xb, yb), vec in itertools.product(((0, 0), (1, 1), (0, 1), (1, 0)), (1, 0)):
+        _build.check(lib.fused_fl_sweep_blocks_per_sm(xb, yb, vec, ctypes.byref(b)),
+                     "fused occupancy")
+        out[f"fused x={'bf16' if xb else 'fp32'} y={'bf16' if yb else 'fp32'} vec={vec}"] = b.value
+    return out
+
+
 def phase_build() -> dict:
     from repro_torch.kernels import _build
 
@@ -242,14 +292,38 @@ def phase_build() -> dict:
     for line in info["ptxas"]:
         if "ptxas info" in line or "spill" in line or "error" in line.lower():
             log("  " + line)
+    # a cached library's report is the one its build wrote beside it
+    pipe = _ptxas_functions(info["ptxas"], PIPE_SOURCES)
+    spilled = [f["function"] for f in pipe if f.get("spill_stores", 1) or f.get("spill_loads", 1)]
+    if not pipe or spilled:
+        raise AssertionError(f"pipelined SGEMM kernels spill (or report nothing): {spilled}")
+    info["pipe_functions"] = pipe
+    regs = {src: sorted({f["registers"] for f in pipe if f["source"] == src})
+            for src in PIPE_SOURCES}
+    log(f"  pipelined SGEMM kernels: no spills; registers per thread {json.dumps(regs)}")
+    info["pipe_blocks_per_sm"] = _pipe_blocks_per_sm()
+    log("  resident blocks per SM: " + json.dumps(info["pipe_blocks_per_sm"]))
     return info
+
+
+def _offset_rows(torch, t):
+    """A copy of the 2-D tensor ``t`` one element into a flat buffer: no row
+    of it starts 16-byte aligned, so the pipelined kernels take their
+    element-wise path (4-byte copies for fp32, element loads for bf16)."""
+    view = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:].view(t.shape)
+    view.copy_(t)
+    if view.data_ptr() % 16 == 0:
+        raise AssertionError("an offset copy is 16-byte aligned")
+    return view
 
 
 def phase_kernels(torch, seed: int) -> None:
     from repro_torch.common import NEG_INF
     from repro_torch.kernels import ops
     from repro_torch.kernels.fl_gains import fl_gains_at_plain, fl_gains_plain
-    from repro_torch.kernels.similarity_kernel import similarity_plain
+    from repro_torch.kernels.similarity_kernel import (
+        _normalize, inv_two_sigma_sq, launch_rows, similarity_plain,
+    )
 
     log("== phase 3: kernels vs plain, small and ragged shapes")
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -262,6 +336,28 @@ def phase_kernels(torch, seed: int) -> None:
             torch.cuda.synchronize()
             check_close(f"similarity {metric} ({n},{m},{d})", got,
                         similarity_plain(x, y, metric), rtol, atol)
+    # unaligned rows: the public call against the plain version, and the
+    # kernel on the rows it is given (cosine pre-normalised: ops.similarity
+    # normalises into new tensors with a norm whose order may follow the
+    # alignment) bit-equal to the kernel on aligned rows
+    n, m = UNALIGNED_ROWS
+    worst = 0.0
+    for d in UNALIGNED_D:
+        x = torch.randn((n, d), generator=gen, device=dev)
+        y = torch.randn((m, d), generator=gen, device=dev)
+        inv2s2 = inv_two_sigma_sq(d, None)
+        for metric, (rtol, atol) in SIM_TOL.items():
+            got = ops.similarity(_offset_rows(torch, x), _offset_rows(torch, y), metric)
+            torch.cuda.synchronize()
+            worst = max(worst, check_close(f"similarity {metric} ({n},{m},{d}) unaligned", got,
+                                           similarity_plain(x, y, metric), rtol, atol, quiet=True))
+            xk, yk = (_normalize(x), _normalize(y)) if metric == "cosine" else (x, y)
+            if not torch.equal(launch_rows(_offset_rows(torch, xk), _offset_rows(torch, yk),
+                                           metric, inv2s2), launch_rows(xk, yk, metric, inv2s2)):
+                raise AssertionError(f"similarity {metric} ({n},{m},{d}): unaligned rows are not "
+                                     "bit-equal to aligned ones")
+    log(f"  ok  similarity on unaligned rows, ({n},{m}) at d in {UNALIGNED_D}, every metric: "
+        f"the kernel bit-equal on aligned rows, max abs err {worst:.3e} against the plain version")
     for u, n in [(4096, 4096), (1000, 777), (333, 5000), (129, 1)]:
         sim = torch.rand((u, n), generator=gen, device=dev)
         cm = 0.8 * torch.rand((u,), generator=gen, device=dev)
@@ -1681,7 +1777,26 @@ def phase_fused_kernels(torch, seed: int) -> dict:
         f"ragged), fp32 and bf16: within rtol {MF_TOL['dot'][0]} atol {MF_TOL['dot'][1]} of the "
         f"plain version, max abs err {json.dumps(worst)}; slices and gathers of y bit-equal to "
         f"the full sweep; {json.dumps(bits)}")
-    return {"max_abs_err": worst, **bits}
+    u, n = UNALIGNED_ROWS
+    unaligned = {}
+    for d, dtype in itertools.product(UNALIGNED_D, (torch.float32, torch.bfloat16)):
+        x = torch.randn((u, d), generator=gen, device="cuda").to(dtype)
+        y = torch.randn((n, d), generator=gen, device="cuda").to(dtype)
+        cm = 3.0 * torch.rand((u,), generator=gen, device="cuda")
+        got = ops.fused_fl_sweep(_offset_rows(torch, x), _offset_rows(torch, y), cm)
+        torch.cuda.synchronize()
+        key = str(dtype).split(".")[-1]
+        if not (torch.equal(got, ops.fused_fl_sweep(x, y, cm))
+                and torch.equal(got, ops.fused_fl_sweep(x, _offset_rows(torch, y), cm))):
+            raise AssertionError(f"fused_fl_sweep {key} ({u},{n},{d}): unaligned rows are not "
+                                 "bit-equal to aligned ones")
+        unaligned[key] = max(unaligned.get(key, 0.0), check_close(
+            f"fused_fl_sweep {key} ({u},{n},{d}) unaligned", got, fused_fl_sweep_plain(x, y, cm),
+            *MF_TOL["dot"], quiet=True))
+    log(f"  ok  fused_fl_sweep on unaligned rows, ({u},{n}) at d in {UNALIGNED_D}, fp32 and "
+        f"bf16: bit-equal to aligned rows, max abs err {json.dumps(unaligned)} against the plain "
+        "version")
+    return {"max_abs_err": worst, "unaligned_max_abs_err": unaligned, **bits}
 
 
 def _unit_relu_rows(torch, seed: int, n: int, d: int):
@@ -1702,12 +1817,14 @@ def _fused_replay(torch, label: str, fl, x, y, res) -> tuple[dict, object]:
     src, state = fl.src, fl.init_state()
     picks = res.order[res.order >= 0].tolist()
     selected = torch.zeros((fl.n,), dtype=torch.bool, device="cuda")
-    worst, bit_equal, t_tie, gap = 0.0, True, None, None
+    worst, t_tie, gap = 0.0, None, None
     for t, j in enumerate(picks):
         gf = ops.fused_fl_sweep(x, y, state.curmax)
         gm = ops.flmf_gains(src.x, src.y, src.xx, src.yy, state.curmax, "dot")
         worst = max(worst, check_close(f"{label} state {t}", gf, gm, *MF_TOL["dot"], quiet=True))
-        bit_equal &= bool(torch.equal(gf, gm))
+        if not torch.equal(gf, gm):  # the same fmaf chains and sums on the two mainloops
+            raise AssertionError(f"{label}: at state {t} fused_fl_sweep and flmf_gains(dot) "
+                                 "differ in their bits")
         if t_tie is None:
             top = torch.topk(torch.where(selected, NEG_INF, gm), 2)
             g1, g2 = (float(v) for v in top.values)
@@ -1722,10 +1839,10 @@ def _fused_replay(torch, label: str, fl, x, y, res) -> tuple[dict, object]:
         selected[j] = True
     log(f"  ok  {label}: fused_fl_sweep against flmf_gains(dot) at all {len(picks)} states of the "
         f"run, max abs err {worst:.3e} (rtol {MF_TOL['dot'][0]}, atol {MF_TOL['dot'][1]}), "
-        f"bit-equal: {bit_equal}; argmax = the run's pick up to the first near-tie "
+        f"bit-equal at every state; argmax = the run's pick up to the first near-tie "
         f"({'none' if t_tie is None else t_tie}"
         + ("" if gap is None else f", gap {gap:.3e}") + ")")
-    return ({"states": len(picks), "max_abs_err": worst, "bit_equal_to_flmf": bit_equal,
+    return ({"states": len(picks), "max_abs_err": worst, "bit_equal_to_flmf": True,
              "first_near_tie": t_tie, "near_tie_gap": gap}, state)
 
 

@@ -6,7 +6,9 @@ then linked into one shared library with a plain C interface.  Nothing
 includes PyTorch's headers, so a build takes seconds.  The library lands in
 ``kernels/build/`` next to this file (the ``build/`` pattern in
 ``.gitignore`` keeps it out of git), named by a hash of the sources and
-flags, so an edited source is never served by a stale build.
+flags, so an edited source is never served by a stale build.  The build's
+ptxas report (registers, shared memory, spills) lies beside it, so a
+cached load reports the library it loads.
 
 Importing this module builds nothing: :func:`load` runs on the first kernel
 launch, so CPU-only machines import the whole package freely.
@@ -47,6 +49,7 @@ _SIGNATURES = {
         [_P, _P, _P, _P, _P, _I64, _I64, _I64, ctypes.c_int, ctypes.c_float, _P],
         ctypes.c_int,
     ),
+    "similarity_blocks_per_sm": ([ctypes.c_int, ctypes.c_int, _P], ctypes.c_int),
     "fl_gains_launch": (
         [_P, _I64, _I64, _I64, _P, _P, _I64, _I64, _P, _P, _P],
         ctypes.c_int,
@@ -73,12 +76,16 @@ _SIGNATURES = {
     "fused_fl_sweep_launch": (
         [_P, ctypes.c_int, _P, ctypes.c_int, _P, _I64, _I64, _I64, _P, _P, _P], ctypes.c_int,
     ),
+    "fused_fl_sweep_blocks_per_sm": (
+        [ctypes.c_int, ctypes.c_int, ctypes.c_int, _P], ctypes.c_int,
+    ),
     "repro_cuda_error_string": ([ctypes.c_int], ctypes.c_char_p),
 }
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
-# what the last build did: {"seconds", "cached", "library", "ptxas"}
+# what the last load did: {"seconds", "cached", "library", "ptxas"}; "ptxas" is
+# the loaded library's report, read back from beside it when it was cached
 BUILD_INFO: dict = {}
 
 
@@ -104,9 +111,14 @@ def _library_path() -> Path:
     return BUILD_DIR / f"librepro_torch_{h.hexdigest()[:16]}.so"
 
 
+def _report_path(target: Path) -> Path:
+    return target.with_suffix(".ptxas.txt")
+
+
 def _compile(target: Path, csrc: Path = CSRC) -> list[str]:
-    """nvcc every source of ``csrc`` in parallel, link into ``target``;
-    returns the ptxas report lines (registers, shared memory, spills)."""
+    """nvcc every source of ``csrc`` in parallel, link into ``target`` and
+    write the ptxas report lines (registers, shared memory, spills) beside
+    it; returns them."""
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
@@ -131,7 +143,11 @@ def _compile(target: Path, csrc: Path = CSRC) -> list[str]:
         )
         if link.returncode != 0:
             raise RuntimeError("nvcc link failed:\n" + link.stdout + link.stderr)
-        os.replace(tmp_lib, target)  # atomic: a concurrent loader sees all or nothing
+        tmp_report = Path(tmp) / _report_path(target).name
+        tmp_report.write_text("".join(line + "\n" for line in report))
+        # atomic, the report first: a concurrent loader that sees the library sees its report
+        os.replace(tmp_report, _report_path(target))
+        os.replace(tmp_lib, target)
     return report
 
 
@@ -144,7 +160,12 @@ def load() -> ctypes.CDLL:
         target = _library_path()
         t0 = time.perf_counter()
         cached = target.exists()
-        report = [] if cached else _compile(target)
+        if not cached:
+            report = _compile(target)
+        elif _report_path(target).exists():
+            report = _report_path(target).read_text().splitlines()
+        else:  # a library built before its report was kept
+            report = []
         lib = ctypes.CDLL(str(target))
         for name, (argtypes, restype) in _SIGNATURES.items():
             fn = getattr(lib, name)

@@ -9,7 +9,10 @@ process, and each is called through its own C signature: sources older
 than the mask compaction (``csrc/select_cols.cu``) take ``dmin_gains`` and
 ``gcmf_gains`` without its list and count.  At the dense path's shapes
 (chip_smoke.py phases 4, 6 and 7: n = 50,000, d = 512), each kernel named
-(``similarity``, dot and cosine; the dense pairwise full sweeps
+(``similarity``, dot and cosine, and dot at d = 130 on rows offset by one
+row, which no 16-byte copy can take; ``fused_fl_sweep`` at phase 9 (i)'s
+shape, u = 512 unit relu rows against n = 2^20, fp32 and bf16, in the
+launcher's column slices; the dense pairwise full sweeps
 ``gc_gains``, ``dsum_gains``, ``dmin_gains`` on a random (n, n) matrix and
 a mask of 500 ones, ``dmin_gains`` also at n / 4 ones, where it streams
 every column; ``gcmf_gains`` and ``gcmf_gains_at`` at k = 8 and 512 on
@@ -36,17 +39,20 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.flmf_gains import TILE_ROWS
+from repro_torch.kernels.flmf_gains import TILE_ROWS, column_slice
 from repro_torch.kernels.gcmf_gains import slice_width
 from repro_torch.kernels.select_cols import PREDICATES
 from repro_torch.kernels.similarity_kernel import _METRIC_CODE, _normalize, inv_two_sigma_sq
 
 N, D = 50_000, 512  # the dense path's shape (chip_smoke.py phase 4)
+ODD_D = 130  # the misaligned similarity case: rows of 520 bytes
+FUSED_U, FUSED_N = 512, 1 << 20  # phase 9 (i)'s fused sweep
 N_SEL = 500  # selected items in the dense pairwise sweeps' mask (phase 7 (e)'s budget)
 GC_SEL = 100  # selected items in the gcmf sweeps' mask (phase 6 (c)'s budget)
 GC_TOL = (2e-5, 1e-4)  # gcmf across libraries: chip_smoke.py's MF_TOL for cosine
 REPS, ROUNDS = 10, 2
-KERNELS = ("similarity", "gc_gains", "dsum_gains", "dmin_gains", "gcmf_gains", "gcmf_gains_at")
+KERNELS = ("similarity", "fused_fl_sweep", "gc_gains", "dsum_gains", "dmin_gains", "gcmf_gains",
+           "gcmf_gains_at")
 _P, _I64 = ctypes.c_void_p, ctypes.c_int64
 # the C signatures of sources older than the compaction (no sel / nsel)
 _BEFORE_SELECT_COLS = {
@@ -92,14 +98,18 @@ def _cases(kernels, stream):
     gen = torch.Generator(device="cuda").manual_seed(0)
     if "similarity" in kernels:
         x = torch.randn((N, D), generator=gen, device="cuda")
-        for metric in ("dot", "cosine"):
-            xm = _normalize(x).contiguous() if metric == "cosine" else x
+        odd = torch.randn((N + 1, ODD_D), generator=gen, device="cuda")[1:]  # base 520 bytes in
+        for metric, xm in (("dot", x), ("cosine", _normalize(x).contiguous()), ("dot", odd)):
+            d = xm.shape[1]
             xx = (xm * xm).sum(1)
-            yield f"similarity {metric}", (N, N), None, lambda lib, out, xm=xm, xx=xx, metric=metric: (
+            label = f"similarity {metric}" + ("" if d == D else f" d={d} rows offset by one row")
+            yield label, (N, N), None, lambda lib, out, xm=xm, xx=xx, metric=metric, d=d: (
                 lib.similarity_launch(xm.data_ptr(), xm.data_ptr(), xx.data_ptr(), xx.data_ptr(),
-                                      out.data_ptr(), N, N, D, _METRIC_CODE[metric],
-                                      inv_two_sigma_sq(D, None), stream))
-        del x, xm, xx
+                                      out.data_ptr(), N, N, d, _METRIC_CODE[metric],
+                                      inv_two_sigma_sq(d, None), stream))
+        del x, odd, xm, xx
+    if "fused_fl_sweep" in kernels:
+        yield from _fused_cases(stream, gen)
     if set(kernels) & {"gcmf_gains", "gcmf_gains_at"}:
         yield from _gcmf_cases(kernels, stream, gen)
     if not set(kernels) & {"gc_gains", "dsum_gains", "dmin_gains"}:
@@ -135,6 +145,34 @@ def _cases(kernels, stream):
                     cnt.data_ptr(), curmin.data_ptr(), out.data_ptr(), stream)
 
             yield label, (N,), None, dmin
+
+
+def _fused_cases(stream, gen):
+    """The fused sweep at phase 9 (i)'s shape, fp32 and bf16, in the
+    launcher's column slices (kernels/fused_fl_sweep.py)."""
+    y = torch.randn((FUSED_N, D), generator=gen, device="cuda").relu_()
+    y /= torch.linalg.norm(y, dim=1, keepdim=True).clamp_(min=1e-12)
+    x = y[:: FUSED_N // FUSED_U][:FUSED_U].contiguous()
+    cm = 0.5 * torch.rand((FUSED_U,), generator=gen, device="cuda")
+    nblocks = -(-FUSED_U // TILE_ROWS)
+    cols = column_slice(nblocks)
+    partial = torch.empty((nblocks, min(FUSED_N, cols)), device="cuda")
+
+    def fused(lib, out, xk, yk):
+        row_bytes = D * yk.element_size()
+        for lo in range(0, FUSED_N, cols):
+            hi = min(FUSED_N, lo + cols)
+            rc = lib.fused_fl_sweep_launch(
+                xk.data_ptr(), int(xk.dtype == torch.bfloat16), yk.data_ptr() + lo * row_bytes,
+                int(yk.dtype == torch.bfloat16), cm.data_ptr(), FUSED_U, hi - lo, D,
+                partial.data_ptr(), out[lo:hi].data_ptr(), stream)
+            if rc:
+                return rc
+        return 0
+
+    for key, xk, yk in (("fp32", x, y), ("bf16", x.bfloat16(), y.bfloat16())):
+        yield (f"fused_fl_sweep {key}", (FUSED_N,), None,
+               lambda lib, out, xk=xk, yk=yk: fused(lib, out, xk, yk))
 
 
 def _gcmf_cases(kernels, stream, gen):
@@ -186,7 +224,9 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("other_csrc", type=Path, nargs="+")
     p.add_argument("--kernels", default="similarity",
-                   help=f"comma-separated, of {','.join(KERNELS)} (default: similarity)")
+                   help=f"comma-separated, of {','.join(KERNELS)} (default: similarity: dot "
+                        "and cosine at 50,000 x 50,000 x 512 and dot at d = 130 on misaligned "
+                        "rows; fused_fl_sweep: fp32 and bf16 at u = 512, n = 2^20, d = 512)")
     args = p.parse_args(argv)
     args.kernels = args.kernels.split(",")
     if not set(args.kernels) <= set(KERNELS):

@@ -1,17 +1,27 @@
-// Building blocks shared by the port's kernels: the 128 x 128 x 8
-// register-blocked fp32 SGEMM tile (similarity.cu, flmf_gains.cu,
-// gcmf_gains.cu, fused_fl_sweep.cu), the metric epilogue applied to its
-// accumulators in registers, and the in-order sum of per-block partials
-// (fl_gains.cu, flmf_gains.cu, fused_fl_sweep.cu).
+// Building blocks shared by the port's kernels: the 128 x 128 register-
+// blocked fp32 SGEMM tile's thread layout and its 8 x 8 strip mainloop, the
+// metric epilogue applied to its accumulators in registers, and the in-order
+// sum of per-block partials (fl_gains.cu, flmf_gains.cu, fused_fl_sweep.cu).
 //
-// The tile: one block of 256 threads owns a 128 x 128 output tile; K strips
-// of 8 are staged through shared memory transposed (k-major), so each thread
-// reads its 8 + 8 operands as four float4s and keeps an 8 x 8 accumulator
-// tile in registers.  Each accumulator is one fmaf chain over k = 0 .. d-1
-// in order, so an element's value depends on its two feature rows alone,
-// never on where in the tile (or in which tile) they sit.  The operands may
-// be fp32 or bf16: a bf16 value is widened to fp32 exactly in the loader,
-// so the tile's arithmetic is the fp32 tile's on the widened values.
+// The tile: one block of 256 threads owns a 128 x 128 output tile, and each
+// thread keeps an 8 x 8 accumulator tile in registers, at rows tile_pos(ty,
+// i) and columns tile_pos(tx, j).  Each accumulator is one fmaf chain over
+// k = 0 .. d-1 in order, so an element's value depends on its two feature
+// rows alone, never on where in the tile (or in which tile) they sit.  The
+// operands may be fp32 or bf16: a bf16 value is widened to fp32 exactly, so
+// the tile's arithmetic is the fp32 tile's on the widened values.
+//
+// Two mainloops compute that tile, bit for bit alike:
+// - tile::mainloop below, for flmf_gains.cu and gcmf_gains.cu: K strips of 8
+//   loaded element by element and staged transposed (k-major), two barriers
+//   per strip, no prefetch;
+// - pipe::tile_loop in sgemm_pipe.cuh, for similarity.cu and fused_fl_sweep.cu:
+//   cp.async copies of 32-k strips into a ring ahead of the compute, one
+//   barrier per strip, persistent blocks, written for Hopper's SMs.
+// Two exist while the kernels move over two at a time, so that each move is
+// held bit for bit against the kernels still on the first: the fused sweep
+// must equal flmf_gains(dot).  flmf and gcmf move next, and tile::mainloop
+// goes with them.
 
 #pragma once
 

@@ -9,19 +9,21 @@ only; callers pre-normalise rows for cosine.
 
 The JAX function's tile knobs ``bu`` / ``bn`` / ``bk`` and ``interpret``
 have no meaning here and are not ported: the kernel's tile is fixed
-(``csrc/tile_common.cuh``), and the plain version below is what runs on the
+(``csrc/sgemm_pipe.cuh``), and the plain version below is what runs on the
 CPU.  Where the JAX wrapper pads u with curmax rows of ``_PAD_CM = 3e38``
 (whose relu is exactly 0), the kernel skips rows past u; padded columns do
 not exist, as every column is masked at the ragged edge.
 
 The kernel (``csrc/fused_fl_sweep.cu``) reads bf16 operands as they are and
-widens them in its loader, with no fp32 copy in device memory.  It sums
+widens them in shared memory, with no fp32 copy in device memory.  It sums
 each column in an order that depends on u and d alone, so a sweep over a
 slice or a gather of y equals the full sweep bit for bit at the same row,
 and on fp32 inputs it equals ``flmf_gains(..., metric="dot")`` (the same
-tile and order).  :func:`fused_fl_sweep_plain`, the counterpart of
-``fused_fl_sweep_ref``, widens one fixed-width column tile at a time and
-adds with ``sum``; it agrees with the kernel to a tolerance.
+fmaf chains and order, on the other mainloop).  The kernel's launcher
+copies rows 16 bytes at a time where every row is 16-byte aligned, else
+element by element, with the same bits.  :func:`fused_fl_sweep_plain`, the counterpart of ``fused_fl_sweep_ref``,
+widens one fixed-width column tile at a time and adds with ``sum``; it
+agrees with the kernel to a tolerance.
 """
 from __future__ import annotations
 
@@ -33,7 +35,6 @@ from repro_torch.kernels.flmf_gains import TILE_ROWS, column_slice
 from repro_torch.kernels.similarity_kernel import TILE
 
 DTYPES = (torch.float32, torch.bfloat16)
-_MAX_GRID_Y = 65535  # CUDA's grid.y limit
 
 
 def fused_fl_sweep_plain(x: torch.Tensor, y: torch.Tensor, curmax: torch.Tensor) -> torch.Tensor:
@@ -62,8 +63,6 @@ def fused_fl_sweep_cuda(x: torch.Tensor, y: torch.Tensor, curmax: torch.Tensor) 
     if u == 0:  # no rows: every sum is empty
         return out.zero_()
     nblocks = -(-u // TILE_ROWS)
-    if nblocks > _MAX_GRID_Y:
-        raise ValueError(f"fused_fl_sweep kernel takes at most {_MAX_GRID_Y * TILE_ROWS} rows, got {u}")
     cols = column_slice(nblocks)
     # scratch from the caching allocator, reused by every column slice
     partial = torch.empty((nblocks, min(n, cols)), dtype=torch.float32, device=y.device)

@@ -2,9 +2,10 @@
 
 The kernel (``csrc/similarity.cu``) is the port of
 ``repro/kernels/similarity_kernel.py::similarity_pallas``: a tiled fp32
-SGEMM with the metric epilogue applied in registers before the single store
-of each output tile.  As in the JAX wrapper, cosine rows are normalised and
-the row sums of squares ``xx`` / ``yy`` are computed here, before the launch.
+SGEMM on the pipelined mainloop of ``csrc/sgemm_pipe.cuh``, with the metric
+epilogue applied in registers before the single store of each output tile.
+As in the JAX wrapper, cosine rows are normalised and the row sums of
+squares ``xx`` / ``yy`` are computed here, before the launch.
 
 ``similarity_plain`` is the same function in plain PyTorch: what the public
 wrapper (``kernels/ops.py``) runs for CPU tensors, and what the kernel is
@@ -23,8 +24,6 @@ METRICS = ("dot", "cosine", "euclidean", "rbf")
 # sources.py:55).  Fixed, so every similarity block is a matmul of one shape.
 TILE = 512
 _METRIC_CODE = {m: i for i, m in enumerate(METRICS)}
-_MAX_GRID_Y = 65535  # CUDA's grid.y limit; the kernel tiles rows by 128
-_TILE_ROWS = 128
 
 
 def _sigma(d: int, rbf_sigma: float | None) -> float:
@@ -100,12 +99,19 @@ def similarity_cuda(
 ) -> torch.Tensor:
     """Launch the CUDA kernel on fp32, contiguous CUDA tensors (checked by
     ``ops.similarity``); returns the (n, m) similarity."""
-    n, d = x.shape
-    m = y.shape[0]
-    if -(-n // _TILE_ROWS) > _MAX_GRID_Y:
-        raise ValueError(f"similarity kernel takes at most {_MAX_GRID_Y * _TILE_ROWS} rows, got {n}")
     if metric == "cosine":
         x, y = _normalize(x).contiguous(), _normalize(y).contiguous()
+    return launch_rows(x, y, metric, inv_two_sigma_sq(x.shape[1], rbf_sigma))
+
+
+def launch_rows(x: torch.Tensor, y: torch.Tensor, metric: str, inv2s2: float) -> torch.Tensor:
+    """The kernel on the rows exactly as given: no normalisation (cosine
+    rows come pre-normalised), xx / yy from fresh products, so their bits
+    do not depend on where the rows lie in memory.  The launcher copies rows
+    16 bytes at a time where every row is 16-byte aligned, else element by
+    element, with the same bits."""
+    n, d = x.shape
+    m = y.shape[0]
     xx = (x * x).sum(1)
     yy = (y * y).sum(1)
     out = torch.empty((n, m), dtype=torch.float32, device=x.device)
@@ -114,7 +120,7 @@ def similarity_cuda(
     lib = _build.load()
     rc = lib.similarity_launch(
         x.data_ptr(), y.data_ptr(), xx.data_ptr(), yy.data_ptr(), out.data_ptr(),
-        n, m, d, _METRIC_CODE[metric], inv_two_sigma_sq(d, rbf_sigma),
+        n, m, d, _METRIC_CODE[metric], inv2s2,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(rc, "similarity kernel")

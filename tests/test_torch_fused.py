@@ -27,6 +27,11 @@ from repro_torch.kernels.flmf_gains import flmf_gains_plain
 from repro_torch.kernels.fused_fl_sweep import fused_fl_sweep_plain
 
 FUSED_SHAPES = [(40, 60, 16), (300, 700, 128), (256, 512, 300), (513, 1025, 80)]
+# the widths at which the CUDA mainloop's load paths part (16-byte copies
+# take fp32 rows with d % 4 == 0, bf16 rows with d % 8 == 0; a strip is
+# 32 k), with u and n not multiples of the kernel's 128-row tile
+RAGGED_D = [1, 3, 4, 13, 16, 17, 31, 33, 130]
+RAGGED_UN = (129, 203)
 F32_TOL = dict(rtol=1e-4, atol=1e-3)
 BF16_TOL = dict(rtol=1e-3, atol=5e-2)
 MF_TOL = dict(rtol=2e-5, atol=2e-5)
@@ -66,6 +71,21 @@ def test_fused_dtypes_match_pallas_and_ref(dtype):
         got, np.asarray(fused_fl_sweep_pallas(xj, yj, jnp.asarray(cm), interpret=True)), **BF16_TOL)
     np.testing.assert_allclose(got, np.asarray(fused_fl_sweep_ref(xj, yj, jnp.asarray(cm))),
                                **BF16_TOL)
+
+
+@pytest.mark.parametrize("d", RAGGED_D)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_plain_matches_pallas_and_ref_at_ragged_widths(dtype, d):
+    u, n = RAGGED_UN
+    x, y, cm = _inputs(u, n, d, seed=100 + d)
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    xj, yj, cmj = jnp.asarray(x, jdt), jnp.asarray(y, jdt), jnp.asarray(cm)
+    got = ops.fused_fl_sweep(torch.from_numpy(x).to(tdt), torch.from_numpy(y).to(tdt),
+                             torch.from_numpy(cm)).numpy()
+    tol = F32_TOL if dtype == "float32" else BF16_TOL
+    pallas = fused_fl_sweep_pallas(xj, yj, cmj, interpret=True, bu=128, bn=128, bk=64)
+    np.testing.assert_allclose(got, np.asarray(pallas), **tol)
+    np.testing.assert_allclose(got, np.asarray(fused_fl_sweep_ref(xj, yj, cmj)), **tol)
 
 
 def test_fused_bf16_is_the_fp32_sweep_of_the_widened_values():

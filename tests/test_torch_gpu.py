@@ -41,7 +41,12 @@ from repro_torch.kernels.fused_fl_sweep import fused_fl_sweep_plain
 from repro_torch.kernels.gcmf_gains import gcmf_gains_at_plain, gcmf_gains_plain
 from repro_torch.kernels.sc_gains import psc_gains_plain, sc_gains_plain
 from repro_torch.kernels.select_cols import select_cols
-from repro_torch.kernels.similarity_kernel import _normalize, similarity_plain
+from repro_torch.kernels.similarity_kernel import (
+    _normalize,
+    inv_two_sigma_sq,
+    launch_rows,
+    similarity_plain,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -91,6 +96,52 @@ def test_similarity_kernel_matches_plain(cuda, shape, metric):
     assert ops.LAUNCHES["similarity"] == before + 1
     rtol, atol = SIM_TOL[metric]
     torch.testing.assert_close(got, similarity_plain(x, y, metric), rtol=rtol, atol=atol)
+
+
+# rows that no 16-byte copy can take (csrc/sgemm_pipe.cuh's element-wise
+# path: 4-byte copies for fp32, element loads for bf16): widths below one
+# 32-k strip, not a multiple of it and a multiple of it; row counts below
+# one 128-row tile and not multiples of 4, and a shape of several tiles
+UNALIGNED_D = [1, 13, 72, 130, 512]
+UNALIGNED_SHAPES = [(37, 101), (300, 1001)]
+
+
+def _offset_rows(t):
+    """A copy of the 2-D tensor ``t`` one element into a flat buffer, a
+    contiguous view whose base (and so every row) is not 16-byte aligned."""
+    view = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:].view(t.shape)
+    view.copy_(t)
+    assert view.data_ptr() % 16
+    return view
+
+
+@pytest.mark.parametrize("shape", UNALIGNED_SHAPES)
+@pytest.mark.parametrize("d", UNALIGNED_D)
+@pytest.mark.parametrize("metric", METRICS)
+def test_similarity_kernel_on_unaligned_rows(cuda, metric, d, shape):
+    """Unaligned rows take the 4-byte copy path and give the kernel's bits on
+    aligned rows (the 16-byte path where d % 4 == 0).  The bits are
+    held where the kernel gets the rows: ``ops.similarity`` normalises cosine
+    rows into new tensors first, with a torch norm whose order may depend on
+    the rows' alignment, so cosine is held on pre-normalised rows."""
+    n, m = shape
+    g = torch.Generator(device=cuda).manual_seed(d)
+    x = torch.randn((n, d), generator=g, device=cuda)
+    y = torch.randn((m, d), generator=g, device=cuda)
+    before = ops.LAUNCHES["similarity"]
+    got = ops.similarity(_offset_rows(x), _offset_rows(y), metric)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["similarity"] == before + 1
+    rtol, atol = SIM_TOL[metric]
+    torch.testing.assert_close(got, similarity_plain(x, y, metric), rtol=rtol, atol=atol)
+    if metric == "dot":
+        assert torch.equal(got, ops.similarity(x, y, metric))
+    if metric == "cosine":
+        x, y = _normalize(x), _normalize(y)
+    inv2s2 = inv_two_sigma_sq(d, None)
+    want = launch_rows(x, y, metric, inv2s2)
+    assert torch.equal(launch_rows(_offset_rows(x), _offset_rows(y), metric, inv2s2), want)
+    assert torch.equal(launch_rows(x, _offset_rows(y), metric, inv2s2), want)
 
 
 @pytest.mark.parametrize("shape", [(4096, 4096), (1000, 777), (333, 5000), (129, 1)])
@@ -618,6 +669,29 @@ def test_fused_fl_sweep_kernel_matches_plain(cuda, shape, dtype):
     assert torch.equal(got, ops.fused_fl_sweep(xf, yf, cm))
     assert torch.equal(ops.fused_fl_sweep(x, yf, cm), got)
     assert torch.equal(got, ops.flmf_gains(xf, yf, (xf * xf).sum(1), (yf * yf).sum(1), cm, "dot"))
+
+
+@pytest.mark.parametrize("shape", UNALIGNED_SHAPES)
+@pytest.mark.parametrize("d", UNALIGNED_D)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_fl_sweep_kernel_on_unaligned_rows(cuda, dtype, d, shape):
+    """Unaligned rows take the element-wise load path (4-byte copies for
+    fp32, element loads for bf16) and give the bits of the same call on
+    aligned rows (the 16-byte path where fp32 d % 4 == 0, bf16 d % 8 == 0),
+    alone or beside an aligned operand."""
+    u, n = shape
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    x = torch.randn((u, d), generator=gen, device=cuda).to(dtype)
+    y = torch.randn((n, d), generator=gen, device=cuda).to(dtype)
+    cm = 2.0 * torch.rand((u,), generator=gen, device=cuda)
+    before = ops.LAUNCHES["fused_fl_sweep"]
+    got = ops.fused_fl_sweep(_offset_rows(x), _offset_rows(y), cm)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["fused_fl_sweep"] == before + 1
+    assert torch.equal(got, ops.fused_fl_sweep(x, y, cm))
+    assert torch.equal(got, ops.fused_fl_sweep(x, _offset_rows(y), cm))
+    assert torch.equal(got, ops.fused_fl_sweep(_offset_rows(x).float(), y, cm))
+    torch.testing.assert_close(got, fused_fl_sweep_plain(x, y, cm), **MF_TOL["dot"])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -30,6 +30,12 @@ SIM_TOL = {
     "euclidean": (1e-3, 5e-2),
     "rbf": (1e-3, 5e-2),
 }
+# the widths at which the CUDA mainloop's load paths part (16-byte copies
+# take fp32 rows with d % 4 == 0 and bf16 rows with d % 8 == 0; a strip is
+# 32 k): below, at and across each, with row counts that are not multiples
+# of the kernel's 128-row tile
+RAGGED_D = [1, 3, 4, 13, 16, 17, 31, 33, 130]
+RAGGED_ROWS = (37, 131)
 # fp32 sums of at most a few hundred relu terms, in another order than XLA's
 FL_TOL = dict(rtol=1e-5, atol=1e-5)
 FL_SHAPES = [(8, 8), (40, 60), (300, 700), (513, 257)]
@@ -58,6 +64,21 @@ def test_similarity_matches_jax(shape, metric):
     np.testing.assert_allclose(got, pallas, rtol=rtol, atol=atol)
     oracle = np.asarray(jops.similarity_ref(x, y, metric))
     np.testing.assert_allclose(got, oracle, rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("d", RAGGED_D)
+@pytest.mark.parametrize("metric", METRICS)
+def test_similarity_matches_jax_at_ragged_widths(metric, d):
+    n, m = RAGGED_ROWS
+    rng = np.random.default_rng(1000 + d)
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    y = rng.normal(size=(m, d)).astype(np.float32)
+    got = ops.similarity(_t(x), _t(y), metric).numpy()
+    rtol, atol = SIM_TOL[metric]
+    np.testing.assert_allclose(got, np.asarray(jops.similarity(x, y, metric=metric)),
+                               rtol=rtol, atol=atol)
+    np.testing.assert_allclose(got, np.asarray(jops.similarity_ref(x, y, metric)),
+                               rtol=rtol, atol=atol)
 
 
 def test_similarity_rbf_sigma_default_is_sqrt_d():
