@@ -36,15 +36,15 @@ Phases, each of which raises on failure (the exit code is then non-zero):
   1 device   CUDA present; the card's name and power limit
   2 build    nvcc every kernel source for sm_90a; ptxas registers/spills
              (a cached library's from the report its build kept); the
-             pipelined SGEMM kernels (similarity, fused) spill nothing, and
-             their resident blocks per SM
+             pipelined SGEMM kernels (similarity, fused, flmf) spill nothing,
+             and the resident blocks per SM of similarity's and fused's
   3 kernels  each kernel against its plain version at small and ragged shapes
              (the fused sweep in fp32 and bf16, with its column-slice bit
              identity; dmin and gcmf at the selection sizes where their
-             branches and column blocks change; similarity and the fused
-             sweep on rows that are not 16-byte aligned, bit-equal to the
-             same call on aligned rows), and the mask compaction against
-             torch.nonzero at n = 2^20
+             branches and column blocks change; similarity, the fused
+             sweep, flmf and sc on rows that are not 16-byte aligned,
+             bit-equal to the same call on aligned rows), and the mask
+             compaction against torch.nonzero at n = 2^20
   4 main     the main path at full size, its launch counts, and the same
              solves on the plain path, compared step by step
   5 times    each kernel, its plain version and the library call, timed
@@ -155,7 +155,7 @@ FUSED_RAGGED = [(129, 1, 8), (1, 300, 13), (700, 5000, 512)]
 # in [0, 1]: fp32 sums of 512 terms in two orders
 FUSED_PLAIN_TOL = (1e-5, 1e-4)
 # phase 2: the sources on the pipelined SGEMM mainloop (csrc/sgemm_pipe.cuh)
-PIPE_SOURCES = ("similarity.cu", "fused_fl_sweep.cu")
+PIPE_SOURCES = ("similarity.cu", "fused_fl_sweep.cu", "flmf_gains.cu")
 # phase 3: widths for rows that are not 16-byte aligned (below one 32-k strip,
 # not a multiple of it, a multiple of it) and row counts below one 128 tile
 UNALIGNED_D = (1, 13, 72, 130, 512)
@@ -477,6 +477,30 @@ def phase_mf_kernels(torch, seed: int) -> None:
     log(f"  ok  gcmf_gains / gcmf_gains_at ({n},{d}), every metric, |A| = 0, 1, 127, 128, 129, "
         f"{n}: within MF_TOL of their plain versions, gathered bit-equal to full at k = 1, 8, "
         "100, 777 with pads; total - lam * diag at |A| = 0")
+    # flmf on rows that are not 16-byte aligned (the pipelined mainloop's
+    # element-wise copies): bit-equal to the same sweep on aligned rows (the
+    # 16-byte copies where d % 4 == 0), full and gathered
+    u, n = UNALIGNED_ROWS
+    for d in UNALIGNED_D:
+        x = torch.randn((u, d), generator=gen, device=dev)
+        y = torch.randn((n, d), generator=gen, device=dev)
+        cm = 0.8 * torch.rand((u,), generator=gen, device=dev)
+        idx = torch.randint(0, n, (77,), generator=gen, device=dev)
+        idx[::7] = -1
+        for metric in SIM_TOL:
+            xm, ym = (_normalize(x), _normalize(y)) if metric == "cosine" else (x, y)
+            xx, yy = (xm * xm).sum(1), (ym * ym).sum(1)
+            xo, yo = _offset_rows(torch, xm), _offset_rows(torch, ym)
+            full = ops.flmf_gains(xo, yo, xx, yy, cm, metric)
+            got = ops.flmf_gains_at(xo, yo, xx, yy, cm, idx, metric)
+            torch.cuda.synchronize()
+            if not (torch.equal(full, ops.flmf_gains(xm, ym, xx, yy, cm, metric))
+                    and torch.equal(got, ops.flmf_gains_at(xm, ym, xx, yy, cm, idx, metric))):
+                raise AssertionError(f"flmf_gains {metric} ({u},{n},{d}): unaligned rows are not "
+                                     "bit-equal to aligned ones")
+            _check_subset(f"flmf_gains_at {metric} ({u},{n},{d}) unaligned", torch, got, full, idx)
+    log(f"  ok  flmf_gains / flmf_gains_at on unaligned rows, ({u},{n}) at d in {UNALIGNED_D}, "
+        "every metric: bit-equal to the same sweeps on aligned rows, gathered bit-equal to full")
     # the torch path of FeatureSource: subset sweeps bit-equal on the card too
     x = torch.randn((300, 130), generator=gen, device=dev)
     y = torch.randn((1500, 130), generator=gen, device=dev)
@@ -1512,6 +1536,9 @@ def phase_cover_kernels(torch, seed: int) -> dict:
         got = ops.sc_gains(cover, covered, w)
         torch.cuda.synchronize()
         hold(f"sc_gains ({n},{F})", "sc_gains", got, sc_gains_plain(cover, covered, w))
+        # a base that is not 16-byte aligned takes the element loads: the same bits
+        if not torch.equal(ops.sc_gains(_offset_rows(torch, cover), covered, w), got):
+            raise AssertionError(f"sc_gains ({n},{F}): an unaligned cover is not bit-equal")
         miss = torch.rand((F,), generator=gen, device="cuda")
         got = ops.psc_gains(feats, miss, w)
         torch.cuda.synchronize()
@@ -1519,7 +1546,8 @@ def phase_cover_kernels(torch, seed: int) -> dict:
     log(f"  ok  fb_gains, fb_gains_at, sc_gains, psc_gains at {len(shapes)} shapes, n in (1, 7, "
         f"257, 4097) x F in (1, 33, 255, 257, 1000), three concaves, k in (1, 8, 100, 777) with "
         f"pads, duplicates and idx >= n: within rtol {COVER_TOL[0]} atol {COVER_TOL[1]}; max abs "
-        f"err {json.dumps(worst)}; fb_gains_at bit-equal to fb_gains")
+        f"err {json.dumps(worst)}; fb_gains_at bit-equal to fb_gains; sc_gains on an unaligned "
+        "cover bit-equal to the aligned one")
     log(f"  bit-equal to their plain versions at every shape: {bit_equal}")
     return {"bit_equal": bit_equal, "max_abs_err": worst}
 

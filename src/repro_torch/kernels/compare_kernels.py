@@ -26,6 +26,17 @@ than a sum over every column, by design, so its outputs are held to the
 kernel-vs-plain bar (rtol 2e-5, atol 1e-4) across libraries.  Prints the
 kernels' ptxas lines, then one JSON line with every time; exits non-zero on
 a mismatch.
+
+The matrix-free FL sweeps: ``flmf_gains`` at phase 6's shapes (u = n =
+50,000 cosine, and u = 512 represented rows against n = 2^20 for every
+metric, on 16-byte aligned rows at d = 512 and on rows offset by one
+element at d = 130), ``flmf_gains_at`` at k = 8 and 512 on the first and at
+k = 512 on the second, all bit for bit across libraries.  The coverage
+sweeps at phase 8's shape, n = 2^20, m = 1,000: ``sc_gains`` on a binary G
+and covered with unit weights (integer sums, bit for bit across libraries
+whatever their order) and with weights and a fractional covered (the
+coverage bar, rtol 1e-5, atol 1e-5: the order is a layout's choice), and
+``psc_gains``, bit for bit.
 """
 from __future__ import annotations
 
@@ -51,8 +62,11 @@ N_SEL = 500  # selected items in the dense pairwise sweeps' mask (phase 7 (e)'s 
 GC_SEL = 100  # selected items in the gcmf sweeps' mask (phase 6 (c)'s budget)
 GC_TOL = (2e-5, 1e-4)  # gcmf across libraries: chip_smoke.py's MF_TOL for cosine
 REPS, ROUNDS = 10, 2
+MF_U, MF_N = 512, 1 << 20  # phase 6 (b)'s represented rows and candidates
+COVER_M = 1000  # phase 8's concepts
+COVER_TOL = (1e-5, 1e-5)  # sc with weights across libraries: chip_smoke.py's COVER_TOL
 KERNELS = ("similarity", "fused_fl_sweep", "gc_gains", "dsum_gains", "dmin_gains", "gcmf_gains",
-           "gcmf_gains_at")
+           "gcmf_gains_at", "flmf_gains", "flmf_gains_at", "sc_gains", "psc_gains")
 _P, _I64 = ctypes.c_void_p, ctypes.c_int64
 # the C signatures of sources older than the compaction (no sel / nsel)
 _BEFORE_SELECT_COLS = {
@@ -112,6 +126,10 @@ def _cases(kernels, stream):
         yield from _fused_cases(stream, gen)
     if set(kernels) & {"gcmf_gains", "gcmf_gains_at"}:
         yield from _gcmf_cases(kernels, stream, gen)
+    if set(kernels) & {"flmf_gains", "flmf_gains_at"}:
+        yield from _flmf_cases(kernels, stream, gen)
+    if set(kernels) & {"sc_gains", "psc_gains"}:
+        yield from _cover_cases(kernels, stream, gen)
     if not set(kernels) & {"gc_gains", "dsum_gains", "dmin_gains"}:
         return
     mat = torch.rand((N, N), generator=gen, device="cuda")
@@ -218,6 +236,83 @@ def _gcmf_cases(kernels, stream, gen):
         for k in (8, 512):
             idx = torch.randperm(N, generator=gen, device="cuda")[:k].to(torch.int32)
             yield f"gcmf_gains_at k={k}", (k,), GC_TOL, lambda lib, out, idx=idx: gcmf(lib, out, idx)
+
+
+def _offset(t):
+    """A copy of ``t`` one element into a flat buffer: no row starts 16-byte
+    aligned."""
+    view = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:].view(t.shape)
+    return view.copy_(t)
+
+
+def _flmf_cases(kernels, stream, gen):
+    """flmf at phase 6 (a)'s shape (u = n = N, cosine) and (b)'s (MF_U rows
+    against MF_N candidates) for every metric, aligned at D and offset by one
+    element at ODD_D; the full sweep in the launcher's column slices."""
+    square = torch.randn((N, D), generator=gen, device="cuda")
+    sets = [(f"u=n={N} d={D}", square, square, ("cosine",), False)]
+    for d in (D, ODD_D):
+        y = torch.randn((MF_N, d), generator=gen, device="cuda")
+        sets.append((f"u={MF_U} n={MF_N} d={d}" + ("" if d == D else " rows offset by one"),
+                     y[:: MF_N // MF_U][:MF_U].contiguous(), y, tuple(_METRIC_CODE), d != D))
+    for name, x, y, metrics, offset in sets:
+        (u, d), n = x.shape, y.shape[0]
+        nblocks = -(-u // TILE_ROWS)
+        cols = column_slice(nblocks)
+        partial = torch.empty((nblocks, min(n, cols)), device="cuda")
+        every = torch.arange(n, dtype=torch.int32, device="cuda")
+        cm = 0.5 * torch.rand((u,), generator=gen, device="cuda")
+        for metric in metrics:
+            xm, ym = (_normalize(x), _normalize(y)) if metric == "cosine" else (x, y)
+            xm, ym = (_offset(xm), _offset(ym)) if offset else (xm.contiguous(), ym.contiguous())
+            xx, yy = (xm * xm).sum(1), (ym * ym).sum(1)
+
+            def flmf(lib, out, idx, xm=xm, ym=ym, xx=xx, yy=yy, metric=metric, u=u, n=n, d=d,
+                     cm=cm, cols=cols, partial=partial, every=every):
+                k = out.shape[0]
+                if idx is None and k > cols:
+                    idx = every
+                for lo in range(0, k, cols):
+                    hi = min(k, lo + cols)
+                    rc = lib.flmf_gains_launch(
+                        xm.data_ptr(), ym.data_ptr(), xx.data_ptr(), yy.data_ptr(), cm.data_ptr(),
+                        None if idx is None else idx[lo:hi].data_ptr(), u, n, hi - lo, d,
+                        _METRIC_CODE[metric], inv_two_sigma_sq(d, None), partial.data_ptr(),
+                        out[lo:hi].data_ptr(), stream)
+                    if rc:
+                        return rc
+                return 0
+
+            if "flmf_gains" in kernels:
+                yield (f"flmf_gains {metric} {name}", (n,), None,
+                       lambda lib, out, f=flmf: f(lib, out, None))
+            if "flmf_gains_at" in kernels:
+                for k in (8, 512) if u == n else (512,):
+                    idx = torch.randperm(n, generator=gen, device="cuda")[:k].to(torch.int32)
+                    yield (f"flmf_gains_at {metric} {name} k={k}", (k,), None,
+                           lambda lib, out, f=flmf, idx=idx: f(lib, out, idx))
+
+
+def _cover_cases(kernels, stream, gen):
+    """sc and psc at phase 8's shape: n = MF_N items, m = COVER_M concepts."""
+    n, m = MF_N, COVER_M
+    if "sc_gains" in kernels:
+        cover = (torch.rand((n, m), generator=gen, device="cuda") < 0.02).float()
+        binary = (torch.rand((m,), generator=gen, device="cuda") < 0.3).float()
+        ones = torch.ones((m,), device="cuda")
+        frac = torch.rand((m,), generator=gen, device="cuda")
+        w = 0.5 + torch.rand((m,), generator=gen, device="cuda")
+        for label, covered, wk, tol in (("binary, unit w", binary, ones, None),
+                                        ("fractional covered, weights", frac, w, COVER_TOL)):
+            yield (f"sc_gains {label}", (n,), tol,
+                   lambda lib, out, covered=covered, wk=wk: lib.sc_gains_launch(
+                       cover.data_ptr(), n, m, covered.data_ptr(), wk.data_ptr(), out.data_ptr(),
+                       stream))
+    if "psc_gains" in kernels:
+        probs = torch.rand((n, m), generator=gen, device="cuda")
+        wm = torch.rand((m,), generator=gen, device="cuda")
+        yield "psc_gains", (n,), None, lambda lib, out: lib.psc_gains_launch(
+            probs.data_ptr(), n, m, wm.data_ptr(), out.data_ptr(), stream)
 
 
 def main(argv=None) -> int:

@@ -19,10 +19,9 @@
 // take 0.32 / 0.16 ms at 3.35 TB/s.
 //
 // Design: two passes, no atomics; the dot case of flmf_gains.cu with typed
-// operands and no gather, on the pipelined mainloop of sgemm_pipe.cuh
+// operands and no gather, on the same pipelined mainloop of sgemm_pipe.cuh
 // (cp.async copies of 32-k strips ahead of the compute, one barrier per
-// strip, conflict-free shared memory) where flmf_gains.cu keeps
-// tile::mainloop; both give each similarity the same fmaf chain.
+// strip, conflict-free shared memory).
 //   pass 1: the 128 x 128 tile, rows = x, columns = y.  A bf16 operand is
 //           copied as it is and widened to fp32 exactly in shared memory
 //           (its 16 bits become the high half of the fp32), so a bf16 sweep

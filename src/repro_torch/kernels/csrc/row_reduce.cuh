@@ -24,7 +24,7 @@
 // stays in L2.  Every element offset is 64-bit: 50,000^2 elements lie
 // beyond INT_MAX.
 //
-// The warp layout, for the coverage sweeps (fb_gains.cu, sc_gains.cu):
+// The warp layout, for the coverage sweeps fb and psc (fb_gains.cu, sc_gains.cu):
 //   res_r = sum over f = 0 .. F-1 of op.term(X[g_r, f], f)
 // for rows g_r of a row-major (n, F) fp32 matrix X with F in the hundreds
 // to thousands and n up to millions.  A block per row would spend most of
@@ -34,6 +34,22 @@
 // then the in-warp halving tree (lane i takes lane i + h, h = 16 .. 1).
 // The order depends on F alone; kernels/row_reduce.py::reduce_rows_warp
 // repeats it.
+//
+// The vector warp layout, for the SetCover sweep (sc_gains.cu), the same
+// sum over rows of an (n, F) matrix in another fixed order: the row is cut
+// into chunks of 4 elements (the last one short where F % 4 != 0), lane l
+// adds the terms of the chunks c = l, l + 32, l + 64, ... in increasing c,
+// a chunk's elements in order, then the in-warp halving tree.  The order
+// depends on F alone; kernels/row_reduce.py::reduce_rows_warp4 repeats it.
+// A chunk is one 16-byte load where the launcher finds every row and the
+// per-column operands 16-byte aligned (F % 4 == 0, aligned bases), else up
+// to 4 element loads of the same values, so both paths give the same bits.
+// The layout exists for bytes in flight: a 4-byte load per lane and element
+// and two more for the per-column operands, as the warp layout issues, held
+// the sweep at 89% of its byte bound.  Here a warp keeps VROWS rows in
+// flight, VUNROLL 16-byte chunks each, reads a chunk's per-column operands
+// once for all VROWS rows, and the blocks are persistent (a grid of as many
+// as fit on the card, each warp striding over row groups).
 
 #pragma once
 
@@ -143,6 +159,105 @@ int launch_warp_rows(const float* x, int64_t n, int64_t F, const Op op, const in
   if (k <= 0 || n <= 0 || F <= 0) return (int)cudaErrorInvalidValue;
   const int64_t blocks = (k + WARP_ROWS - 1) / WARP_ROWS;
   warp_rows_kernel<Op><<<(unsigned)blocks, WARP_ROWS * 32, 0, s>>>(x, n, F, op, idx, k, out);
+  return (int)cudaGetLastError();
+}
+
+// ---- the vector warp layout ------------------------------------------------
+
+constexpr int VROWS = 4;    // rows in flight per warp
+constexpr int VUNROLL = 4;  // chunks in flight per lane and row
+
+__device__ __forceinline__ float4 zero4() { return make_float4(0.0f, 0.0f, 0.0f, 0.0f); }
+
+// Element e (0 .. 3, known at compile time once unrolled) of v.
+__device__ __forceinline__ float elem(const float4& v, int e) {
+  return e == 0 ? v.x : (e == 1 ? v.y : (e == 2 ? v.z : v.w));
+}
+
+// Chunk c of a row p of F elements: one 16-byte load (VEC), or element
+// loads with zeros past F.  STREAM: the matrix (__ldcs, streamed, evict
+// first); else a per-column operand kept in cache (__ldg).
+template <bool VEC, bool STREAM>
+__device__ __forceinline__ float4 load_chunk(const float* __restrict__ p, int64_t c, int64_t F) {
+  if constexpr (VEC) {
+    const float4* q = reinterpret_cast<const float4*>(p) + c;
+    return STREAM ? __ldcs(q) : __ldg(q);
+  } else {
+    float v[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int64_t f = 4 * c + e;
+      v[e] = f < F ? (STREAM ? __ldcs(p + f) : __ldg(p + f)) : 0.0f;
+    }
+    return make_float4(v[0], v[1], v[2], v[3]);
+  }
+}
+
+// out[r] = the vector-warp-layout sum of row r of X (n, F): the sum over f
+// of op.term(X[r, f], cols, e), where cols = op.cols<VEC>(c, F) holds the
+// per-column operands of chunk c = f / 4 and e = f % 4.  Full sweeps only.
+template <class Op, bool VEC>
+__global__ void __launch_bounds__(WARP_ROWS * 32)
+    warp4_rows_kernel(const float* __restrict__ x, int64_t n, int64_t F, const Op op,
+                      float* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const int64_t chunks = (F + 3) / 4;
+  const int64_t first = ((int64_t)blockIdx.x * WARP_ROWS + (threadIdx.x >> 5)) * VROWS;
+  const int64_t step = (int64_t)gridDim.x * WARP_ROWS * VROWS;
+  for (int64_t r0 = first; r0 < n; r0 += step) {  // the whole warp strides together
+    float acc[VROWS];
+#pragma unroll
+    for (int r = 0; r < VROWS; ++r) acc[r] = 0.0f;
+    for (int64_t base = 0; base < chunks; base += 32 * VUNROLL) {
+      float4 g[VROWS][VUNROLL];
+#pragma unroll
+      for (int u = 0; u < VUNROLL; ++u) {
+        const int64_t c = base + u * 32 + lane;
+#pragma unroll
+        for (int r = 0; r < VROWS; ++r)
+          g[r][u] = (c < chunks && r0 + r < n) ? load_chunk<VEC, true>(x + (r0 + r) * F, c, F)
+                                               : zero4();
+      }
+#pragma unroll
+      for (int u = 0; u < VUNROLL; ++u) {
+        const int64_t c = base + u * 32 + lane;
+        if (c >= chunks) continue;  // nothing past F is added
+        const typename Op::Cols cols = op.template cols<VEC>(c, F);
+        const int64_t left = F - 4 * c;
+#pragma unroll
+        for (int r = 0; r < VROWS; ++r)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (e < left) acc[r] = __fadd_rn(acc[r], op.term(elem(g[r][u], e), cols, e));
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < VROWS; ++r) {
+#pragma unroll
+      for (int h = 16; h > 0; h >>= 1)
+        acc[r] = __fadd_rn(acc[r], __shfl_down_sync(0xffffffffu, acc[r], h));
+      if (lane == 0 && r0 + r < n) out[r0 + r] = acc[r];
+    }
+  }
+}
+
+// Launch the vector warp layout over the n rows of X (n, F); vec: the
+// 16-byte path, which the caller picks (every row and per-column operand
+// 16-byte aligned).  The grid holds as many blocks as fit on the card, and
+// no more than there are row groups.
+template <class Op>
+int launch_warp4_rows(const float* x, int64_t n, int64_t F, const Op op, bool vec, float* out,
+                      cudaStream_t s) {
+  if (n <= 0 || F <= 0) return (int)cudaErrorInvalidValue;
+  const void* kernel =
+      vec ? (const void*)warp4_rows_kernel<Op, true> : (const void*)warp4_rows_kernel<Op, false>;
+  unsigned grid;
+  cudaError_t err = tile::resident_grid(kernel, WARP_ROWS * 32, 0,
+                                        (n + WARP_ROWS * VROWS - 1) / (WARP_ROWS * VROWS), &grid);
+  if (err != cudaSuccess) return (int)err;
+  void* args[] = {(void*)&x, (void*)&n, (void*)&F, (void*)&op, (void*)&out};
+  err = cudaLaunchKernel(kernel, dim3(grid), dim3(WARP_ROWS * 32), args, 0, s);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

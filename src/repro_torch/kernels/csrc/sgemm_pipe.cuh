@@ -1,5 +1,5 @@
 // The pipelined mainloop of the 128 x 128 fp32 SGEMM tile, written for
-// Hopper's SMs (similarity.cu, fused_fl_sweep.cu).
+// Hopper's SMs (similarity.cu, fused_fl_sweep.cu, flmf_gains.cu).
 //
 // It computes what tile::mainloop computes (tile_common.cuh): the same 256
 // threads, the same 8 x 8 accumulators per thread at tile_pos(ty, i) /
@@ -404,15 +404,9 @@ inline cudaError_t blocks_per_sm(const void* kernel, int bytes, int* blocks) {
 // The persistent grid of `kernel` for ntiles tiles: as many blocks as fit on
 // the card at once, and no more than there are tiles.
 inline cudaError_t persistent_grid(const void* kernel, int bytes, int64_t ntiles, unsigned* grid) {
-  int dev, sms, per_sm;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess) err = blocks_per_sm(kernel, bytes, &per_sm);
+  const cudaError_t err = allow_smem(kernel, bytes);
   if (err != cudaSuccess) return err;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  const int64_t slots = (int64_t)sms * per_sm;
-  *grid = (unsigned)(ntiles < slots ? ntiles : slots);
-  return cudaSuccess;
+  return resident_grid(kernel, THREADS, bytes, ntiles, grid);
 }
 
 // Whether rows of d elements of `bytes` each, starting at p, are all 16-byte

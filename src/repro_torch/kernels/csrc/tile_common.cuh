@@ -1,7 +1,8 @@
 // Building blocks shared by the port's kernels: the 128 x 128 register-
 // blocked fp32 SGEMM tile's thread layout and its 8 x 8 strip mainloop, the
 // metric epilogue applied to its accumulators in registers, and the in-order
-// sum of per-block partials (fl_gains.cu, flmf_gains.cu, fused_fl_sweep.cu).
+// sum of per-block partials (fl_gains.cu, flmf_gains.cu, fused_fl_sweep.cu,
+// gcmf_gains.cu).
 //
 // The tile: one block of 256 threads owns a 128 x 128 output tile, and each
 // thread keeps an 8 x 8 accumulator tile in registers, at rows tile_pos(ty,
@@ -12,16 +13,16 @@
 // the tile's arithmetic is the fp32 tile's on the widened values.
 //
 // Two mainloops compute that tile, bit for bit alike:
-// - tile::mainloop below, for flmf_gains.cu and gcmf_gains.cu: K strips of 8
-//   loaded element by element and staged transposed (k-major), two barriers
-//   per strip, no prefetch;
-// - pipe::tile_loop in sgemm_pipe.cuh, for similarity.cu and fused_fl_sweep.cu:
-//   cp.async copies of 32-k strips into a ring ahead of the compute, one
-//   barrier per strip, persistent blocks, written for Hopper's SMs.
-// Two exist while the kernels move over two at a time, so that each move is
-// held bit for bit against the kernels still on the first: the fused sweep
-// must equal flmf_gains(dot).  flmf and gcmf move next, and tile::mainloop
-// goes with them.
+// - tile::mainloop below, for gcmf_gains.cu alone: K strips of 8 loaded
+//   element by element and staged transposed (k-major), two barriers per
+//   strip, no prefetch;
+// - pipe::tile_loop in sgemm_pipe.cuh, for similarity.cu, fused_fl_sweep.cu
+//   and flmf_gains.cu: cp.async copies of 32-k strips into a ring ahead of
+//   the compute, one barrier per strip, persistent blocks, written for
+//   Hopper's SMs.
+// gcmf, redesigned to read only the selected columns, stays on
+// tile::mainloop; moving it and retiring tile::mainloop is a simplification
+// still to make, not a redesign.
 
 #pragma once
 
@@ -115,6 +116,23 @@ __device__ __forceinline__ int64_t gathered(const int32_t* __restrict__ idx, int
   if (idx == nullptr) return c;
   const int64_t g = idx[c];
   return g < 0 ? 0 : (g >= n ? n - 1 : g);
+}
+
+// The grid of a persistent kernel for `units` units of work: as many blocks
+// of `threads` threads and `smem` bytes of dynamic shared memory as fit on
+// the card at once, and no more than there are units.
+inline cudaError_t resident_grid(const void* kernel, int threads, int smem, int64_t units,
+                                 unsigned* grid) {
+  int dev, sms, per_sm;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, (size_t)smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const int64_t slots = (int64_t)sms * per_sm;
+  *grid = (unsigned)(units < slots ? units : slots);
+  return cudaSuccess;
 }
 
 // out[j] = sum over b = 0 .. nblocks-1 of partial[b, j], in b order; slots

@@ -8,10 +8,12 @@ row of ``y`` (``flmf_gains``, the port of
 idx < 0 return NEG_INF), without writing the (u, n) similarity.  Cosine
 rows arrive pre-normalised; ``xx`` / ``yy`` are the rows' sums of squares.
 
-The kernel (``csrc/flmf_gains.cu``) sums each column in a fixed order that
-depends on u alone, so its gathered sweep equals its full sweep bit for bit
-at the same index.  The plain versions below stream the similarity in
-fixed-width tiles (:func:`~repro_torch.kernels.similarity_kernel.similarity_tiles`,
+The kernel (``csrc/flmf_gains.cu``, on the pipelined mainloop of
+``csrc/sgemm_pipe.cuh``) sums each column in a fixed order that depends on
+u alone, so its gathered sweep equals its full sweep bit for bit at the
+same index.  Its launcher copies rows 16 bytes at a time where every row is
+16-byte aligned, else element by element, with the same bits.  The plain
+versions below stream the similarity in fixed-width tiles (:func:`~repro_torch.kernels.similarity_kernel.similarity_tiles`,
 the tiles of ``FeatureSource``'s torch path) and add with ``sum``; one tile
 shape keeps each column's value independent of its position, so the same
 holds for them.  Kernel and plain version round differently (an fmaf chain
@@ -30,7 +32,6 @@ from repro_torch.kernels.similarity_kernel import (
 )
 
 TILE_ROWS = 128  # the kernels' block: one partial sum per block and column
-_MAX_GRID_Y = 65535  # CUDA's grid.y limit
 # Cap on the kernels' (blocks, columns) fp32 partial-sum scratch.  Past it a
 # sweep runs in column slices that reuse one scratch; a column's sum does not
 # depend on the slice it lands in.
@@ -40,9 +41,9 @@ SCRATCH_BYTES = 1 << 26
 def column_slice(nblocks: int) -> int:
     """Columns per launch for a reduction over ``nblocks`` blocks of 128:
     the most that keep the scratch within :data:`SCRATCH_BYTES` (a multiple
-    of 128, at least 128, at most the grid's 65535 blocks of 128)."""
+    of 128, at least 128)."""
     cols = SCRATCH_BYTES // (4 * nblocks) // TILE_ROWS * TILE_ROWS
-    return min(max(cols, TILE_ROWS), _MAX_GRID_Y * TILE_ROWS)
+    return max(cols, TILE_ROWS)
 
 
 def flmf_gains_plain(
@@ -84,10 +85,6 @@ def _launch(x, y, xx, yy, curmax, idx, metric, rbf_sigma) -> torch.Tensor:
             out.masked_fill_(idx < 0, NEG_INF)
         return out
     nblocks = -(-u // TILE_ROWS)
-    if nblocks > _MAX_GRID_Y:
-        raise ValueError(
-            f"flmf_gains kernel takes at most {_MAX_GRID_Y * TILE_ROWS} rows, got {u}"
-        )
     cols = column_slice(nblocks)
     if idx is None and k > cols:
         # sliced through an index: the gathered sweep equals the full sweep

@@ -19,11 +19,11 @@ widens them in shared memory, with no fp32 copy in device memory.  It sums
 each column in an order that depends on u and d alone, so a sweep over a
 slice or a gather of y equals the full sweep bit for bit at the same row,
 and on fp32 inputs it equals ``flmf_gains(..., metric="dot")`` (the same
-fmaf chains and order, on the other mainloop).  The kernel's launcher
+fmaf chains and order, on the same mainloop).  The kernel's launcher
 copies rows 16 bytes at a time where every row is 16-byte aligned, else
-element by element, with the same bits.  :func:`fused_fl_sweep_plain`, the counterpart of ``fused_fl_sweep_ref``,
-widens one fixed-width column tile at a time and adds with ``sum``; it
-agrees with the kernel to a tolerance.
+element by element, with the same bits.  :func:`fused_fl_sweep_plain`, the
+counterpart of ``fused_fl_sweep_ref``, widens one fixed-width column tile
+at a time and adds with ``sum``; it agrees with the kernel to a tolerance.
 """
 from __future__ import annotations
 

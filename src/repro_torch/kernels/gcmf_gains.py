@@ -32,6 +32,8 @@ from repro_torch.kernels.similarity_kernel import (
     similarity_tiles,
 )
 
+_MAX_GRID_Y = 65535  # CUDA's grid.y limit: the kernel's candidate blocks
+
 
 def _plain(yj, yyj, y, yy, selmask, total, diag, lam, metric, rbf_sigma) -> torch.Tensor:
     """Candidate rows yj (j, d) against the ground y (n, d)."""
@@ -68,10 +70,10 @@ def gcmf_gains_at_plain(
 
 def slice_width(j: int, nblocks: int) -> int:
     """Candidates per launch of a j-candidate sweep over ``nblocks`` column
-    blocks: ``column_slice``'s cap on the scratch, spread evenly over the
-    fewest launches, in multiples of 128 (no short last launch, which would
+    blocks: ``column_slice``'s cap on the scratch (and the grid's 65535
+    candidate blocks of 128), spread evenly over the fewest launches, in multiples of 128 (no short last launch, which would
     run its few blocks alone on the card)."""
-    cap = column_slice(nblocks)
+    cap = min(column_slice(nblocks), _MAX_GRID_Y * TILE_ROWS)
     launches = -(-j // cap)
     return TILE_ROWS * -(-j // (TILE_ROWS * launches))
 

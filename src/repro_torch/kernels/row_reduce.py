@@ -19,6 +19,12 @@ The warp layout (the coverage sweeps over an (n, F) matrix,
 l taking the columns f = l, l + WARP, ... in increasing f, then the
 in-warp halving tree.  The order depends on F alone, with the same two
 consequences.
+
+The vector warp layout (the SetCover sweep, :func:`reduce_rows_warp4`):
+one warp sums a row cut into chunks of :data:`CHUNK` columns, lane l
+taking the chunks c = l, l + WARP, ... in increasing c and a chunk's
+columns in order, then the in-warp halving tree; again an order set by F
+alone.
 """
 from __future__ import annotations
 
@@ -28,6 +34,7 @@ import torch
 
 THREADS = 256  # the kernel's threads per row: the one source of that number
 WARP = 32
+CHUNK = 4  # columns per lane and 16-byte load in the vector warp layout
 
 Step = Callable[[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
 
@@ -82,4 +89,25 @@ def reduce_rows_warp(
     for lo in range(0, mat.shape[1], WARP):
         hi = min(lo + WARP, mat.shape[1])
         acc[:, : hi - lo] = acc[:, : hi - lo] + term(sub[:, lo:hi], lo, hi)
+    return _halve(acc, torch.add)
+
+
+def reduce_rows_warp4(
+    mat: torch.Tensor, term: Callable[[torch.Tensor, slice], torch.Tensor]
+) -> torch.Tensor:
+    """Sum ``term`` over every row of ``mat`` (n, F) in the vector warp
+    layout.  ``term(s, cols)`` maps the (n, len) block ``s = mat[:, cols]``
+    of the columns ``cols`` (a slice with step :data:`CHUNK`: column e of
+    the chunks of lanes 0 .. len - 1 of one round) to the values to add.
+    Holds one (n, WARP) block of terms at a time."""
+    n, F = mat.shape
+    acc = mat.new_zeros((n, WARP))
+    for lo in range(0, F, CHUNK * WARP):  # one round: a chunk for every lane
+        hi = min(lo + CHUNK * WARP, F)
+        for e in range(CHUNK):
+            cols = slice(lo + e, hi, CHUNK)
+            s = mat[:, cols]
+            lanes = s.shape[1]  # the lanes whose chunk reaches column e
+            if lanes:
+                acc[:, :lanes] = acc[:, :lanes] + term(s, cols)
     return _halve(acc, torch.add)

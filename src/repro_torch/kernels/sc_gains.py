@@ -10,23 +10,26 @@ versions.
   (``ops.psc_gains``) and handed to the kernel or to the plain version.
 
 The kernels (``csrc/sc_gains.cu``) and the plain versions below sum each
-row in ``row_reduce``'s warp layout with the same rounding steps.  Both are
-full sweeps only: the families' lazy levels take their gathered torch
-path, as in the JAX package.
+row in the same order with the same rounding steps: ``sc_gains`` in
+``row_reduce``'s vector warp layout (16-byte loads of G where the launcher
+finds the rows and vectors aligned, element loads of the same values
+otherwise), ``psc_gains`` in its warp layout.  Both are full sweeps only:
+the families' lazy levels take their gathered torch path, as in the JAX
+package.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.row_reduce import reduce_rows_warp
+from repro_torch.kernels.row_reduce import reduce_rows_warp, reduce_rows_warp4
 
 
 def sc_gains_plain(cover: torch.Tensor, covered: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """cover (n, m), covered / w (m,) -> gains (n,) fp32, in plain PyTorch;
     holds one (n, 32) block of terms at a time."""
-    return reduce_rows_warp(
-        cover, None, lambda s, lo, hi: torch.clamp(s - covered[lo:hi], min=0.0) * w[lo:hi])
+    return reduce_rows_warp4(
+        cover, lambda s, cols: torch.clamp(s - covered[cols], min=0.0) * w[cols])
 
 
 def psc_gains_plain(probs: torch.Tensor, wm: torch.Tensor) -> torch.Tensor:

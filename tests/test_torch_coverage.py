@@ -148,6 +148,70 @@ def test_sc_unit_weights_are_exact():
     np.testing.assert_array_equal(got, ((cover - covered) > 0).sum(axis=1).astype(np.float32))
 
 
+# widths the sc kernel's vector warp layout treats apart (csrc/row_reduce.cuh):
+# one concept; fewer than one 128-wide round of 32 lanes x 4; m % 4 != 0 (a
+# short last chunk, the element loads); whole and ragged rounds
+SC_M = [1, 3, 33, 100, 130, 1000, 1001]
+
+
+def _sc_inputs(n, m, seed):
+    rng = np.random.default_rng(seed)
+    cover = rng.integers(0, 2, size=(n, m)).astype(np.float32)
+    covered = rng.uniform(size=m).astype(np.float32)  # fractional
+    w = rng.uniform(0.5, 2.0, size=m).astype(np.float32)
+    return cover, covered, w
+
+
+@pytest.mark.parametrize("m", SC_M)
+def test_sc_plain_in_vector_layout_matches_jax(m):
+    """The plain version, in the vector warp layout's order, with weights and
+    a fractional covered, against the JAX kernel (interpret mode) and its
+    oracle."""
+    cover, covered, w = _sc_inputs(24, m, m)
+    got = ops.sc_gains(_t(cover), _t(covered), _t(w)).numpy()
+    np.testing.assert_allclose(got, np.asarray(jops.sc_gains(cover, covered, w)), **SC_TOL)
+    np.testing.assert_allclose(got, np.asarray(jops.sc_gains_ref(cover, covered, w)), **SC_TOL)
+
+
+@pytest.mark.parametrize("m", SC_M)
+def test_sc_plain_adds_in_the_vector_warp_order(m):
+    """The plain version equals, bit for bit, a scalar fp32 walk of the
+    kernel's order: lane l adds the terms of the 4-concept chunks l, l + 32,
+    ... in order, then lane i takes lane i + h for h = 16, 8, 4, 2, 1."""
+    cover, covered, w = _sc_inputs(5, m, m + 1)
+    got = ops.sc_gains(_t(cover), _t(covered), _t(w)).numpy()
+    f32 = np.float32
+    for r in range(cover.shape[0]):
+        lanes = [f32(0.0)] * 32
+        for f in range(m):
+            term = f32(max(f32(cover[r, f] - covered[f]), f32(0.0)) * w[f])
+            lanes[(f // 4) % 32] = f32(lanes[(f // 4) % 32] + term)
+        h = 16
+        while h:
+            lanes = [f32(lanes[i] + lanes[i + h]) for i in range(h)]
+            h //= 2
+        assert got[r] == lanes[0]
+
+
+@pytest.mark.parametrize("m", SC_M)
+def test_sc_plain_row_sum_does_not_depend_on_n(m):
+    """A row's sum is the same bits swept alone, inside a larger sweep, or in
+    a slice of it: the order depends on m alone."""
+    cover, covered, w = _sc_inputs(257, m, m + 2)
+    full = ops.sc_gains(_t(cover), _t(covered), _t(w))
+    for lo, hi in ((0, 1), (100, 101), (3, 130), (256, 257)):
+        assert torch.equal(ops.sc_gains(_t(cover[lo:hi]), _t(covered), _t(w)), full[lo:hi])
+
+
+@pytest.mark.parametrize("m", SC_M)
+def test_sc_unit_weights_are_exact_at_every_width(m):
+    rng = np.random.default_rng(m + 3)
+    cover = rng.integers(0, 2, size=(65, m)).astype(np.float32)
+    covered = (rng.uniform(size=m) < 0.3).astype(np.float32)
+    got = ops.sc_gains(_t(cover), _t(covered), torch.ones(m)).numpy()
+    np.testing.assert_array_equal(got, ((cover - covered) > 0).sum(axis=1).astype(np.float32))
+
+
 def test_coverage_wrappers_check_their_inputs():
     x, v = torch.rand((8, 6)), torch.rand(6)
     with pytest.raises(ValueError, match="concave"):

@@ -246,6 +246,93 @@ def test_flmf_kernels_match_plain(cuda, shape, metric):
     assert ops.LAUNCHES["flmf_gains_at"] == before["flmf_gains_at"] + len(idx)
 
 
+def _one_row_in(t):
+    """A copy of the 2-D tensor ``t`` one row into a buffer: at d = 130 its
+    rows of 520 bytes start 8 bytes off a 16-byte boundary."""
+    view = torch.empty((t.shape[0] + 1, t.shape[1]), dtype=t.dtype, device=t.device)[1:]
+    return view.copy_(t)
+
+
+@pytest.mark.parametrize("metric", METRICS)
+def test_flmf_kernels_on_offset_rows(cuda, monkeypatch, metric):
+    """The pipelined flmf on rows offset by one row at d = 130 (the
+    element-wise copies and a ragged last strip): against the plain version,
+    the gathered sweep equal to the full one and column slices equal to one
+    launch, bit for bit.  At d = 512 the element-wise copies of rows one
+    element into a buffer give the 16-byte copies' bits, full and gathered."""
+    g = torch.Generator(device=cuda).manual_seed(40)
+    u, n = 300, 1500
+    cm = 0.8 * torch.rand((u,), generator=g, device=cuda)
+    idx = torch.randint(0, n, (777,), generator=g, device=cuda)
+    idx[::7] = -1
+    for d in (130, 512):
+        x = torch.randn((u, d), generator=g, device=cuda)
+        y = torch.randn((n, d), generator=g, device=cuda)
+        if metric == "cosine":
+            x, y = _normalize(x), _normalize(y)
+        xx, yy = (x * x).sum(1), (y * y).sum(1)
+        if d == 512:
+            xo, yo = _offset_rows(x), _offset_rows(y)
+            assert torch.equal(ops.flmf_gains(xo, yo, xx, yy, cm, metric),
+                               ops.flmf_gains(x, y, xx, yy, cm, metric))
+            assert torch.equal(ops.flmf_gains_at(xo, yo, xx, yy, cm, idx, metric),
+                               ops.flmf_gains_at(x, y, xx, yy, cm, idx, metric))
+            continue
+        xo, yo = _one_row_in(x), _one_row_in(y)
+        full = ops.flmf_gains(xo, yo, xx, yy, cm, metric)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(full, flmf_gains_plain(x, y, xx, yy, cm, metric),
+                                   **MF_TOL[metric])
+        got = ops.flmf_gains_at(xo, yo, xx, yy, cm, idx, metric)
+        _assert_subset(got, full, idx)
+        monkeypatch.setattr(flmf_module, "SCRATCH_BYTES", 4 * 3 * 128)  # 3 blocks x 128 columns
+        assert torch.equal(ops.flmf_gains(xo, yo, xx, yy, cm, metric), full)
+        assert torch.equal(ops.flmf_gains_at(xo, yo, xx, yy, cm, idx, metric), got)
+        monkeypatch.undo()
+
+
+def test_flmf_and_sc_raise_instead_of_falling_back(cuda, monkeypatch):
+    """A kernel that fails to launch, or a library that fails to build,
+    raises: the wrappers never hand the call to the plain version or to
+    another layout."""
+    from repro_torch.kernels import _build
+
+    x = torch.rand((300, 130), device=cuda)
+    v = torch.rand(300, device=cuda)
+    cover = (torch.rand((64, 1000), device=cuda) < 0.3).float()
+    m = torch.rand(1000, device=cuda)
+    calls = {
+        "flmf_gains": lambda: ops.flmf_gains(x, x, v, v, v, "rbf"),
+        "flmf_gains_at": lambda: ops.flmf_gains_at(x, x, v, v, v, v[:8].int(), "rbf"),
+        "sc_gains": lambda: ops.sc_gains(cover, m, m),
+    }
+    real = _build.load()
+
+    class Refusing:  # every launch refused, as by a kernel the card cannot run
+        def __getattr__(self, name):
+            if name.endswith("_launch"):
+                return lambda *args: 98  # cudaErrorInvalidDeviceFunction
+            return getattr(real, name)
+
+    before = dict(ops.LAUNCHES)
+    monkeypatch.setattr(_build, "load", lambda: Refusing())
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match=f"{name.removesuffix('_at')} kernel: CUDA error 98"):
+            call()
+    monkeypatch.undo()
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(_build, "_lib", None)
+    monkeypatch.setattr(_build, "_library_path", lambda: _build.BUILD_DIR / "absent.so")
+    monkeypatch.setattr(_build, "_nvcc", no_nvcc)
+    for call in calls.values():
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            call()
+    assert ops.LAUNCHES == before
+
+
 @pytest.mark.parametrize("shape", MF_SHAPES)
 @pytest.mark.parametrize("metric", METRICS)
 def test_gcmf_kernels_match_plain(cuda, shape, metric):
@@ -585,6 +672,42 @@ def test_sc_kernels_equal_plain_bit_for_bit(cuda, shape):
     assert torch.equal(got, psc_gains_plain(probs, w * miss))
     assert ops.LAUNCHES["sc_gains"] == before["sc_gains"] + 1
     assert ops.LAUNCHES["psc_gains"] == before["psc_gains"] + 1
+
+
+# the vector warp layout's cases: one concept; fewer than one 128-wide round;
+# m % 4 != 0 (element loads, a short last chunk); whole and ragged rounds
+SC_M = [1, 3, 4, 33, 127, 128, 130, 257, 1000, 1001]
+
+
+@pytest.mark.parametrize("m", SC_M)
+def test_sc_kernel_both_load_paths_equal_plain_bit_for_bit(cuda, m):
+    """sc_gains (a fractional covered, non-unit weights) equals its plain
+    version bit for bit on the 16-byte loads (m % 4 == 0, aligned) and on
+    the element loads: a cover one element into a buffer, a column slice of
+    a wider matrix made contiguous there, and vectors that are not 16-byte
+    aligned."""
+    n = 4099  # row groups of the persistent grid do not divide it
+    g = torch.Generator(device=cuda).manual_seed(32 + m)
+    wide = (torch.rand((n, m + 3), generator=g, device=cuda) < 0.3).float()
+    cover = wide[:, 1 : m + 1].contiguous()
+    covered = torch.rand((m,), generator=g, device=cuda)
+    w = 0.5 + torch.rand((m,), generator=g, device=cuda)
+    want = sc_gains_plain(cover, covered, w)
+    before = ops.LAUNCHES["sc_gains"]
+    got = ops.sc_gains(cover, covered, w)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    sliced = torch.empty((n * m + 1,), device=cuda)[1:].view(n, m).copy_(wide[:, 1 : m + 1])
+    assert sliced.data_ptr() % 16
+    assert torch.equal(ops.sc_gains(sliced, covered, w), want)
+    vecs = torch.empty((2 * m + 1,), device=cuda)[1:]
+    vecs[:m], vecs[m:] = covered, w
+    assert torch.equal(ops.sc_gains(cover, vecs[:m], vecs[m:]), want)
+    assert ops.LAUNCHES["sc_gains"] == before + 3
+    ones = torch.ones((m,), device=cuda)
+    binary = (covered < 0.5).float()
+    assert torch.equal(ops.sc_gains(cover, binary, ones),
+                       torch.clamp(cover - binary, min=0.0).sum(1))
 
 
 @pytest.mark.parametrize("optimizer,params", OPTIMIZERS)
