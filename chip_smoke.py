@@ -41,14 +41,20 @@ Phases, each of which raises on failure (the exit code is then non-zero):
   3 kernels  each kernel against its plain version at small and ragged shapes
              (the fused sweep in fp32 and bf16, with its column-slice bit
              identity; dmin and gcmf at the selection sizes where their
-             branches and column blocks change; similarity, the fused
+             branches and column blocks change; gc, gc_at and dsum bit-equal
+             to their plain versions at |A| across the warp's lanes, the
+             staged chunk and every column; similarity, the fused
              sweep, flmf and sc on rows that are not 16-byte aligned,
              bit-equal to the same call on aligned rows), and the mask
              compaction against torch.nonzero at n = 2^20
-  4 main     the main path at full size, its launch counts, and the same
-             solves on the plain path, compared step by step
+  4 main     the main path at full size, its launch counts (fl_gains_at's
+             also by width k), and the same solves on the plain path,
+             compared step by step
   5 times    each kernel, its plain version and the library call, timed
-             with CUDA events at its path's shapes
+             with CUDA events at its path's shapes (fl_gains_at at every
+             width phase 4 launched; the sweeps over the selected columns
+             beside their selected-columns library call and sector floor,
+             dmin, gc and dsum bit-equal to their plain versions)
   6 mf       the matrix-free path: (a) FacilityLocationMF on phase 4's
              features, held against phase 4's dense selection and under a
              1 GB peak; (b) FacilityLocationMF over --mf-n candidates and
@@ -80,6 +86,7 @@ exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import collections
 import ctypes
 import itertools
 import json
@@ -608,14 +615,31 @@ def phase_main(torch, args) -> dict:
     if name != "cuda-fl":
         raise AssertionError(f"backend_name is {name!r}, expected 'cuda-fl'")
     runs = {}
-    for opt, budget in (("NaiveGreedy", args.naive_budget), ("LazyGreedy", args.lazy_budget)):
-        runs[opt] = _timed_solve(torch, SelectionSpec(fn, budget, opt))
+    # fl_gains_at's launches by width k (LazyGreedy's levels), beside its count
+    widths = collections.Counter()
+    fl_gains_at = ops.fl_gains_at
+
+    def counted_fl_gains_at(sim, curmax, idx):
+        widths[int(idx.shape[0])] += 1
+        return fl_gains_at(sim, curmax, idx)
+
+    ops.fl_gains_at = counted_fl_gains_at
+    try:
+        for opt, budget in (("NaiveGreedy", args.naive_budget), ("LazyGreedy", args.lazy_budget)):
+            runs[opt] = _timed_solve(torch, SelectionSpec(fn, budget, opt))
+    finally:
+        ops.fl_gains_at = fl_gains_at
     launches = {k: ops.LAUNCHES[k] for k in ("similarity", "fl_gains", "fl_gains_at")}
     log(f"  backend_name = {name}; launches on the main path: {launches}")
     for k, v in launches.items():
         if v <= 0:
             raise AssertionError(f"kernel {k} was not launched on the main path")
     out["launches"] = launches
+    out["fl_gains_at_widths"] = dict(sorted(widths.items()))
+    if sum(widths.values()) != launches["fl_gains_at"]:
+        raise AssertionError(f"fl_gains_at widths {out['fl_gains_at_widths']} do not add up to "
+                             f"its {launches['fl_gains_at']} launches")
+    log(f"  fl_gains_at launches by width k: {out['fl_gains_at_widths']}")
     log(f"  create_kernel: {out['create_kernel_s']:.3f} s (host clock, synchronized)")
 
     # ---- outputs: S against the plain version on its first and last rows
@@ -748,6 +772,19 @@ def phase_times(torch, args, fn, naive_res, main: dict) -> list[dict]:
                  "max_abs_err": err}
         log(f"  fl_gains_at {n}x{n} k={k}: kernel {k_ms:.4f} ms, plain {k_plain:.3f} ms, "
             f"bound {kb_ms:.5f} ms ({kb_by}); bit-equal to fl_gains")
+    # every width phase 4's LazyGreedy launched: launches x time per width
+    by_width = {}
+    for k, count in main["fl_gains_at_widths"].items():
+        sets = [torch.randperm(n, generator=gen, device="cuda")[:k].to(torch.int32) for _ in range(16)]
+        it = itertools.cycle(sets)
+        kb_ms, kb_by = bound(3.0 * n * k, 4.0 * (n * k + n + 3 * k))
+        k_ms = cuda_ms(torch, lambda: ops.fl_gains_at(sim, cm, next(it)), max(3, reps // 5))
+        by_width[k] = {"launches": count, "ms": k_ms, "bound_ms": kb_ms, "bound_by": kb_by}
+    log("  fl_gains_at by width k on phase 4's LazyGreedy (launches x ms = total ms): "
+        + "; ".join(f"k={k}: {w['launches']} x {w['ms']:.4f} = {w['launches'] * w['ms']:.1f}"
+                    for k, w in by_width.items())
+        + f"; in all {sum(w['launches'] * w['ms'] for w in by_width.values()):.1f} ms, of it over "
+        f"the bound {sum(w['launches'] * (w['ms'] - w['bound_ms']) for w in by_width.values()):.1f} ms")
     rows.append({
         "name": "fl_gains_at", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fl_gains.cu",
@@ -757,7 +794,7 @@ def phase_times(torch, args, fn, naive_res, main: dict) -> list[dict]:
         "max_abs_err": at[8]["max_abs_err"],
         "ms": at[8]["ms"], "plain_ms": at[8]["plain_ms"], "bound_ms": at[8]["bound_ms"],
         "bound_by": at[8]["bound_by"], "library_ms": None,
-        "k512": at[512],
+        "k512": at[512], "by_width": by_width,
     })
 
     # the KERNEL_MIN_N gate: kernel vs the torch backend's sweep at n = 4096
@@ -1196,35 +1233,50 @@ def phase_dense_kernels(torch, seed: int) -> dict:
     from repro_torch.kernels import ops
     from repro_torch.kernels.disp_gains import dmin_gains_plain, dsum_gains_plain
     from repro_torch.kernels.gc_gains import gc_gains_at_plain, gc_gains_plain
+    from repro_torch.kernels.row_reduce import SEL_CHUNK
 
     log("== phase 3: dense pairwise kernels vs plain, small and ragged shapes")
     gen = torch.Generator(device="cuda").manual_seed(seed + 4)
     lam = torch.tensor(GC_LAM, device="cuda")
-    bit_equal = {"gc_gains": True, "dsum_gains": True}
-    # 9000: a ragged n whose rows span 35 passes of the block (9000 = 35 * 256 + 40)
-    for n in (8, 100, 257, 4096, 9000):
-        s = torch.rand((n, n), generator=gen, device="cuda")
-        mask = (torch.rand((n,), generator=gen, device="cuda") < 0.3).float()
-        total = s.sum(dim=0)
-        full = ops.gc_gains(s, mask, total, lam)
+
+    def exact(what, got, want):
         torch.cuda.synchronize()
-        want = gc_gains_plain(s, mask, total, lam)
-        check_close(f"gc_gains ({n},{n})", full, want, *DENSE_TOL)
-        bit_equal["gc_gains"] &= bool(torch.equal(full, want))
+        if not torch.equal(got, want):
+            raise AssertionError(f"{what}: not bit-equal to its plain version "
+                                 f"(max abs err {max_err(got, want):.3g})")
+
+    def sums(s, mask, total, label):
+        """gc, gc_at and dsum against their plain versions, bit for bit."""
+        full = ops.gc_gains(s, mask, total, lam)
+        exact(f"gc_gains ({n},{n}) {label}", full, gc_gains_plain(s, mask, total, lam))
         for k in (1, 8, 100, 777):
             idx = torch.randint(0, n + 3, (k,), generator=gen, device="cuda")
             idx[::7] = -1  # padding slots, the first among them
             idx[1::5] = idx[0]  # duplicates; idx >= n reads row n - 1
             got = ops.gc_gains_at(s, mask, total, lam, idx)
             torch.cuda.synchronize()
-            _check_subset(f"gc_gains_at ({n},{n}) k={k}", torch, got, full, torch.clamp(idx, max=n - 1))
-            check_close(f"gc_gains_at ({n},{n}) k={k} (bit-equal to gc_gains, pads NEG_INF)",
-                        got, gc_gains_at_plain(s, mask, total, lam, idx), *DENSE_TOL)
-        got = ops.dsum_gains(s, mask)
-        torch.cuda.synchronize()
-        want = dsum_gains_plain(s, mask)
-        check_close(f"dsum_gains ({n},{n})", got, want, *DENSE_TOL)
-        bit_equal["dsum_gains"] &= bool(torch.equal(got, want))
+            _check_subset(f"gc_gains_at ({n},{n}) {label} k={k}", torch, got, full,
+                          torch.clamp(idx, max=n - 1))
+            exact(f"gc_gains_at ({n},{n}) {label} k={k}", got,
+                  gc_gains_at_plain(s, mask, total, lam, idx))
+        exact(f"dsum_gains ({n},{n}) {label}", ops.dsum_gains(s, mask), dsum_gains_plain(s, mask))
+
+    checked = {}
+    # 9000: a ragged n whose rows span 35 passes of dmin's block (9000 = 35 * 256 + 40);
+    # none is a multiple of the staged chunk of gc / dsum's list
+    for n in (8, 100, 257, 4096, 9000):
+        s = torch.rand((n, n), generator=gen, device="cuda")
+        mask = (torch.rand((n,), generator=gen, device="cuda") < 0.3).float()
+        total = s.sum(dim=0)
+        sums(s, mask, total, "random 30%")
+        # |A| across a warp's lanes and the staged chunk, up to every column
+        counts = {0, 1, 31, 32, 33, n // 8, SEL_CHUNK - 1, SEL_CHUNK, SEL_CHUNK + 1,
+                  2 * SEL_CHUNK + 1, n}
+        checked[n] = sorted(c for c in counts if c <= n)
+        for k in checked[n]:
+            sums(s, _count_mask(torch, gen, n, k), total, f"|A| = {k}")
+        log(f"  ok  gc_gains, gc_gains_at, dsum_gains ({n},{n}): bit-equal to their plain versions "
+            f"at a random mask and at |A| = {checked[n]}")
         count, curmin = mask.sum().to(torch.int32), torch.tensor(0.05, device="cuda")
         got = ops.dmin_gains(s, mask, count, curmin)
         torch.cuda.synchronize()
@@ -1246,8 +1298,7 @@ def phase_dense_kernels(torch, seed: int) -> dict:
                                      "to its plain version")
         log(f"  ok  dmin_gains ({n},{n}): bit-equal to its plain version at a random mask and at "
             f"|A| = 1, n/8 - 1, n/8, n/8 + 1, n (both branches); all zeros at |A| = 0")
-    log(f"  gc_gains / dsum_gains bit-equal to their plain versions at every shape: {bit_equal}")
-    return bit_equal
+    return checked
 
 
 def _count_mask(torch, gen, n: int, k: int):
@@ -1424,6 +1475,20 @@ def phase_dense_times(torch, args, S, D, dense: dict) -> list[dict]:
             f"all columns {t['bound_all_columns_ms']:.4f} ms)")
         return t, got
 
+    def selected(name, t, mask, call, want):
+        """The selected-columns library call, the sector floor and the
+        compaction's share, beside the all-column call of ``timed``."""
+        a = t["selected"]
+        check_close(f"{name}: the selected-columns library call", call(), want, *DENSE_TOL, quiet=True)
+        t["selected_library_ms"] = cuda_ms(torch, call, reps)
+        # each gathered 4-byte element costs a 32-byte sector: 32 n |A| bytes
+        t["sector_floor_ms"] = 1e3 * 32.0 * n * a / PEAK_BYTES_PER_S
+        t["select_cols_ms"] = cuda_ms(torch, lambda: select_cols(mask, "nonzero"), reps)
+        log(f"  {name}: over the selected columns the library takes {t['selected_library_ms']:.4f} "
+            f"ms, the kernel {t['ms']:.4f} ms ({t['selected_library_ms'] / t['ms']:.2f}x); sector "
+            f"floor {t['sector_floor_ms']:.4f} ms; the compaction alone (select_cols, n = {n}, "
+            f"host-bound: at most its share) {t['select_cols_ms']:.4f} ms")
+
     # gc at the mask of (d)'s NaiveGreedy picks
     gids, gmask = mask_of(dense["d"]["picks"])
     a = int(gids.numel())
@@ -1433,7 +1498,10 @@ def phase_dense_times(torch, args, S, D, dense: dict) -> list[dict]:
     two = 2.0 * gmask
     gc_args = (S, gmask, total, lam)
     gq, gfull = timed("gc_gains", lambda: ops.gc_gains(*gc_args), lambda: gc_gains_plain(*gc_args),
-                      lambda: total - lam * (torch.mv(S, two) + diag), DENSE_TOL, False, a, 4)
+                      lambda: total - lam * (torch.mv(S, two) + diag), DENSE_TOL, True, a, 4)
+    two_a = two[gids]
+    selected("gc_gains", gq, gmask,
+             lambda: total - lam * (torch.mv(S.index_select(1, gids), two_a) + diag), gfull)
     gc_at = _time_subsets(
         torch, f"gc_gains_at ({n},{n}), |A|={a}",
         lambda idx: ops.gc_gains_at(*gc_args, idx), lambda idx: gc_gains_at_plain(*gc_args, idx),
@@ -1441,12 +1509,17 @@ def phase_dense_times(torch, args, S, D, dense: dict) -> list[dict]:
                                                + diag[idx.long()]),
         gfull, n, reps, gen,
         work=lambda k: (3.0 * k * a, 4.0 * (k * a + 4 * k + n)),
-        tol=DENSE_TOL, work_all=lambda k: (3.0 * k * n, 4.0 * (k * n + 3 * k + n)))
+        tol=DENSE_TOL, work_all=lambda k: (3.0 * k * n, 4.0 * (k * n + 3 * k + n)),
+        library_selected=lambda idx: total[idx.long()] - lam * (
+            torch.mv(S[idx.long()[:, None], gids[None, :]], two_a) + diag[idx.long()]))
 
     # dsum at the mask of (e)'s DisparitySum picks
     sids, smask = mask_of(dense["e"]["DisparitySum"]["picks"])
-    sq, _ = timed("dsum_gains", lambda: ops.dsum_gains(D, smask), lambda: dsum_gains_plain(D, smask),
-                  lambda: torch.mv(D, smask), DENSE_TOL, False, int(sids.numel()), 2)
+    sq, sfull = timed("dsum_gains", lambda: ops.dsum_gains(D, smask),
+                      lambda: dsum_gains_plain(D, smask), lambda: torch.mv(D, smask), DENSE_TOL,
+                      True, int(sids.numel()), 2)
+    ones_a = smask[sids]
+    selected("dsum_gains", sq, smask, lambda: torch.mv(D.index_select(1, sids), ones_a), sfull)
 
     # dmin at the state of (e)'s DisparityMin picks
     mids, mmask = mask_of(dense["e"]["DisparityMin"]["picks"])
@@ -1476,13 +1549,20 @@ def phase_dense_times(torch, args, S, D, dense: dict) -> list[dict]:
         row("gc_gains", "gc_gains.cu", "gc_gains.py:67",
             f"sim ({n},{n}) cosine, |A| = {a} -> ({n},)", gq,
             {"library_call": "total - lam * (torch.mv(S, 2 m) + diag)",
-             "bit_equal_to_plain": gq["bit_equal_to_plain"]}),
+             "selected_library_call": "total - lam * (torch.mv(S.index_select(1, A), 2 m[A]) + diag)",
+             **{k: gq[k] for k in ("bit_equal_to_plain", "selected_library_ms", "sector_floor_ms",
+                                   "select_cols_ms")}}),
         row("gc_gains_at", "gc_gains.cu", "gc_gains.py:125",
             f"sim ({n},{n}), |A| = {a}, idx (8,) -> (8,)", gc_at[8],
-            {"library_call": "index_select + torch.mv + diag", "k512": gc_at[512]}),
+            {"library_call": "index_select + torch.mv + diag",
+             "selected_library_call": "torch.mv(S[idx][:, A], 2 m[A]) + diag",
+             "selected_library_ms": gc_at[8]["selected_library_ms"], "k512": gc_at[512]}),
         row("dsum_gains", "disp_gains.cu", "disp_gains.py:56",
             f"dist ({n},{n}), |A| = {sq['selected']} -> ({n},)", sq,
-            {"library_call": "torch.mv(D, m)", "bit_equal_to_plain": sq["bit_equal_to_plain"]}),
+            {"library_call": "torch.mv(D, m)",
+             "selected_library_call": "torch.mv(D.index_select(1, A), m[A])",
+             **{k: sq[k] for k in ("bit_equal_to_plain", "selected_library_ms", "sector_floor_ms",
+                                   "select_cols_ms")}}),
         row("dmin_gains", "disp_gains.cu", "disp_gains.py:106",
             f"dist ({n},{n}), |A| = {mq['selected']} -> ({n},)", mq,
             {"library_call": "D.index_select(1, A).amin(1) + finish",
@@ -2247,7 +2327,7 @@ def main(argv=None) -> int:
     main_out, fn, naive_res = phase_main(torch, args)
     kernels = phase_times(torch, args, fn, naive_res, main_out)
     dense_out, D = phase_dense_pairwise(torch, args, fn.sim)
-    dense_out["phase3_bit_equal"] = dense_bits
+    dense_out["phase3_bit_equal_at_counts"] = dense_bits
     dense_out["phase3_select_cols_counts"] = select_counts
     dense_rows = phase_dense_times(torch, args, fn.sim, D, dense_out)
     del fn, D  # phase 6 holds its peak memory against a budget: S and D (n x n) go

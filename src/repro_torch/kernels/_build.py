@@ -25,6 +25,7 @@ import threading
 import time
 from pathlib import Path
 
+from repro_torch.kernels.row_reduce import SEL_CHUNK as ROW_REDUCE_SEL_CHUNK
 from repro_torch.kernels.row_reduce import THREADS as ROW_REDUCE_THREADS
 
 _HERE = Path(__file__).resolve().parent
@@ -35,8 +36,10 @@ SELECT_CHUNK = 4096  # mask elements per block of csrc/select_cols.cu's scan
 
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")  # the `a`: wgmma/setmaxnreg
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-              # the row reduction's block width has one source, its plain version
+              # the row reductions' block width and staged chunk have one source,
+              # their plain version
               f"-DROW_REDUCE_THREADS={ROW_REDUCE_THREADS}",
+              f"-DROW_REDUCE_SEL_CHUNK={ROW_REDUCE_SEL_CHUNK}",
               # the compaction's chunk, by which kernels/select_cols.py sizes its scratch
               f"-DSELECT_CHUNK={SELECT_CHUNK}")
 
@@ -64,8 +67,8 @@ _SIGNATURES = {
          _P, _P, _P],
         ctypes.c_int,
     ),
-    "gc_gains_launch": ([_P, _I64, _P, _P, _P, _P, _I64, _P, _P], ctypes.c_int),
-    "dsum_gains_launch": ([_P, _I64, _P, _P, _P], ctypes.c_int),
+    "gc_gains_launch": ([_P, _I64, _P, _P, _P, _P, _P, _P, _I64, _P, _P], ctypes.c_int),
+    "dsum_gains_launch": ([_P, _I64, _P, _P, _P, _P, _P], ctypes.c_int),
     "dmin_gains_launch": ([_P, _I64, _P, _P, _P, _P, _P, _P, _P], ctypes.c_int),
     "select_cols_launch": ([_P, _I64, ctypes.c_int, _P, _P, _P], ctypes.c_int),
     "fb_gains_launch": (

@@ -5,9 +5,11 @@ directories of kernel sources (an older checkout's
     python -m repro_torch.kernels.compare_kernels [--kernels NAME,...] OTHER_CSRC [OTHER_CSRC ...]
 
 Every library is built with the same nvcc flags and loaded into one
-process, and each is called through its own C signature: sources older
-than the mask compaction (``csrc/select_cols.cu``) take ``dmin_gains`` and
-``gcmf_gains`` without its list and count.  At the dense path's shapes
+process, and each is called through its own C signature: where a tree's
+``dmin_gains``, ``gcmf_gains``, ``gc_gains`` or ``dsum_gains`` launch
+function takes no compacted list (no ``nsel`` or ``blk``: sources older
+than the mask compaction, ``csrc/select_cols.cu``, or than the
+selected-columns sums), it is called without one.  At the dense path's shapes
 (chip_smoke.py phases 4, 6 and 7: n = 50,000, d = 512), each kernel named
 (``similarity``, dot and cosine, and dot at d = 130 on rows offset by one
 row, which no 16-byte copy can take; ``fused_fl_sweep`` at phase 9 (i)'s
@@ -15,15 +17,18 @@ shape, u = 512 unit relu rows against n = 2^20, fp32 and bf16, in the
 launcher's column slices; the dense pairwise full sweeps
 ``gc_gains``, ``dsum_gains``, ``dmin_gains`` on a random (n, n) matrix and
 a mask of 500 ones, ``dmin_gains`` also at n / 4 ones, where it streams
-every column; ``gcmf_gains`` and ``gcmf_gains_at`` at k = 8 and 512 on
+every column, ``gc_gains_at`` at k = 8 and 512 on the same mask,
+including the compaction where the tree has it; ``gcmf_gains`` and
+``gcmf_gains_at`` at k = 8 and 512 on
 cosine features with a mask of 100 ones, including the compaction) is
 timed forward and back (this, B, C, C, B, this) in each of two rounds, ten
 launches each with CUDA events, so a drift of clock or power falls on all
 alike.  Each library's output must be the same after the timed launches as
 before them.  Across libraries the outputs must be equal bit for bit,
-except gcmf's: its sum over the selected columns runs in another order
-than a sum over every column, by design, so its outputs are held to the
-kernel-vs-plain bar (rtol 2e-5, atol 1e-4) across libraries.  Prints the
+except where a sum over the selected columns runs in another order than a
+sum over every column, by design: gcmf's outputs are held to the
+kernel-vs-plain bar (rtol 2e-5, atol 1e-4) across libraries, gc's and
+dsum's to chip_smoke.py's dense bar (rtol 1e-5, atol 1e-5).  Prints the
 kernels' ptxas lines, then one JSON line with every time; exits non-zero on
 a mismatch.
 
@@ -52,7 +57,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.flmf_gains import TILE_ROWS, column_slice
 from repro_torch.kernels.gcmf_gains import slice_width
-from repro_torch.kernels.select_cols import PREDICATES
+from repro_torch.kernels.select_cols import PREDICATES, scratch
 from repro_torch.kernels.similarity_kernel import _METRIC_CODE, _normalize, inv_two_sigma_sq
 
 N, D = 50_000, 512  # the dense path's shape (chip_smoke.py phase 4)
@@ -61,49 +66,76 @@ FUSED_U, FUSED_N = 512, 1 << 20  # phase 9 (i)'s fused sweep
 N_SEL = 500  # selected items in the dense pairwise sweeps' mask (phase 7 (e)'s budget)
 GC_SEL = 100  # selected items in the gcmf sweeps' mask (phase 6 (c)'s budget)
 GC_TOL = (2e-5, 1e-4)  # gcmf across libraries: chip_smoke.py's MF_TOL for cosine
+DENSE_TOL = (1e-5, 1e-5)  # gc and dsum across libraries: chip_smoke.py's DENSE_TOL
 REPS, ROUNDS = 10, 2
 MF_U, MF_N = 512, 1 << 20  # phase 6 (b)'s represented rows and candidates
 COVER_M = 1000  # phase 8's concepts
 COVER_TOL = (1e-5, 1e-5)  # sc with weights across libraries: chip_smoke.py's COVER_TOL
-KERNELS = ("similarity", "fused_fl_sweep", "gc_gains", "dsum_gains", "dmin_gains", "gcmf_gains",
-           "gcmf_gains_at", "flmf_gains", "flmf_gains_at", "sc_gains", "psc_gains")
+KERNELS = ("similarity", "fused_fl_sweep", "gc_gains", "gc_gains_at", "dsum_gains", "dmin_gains",
+           "gcmf_gains", "gcmf_gains_at", "flmf_gains", "flmf_gains_at", "sc_gains", "psc_gains")
 _P, _I64 = ctypes.c_void_p, ctypes.c_int64
-# the C signatures of sources older than the compaction (no sel / nsel)
-_BEFORE_SELECT_COLS = {
+# the C signatures of trees whose launch function takes no compacted list
+# (no sel / nsel or sel / blk)
+_WITHOUT_SEL = {
     "dmin_gains_launch": ([_P, _I64, _P, _P, _P, _P, _P], ctypes.c_int),
     "gcmf_gains_launch": (
         [_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, ctypes.c_int, ctypes.c_float, _P, _P, _P],
         ctypes.c_int,
     ),
+    "gc_gains_launch": ([_P, _I64, _P, _P, _P, _P, _I64, _P, _P], ctypes.c_int),
+    "dsum_gains_launch": ([_P, _I64, _P, _P, _P], ctypes.c_int),
 }
+
+
+def _list_param(csrc: Path, fn: str) -> str | None:
+    """How the C function ``fn`` of the sources ``csrc`` takes the selected
+    columns: "nsel" (the caller compacts and passes the list and its
+    count), "blk" (the launcher compacts into the caller's scratch) or None
+    (it sums every column)."""
+    for src in Path(csrc).glob("*.cu"):
+        text = src.read_text()
+        at = text.find(f'extern "C" int {fn}(')
+        if at >= 0:
+            params = text[at : text.index(")", at)]
+            return next((p for p in ("nsel", "blk") if p in params), None)
+    return None
 
 
 def _library(csrc: Path, name: str, kernels) -> ctypes.CDLL:
     """Build ``csrc`` and bind the launch functions of ``kernels`` through
-    the library's own signatures; ``lib.compacts`` says whether it has the
-    compaction."""
+    the library's own signatures; ``lib.list_param[fn]`` says how its
+    launch function ``fn`` takes the compacted list (see ``_list_param``)."""
     target = _build.BUILD_DIR / f"compare_{name}.so"
     for line in _build._compile(target, csrc):
         if any(k in line for k in kernels) and ("registers" in line or "spill" in line):
             print(f"{name}: {line}", file=sys.stderr)
     lib = ctypes.CDLL(str(target))
-    lib.compacts = hasattr(lib, "select_cols_launch")
-    sigs = _build._SIGNATURES if lib.compacts else {**_build._SIGNATURES, **_BEFORE_SELECT_COLS}
-    for k in {k.removesuffix("_at") for k in kernels} | ({"select_cols"} if lib.compacts else set()):
-        argtypes, restype = sigs[f"{k}_launch"]
-        getattr(lib, f"{k}_launch").argtypes = argtypes
-        getattr(lib, f"{k}_launch").restype = restype
+    lib.list_param = {fn: _list_param(csrc, fn) for fn in _WITHOUT_SEL}
+    sigs = {**_build._SIGNATURES,
+            **{fn: sig for fn, sig in _WITHOUT_SEL.items() if lib.list_param[fn] is None}}
+    launches = {f"{k.removesuffix('_at')}_launch" for k in kernels}
+    if any(lib.list_param.get(fn) == "nsel" for fn in launches):
+        launches.add("select_cols_launch")
+    for fn in launches:
+        argtypes, restype = sigs[fn]
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = restype
     return lib
 
 
-def _compacted(lib, mask, pred, stream):
-    """Run the compaction of ``lib`` on ``mask``: (error code, sel, nsel)."""
+def _compacted(lib, fn, mask, pred, stream):
+    """The list arguments of ``lib``'s launch function ``fn`` for ``mask``:
+    (error code, pointers, the scratch that holds them).  Where ``fn``
+    takes the list and its count, the compaction runs here."""
+    param = lib.list_param[fn]
+    if param is None:
+        return 0, [], None
     n = mask.shape[0]
-    sel = torch.empty((n,), dtype=torch.int32, device="cuda")
-    blk = torch.empty((-(-n // _build.SELECT_CHUNK) + 1,), dtype=torch.int32, device="cuda")
-    rc = lib.select_cols_launch(mask.data_ptr(), n, PREDICATES[pred], sel.data_ptr(),
-                                blk.data_ptr(), stream)
-    return rc, sel, blk[-1:]
+    buf, sel, blk = scratch(n, "cuda")
+    if param == "blk":  # the launcher compacts
+        return 0, [sel, blk], buf
+    rc = lib.select_cols_launch(mask.data_ptr(), n, PREDICATES[pred], sel, blk, stream)
+    return rc, [sel, blk + 4 * (buf.shape[0] - n - 1)], buf  # the count: blk's last entry
 
 
 def _cases(kernels, stream):
@@ -130,7 +162,7 @@ def _cases(kernels, stream):
         yield from _flmf_cases(kernels, stream, gen)
     if set(kernels) & {"sc_gains", "psc_gains"}:
         yield from _cover_cases(kernels, stream, gen)
-    if not set(kernels) & {"gc_gains", "dsum_gains", "dmin_gains"}:
+    if not set(kernels) & {"gc_gains", "gc_gains_at", "dsum_gains", "dmin_gains"}:
         return
     mat = torch.rand((N, N), generator=gen, device="cuda")
     mask = torch.zeros((N,), device="cuda")
@@ -139,13 +171,28 @@ def _cases(kernels, stream):
     lam = torch.tensor(0.4, device="cuda")
     count = torch.tensor(N_SEL, dtype=torch.int32, device="cuda")
     curmin = torch.tensor(0.05, device="cuda")
-    if "gc_gains" in kernels:
-        yield "gc_gains", (N,), None, lambda lib, out: lib.gc_gains_launch(
-            mat.data_ptr(), N, mask.data_ptr(), total.data_ptr(), lam.data_ptr(), None, N,
+
+    def gc(lib, out, idx):
+        rc, sel, _ = _compacted(lib, "gc_gains_launch", mask, "nonzero", stream)
+        return rc or lib.gc_gains_launch(
+            mat.data_ptr(), N, mask.data_ptr(), *sel, total.data_ptr(),
+            lam.data_ptr(), None if idx is None else idx.data_ptr(), out.shape[0],
             out.data_ptr(), stream)
+
+    if "gc_gains" in kernels:
+        yield "gc_gains", (N,), DENSE_TOL, lambda lib, out: gc(lib, out, None)
+    if "gc_gains_at" in kernels:
+        for k in (8, 512):
+            idx = torch.randperm(N, generator=gen, device="cuda")[:k].to(torch.int32)
+            yield f"gc_gains_at k={k}", (k,), DENSE_TOL, lambda lib, out, idx=idx: gc(lib, out, idx)
     if "dsum_gains" in kernels:
-        yield "dsum_gains", (N,), None, lambda lib, out: lib.dsum_gains_launch(
-            mat.data_ptr(), N, mask.data_ptr(), out.data_ptr(), stream)
+
+        def dsum(lib, out):
+            rc, sel, _ = _compacted(lib, "dsum_gains_launch", mask, "nonzero", stream)
+            return rc or lib.dsum_gains_launch(mat.data_ptr(), N, mask.data_ptr(), *sel,
+                                               out.data_ptr(), stream)
+
+        yield "dsum_gains", (N,), DENSE_TOL, dsum
     if "dmin_gains" in kernels:
         wide = torch.zeros((N,), device="cuda")  # 8 |A| >= n: the stream branch
         wide[torch.randperm(N, generator=gen, device="cuda")[: N // 4]] = 1.0
@@ -154,12 +201,9 @@ def _cases(kernels, stream):
                                torch.tensor(N // 4, dtype=torch.int32, device="cuda"))):
 
             def dmin(lib, out, m=m, cnt=cnt):
-                if not lib.compacts:
-                    return lib.dmin_gains_launch(mat.data_ptr(), N, m.data_ptr(), cnt.data_ptr(),
-                                                 curmin.data_ptr(), out.data_ptr(), stream)
-                rc, sel, nsel = _compacted(lib, m, "positive", stream)
+                rc, sel, _ = _compacted(lib, "dmin_gains_launch", m, "positive", stream)
                 return rc or lib.dmin_gains_launch(
-                    mat.data_ptr(), N, m.data_ptr(), sel.data_ptr(), nsel.data_ptr(),
+                    mat.data_ptr(), N, m.data_ptr(), *sel,
                     cnt.data_ptr(), curmin.data_ptr(), out.data_ptr(), stream)
 
             yield label, (N,), None, dmin
@@ -213,12 +257,10 @@ def _gcmf_cases(kernels, stream, gen):
         j = out.shape[0]
         if idx is None and j > cols:
             idx = every
-        head = [y.data_ptr(), yy.data_ptr(), mask.data_ptr()]
-        if lib.compacts:
-            rc, sel, nsel = _compacted(lib, mask, "nonzero", stream)
-            if rc:
-                return rc
-            head += [sel.data_ptr(), nsel.data_ptr()]
+        rc, sel, _ = _compacted(lib, "gcmf_gains_launch", mask, "nonzero", stream)
+        if rc:
+            return rc
+        head = [y.data_ptr(), yy.data_ptr(), mask.data_ptr(), *sel]
         for lo in range(0, j, cols):
             hi = min(j, lo + cols)
             rc = lib.gcmf_gains_launch(

@@ -8,19 +8,22 @@
 // Replaces src/repro/kernels/disp_gains.py::dsum_gains_pallas and
 // ::dmin_gains_pallas (NaiveGreedy's every step with the kernel backend).
 //
-// What bounds them on the H100: bytes.  dsum reads the 10 GB of D once at
-// n = 50,000, 2.985 ms at 3.35 TB/s (row_reduce.cuh).  dmin needs only the
-// |A| selected columns: 4 n |A| bytes, but a gathered 4-byte element costs
-// a whole 32-byte sector, so its floor is 32 n |A| bytes (0.239 ms at
-// |A| = 500), or the full stream once 8 |A| >= n.
+// What bounds them on the H100: bytes, over the |A| selected columns alone:
+// 4 n |A| bytes, but a gathered 4-byte element costs a whole 32-byte
+// sector, so their floor is 32 n |A| bytes (0.239 ms at n = 50,000, |A| =
+// 500), against 10 GB (2.985 ms at 3.35 TB/s) for a stream of every
+// column, which dmin takes once 8 |A| >= n.
 //
-// Design.  dsum: row_reduce.cuh's fixed order (one block per row, coalesced
-// along the row, a halving tree across the block; no atomics, one pass),
-// with _rn intrinsics for its products and sums so that the plain version
+// Design.  The selected columns are compacted on the device (select_cols.cu:
+// the ascending list sel and its count nsel; no host read): by dsum's
+// launcher itself, by dmin's caller.
+// dsum: row_reduce.cuh's selected-columns warp layout, its fixed order set
+// by nsel and the list alone (lane l adds t = l, l + 32, ..., then the
+// in-warp halving tree), one path for every |A|: a sum has an order, so a
+// stream branch would change the bits where dmin's changes nothing.
+// Products and sums go through _rn intrinsics, so the plain version
 // (kernels/disp_gains.py), which repeats the order, equals it bit for bit.
-// dmin: the selected columns arrive compacted (select_cols.cu: the
-// ascending list sel and its count nsel, on the device), and the kernel
-// picks its branch from nsel on the device, with no host read:
+// dmin picks its branch from nsel on the device:
 //   gather (8 nsel < n): one warp per row j; lane l takes the min over
 //     D[j, sel[t]] for t = l, l + 32, ..., UNROLL loads in flight, then a
 //     shuffle tree; sel comes through the read-only cache, one 128-byte
@@ -39,29 +42,19 @@
 namespace rowred {
 namespace {
 
-struct SumStep {
-  __device__ static float init() { return 0.0f; }
-  __device__ static float step(float acc, float s, float m, int64_t, int64_t) {
-    return __fadd_rn(acc, __fmul_rn(s, m));
-  }
-  __device__ static float combine(float a, float b) { return __fadd_rn(a, b); }
+// dsum's terms D[j, c] * m_c, the selected-columns sum itself the gain
+struct DsumOp {
+  __device__ __forceinline__ float weight(float m) const { return m; }
+  __device__ __forceinline__ float finish(float acc, int64_t) const { return acc; }
 };
 
 struct MinStep {
   __device__ static float init() { return kBig; }
-  __device__ static float step(float acc, float s, float m, int64_t, int64_t) {
+  __device__ static float step(float acc, float s, float m) {
     return fminf(acc, m > 0.0f ? s : kBig);  // unselected columns drop out of the min
   }
   __device__ static float combine(float a, float b) { return fminf(a, b); }
 };
-
-__global__ void __launch_bounds__(THREADS)
-    dsum_gains_kernel(const float* __restrict__ dist, int64_t n, const float* __restrict__ m,
-                      float* __restrict__ out) {
-  const int64_t g = blockIdx.x;
-  const float acc = reduce_row<SumStep>(dist, n, m, g);
-  if (threadIdx.x == 0) out[g] = acc;
-}
 
 constexpr int DMIN_ROWS = WARPS;  // rows per block: one warp each in the gather branch
 
@@ -111,12 +104,6 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-int launch_dsum(const float* dist, int64_t n, const float* m, float* out, cudaStream_t s) {
-  if (n <= 0) return (int)cudaErrorInvalidValue;
-  dsum_gains_kernel<<<(unsigned)n, THREADS, 0, s>>>(dist, n, m, out);
-  return (int)cudaGetLastError();
-}
-
 int launch_dmin(const float* dist, int64_t n, const float* m, const int32_t* sel,
                 const int32_t* nsel, const int32_t* count, const float* curmin, float* out,
                 cudaStream_t s) {
@@ -130,16 +117,19 @@ int launch_dmin(const float* dist, int64_t n, const float* m, const int32_t* sel
 }  // namespace
 }  // namespace rowred
 
-// dist (n, n) row-major fp32; m (n,) selection mask; out (n,) allocated by
-// the caller.  Returns cudaGetLastError().
-extern "C" int dsum_gains_launch(const float* dist, int64_t n, const float* m, float* out,
-                                 void* stream) {
-  return rowred::launch_dsum(dist, n, m, out, static_cast<cudaStream_t>(stream));
+// dist (n, n) row-major fp32; m (n,) selection mask; sel (n,) and blk
+// (ceil(n / SELECT_CHUNK) + 1,) int32 scratch for the compaction of the
+// columns m_c != 0, which this launcher runs first; out (n,).  All allocated
+// by the caller.  Returns the first CUDA error code, or 0.
+extern "C" int dsum_gains_launch(const float* dist, int64_t n, const float* m, int32_t* sel,
+                                 int32_t* blk, float* out, void* stream) {
+  return rowred::launch_sel_rows(dist, n, m, sel, blk, nullptr, n, rowred::DsumOp{}, out,
+                                 static_cast<cudaStream_t>(stream));
 }
 
-// As dsum_gains_launch, with sel / nsel the compacted columns m_c > 0 and
-// their count (select_cols_launch, pred 0), count a device pointer to |A|
-// (int32) and curmin a device pointer to f(A) (fp32).
+// As dsum_gains_launch, with sel / nsel the compacted columns m_c > 0
+// (select_cols_launch, pred 0), count a device pointer to |A| (int32) and
+// curmin a device pointer to f(A) (fp32).
 extern "C" int dmin_gains_launch(const float* dist, int64_t n, const float* m,
                                  const int32_t* sel, const int32_t* nsel, const int32_t* count,
                                  const float* curmin, float* out, void* stream) {

@@ -5,14 +5,19 @@ kernel's launchers and their plain versions.
 materialised (n, n) ground kernel S, for every candidate (``gc_gains``, the
 port of ``repro/kernels/gc_gains.py::gc_gains_pallas``) or for the rows
 ``idx`` (``gc_gains_at``, the port of ``gc_gains_at_pallas``; slots with
-idx < 0 return NEG_INF, idx >= n reads row n - 1).  The diagonal is folded
-in from each row's global id; ``lam`` is a one-element tensor on the
-inputs' device, read by the kernel there.
+idx < 0 return NEG_INF, idx >= n reads row n - 1).  ``lam`` is a
+one-element tensor on the inputs' device, read by the kernel there.
 
-The kernel (``csrc/gc_gains.cu``) and the plain versions below add in
-``row_reduce``'s fixed order with the same rounding steps, so the gathered
-sweep equals the full sweep bit for bit at the same index, and kernel and
-plain version agree bit for bit as well.
+The kernel (``csrc/gc_gains.cu``) reads only the selected columns
+(m_k != 0, compacted on the device by ``select_cols``): it sums
+``S[j, k] * 2 m_k`` over them in ``row_reduce``'s selected-columns warp
+order (lane l adds the list positions t = l, l + 32, ..., then the in-warp
+halving tree), an order set by the list alone, for every |A| (a sum has an
+order, so a second, streaming branch would change the bits), then adds the
+diagonal ``S[j, j]`` once, from the row's global id.  The plain versions
+below do the same steps in the same order with the same roundings, so the
+gathered sweep equals the full sweep bit for bit at the same index, and
+kernel and plain version agree bit for bit as well.
 """
 from __future__ import annotations
 
@@ -20,23 +25,22 @@ import torch
 
 from repro_torch.common import NEG_INF
 from repro_torch.kernels import _build
-from repro_torch.kernels.row_reduce import reduce_rows
-
-
-def _step(acc, s, m, cols, g):
-    return acc + s * (2.0 * m + (cols == g).to(s.dtype))
+from repro_torch.kernels.row_reduce import reduce_selected_warp
+from repro_torch.kernels.select_cols import picked_cols, scratch
 
 
 def _plain(sim, selmask, total, lam, rows) -> torch.Tensor:
-    acc = reduce_rows(sim, rows, selmask, _step, torch.add, 0.0)
-    return (total if rows is None else total[rows]) - lam.reshape(()) * acc
+    sel = picked_cols(selmask, "nonzero")
+    acc = reduce_selected_warp(sim, rows, sel, 2.0 * selmask[sel])
+    diag = torch.diagonal(sim) if rows is None else sim[rows, rows]
+    return (total if rows is None else total[rows]) - lam.reshape(()) * (acc + diag)
 
 
 def gc_gains_plain(
     sim: torch.Tensor, selmask: torch.Tensor, total: torch.Tensor, lam: torch.Tensor
 ) -> torch.Tensor:
     """sim (n, n), selmask / total (n,), lam one-element -> gains (n,) fp32,
-    in plain PyTorch; holds one (n, 256) block of sim at a time."""
+    in plain PyTorch; holds about (256 n) gathered elements of sim at a time."""
     return _plain(sim, selmask, total, lam, None)
 
 
@@ -57,8 +61,9 @@ def _launch(sim, selmask, total, lam, idx) -> torch.Tensor:
     out = torch.empty((k,), dtype=torch.float32, device=sim.device)
     if k == 0:
         return out
+    buf, sel, blk = scratch(n, sim.device)  # held until the launch is queued
     rc = _build.load().gc_gains_launch(
-        sim.data_ptr(), n, selmask.data_ptr(), total.data_ptr(), lam.data_ptr(),
+        sim.data_ptr(), n, selmask.data_ptr(), sel, blk, total.data_ptr(), lam.data_ptr(),
         None if idx is None else idx.data_ptr(), k, out.data_ptr(),
         torch.cuda.current_stream(sim.device).cuda_stream,
     )
@@ -67,7 +72,8 @@ def _launch(sim, selmask, total, lam, idx) -> torch.Tensor:
 
 
 def gc_gains_cuda(sim, selmask, total, lam) -> torch.Tensor:
-    """Launch the full sweep on checked CUDA tensors (see ``ops.gc_gains``)."""
+    """Launch the full sweep on checked CUDA tensors (see ``ops.gc_gains``):
+    the launcher compacts the columns m != 0, then sweeps."""
     return _launch(sim, selmask, total, lam, None)
 
 

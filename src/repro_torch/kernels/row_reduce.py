@@ -1,24 +1,32 @@
 """The fixed-order row reductions of ``csrc/row_reduce.cuh``, in plain
 PyTorch.
 
-The block layout (the dense pairwise sweeps, :func:`reduce_rows`): the
+The block layout (DisparityMin's row stream, :func:`reduce_rows`): the
 kernel reduces each row of an (n, n) matrix with one block of
-:data:`THREADS` threads (``_build`` compiles it with this module's value): thread t takes the elements k = t, t + THREADS, ...
-in increasing k, then the partials meet in a halving tree, lane i taking
-lane i + h for h = 16, 8, 4, 2, 1 inside each warp of :data:`WARP` threads
-and then across the warps' results.  :func:`reduce_rows` adds in exactly
-that order with elementwise operations only, so
-
-- its result for a row never depends on which or how many rows are reduced
-  with it (the gathered sweeps equal the full sweeps bit for bit), and
-- with the same rounding steps as the kernel's, it equals the kernel bit
-  for bit.
+:data:`THREADS` threads (``_build`` compiles it with this module's value):
+thread t takes the elements k = t, t + THREADS, ... in increasing k, then
+the partials meet in a halving tree, lane i taking lane i + h for h = 16,
+8, 4, 2, 1 inside each warp of :data:`WARP` threads and then across the
+warps' results.  :func:`reduce_rows` reduces in exactly that order with
+elementwise operations only.
 
 The warp layout (the coverage sweeps over an (n, F) matrix,
 :func:`reduce_rows_warp`): one warp of :data:`WARP` lanes sums a row, lane
 l taking the columns f = l, l + WARP, ... in increasing f, then the
-in-warp halving tree.  The order depends on F alone, with the same two
-consequences.
+in-warp halving tree.  The order depends on F alone, so
+
+- a row's sum never depends on which or how many rows are reduced with it
+  (the gathered sweeps equal the full sweeps bit for bit), and
+- with the same rounding steps as the kernel's, it equals the kernel bit
+  for bit.
+
+The selected-columns warp layout (the dense pairwise sums of GraphCut and
+DisparitySum, :func:`reduce_selected_warp`): the warp layout taken over
+the F selected columns of an (n, n) matrix, in the order of their
+ascending list: the order depends on that list alone, with the same two
+consequences.  A sum has an order, so the kernel keeps this one path for
+every F (a row stream would add in another order); the kernel stages the
+list in chunks of :data:`SEL_CHUNK` positions, which changes no order.
 
 The vector warp layout (the SetCover sweep, :func:`reduce_rows_warp4`):
 one warp sums a row cut into chunks of :data:`CHUNK` columns, lane l
@@ -35,8 +43,9 @@ import torch
 THREADS = 256  # the kernel's threads per row: the one source of that number
 WARP = 32
 CHUNK = 4  # columns per lane and 16-byte load in the vector warp layout
+SEL_CHUNK = 1024  # list positions the selected-columns kernel stages per round
 
-Step = Callable[[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
+Step = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
 
 
 def _halve(v: torch.Tensor, combine) -> torch.Tensor:
@@ -49,29 +58,21 @@ def _halve(v: torch.Tensor, combine) -> torch.Tensor:
 
 def reduce_rows(
     mat: torch.Tensor,
-    rows: torch.Tensor | None,
     m: torch.Tensor,
     step: Step,
     combine: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
     init: float,
 ) -> torch.Tensor:
-    """Reduce rows of ``mat`` (n, n): all of them (``rows`` None) or the
-    rows ``rows`` (k,) int64, indices already in [0, n).  ``step(acc, s, m,
-    cols, g)`` folds a (k, w) block ``s`` of columns ``cols`` (1, w), with
-    mask values ``m`` (w,), into the accumulators ``acc`` (k, w) of rows
-    ``g`` (k, 1); ``combine`` merges two partials.  Holds one (k, THREADS)
-    block of the matrix at a time."""
+    """Reduce every row of ``mat`` (n, n) in the block layout.  ``step(acc,
+    s, m)`` folds an (n, w) block ``s`` of columns, with mask values ``m``
+    (w,), into the accumulators ``acc`` (n, w); ``combine`` merges two
+    partials.  Holds one (n, THREADS) block of the matrix at a time."""
     n = mat.shape[1]
-    k = mat.shape[0] if rows is None else rows.shape[0]
-    dev = mat.device
-    g = (torch.arange(k, device=dev) if rows is None else rows)[:, None]
-    acc = mat.new_full((k, THREADS), init)
+    acc = mat.new_full((mat.shape[0], THREADS), init)
     for lo in range(0, n, THREADS):
         w = min(THREADS, n - lo)
-        s = mat[:, lo : lo + w] if rows is None else mat[rows, lo : lo + w]
-        cols = torch.arange(lo, lo + w, device=dev)[None, :]
-        acc[:, :w] = step(acc[:, :w], s, m[lo : lo + w], cols, g)
-    return _halve(_halve(acc.reshape(k, THREADS // WARP, WARP), combine), combine)
+        acc[:, :w] = step(acc[:, :w], mat[:, lo : lo + w], m[lo : lo + w])
+    return _halve(_halve(acc.reshape(-1, THREADS // WARP, WARP), combine), combine)
 
 
 def reduce_rows_warp(
@@ -90,6 +91,25 @@ def reduce_rows_warp(
         hi = min(lo + WARP, mat.shape[1])
         acc[:, : hi - lo] = acc[:, : hi - lo] + term(sub[:, lo:hi], lo, hi)
     return _halve(acc, torch.add)
+
+
+def reduce_selected_warp(
+    mat: torch.Tensor, rows: torch.Tensor | None, sel: torch.Tensor, w: torch.Tensor
+) -> torch.Tensor:
+    """Sum ``mat[g, sel[t]] * w[t]`` over t = 0 .. F-1 in the warp layout
+    over F = len(sel), for every row g of ``mat`` (n, n) (``rows`` None) or
+    the rows ``rows`` (k,) int64, indices already in [0, n); ``sel`` the
+    ascending selected columns (int64), ``w`` (F,) their weights.  Holds
+    about THREADS * n gathered elements at a time."""
+    k = mat.shape[0] if rows is None else rows.shape[0]
+    out = mat.new_empty((k,))
+    step = max(1, THREADS * mat.shape[1] // max(sel.numel(), 1))
+    for lo in range(0, k, step):
+        hi = min(k, lo + step)
+        g = torch.arange(lo, hi, device=mat.device) if rows is None else rows[lo:hi]
+        out[lo:hi] = reduce_rows_warp(mat[g[:, None], sel[None, :]], None,
+                                      lambda s, a, b: s * w[a:b])
+    return out
 
 
 def reduce_rows_warp4(

@@ -3,10 +3,12 @@ list of the columns a selection mask picks, and their count, both on the
 mask's device.
 
 ``pred`` is ``"positive"`` (``m_c > 0``, DisparityMin's masked min) or
-``"nonzero"`` (``m_c != 0``, the terms of GraphCutMF's masked sum).  The
-dmin and gcmf kernels take the list and its count from here so that they
-read only the selected columns, and a greedy step never waits on the host:
-the count stays in device memory.  The kernel scans with integer sums and
+``"nonzero"`` (``m_c != 0``, the terms of the masked sums of GraphCut,
+GraphCutMF and DisparitySum).  The dmin and gcmf kernels take the list
+and its count from here, and the gc and dsum launchers run the kernel
+themselves into a :func:`scratch` of their caller's, so that they read only
+the selected columns, and a greedy step never waits on the host: the count
+stays in device memory.  The kernel scans with integer sums and
 no atomics, so the list is the same on every run; its plain version is
 ``torch.nonzero``.
 """
@@ -20,32 +22,41 @@ CHUNK = _build.SELECT_CHUNK  # mask elements per block of the kernel's scan
 PREDICATES = {"positive": 0, "nonzero": 1}
 
 
-def _picked(mask: torch.Tensor, pred: str) -> torch.Tensor:
-    return mask > 0.0 if pred == "positive" else mask != 0.0
+def picked_cols(mask: torch.Tensor, pred: str) -> torch.Tensor:
+    """The picked columns of mask (n,) in ascending order, int64: the list
+    without its padding, for the kernels' plain versions."""
+    return torch.nonzero(mask > 0.0 if pred == "positive" else mask != 0.0).flatten()
 
 
 def select_cols_plain(mask: torch.Tensor, pred: str) -> tuple[torch.Tensor, torch.Tensor]:
     """mask (n,) -> (sel (n,) int32, count one-element int32): sel[:count]
     are the picked columns in ascending order, the rest 0."""
-    picked = torch.nonzero(_picked(mask, pred)).flatten()
+    picked = picked_cols(mask, pred)
     sel = torch.zeros(mask.shape, dtype=torch.int32, device=mask.device)
     sel[: picked.numel()] = picked.to(torch.int32)
     return sel, torch.tensor([picked.numel()], dtype=torch.int32, device=mask.device)
+
+
+def scratch(n: int, device) -> tuple[torch.Tensor, int, int]:
+    """One compaction's int32 scratch on ``device``: the list (n,), then the
+    per-chunk counts and, last, the count; with the pointers ``sel`` and
+    ``blk`` that ``select_cols_launch`` (and the gc / dsum launchers, which
+    run it themselves) take."""
+    buf = torch.empty((n + -(-n // CHUNK) + 1,), dtype=torch.int32, device=device)
+    return buf, buf.data_ptr(), buf.data_ptr() + 4 * n
 
 
 def select_cols_cuda(mask: torch.Tensor, pred: str) -> tuple[torch.Tensor, torch.Tensor]:
     """The kernel, on a contiguous fp32 CUDA mask with 1 <= n <= 2^31 - 1:
     as :func:`select_cols_plain`, with sel past count left as scratch."""
     n = mask.shape[0]
-    nblocks = -(-n // CHUNK)
-    sel = torch.empty((n,), dtype=torch.int32, device=mask.device)
-    blk = torch.empty((nblocks + 1,), dtype=torch.int32, device=mask.device)
+    buf, sel, blk = scratch(n, mask.device)
     rc = _build.load().select_cols_launch(
-        mask.data_ptr(), n, PREDICATES[pred], sel.data_ptr(), blk.data_ptr(),
+        mask.data_ptr(), n, PREDICATES[pred], sel, blk,
         torch.cuda.current_stream(mask.device).cuda_stream,
     )
     _build.check(rc, "select_cols kernel")
-    return sel, blk[nblocks:]
+    return buf[:n], buf[-1:]
 
 
 def select_cols(mask: torch.Tensor, pred: str) -> tuple[torch.Tensor, torch.Tensor]:

@@ -1,6 +1,8 @@
 """The port's dense pairwise families against the JAX package on the CPU: the
 gc / dsum / dmin kernels' plain versions against the JAX Pallas kernels
-(interpret mode) and oracles, gc_gains_at against gc_gains bit for bit,
+(interpret mode) and oracles, gc / dsum's against a model of their
+kernels' summation order written out here, gc_gains_at against gc_gains
+bit for bit,
 GraphCut and DisparitySum / DisparityMin / DisparityMinSum selections,
 evaluate, the gain identity, the family stop defaults and the state
 hand-over.
@@ -127,6 +129,100 @@ def test_dsum_plain_matches_jax_kernel_and_oracle(n):
     got = ops.dsum_gains(_t(d), _t(m)).numpy()
     np.testing.assert_allclose(got, np.asarray(jops.dsum_gains(d, m)), **SUM_TOL)
     np.testing.assert_allclose(got, np.asarray(jops.dsum_gains_ref(d, m)), **SUM_TOL)
+
+
+# gc / dsum selections: |A| = 0, 1, a warp's 32 lanes and one either side,
+# n/8, every item and a random 30% of the items (|A| capped at n)
+SUM_SELECTIONS = ["0", "1", "31", "32", "33", "n/8", "n", "random"]
+
+
+def _sum_mask(n, which, rng):
+    if which == "random":
+        return (rng.uniform(size=n) < 0.3).astype(np.float32)
+    k = min(n, {"0": 0, "1": 1, "31": 31, "32": 32, "33": 33, "n/8": n // 8, "n": n}[which])
+    m = np.zeros(n, np.float32)
+    m[rng.permutation(n)[:k]] = 1.0
+    return m
+
+
+def _warp_model(mat, m):
+    """The gc / dsum kernels' order, written out in numpy fp32: the columns
+    c with m_c != 0 in ascending order, term t (mat[:, c] * m_c) added by lane
+    t % 32 in increasing t, then the halving tree, lane i taking lane i + h
+    for h = 16 .. 1."""
+    lanes = np.zeros((mat.shape[0], 32), np.float32)
+    for t, c in enumerate(np.flatnonzero(m != 0)):
+        lanes[:, t % 32] = lanes[:, t % 32] + mat[:, c] * m[c]
+    h = 16
+    while h:
+        lanes[:, :h] = lanes[:, :h] + lanes[:, h : 2 * h]
+        h //= 2
+    return lanes[:, 0]
+
+
+def _gc_model(s, m, tot, lam):
+    """gc_gains in the kernel's steps: the selected-columns sum of S * 2m,
+    then the diagonal, then total - lam * (...)."""
+    return tot - np.float32(lam) * (_warp_model(s, (2 * m).astype(np.float32)) + np.diagonal(s))
+
+
+@pytest.mark.parametrize("which", SUM_SELECTIONS)
+@pytest.mark.parametrize("n", SHAPES)
+def test_dsum_plain_is_the_compacted_warp_order(n, which):
+    """dsum_gains_plain sums the selected columns in the kernel's order, bit
+    for bit, and matches the JAX kernel and oracle within SUM_TOL."""
+    rng = np.random.default_rng(n + 3)
+    d = _dist(n, rng, lo=0.0)
+    m = _sum_mask(n, which, rng)
+    got = ops.dsum_gains(_t(d), _t(m)).numpy()
+    np.testing.assert_array_equal(got, _warp_model(d, m))
+    np.testing.assert_allclose(got, np.asarray(jops.dsum_gains(d, m)), **SUM_TOL)
+    np.testing.assert_allclose(got, np.asarray(jops.dsum_gains_ref(d, m)), **SUM_TOL)
+
+
+@pytest.mark.parametrize("which", SUM_SELECTIONS)
+@pytest.mark.parametrize("n", SHAPES)
+def test_gc_plain_is_the_compacted_warp_order(n, which):
+    """gc_gains_plain sums the selected columns in the kernel's order, then
+    adds the diagonal, bit for bit; it matches the JAX kernel and oracle
+    within GC_TOL; gc_gains_at_plain equals it at indices in A and not in A."""
+    rng = np.random.default_rng(n + 4)
+    s = _sim(n, rng)
+    m = _sum_mask(n, which, rng)
+    tot = s.sum(axis=0).astype(np.float32)
+    lam = torch.tensor(0.4)
+    got = ops.gc_gains(_t(s), _t(m), _t(tot), lam)
+    np.testing.assert_array_equal(got.numpy(), _gc_model(s, m, tot, 0.4))
+    np.testing.assert_allclose(got.numpy(), np.asarray(jops.gc_gains(s, m, tot, 0.4)), **GC_TOL)
+    np.testing.assert_allclose(got.numpy(), np.asarray(jops.gc_gains_ref(s, m, tot, 0.4)), **GC_TOL)
+    idx = np.concatenate([np.flatnonzero(m)[:3], np.flatnonzero(m == 0)[:3], [-1]]).astype(np.int32)
+    at = ops.gc_gains_at(_t(s), _t(m), _t(tot), lam, _t(idx))
+    assert torch.equal(at[:-1], got[idx[:-1]])
+    assert bool(at[-1] == NEG_INF)
+
+
+@pytest.mark.parametrize("family", ["dsum", "gc"])
+def test_sums_take_a_non_binary_mask_as_the_jax_kernel_does(family):
+    """Mask values other than 0 / 1 (negative, fractional, > 1) weigh their
+    columns as the JAX kernel's m_k does; a -0.0 selects nothing."""
+    n = 100
+    rng = np.random.default_rng(13)
+    m = np.where(rng.uniform(size=n) < 0.4, rng.choice([-1.5, 0.25, 2.0, 3.75], size=n), 0.0)
+    m = m.astype(np.float32)
+    m[:3] = -0.0
+    if family == "dsum":
+        d = _dist(n, rng, lo=0.0)
+        got = ops.dsum_gains(_t(d), _t(m)).numpy()
+        np.testing.assert_array_equal(got, _warp_model(d, m))
+        np.testing.assert_allclose(got, np.asarray(jops.dsum_gains(d, m)), **SUM_TOL)
+        np.testing.assert_allclose(got, np.asarray(jops.dsum_gains_ref(d, m)), **SUM_TOL)
+    else:
+        s = _sim(n, rng)
+        tot = s.sum(axis=0).astype(np.float32)
+        got = ops.gc_gains(_t(s), _t(m), _t(tot), torch.tensor(0.4)).numpy()
+        np.testing.assert_array_equal(got, _gc_model(s, m, tot, 0.4))
+        np.testing.assert_allclose(got, np.asarray(jops.gc_gains(s, m, tot, 0.4)), **GC_TOL)
+        np.testing.assert_allclose(got, np.asarray(jops.gc_gains_ref(s, m, tot, 0.4)), **GC_TOL)
 
 
 # DisparityMin selections: |A| = 0, 1, the CUDA kernel's gather / stream
@@ -412,3 +508,15 @@ def test_row_reduce_block_width_has_one_source():
     header = (_build.CSRC / "row_reduce.cuh").read_text()
     assert "constexpr int THREADS = ROW_REDUCE_THREADS;" in header
     assert str(row_reduce.THREADS) not in header.replace("50,000", "")
+
+
+def test_row_reduce_staged_chunk_has_one_source():
+    """The selected-columns kernel's staged chunk comes from the plain
+    version's SEL_CHUNK (nvcc gets it as ROW_REDUCE_SEL_CHUNK), which the
+    GPU tests cross with |A|; it holds whole rounds of a warp's 32 lanes."""
+    from repro_torch.kernels import _build, row_reduce
+
+    assert f"-DROW_REDUCE_SEL_CHUNK={row_reduce.SEL_CHUNK}" in _build.NVCC_FLAGS
+    header = (_build.CSRC / "row_reduce.cuh").read_text()
+    assert "constexpr int SEL_CHUNK = ROW_REDUCE_SEL_CHUNK;" in header
+    assert row_reduce.SEL_CHUNK % row_reduce.WARP == 0

@@ -39,6 +39,7 @@ from repro_torch.kernels import flmf_gains as flmf_module
 from repro_torch.kernels.flmf_gains import SCRATCH_BYTES, flmf_gains_at_plain, flmf_gains_plain
 from repro_torch.kernels.fused_fl_sweep import fused_fl_sweep_plain
 from repro_torch.kernels.gcmf_gains import gcmf_gains_at_plain, gcmf_gains_plain
+from repro_torch.kernels.row_reduce import SEL_CHUNK
 from repro_torch.kernels.sc_gains import psc_gains_plain, sc_gains_plain
 from repro_torch.kernels.select_cols import select_cols
 from repro_torch.kernels.similarity_kernel import (
@@ -549,6 +550,69 @@ def test_disp_kernels_equal_plain_bit_for_bit(cuda, n):
     assert torch.equal(got, dmin_gains_plain(d, mask, count, curmin))
     empty = ops.dmin_gains(d, torch.zeros_like(mask), torch.zeros_like(count), torch.zeros_like(curmin))
     assert torch.equal(empty, torch.zeros_like(empty))  # |A| = 0: every gain is 0
+
+
+# gc / dsum selections: |A| = 0, 1, a warp's 32 lanes and one either side,
+# n/8, every item, a random 30% with signed fractional weights, and around
+# the staged chunk of SEL_CHUNK list positions (|A| capped at n)
+SUM_COUNTS = {"0": 0, "1": 1, "31": 31, "32": 32, "33": 33, "chunk-1": SEL_CHUNK - 1,
+              "chunk": SEL_CHUNK, "chunk+1": SEL_CHUNK + 1, "2chunk+1": 2 * SEL_CHUNK + 1}
+SUM_N = [100, 257, 1500, 9000]  # none a multiple of 32 or of SEL_CHUNK
+
+
+def _sum_mask(cuda, g, n, which):
+    if which == "signed":
+        r = torch.rand((n,), generator=g, device=cuda)
+        return torch.where(r < 0.3, 4.0 * r - 0.5, 0.0)  # in [-0.5, 0.7), some negative
+    k = n if which == "n" else n // 8 if which == "n/8" else min(n, SUM_COUNTS[which])
+    return _count_mask(cuda, g, n, k)
+
+
+def _check_selected_sums(cuda, g, s, mask):
+    """gc, gc_at and dsum kernels against their plain versions, bit for bit,
+    and gc_at against gc at the same index (in A, not in A, clipped, pads)."""
+    n = s.shape[0]
+    total, lam = s.sum(dim=0), torch.tensor(0.4, device=cuda)
+    full = ops.gc_gains(s, mask, total, lam)
+    torch.cuda.synchronize()
+    assert torch.equal(full, gc_gains_plain(s, mask, total, lam))
+    picked = torch.nonzero(mask).flatten()[:40]
+    idx = torch.cat([picked, torch.randint(0, n + 3, (100,), generator=g, device=cuda),
+                     torch.tensor([-1, n - 1, n + 5], device=cuda)])
+    got = ops.gc_gains_at(s, mask, total, lam, idx)
+    torch.cuda.synchronize()
+    _assert_subset(got, full, torch.clamp(idx, max=n - 1))
+    assert torch.equal(got, gc_gains_at_plain(s, mask, total, lam, idx))
+    got = ops.dsum_gains(s, mask)
+    torch.cuda.synchronize()
+    assert torch.equal(got, dsum_gains_plain(s, mask))
+    return full
+
+
+@pytest.mark.parametrize("which", [*SUM_COUNTS, "n/8", "n", "signed"])
+@pytest.mark.parametrize("n", SUM_N)
+def test_selected_sum_kernels_equal_plain_bit_for_bit(cuda, n, which):
+    """gc and dsum sum the selected columns in one fixed order for every |A|
+    (across the warp's lanes and the staged chunk, up to every column) and
+    equal their plain versions bit for bit; |A| = 0 gives 0 and
+    total - lam * S_jj."""
+    g, s, _ = _dense_inputs(cuda, n, 23)
+    mask = _sum_mask(cuda, g, n, which)
+    full = _check_selected_sums(cuda, g, s, mask)
+    if which == "0":
+        assert torch.equal(ops.dsum_gains(s, mask), torch.zeros_like(full))
+        assert torch.equal(full, s.sum(dim=0) - torch.tensor(0.4, device=cuda) * torch.diagonal(s))
+
+
+def test_selected_sum_kernels_past_int32_offsets(cuda):
+    """n = 46,341: n^2 > 2^31, so the last rows' element offsets need 64
+    bits (8.6 GB of S)."""
+    n = 46_341
+    g = torch.Generator(device=cuda).manual_seed(24)
+    s = torch.rand((n, n), generator=g, device=cuda)
+    mask = _count_mask(cuda, g, n, 1000)
+    mask[n - 1] = 1.0  # the last column, in the last row at offset n^2 - 1
+    _check_selected_sums(cuda, g, s, mask)
 
 
 @pytest.mark.parametrize("count", ["1", "n/8-1", "n/8", "n/8+1", "n"])
