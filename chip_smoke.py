@@ -45,14 +45,18 @@ Phases, each of which raises on failure (the exit code is then non-zero):
              to their plain versions at |A| across the warp's lanes, the
              staged chunk and every column; similarity, the fused
              sweep, flmf and sc on rows that are not 16-byte aligned,
-             bit-equal to the same call on aligned rows), and the mask
-             compaction against torch.nonzero at n = 2^20
+             bit-equal to the same call on aligned rows; fl_gains and
+             fl_gains_at past the 8,388,480 rows the first design took,
+             with int32 and int64 ids), and the mask compaction against
+             torch.nonzero at n = 2^20
   4 main     the main path at full size, its launch counts (fl_gains_at's
              also by width k), and the same solves on the plain path,
              compared step by step
   5 times    each kernel, its plain version and the library call, timed
-             with CUDA events at its path's shapes (fl_gains_at at every
-             width phase 4 launched; the sweeps over the selected columns
+             with CUDA events at its path's shapes (fl_gains_at and
+             fb_gains_at at every width phases 4 and 8 (f) launched, with
+             the engine's int64 ids, and the host's cost of one call at
+             k = 8 beside its event time; the sweeps over the selected columns
              beside their selected-columns library call and sector floor,
              dmin, gc and dsum bit-equal to their plain versions)
   6 mf       the matrix-free path: (a) FacilityLocationMF on phase 4's
@@ -66,7 +70,8 @@ Phases, each of which raises on failure (the exit code is then non-zero):
              are read, the first lazy level where (d)'s LazyGreedy n_evals
              part between the two paths
   8 coverage the coverage path over --mf-n candidates, d features: (f)
-             FeatureBased on relu(x), sqrt; (g) SetCover on the tags
+             FeatureBased on relu(x), sqrt (fb_gains_at's launches counted
+             by width k); (g) SetCover on the tags
              p > 0.5 and (h) ProbabilisticSetCover on p of the tagger
              p = sigmoid(x W + b); each against its plain (use_kernel=False)
              path, SetCover exactly (ids, gains, n_evals)
@@ -91,6 +96,7 @@ import ctypes
 import itertools
 import json
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -167,6 +173,10 @@ PIPE_SOURCES = ("similarity.cu", "fused_fl_sweep.cu", "flmf_gains.cu")
 # not a multiple of it, a multiple of it) and row counts below one 128 tile
 UNALIGNED_D = (1, 13, 72, 130, 512)
 UNALIGNED_ROWS = (37, 101)
+# phase 3: rows past the 65,535 x 128 that the first fl_gains design's grid took
+FL_ROWS_PAST_LIMIT = 65_535 * 128 + 1
+# phase 5: the host's cost of a call, HOST_BATCHES runs of HOST_CALLS calls
+HOST_CALLS, HOST_BATCHES = 200, 5
 CLUSTERS, KMEANS_ITERS = 100, 25  # phase 9 (j): the mixture's component count
 GUIDED = 100  # phase 9 (k): |Q| = |P|
 GUIDED_BUDGET = 500  # phase 9 (k): the FL, GC and COM measures' NaiveGreedy budget
@@ -213,6 +223,38 @@ def cuda_ms(torch, fn, reps: int, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def host_us(torch, fn, calls: int = HOST_CALLS, batches: int = HOST_BATCHES) -> float:
+    """Host microseconds per call, on a host clock: the median over
+    ``batches`` runs of ``calls`` calls with no sync between them, and a
+    sync between runs.  A run's backlog stays far below the depth of the
+    launch queue, so the host never waits for the card, even where a call's
+    device time is above its host time."""
+    fn()
+    per_call = []
+    for _ in range(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        per_call.append(1e6 * (time.perf_counter() - t0) / calls)
+    torch.cuda.synchronize()
+    return statistics.median(per_call)
+
+
+def counting_widths(ops, name: str, pos: int, widths: collections.Counter):
+    """Replace ``ops.<name>`` by a wrapper that counts its calls by the
+    width of its positional argument ``pos`` (the ids); returns the
+    original, for the caller to put back."""
+    fn = getattr(ops, name)
+
+    def counted(*args, **kw):
+        widths[int(args[pos].shape[0])] += 1
+        return fn(*args, **kw)
+
+    setattr(ops, name, counted)
+    return fn
 
 
 def bound(flops: float, nbytes: float) -> tuple[float, str]:
@@ -365,7 +407,11 @@ def phase_kernels(torch, seed: int) -> None:
                                      "bit-equal to aligned ones")
     log(f"  ok  similarity on unaligned rows, ({n},{m}) at d in {UNALIGNED_D}, every metric: "
         f"the kernel bit-equal on aligned rows, max abs err {worst:.3e} against the plain version")
-    for u, n in [(4096, 4096), (1000, 777), (333, 5000), (129, 1)]:
+    # FL_ROWS_PAST_LIMIT: more rows than the first design's grid took; at
+    # n = 8 every k runs the full sweep and a gather, at n = 40 k = 1 takes
+    # the gathered kernel by its own rule
+    for u, n in [(4096, 4096), (1000, 777), (333, 5000), (129, 1), (FL_ROWS_PAST_LIMIT, 8),
+                 (FL_ROWS_PAST_LIMIT, 40)]:
         sim = torch.rand((u, n), generator=gen, device=dev)
         cm = 0.8 * torch.rand((u,), generator=gen, device=dev)
         full = ops.fl_gains(sim, cm)
@@ -381,8 +427,11 @@ def phase_kernels(torch, seed: int) -> None:
                 raise AssertionError(f"fl_gains_at ({u},{n}) k={k}: not bit-equal to fl_gains")
             if not bool((got[~keep] == NEG_INF).all()):
                 raise AssertionError(f"fl_gains_at ({u},{n}) k={k}: pads are not NEG_INF")
-            check_close(f"fl_gains_at ({u},{n}) k={k} (bit-equal to fl_gains, pads NEG_INF)",
-                        got, fl_gains_at_plain(sim, cm, idx), *FL_TOL)
+            if not torch.equal(ops.fl_gains_at(sim, cm, idx.to(torch.int32)), got):
+                raise AssertionError(f"fl_gains_at ({u},{n}) k={k}: int32 ids differ from int64")
+            check_close(f"fl_gains_at ({u},{n}) k={k} (bit-equal to fl_gains, int32 = int64 ids, "
+                        "pads NEG_INF)", got, fl_gains_at_plain(sim, cm, idx), *FL_TOL)
+        del sim
 
 
 def _check_subset(what: str, torch, got, full, idx) -> None:
@@ -617,13 +666,7 @@ def phase_main(torch, args) -> dict:
     runs = {}
     # fl_gains_at's launches by width k (LazyGreedy's levels), beside its count
     widths = collections.Counter()
-    fl_gains_at = ops.fl_gains_at
-
-    def counted_fl_gains_at(sim, curmax, idx):
-        widths[int(idx.shape[0])] += 1
-        return fl_gains_at(sim, curmax, idx)
-
-    ops.fl_gains_at = counted_fl_gains_at
+    fl_gains_at = counting_widths(ops, "fl_gains_at", 2, widths)
     try:
         for opt, budget in (("NaiveGreedy", args.naive_budget), ("LazyGreedy", args.lazy_budget)):
             runs[opt] = _timed_solve(torch, SelectionSpec(fn, budget, opt))
@@ -694,7 +737,9 @@ def phase_main(torch, args) -> dict:
 def phase_times(torch, args, fn, naive_res, main: dict) -> list[dict]:
     from repro_torch.core import FacilityLocation, FLState
     from repro_torch.kernels import ops
-    from repro_torch.kernels.fl_gains import fl_gains_at_plain, fl_gains_plain
+    from repro_torch.kernels.fl_gains import (
+        FULL_SWEEP_RATIO, fl_gains_at_plain, fl_gains_plain, sweeps_every_column,
+    )
     from repro_torch.kernels.similarity_kernel import _normalize, similarity_plain
 
     log("== phase 5: times at the main path's shapes (CUDA events)")
@@ -754,47 +799,62 @@ def phase_times(torch, args, fn, naive_res, main: dict) -> list[dict]:
     log(f"  fl_gains {n}x{n}: kernel {fl_ms:.3f} ms, plain {fl_plain_ms:.3f} ms, torch backend "
         f"expression {torch_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by})")
 
-    # fl_gains_at: a fresh random index set per launch, so L2 holds no column
+    # fl_gains_at: a fresh random index set per launch, so L2 holds no column;
+    # int64 ids (the engine's, taken as they are) and int32 ids
     at = {}
     for k in (8, 512):
-        sets = [torch.randperm(n, generator=gen, device="cuda")[:k].to(torch.int32) for _ in range(64)]
+        sets = [torch.randperm(n, generator=gen, device="cuda")[:k] for _ in range(64)]
         got = ops.fl_gains_at(sim, cm, sets[0])
         err = check_close(f"fl_gains_at ({n},{n}) k={k} vs fl_gains_at_plain", got,
                           fl_gains_at_plain(sim, cm, sets[0]), *FL_TOL)
-        if not torch.equal(got, full[sets[0].long()]):
+        if not torch.equal(got, full[sets[0]]):
             raise AssertionError(f"fl_gains_at k={k}: not bit-equal to fl_gains")
         it = itertools.cycle(sets)
         k_ms = cuda_ms(torch, lambda: ops.fl_gains_at(sim, cm, next(it)), reps)
+        it32 = itertools.cycle([s.to(torch.int32) for s in sets])
+        k_ms32 = cuda_ms(torch, lambda: ops.fl_gains_at(sim, cm, next(it32)), reps)
         k_plain = cuda_ms(torch, lambda: fl_gains_at_plain(sim, cm, next(it)),
                           max(2, reps // 10), warmup=1)
         kb_ms, kb_by = bound(3.0 * n * k, 4.0 * (n * k + n + 3 * k))
-        at[k] = {"ms": k_ms, "plain_ms": k_plain, "bound_ms": kb_ms, "bound_by": kb_by,
-                 "max_abs_err": err}
-        log(f"  fl_gains_at {n}x{n} k={k}: kernel {k_ms:.4f} ms, plain {k_plain:.3f} ms, "
-            f"bound {kb_ms:.5f} ms ({kb_by}); bit-equal to fl_gains")
-    # every width phase 4's LazyGreedy launched: launches x time per width
+        at[k] = {"ms": k_ms, "ms_int32": k_ms32, "plain_ms": k_plain, "bound_ms": kb_ms,
+                 "bound_by": kb_by, "max_abs_err": err}
+        if k == 8:  # the host's cost of one call, beside its device time
+            at[k]["host_us"] = host_us(torch, lambda: ops.fl_gains_at(sim, cm, sets[0]))
+        log(f"  fl_gains_at {n}x{n} k={k}: kernel {k_ms:.4f} ms (int64 ids; int32 {k_ms32:.4f})"
+            + (f", host {at[k]['host_us']:.1f} us per call" if k == 8 else "")
+            + f", plain {k_plain:.3f} ms, bound {kb_ms:.5f} ms ({kb_by}); bit-equal to fl_gains")
+    # every width phase 4's LazyGreedy launched, with its int64 ids: launches x
+    # time per width, against the full sweep's time past the crossover
     by_width = {}
     for k, count in main["fl_gains_at_widths"].items():
-        sets = [torch.randperm(n, generator=gen, device="cuda")[:k].to(torch.int32) for _ in range(16)]
+        sets = [torch.randperm(n, generator=gen, device="cuda")[:k] for _ in range(16)]
+        if not torch.equal(ops.fl_gains_at(sim, cm, sets[0]), full[sets[0]]):
+            raise AssertionError(f"fl_gains_at k={k}: not bit-equal to fl_gains")
         it = itertools.cycle(sets)
         kb_ms, kb_by = bound(3.0 * n * k, 4.0 * (n * k + n + 3 * k))
         k_ms = cuda_ms(torch, lambda: ops.fl_gains_at(sim, cm, next(it)), max(3, reps // 5))
-        by_width[k] = {"launches": count, "ms": k_ms, "bound_ms": kb_ms, "bound_by": kb_by}
-    log("  fl_gains_at by width k on phase 4's LazyGreedy (launches x ms = total ms): "
+        by_width[k] = {"launches": count, "ms": k_ms, "bound_ms": kb_ms, "bound_by": kb_by,
+                       "sweeps_every_column": sweeps_every_column(k, n)}
+    log("  fl_gains_at by width k on phase 4's LazyGreedy, int64 ids (launches x ms = total ms): "
         + "; ".join(f"k={k}: {w['launches']} x {w['ms']:.4f} = {w['launches'] * w['ms']:.1f}"
                     for k, w in by_width.items())
         + f"; in all {sum(w['launches'] * w['ms'] for w in by_width.values()):.1f} ms, of it over "
         f"the bound {sum(w['launches'] * (w['ms'] - w['bound_ms']) for w in by_width.values()):.1f} ms")
+    wide = {k: w["ms"] / fl_ms for k, w in by_width.items() if k >= 4096}
+    log(f"  fl_gains_at past k = 4096 against the full sweep's {fl_ms:.3f} ms: "
+        + ", ".join(f"k={k}: {r:.3f}x" for k, r in wide.items())
+        + f"; the crossover rule (a constant): the full sweep and a gather from k >= "
+        f"{FULL_SWEEP_RATIO} n")
     rows.append({
         "name": "fl_gains_at", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fl_gains.cu",
         "replaces": "src/repro/kernels/fl_gains.py:93",
-        "shape": f"sim ({n},{n}), curmax ({n},), idx (8,) -> (8,)",
+        "shape": f"sim ({n},{n}), curmax ({n},), idx (8,) int64 -> (8,)",
         "launches": launches["fl_gains_at"], "launches_on_path": launches["fl_gains_at"],
         "max_abs_err": at[8]["max_abs_err"],
         "ms": at[8]["ms"], "plain_ms": at[8]["plain_ms"], "bound_ms": at[8]["bound_ms"],
-        "bound_by": at[8]["bound_by"], "library_ms": None,
-        "k512": at[512], "by_width": by_width,
+        "bound_by": at[8]["bound_by"], "library_ms": None, "ms_int32": at[8]["ms_int32"],
+        "host_us": at[8]["host_us"], "k512": at[512], "by_width": by_width,
     })
 
     # the KERNEL_MIN_N gate: kernel vs the torch backend's sweep at n = 4096
@@ -1660,10 +1720,22 @@ def phase_coverage(torch, args) -> tuple[dict, dict]:
     fb = FeatureBased.from_features(torch.relu(x), concave="sqrt", use_kernel=True)
     fb_plain = dataclasses.replace(fb, use_kernel=False)
     f = {"feats_bytes": fb.feats.numel() * 4}
-    for opt, budget in (("NaiveGreedy", MF_NAIVE_BUDGET), ("LazyGreedy", args.mf_lazy_budget)):
-        f[opt], kern, _ = _solve_pair(torch, f"(f) FeatureBased {opt} {budget}", fb, fb_plain,
-                                      budget, opt, replay)
-        f[opt]["picks"] = kern.order[kern.order >= 0].tolist()
+    # fb_gains_at's launches by width k (LazyGreedy's levels), beside its count
+    widths = collections.Counter()
+    fb_gains_at = counting_widths(ops, "fb_gains_at", 3, widths)
+    try:
+        for opt, budget in (("NaiveGreedy", MF_NAIVE_BUDGET),
+                            ("LazyGreedy", args.mf_lazy_budget)):
+            f[opt], kern, _ = _solve_pair(torch, f"(f) FeatureBased {opt} {budget}", fb,
+                                          fb_plain, budget, opt, replay)
+            f[opt]["picks"] = kern.order[kern.order >= 0].tolist()
+    finally:
+        ops.fb_gains_at = fb_gains_at
+    f["fb_gains_at_widths"] = dict(sorted(widths.items()))
+    if sum(widths.values()) != ops.LAUNCHES["fb_gains_at"]:
+        raise AssertionError(f"fb_gains_at widths {f['fb_gains_at_widths']} do not add up to its "
+                             f"{ops.LAUNCHES['fb_gains_at']} launches")
+    log(f"  (f) fb_gains_at launches by width k: {f['fb_gains_at_widths']}")
     picks = f["LazyGreedy"]["picks"]
     state = fb.init_state()
     for j in picks:
@@ -1781,6 +1853,10 @@ def phase_cover_times(torch, args, fns: dict, cover: dict) -> list[dict]:
     state = state_after(fb, fpicks)
     # per element: add, max, concave, subtract, multiply, add
     fb_work = (6.0 * n * F, 4.0 * (n * F + 3 * F + n))
+
+    def fb_work_at(k):
+        return 6.0 * k * F, 4.0 * (k * F + 3 * F + 2 * k)
+
     fbt = {}
     for concave in CONCAVES:
         fn = dataclasses.replace(fb, concave=concave)
@@ -1795,7 +1871,27 @@ def phase_cover_times(torch, args, fns: dict, cover: dict) -> list[dict]:
                 lambda idx: ops.fb_gains_at(*fb_args[:3], idx, "sqrt"),
                 lambda idx: fb_gains_at_plain(*fb_args[:3], idx, "sqrt"),
                 lambda idx: fn.gains_at(state, idx), full, n, reps, gen,
-                work=lambda k: (6.0 * k * F, 4.0 * (k * F + 3 * F + 2 * k)), tol=COVER_TOL)
+                work=fb_work_at, tol=COVER_TOL)
+            # every width (f)'s LazyGreedy launched, with int64 ids (the
+            # engine's): launches x time per width; the host's cost at k = 8
+            by_width = {}
+            for k, count in cover["f"]["fb_gains_at_widths"].items():
+                sets = [torch.randperm(n, generator=gen, device="cuda")[:k] for _ in range(16)]
+                if not torch.equal(ops.fb_gains_at(*fb_args[:3], sets[0], "sqrt"), full[sets[0]]):
+                    raise AssertionError(f"fb_gains_at k={k}: not bit-equal to fb_gains")
+                it = itertools.cycle(sets)
+                kb_ms, kb_by = bound(*fb_work_at(k))
+                by_width[k] = {"launches": count, "bound_ms": kb_ms, "bound_by": kb_by,
+                               "ms": cuda_ms(torch, lambda: ops.fb_gains_at(
+                                   *fb_args[:3], next(it), "sqrt"), max(3, reps // 5))}
+            idx8 = torch.randperm(n, generator=gen, device="cuda")[:8]
+            fb_at[8]["host_us"] = host_us(
+                torch, lambda: ops.fb_gains_at(*fb_args[:3], idx8, "sqrt"))
+            log("  fb_gains_at by width k on (f)'s LazyGreedy, int64 ids (launches x ms = total "
+                "ms): " + "; ".join(f"k={k}: {w['launches']} x {w['ms']:.4f} = "
+                                    f"{w['launches'] * w['ms']:.1f}" for k, w in by_width.items())
+                + f"; in all {sum(w['launches'] * w['ms'] for w in by_width.values()):.1f} ms; "
+                f"host {fb_at[8]['host_us']:.1f} us per call at k = 8")
 
     # sc at the state of (g)'s NaiveGreedy picks: binary covered, unit weights
     sc, _ = fns["sc"]
@@ -1837,7 +1933,8 @@ def phase_cover_times(torch, args, fns: dict, cover: dict) -> list[dict]:
                           "log": fbt["log"], "inverse": fbt["inverse"]}),
         row("fb_gains_at", "fb_gains.cu", "fb_gains.py:86",
             f"feats ({n},{F}), sqrt, idx (8,) -> (8,)", fb_at[8],
-            {"library_call": "FeatureBased.gains_at (the torch path)", "k512": fb_at[512]}),
+            {"library_call": "FeatureBased.gains_at (the torch path)", "k512": fb_at[512],
+             "host_us": fb_at[8]["host_us"], "by_width": by_width}),
         row("sc_gains", "sc_gains.cu", "sc_gains.py:46", f"cover ({n},{m}) binary, unit w -> ({n},)",
             sct, {"library_call": "torch.mv(G, w * (1 - covered)), binary G and covered",
                   "torch_backend_ms": sct["torch_backend_ms"],

@@ -25,6 +25,8 @@ import threading
 import time
 from pathlib import Path
 
+import torch
+
 from repro_torch.kernels.row_reduce import SEL_CHUNK as ROW_REDUCE_SEL_CHUNK
 from repro_torch.kernels.row_reduce import THREADS as ROW_REDUCE_THREADS
 
@@ -33,6 +35,7 @@ CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE / "build"  # listed in .gitignore via `build/`
 
 SELECT_CHUNK = 4096  # mask elements per block of csrc/select_cols.cu's scan
+FL_CLUSTER = 8  # blocks per thread-block cluster of csrc/fl_gains.cu's gathered sweep
 
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")  # the `a`: wgmma/setmaxnreg
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -41,10 +44,13 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas"
               f"-DROW_REDUCE_THREADS={ROW_REDUCE_THREADS}",
               f"-DROW_REDUCE_SEL_CHUNK={ROW_REDUCE_SEL_CHUNK}",
               # the compaction's chunk, by which kernels/select_cols.py sizes its scratch
-              f"-DSELECT_CHUNK={SELECT_CHUNK}")
+              f"-DSELECT_CHUNK={SELECT_CHUNK}",
+              # the gathered FL sweep's cluster, by which kernels/fl_gains.py lays it out
+              f"-DFL_CLUSTER={FL_CLUSTER}")
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
+_C_INT = ctypes.c_int
 # C signatures of the exported launch functions (see csrc/*.cu); every
 # pointer and the stream are c_void_p, or ctypes would cut them to 32 bits
 _SIGNATURES = {
@@ -54,7 +60,8 @@ _SIGNATURES = {
     ),
     "similarity_blocks_per_sm": ([ctypes.c_int, ctypes.c_int, _P], ctypes.c_int),
     "fl_gains_launch": (
-        [_P, _I64, _I64, _I64, _P, _P, _I64, _I64, _P, _P, _P],
+        [_P, _I64, _I64, _I64, _P, _P, _C_INT, _I64, _I64, _C_INT, _C_INT, _C_INT, _P, _P, _P,
+         _P],
         ctypes.c_int,
     ),
     "flmf_gains_launch": (
@@ -72,7 +79,7 @@ _SIGNATURES = {
     "dmin_gains_launch": ([_P, _I64, _P, _P, _P, _P, _P, _P, _P], ctypes.c_int),
     "select_cols_launch": ([_P, _I64, ctypes.c_int, _P, _P, _P], ctypes.c_int),
     "fb_gains_launch": (
-        [_P, _I64, _I64, _P, _P, ctypes.c_int, _P, _I64, _P, _P, _P], ctypes.c_int,
+        [_P, _I64, _I64, _P, _P, _C_INT, _P, _C_INT, _I64, _P, _P, _P], ctypes.c_int,
     ),
     "sc_gains_launch": ([_P, _I64, _I64, _P, _P, _P, _P], ctypes.c_int),
     "psc_gains_launch": ([_P, _I64, _I64, _P, _P, _P], ctypes.c_int),
@@ -155,8 +162,11 @@ def _compile(target: Path, csrc: Path = CSRC) -> list[str]:
 
 
 def load() -> ctypes.CDLL:
-    """The kernel library, built on first call (thread-safe, once per process)."""
+    """The kernel library, built on first call (thread-safe, once per process;
+    once it is loaded, a call takes no lock)."""
     global _lib
+    if _lib is not None:
+        return _lib
     with _lock:
         if _lib is not None:
             return _lib
@@ -180,6 +190,12 @@ def load() -> ctypes.CDLL:
         )
         _lib = lib
         return lib
+
+
+def raw_stream(t) -> int:
+    """The handle of the current CUDA stream on tensor ``t``'s device, as
+    the launch functions take it (no ``torch.cuda.Stream`` object built)."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def check(rc: int, what: str) -> None:

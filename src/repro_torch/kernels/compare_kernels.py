@@ -42,6 +42,16 @@ and covered with unit weights (integer sums, bit for bit across libraries
 whatever their order) and with weights and a fractional covered (the
 coverage bar, rtol 1e-5, atol 1e-5: the order is a layout's choice), and
 ``psc_gains``, bit for bit.
+
+The dense FL sweeps at phase 4's shape (u = n = 50,000): ``fl_gains`` and
+``fl_gains_at`` at k = 8, 64, 512, 4,096 and 16,384 (past this tree's
+crossover, kernels/fl_gains.py, where it sweeps every column and gathers);
+the FeatureBased sweeps at phase 8's shape (n = 2^20, F = 512, sqrt):
+``fb_gains`` and ``fb_gains_at`` at k = 8 and 512; all bit for bit across
+libraries.  This tree takes the gathered sweeps' ids as int64 (the
+engine's), a tree whose launch function takes no id width (``idx_bytes``)
+as int32 with its own scratch (``partial`` / ``ga``), as its wrapper passed
+them.
 """
 from __future__ import annotations
 
@@ -55,6 +65,8 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.fb_gains import CONCAVE_CODES
+from repro_torch.kernels.fl_gains import ROWS_PER_CHUNK, sweep_layout, sweeps_every_column
 from repro_torch.kernels.flmf_gains import TILE_ROWS, column_slice
 from repro_torch.kernels.gcmf_gains import slice_width
 from repro_torch.kernels.select_cols import PREDICATES, scratch
@@ -71,8 +83,11 @@ REPS, ROUNDS = 10, 2
 MF_U, MF_N = 512, 1 << 20  # phase 6 (b)'s represented rows and candidates
 COVER_M = 1000  # phase 8's concepts
 COVER_TOL = (1e-5, 1e-5)  # sc with weights across libraries: chip_smoke.py's COVER_TOL
+FL_AT_K = (8, 64, 512, 4096, 16384)  # fl_gains_at's widths
+FB_AT_K = (8, 512)
 KERNELS = ("similarity", "fused_fl_sweep", "gc_gains", "gc_gains_at", "dsum_gains", "dmin_gains",
-           "gcmf_gains", "gcmf_gains_at", "flmf_gains", "flmf_gains_at", "sc_gains", "psc_gains")
+           "gcmf_gains", "gcmf_gains_at", "flmf_gains", "flmf_gains_at", "sc_gains", "psc_gains",
+           "fl_gains", "fl_gains_at", "fb_gains", "fb_gains_at")
 _P, _I64 = ctypes.c_void_p, ctypes.c_int64
 # the C signatures of trees whose launch function takes no compacted list
 # (no sel / nsel or sel / blk)
@@ -85,6 +100,23 @@ _WITHOUT_SEL = {
     "gc_gains_launch": ([_P, _I64, _P, _P, _P, _P, _I64, _P, _P], ctypes.c_int),
     "dsum_gains_launch": ([_P, _I64, _P, _P, _P], ctypes.c_int),
 }
+# the C signatures of trees whose FL / FB launch function takes int32 ids and
+# the caller's scratch (no idx_bytes)
+_INT32_IDS = {
+    "fl_gains_launch": ([_P, _I64, _I64, _I64, _P, _P, _I64, _I64, _P, _P, _P], ctypes.c_int),
+    "fb_gains_launch": ([_P, _I64, _I64, _P, _P, ctypes.c_int, _P, _I64, _P, _P, _P],
+                        ctypes.c_int),
+}
+
+
+def _params(csrc: Path, fn: str) -> str:
+    """The parameter list of the C function ``fn`` in the sources ``csrc``."""
+    for src in Path(csrc).glob("*.cu"):
+        text = src.read_text()
+        at = text.find(f'extern "C" int {fn}(')
+        if at >= 0:
+            return text[at : text.index(")", at)]
+    return ""
 
 
 def _list_param(csrc: Path, fn: str) -> str | None:
@@ -92,13 +124,8 @@ def _list_param(csrc: Path, fn: str) -> str | None:
     columns: "nsel" (the caller compacts and passes the list and its
     count), "blk" (the launcher compacts into the caller's scratch) or None
     (it sums every column)."""
-    for src in Path(csrc).glob("*.cu"):
-        text = src.read_text()
-        at = text.find(f'extern "C" int {fn}(')
-        if at >= 0:
-            params = text[at : text.index(")", at)]
-            return next((p for p in ("nsel", "blk") if p in params), None)
-    return None
+    params = _params(csrc, fn)
+    return next((p for p in ("nsel", "blk") if p in params), None)
 
 
 def _library(csrc: Path, name: str, kernels) -> ctypes.CDLL:
@@ -111,8 +138,10 @@ def _library(csrc: Path, name: str, kernels) -> ctypes.CDLL:
             print(f"{name}: {line}", file=sys.stderr)
     lib = ctypes.CDLL(str(target))
     lib.list_param = {fn: _list_param(csrc, fn) for fn in _WITHOUT_SEL}
+    lib.int32_ids = {fn: "idx_bytes" not in _params(csrc, fn) for fn in _INT32_IDS}
     sigs = {**_build._SIGNATURES,
-            **{fn: sig for fn, sig in _WITHOUT_SEL.items() if lib.list_param[fn] is None}}
+            **{fn: sig for fn, sig in _WITHOUT_SEL.items() if lib.list_param[fn] is None},
+            **{fn: sig for fn, sig in _INT32_IDS.items() if lib.int32_ids[fn]}}
     launches = {f"{k.removesuffix('_at')}_launch" for k in kernels}
     if any(lib.list_param.get(fn) == "nsel" for fn in launches):
         launches.add("select_cols_launch")
@@ -162,6 +191,10 @@ def _cases(kernels, stream):
         yield from _flmf_cases(kernels, stream, gen)
     if set(kernels) & {"sc_gains", "psc_gains"}:
         yield from _cover_cases(kernels, stream, gen)
+    if set(kernels) & {"fl_gains", "fl_gains_at"}:
+        yield from _fl_cases(kernels, stream, gen)
+    if set(kernels) & {"fb_gains", "fb_gains_at"}:
+        yield from _fb_cases(kernels, stream, gen)
     if not set(kernels) & {"gc_gains", "gc_gains_at", "dsum_gains", "dmin_gains"}:
         return
     mat = torch.rand((N, N), generator=gen, device="cuda")
@@ -355,6 +388,75 @@ def _cover_cases(kernels, stream, gen):
         wm = torch.rand((m,), generator=gen, device="cuda")
         yield "psc_gains", (n,), None, lambda lib, out: lib.psc_gains_launch(
             probs.data_ptr(), n, m, wm.data_ptr(), out.data_ptr(), stream)
+
+
+def _fl_cases(kernels, stream, gen):
+    """fl_gains and fl_gains_at at phase 4's shape, u = n = N, on a random
+    S and a curmax that leaves about a third of the terms positive."""
+    sim = torch.rand((N, N), generator=gen, device="cuda")
+    cm = 0.7 * torch.ones((N,), device="cuda")
+    nchunks = -(-N // ROWS_PER_CHUNK)
+    full = torch.empty((N,), device="cuda")  # this tree's crossover scratch
+    partial, ids32 = {}, {}  # the scratch and an int32 tree's ids, made once
+
+    def fl(lib, out, idx):
+        k = out.shape[0]
+        if lib.int32_ids["fl_gains_launch"]:
+            if k not in partial:
+                partial[k] = torch.empty((nchunks, k), device="cuda")
+                ids32[k] = None if idx is None else idx.to(torch.int32)
+            return lib.fl_gains_launch(
+                sim.data_ptr(), N, N, N, cm.data_ptr(),
+                None if idx is None else ids32[k].data_ptr(), k, ROWS_PER_CHUNK,
+                partial[k].data_ptr(), out.data_ptr(), stream)
+        sweep = idx is None or sweeps_every_column(k, N)
+        if sweep and N not in partial:
+            partial[N] = torch.empty((nchunks, N), device="cuda")
+        return lib.fl_gains_launch(
+            sim.data_ptr(), N, N, N, cm.data_ptr(), None if idx is None else idx.data_ptr(),
+            0 if idx is None else 8, k, ROWS_PER_CHUNK,
+            *((0, 0, 0) if sweep else sweep_layout(N, k)[:3]),
+            partial[N].data_ptr() if sweep else None,
+            full.data_ptr() if sweep and idx is not None else None, out.data_ptr(), stream)
+
+    if "fl_gains" in kernels:
+        yield "fl_gains", (N,), None, lambda lib, out: fl(lib, out, None)
+    if "fl_gains_at" in kernels:
+        for k in FL_AT_K:
+            idx = torch.randperm(N, generator=gen, device="cuda")[:k]
+            idx[::7] = -1  # pads
+            yield f"fl_gains_at k={k}", (k,), None, lambda lib, out, idx=idx: fl(lib, out, idx)
+
+
+def _fb_cases(kernels, stream, gen):
+    """fb_gains and fb_gains_at at phase 8's shape, n = MF_N, F = D, sqrt."""
+    feats = torch.rand((MF_N, D), generator=gen, device="cuda")
+    acc = 3.0 * torch.rand((D,), generator=gen, device="cuda")
+    w = 0.5 + torch.rand((D,), generator=gen, device="cuda")
+    ga = torch.empty((D,), device="cuda")
+    ids32 = {}  # an int32 tree's ids, made once
+
+    def fb(lib, out, idx):
+        k = out.shape[0]
+        head = [feats.data_ptr(), MF_N, D, acc.data_ptr(), w.data_ptr(), CONCAVE_CODES["sqrt"]]
+        if lib.int32_ids["fb_gains_launch"]:
+            if idx is not None and k not in ids32:
+                ids32[k] = idx.to(torch.int32)
+            return lib.fb_gains_launch(
+                *head, None if idx is None else ids32[k].data_ptr(), k, ga.data_ptr(),
+                out.data_ptr(), stream)
+        return lib.fb_gains_launch(
+            *head, None if idx is None else idx.data_ptr(), 0 if idx is None else 8, k,
+            ga.data_ptr() if idx is None else None, out.data_ptr(), stream)
+
+    if "fb_gains" in kernels:
+        yield "fb_gains sqrt", (MF_N,), None, lambda lib, out: fb(lib, out, None)
+    if "fb_gains_at" in kernels:
+        for k in FB_AT_K:
+            idx = torch.randperm(MF_N, generator=gen, device="cuda")[:k]
+            idx[::7] = -1
+            yield (f"fb_gains_at sqrt k={k}", (k,), None,
+                   lambda lib, out, idx=idx: fb(lib, out, idx))
 
 
 def main(argv=None) -> int:

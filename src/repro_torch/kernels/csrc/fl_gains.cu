@@ -7,78 +7,236 @@
 // What bounds it on the H100: bytes.  The full sweep reads S (u, n) once
 // and does 3 fp32 operations per element: at u = n = 50,000 that is 10 GB
 // at 3.35 TB/s = 3.0 ms, while the 7.5e9 operations take 0.11 ms at
-// 67 TFLOP/s.
-// The gathered sweep at small k moves almost nothing (1.6 MB at k = 8) and
-// is bound by launch and memory latency: each thread's column is strided by
-// a whole row, so a 32-byte sector brings 4 useful bytes.
+// 67 TFLOP/s.  The gathered sweep reads one column per slot: each element
+// lies a whole row from the next, so a 32-byte sector brings 4 useful
+// bytes (12.8 MB of sectors at k = 8, 4 us; a LazyGreedy level's call is
+// bound by the host and by memory latency there).
 //
-// Design: two passes, no atomics.
-//   pass 1: the u rows are cut into fixed chunks of `rows_per_chunk`; one
-//           thread sums one column over one chunk, rows in order, into
-//           partial[c, j].  Neighbouring threads take neighbouring columns,
-//           so in the full sweep a warp reads 128 contiguous bytes of a row.
-//           Splitting u gives the card enough blocks: at n = 50,000 one
-//           block per 256 columns alone would be ~196 blocks on 132 SMs.
-//   pass 2: one thread adds the partials of its column in chunk order
-//           (tile_common.cuh's sum_partials_kernel).
-// A column's summation order therefore depends on u alone: never on n, k,
-// the column's position or the block's shape.  That is what makes the
-// gathered sweep bit-identical to the full sweep at the same index; the
-// plain PyTorch version (kernels/fl_gains.py) adds in the same order.
+// Order: the u rows are cut into fixed chunks of `rows_per_chunk`; a
+// column's chunk sum adds its rows in row order from 0.0f, and the column's
+// result adds the chunk sums in chunk order from 0.0f.  The order depends
+// on u alone, never on n, k, the column's position or the launch's shape:
+// that is what makes the gathered sweep bit-identical to the full sweep at
+// the same index.  kernels/fl_gains.py::_column_sums repeats it.
+//
+// The full sweep: two passes, no atomics.  Pass 1: one thread sums one
+// column over one chunk into partial[c, j], neighbouring threads on
+// neighbouring columns, so a warp reads 128 contiguous bytes of a row and
+// the blocks in flight stream whole rows of S; the chunks run along the
+// grid's y axis and loop past its 65,535 rows.  Pass 2: one thread adds its
+// column's partials in chunk order (tile_common.cuh's sum_partials_kernel).
+//
+// The gathered sweep: one launch, no scratch.  A thread-block cluster of
+// CLUSTER blocks owns G gathered columns; the caller picks G = ceil(k / 8)
+// (at most a block's 256 threads), so that eight clusters run at once and
+// walk the rows together, window by window: the blocks in flight read a
+// band of CLUSTER * L chunks across every gathered column, where more,
+// narrower clusters were slower on the card (kernels/fl_gains.py,
+// CLUSTERS).  A window holds CLUSTER * L chunks, dealt
+// to the cluster's blocks in turn (chunk c to block c % CLUSTER); a block's
+// thread t sums one chunk of one column per window: column t % G of its
+// slot t / G (so a warp reads neighbouring gathered columns of one row, the
+// curmax value one broadcast), BATCH rows' loads in flight before it adds
+// them, into the block's shared memory.  After cluster.sync() the folding
+// thread of each column (column g: thread g / CLUSTER of block g %
+// CLUSTER) reads the window's chunk sums in chunk order through distributed
+// shared memory and adds them to its running sum; a second cluster.sync()
+// frees the slots for the next window.  So the second pass and its
+// (nchunks, k) buffer are gone, and the window loop takes any u.
+//
+// Wide gathered sweeps (the caller's crossover, kernels/fl_gains.py) run the
+// full sweep into the caller's n-long scratch and gather the k slots from
+// it in the same call: bit-identical by the order above.
+//
 // Slots with idx < 0 are padding and return NEG_INF; idx >= n reads column
-// n - 1, as the JAX gather clips.  Every element offset is 64-bit: S at
-// 50,000 x 50,000 holds 2.5e9 elements, beyond INT_MAX.
+// n - 1, as the JAX gather clips; duplicates are allowed.  The ids are int32
+// or int64 (the LazyGreedy engine's sort hands int64 over).  Every element
+// offset is 64-bit: S at 50,000 x 50,000 holds 2.5e9 elements.
+
+#include <cooperative_groups.h>
 
 #include "tile_common.cuh"
 
+#if !defined(FL_CLUSTER)
+#error "FL_CLUSTER is set by kernels/_build.py"
+#endif
+
+namespace cg = cooperative_groups;
+
 namespace {
 
+constexpr int CLUSTER = FL_CLUSTER;  // blocks per cluster (8: the portable maximum)
+constexpr int MAX_THREADS = 256;
+constexpr int BATCH = 16;            // rows of a chunk loaded before they are added
+constexpr int MAX_GRID_Y = 65535;    // CUDA's grid.y limit: the full sweep loops past it
+
+// The chunk sum of column col over rows r0 .. r0 + len - 1, in row order.
+__device__ __forceinline__ float chunk_sum(const float* __restrict__ sim, int64_t ld,
+                                           const float* __restrict__ curmax, int64_t col,
+                                           int64_t r0, int64_t len) {
+  const float* p = sim + r0 * ld + col;
+  const float* m = curmax + r0;
+  float acc = 0.0f;
+  int64_t r = 0;
+  for (; r + BATCH <= len; r += BATCH) {
+    float v[BATCH], c[BATCH];
+#pragma unroll
+    for (int i = 0; i < BATCH; ++i) {
+      v[i] = __ldg(p + (r + i) * ld);
+      c[i] = __ldg(m + r + i);
+    }
+#pragma unroll
+    for (int i = 0; i < BATCH; ++i) acc += fmaxf(v[i] - c[i], 0.0f);
+  }
+  for (; r < len; ++r) acc += fmaxf(__ldg(p + r * ld) - __ldg(m + r), 0.0f);
+  return acc;
+}
+
+// out[j] for the k gathered columns clip(idx[j]).  Grid: ceil(k / G)
+// clusters of CLUSTER blocks along x; block: G columns x L slots, G * L <=
+// blockDim.x <= MAX_THREADS.
+template <typename IdxT>
+__global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(MAX_THREADS)
+    fl_gather_kernel(const float* __restrict__ sim, int64_t ld, int64_t u, int64_t n,
+                     const float* __restrict__ curmax, const IdxT* __restrict__ idx, int64_t k,
+                     int64_t rows_per_chunk, int G, int L, float* __restrict__ out) {
+  __shared__ float part[MAX_THREADS];  // part[s * G + g]: column g's chunk w0 + s * CLUSTER + rank
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int64_t first = (int64_t)(blockIdx.x / CLUSTER) * G;  // the cluster's first slot
+  const int g = threadIdx.x % G;
+  const int s = threadIdx.x / G;  // this thread's slot in each window
+  const int64_t j = first + g;
+  const bool live = s < L && j < k && idx[j] >= 0;  // pads read nothing
+  const int64_t col = live ? tile::gathered(idx, j, n) : 0;
+  const int64_t nchunks = (u + rows_per_chunk - 1) / rows_per_chunk;
+  const int64_t window = (int64_t)CLUSTER * L;
+  const int fg = rank + CLUSTER * (int)threadIdx.x;  // the column this thread folds
+  const bool folds = fg < G;
+  float run = 0.0f;
+  for (int64_t w0 = 0; w0 < nchunks; w0 += window) {
+    const int64_t c = w0 + (int64_t)s * CLUSTER + rank;
+    if (live && c < nchunks) {
+      const int64_t r0 = c * rows_per_chunk;
+      const int64_t len = u - r0 < rows_per_chunk ? u - r0 : rows_per_chunk;
+      part[s * G + g] = chunk_sum(sim, ld, curmax, col, r0, len);
+    }
+    cluster.sync();  // every chunk sum of the window is in place
+    if (folds) {
+      const int64_t count = nchunks - w0 < window ? nchunks - w0 : window;
+      const float* src[CLUSTER];
+#pragma unroll
+      for (int q = 0; q < CLUSTER; ++q) src[q] = cluster.map_shared_rank(part, q) + fg;
+#pragma unroll 4
+      for (int t = 0; t * CLUSTER < count; ++t) {
+        float v[CLUSTER];
+#pragma unroll
+        for (int q = 0; q < CLUSTER; ++q) v[q] = t * CLUSTER + q < count ? src[q][t * G] : 0.0f;
+#pragma unroll
+        for (int q = 0; q < CLUSTER; ++q)
+          if (t * CLUSTER + q < count) run += v[q];  // chunk order: nothing past nchunks
+      }
+    }
+    cluster.sync();  // the window's slots are read; the next window may overwrite them
+  }
+  if (folds && first + fg < k) out[first + fg] = idx[first + fg] < 0 ? tile::kNegInf : run;
+}
+
+// Pass 1 of the full sweep: partial[c, j] = column j's sum over chunk c.
 __global__ void fl_partial_kernel(const float* __restrict__ sim, int64_t ld, int64_t u,
                                   int64_t n, const float* __restrict__ curmax,
-                                  const int32_t* __restrict__ idx, int64_t k,
                                   int64_t rows_per_chunk, int64_t nchunks,
                                   float* __restrict__ partial) {
   const int64_t j = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const int64_t c = (int64_t)blockIdx.y * blockDim.y + threadIdx.y;
-  if (j >= k || c >= nchunks) return;
-  const int64_t col = tile::gathered(idx, j, n);
-  const int64_t r0 = c * rows_per_chunk;
-  const int64_t r1 = (r0 + rows_per_chunk < u) ? r0 + rows_per_chunk : u;
-  const float* p = sim + r0 * ld + col;
-  float acc = 0.0f;
+  if (j >= n) return;
+  for (int64_t c = (int64_t)blockIdx.y * blockDim.y + threadIdx.y; c < nchunks;
+       c += (int64_t)gridDim.y * blockDim.y) {
+    const int64_t r0 = c * rows_per_chunk;
+    const int64_t r1 = (r0 + rows_per_chunk < u) ? r0 + rows_per_chunk : u;
+    const float* p = sim + r0 * ld + j;
+    float acc = 0.0f;
 #pragma unroll 8
-  for (int64_t r = r0; r < r1; ++r, p += ld) {
-    acc += fmaxf(__ldg(p) - __ldg(curmax + r), 0.0f);
+    for (int64_t r = r0; r < r1; ++r, p += ld) acc += fmaxf(__ldg(p) - __ldg(curmax + r), 0.0f);
+    partial[c * n + j] = acc;
   }
-  partial[c * k + j] = acc;
+}
+
+// The full sweep into out (n,), partial (ceil(u / rows_per_chunk), n) scratch.
+int launch_full(const float* sim, int64_t ld, int64_t u, int64_t n, const float* curmax,
+                int64_t rows_per_chunk, float* partial, float* out, cudaStream_t s) {
+  const int64_t nchunks = (u + rows_per_chunk - 1) / rows_per_chunk;
+  // block = bx columns x by chunks, 256 threads; a narrow sweep spends its
+  // threads on chunks instead of idle columns
+  int bx = 1;
+  while (bx < n && bx < 256) bx *= 2;
+  const int by = 256 / bx;
+  const int64_t rows = (nchunks + by - 1) / by;
+  const dim3 grid((unsigned)((n + bx - 1) / bx), (unsigned)(rows < MAX_GRID_Y ? rows : MAX_GRID_Y));
+  fl_partial_kernel<<<grid, dim3(bx, by), 0, s>>>(sim, ld, u, n, curmax, rows_per_chunk, nchunks,
+                                                  partial);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  tile::sum_partials_kernel<<<(unsigned)((n + 255) / 256), 256, 0, s>>>(
+      partial, nchunks, n, static_cast<const int32_t*>(nullptr), out);
+  return (int)cudaGetLastError();
+}
+
+// out[j] = full[clip(idx[j])], NEG_INF where idx[j] < 0.
+template <typename IdxT>
+__global__ void gather_kernel(const float* __restrict__ full, int64_t n,
+                              const IdxT* __restrict__ idx, int64_t k, float* __restrict__ out) {
+  const int64_t j = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (j < k) out[j] = idx[j] < 0 ? tile::kNegInf : full[tile::gathered(idx, j, n)];
+}
+
+template <typename IdxT>
+int launch_at(const float* sim, int64_t ld, int64_t u, int64_t n, const float* curmax,
+              const IdxT* idx, int64_t k, int64_t rows_per_chunk, int group, int slots,
+              int threads, float* partial, float* full, float* out, cudaStream_t s) {
+  if (full != nullptr) {  // past the crossover: every column into full, then the k slots
+    const int rc = launch_full(sim, ld, u, n, curmax, rows_per_chunk, partial, full, s);
+    if (rc != 0) return rc;
+    gather_kernel<IdxT><<<(unsigned)((k + 255) / 256), 256, 0, s>>>(full, n, idx, k, out);
+    return (int)cudaGetLastError();
+  }
+  // one launch: the k gathered columns
+  if (group < 1 || slots < 1 || (int64_t)group * slots > threads || threads > MAX_THREADS ||
+      threads % 32 != 0)
+    return (int)cudaErrorInvalidValue;
+  const int64_t blocks = (k + group - 1) / group * CLUSTER;
+  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
+  fl_gather_kernel<IdxT><<<(unsigned)blocks, threads, 0, s>>>(sim, ld, u, n, curmax, idx, k,
+                                                              rows_per_chunk, group, slots, out);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// sim (u, n) fp32 with row stride ld; curmax (u,); idx (k,) int32 or null
-// for the full sweep (then k == n); partial (ceil(u / rows_per_chunk), k)
-// scratch and out (k,) allocated by the caller.  Returns cudaGetLastError().
+// sim (u, n) fp32 with row stride ld; curmax (u,).  idx null: the full
+// sweep (k == n) into out, with partial (ceil(u / rows_per_chunk), n)
+// scratch.  idx (k,) with idx_bytes 4 (int32) or 8 (int64): the gathered
+// sweep; with full null, one launch laid out as group (G) columns x slots
+// (L) in blocks of threads (kernels/fl_gains.py::sweep_layout); with full
+// (n,) and partial scratch, the crossover: the full sweep into full, then
+// out gathered from it.  out and the scratch are allocated by the caller.
+// Returns cudaGetLastError().
 extern "C" int fl_gains_launch(const float* sim, int64_t ld, int64_t u, int64_t n,
-                               const float* curmax, const int32_t* idx, int64_t k,
-                               int64_t rows_per_chunk, float* partial, float* out,
-                               void* stream) {
-  if (k <= 0 || u <= 0 || rows_per_chunk <= 0) return (int)cudaErrorInvalidValue;
+                               const float* curmax, const void* idx, int idx_bytes, int64_t k,
+                               int64_t rows_per_chunk, int group, int slots, int threads,
+                               float* partial, float* full, float* out, void* stream) {
+  if (k <= 0 || u <= 0 || n <= 0 || rows_per_chunk <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int64_t nchunks = (u + rows_per_chunk - 1) / rows_per_chunk;
-  // block = bx columns x by chunks, 256 threads; a narrow gathered sweep
-  // spends its threads on chunks instead of idle columns
-  int bx = 1;
-  while (bx < k && bx < 256) bx *= 2;
-  const int by = 256 / bx;
-  const dim3 block(bx, by);
-  const dim3 grid((unsigned)((k + bx - 1) / bx), (unsigned)((nchunks + by - 1) / by));
-  fl_partial_kernel<<<grid, block, 0, s>>>(sim, ld, u, n, curmax, idx, k, rows_per_chunk,
-                                           nchunks, partial);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  tile::sum_partials_kernel<<<(unsigned)((k + 255) / 256), 256, 0, s>>>(partial, nchunks, k,
-                                                                         idx, out);
-  return (int)cudaGetLastError();
+  if (idx == nullptr)
+    return k == n ? launch_full(sim, ld, u, n, curmax, rows_per_chunk, partial, out, s)
+                  : (int)cudaErrorInvalidValue;
+  if (full != nullptr && partial == nullptr) return (int)cudaErrorInvalidValue;
+  if (idx_bytes == 4)
+    return launch_at(sim, ld, u, n, curmax, static_cast<const int32_t*>(idx), k, rows_per_chunk,
+                     group, slots, threads, partial, full, out, s);
+  if (idx_bytes == 8)
+    return launch_at(sim, ld, u, n, curmax, static_cast<const int64_t*>(idx), k, rows_per_chunk,
+                     group, slots, threads, partial, full, out, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 // Message for a code returned by the launch functions above.

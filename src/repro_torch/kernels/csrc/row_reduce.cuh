@@ -166,12 +166,13 @@ __device__ __forceinline__ float reduce_row_warp(const float* __restrict__ row, 
 }
 
 // out[r] = the warp-layout sum of row g_r of X (n, F), g_r = r (idx null,
-// the full sweep, k == n) or idx[r] clipped to [0, n) (the gathered sweep,
-// whose slots with idx[r] < 0 return NEG_INF).  One warp per slot.
-template <class Op>
+// the full sweep, k == n) or idx[r] (int32 or int64) clipped to [0, n) (the
+// gathered sweep, whose slots with idx[r] < 0 return NEG_INF).  One warp per
+// slot.
+template <class Op, typename IdxT>
 __global__ void __launch_bounds__(WARP_ROWS * 32)
     warp_rows_kernel(const float* __restrict__ x, int64_t n, int64_t F, Op op,
-                     const int32_t* __restrict__ idx, int64_t k, float* __restrict__ out) {
+                     const IdxT* __restrict__ idx, int64_t k, float* __restrict__ out) {
   const int64_t slot = (int64_t)blockIdx.x * WARP_ROWS + (threadIdx.x >> 5);
   if (slot >= k) return;  // the whole warp leaves together
   const int64_t g = tile::gathered(idx, slot, n);
@@ -179,12 +180,13 @@ __global__ void __launch_bounds__(WARP_ROWS * 32)
   if ((threadIdx.x & 31) == 0) out[slot] = (idx != nullptr && idx[slot] < 0) ? tile::kNegInf : acc;
 }
 
-template <class Op>
-int launch_warp_rows(const float* x, int64_t n, int64_t F, const Op op, const int32_t* idx,
+template <class Op, typename IdxT>
+int launch_warp_rows(const float* x, int64_t n, int64_t F, const Op op, const IdxT* idx,
                      int64_t k, float* out, cudaStream_t s) {
   if (k <= 0 || n <= 0 || F <= 0) return (int)cudaErrorInvalidValue;
   const int64_t blocks = (k + WARP_ROWS - 1) / WARP_ROWS;
-  warp_rows_kernel<Op><<<(unsigned)blocks, WARP_ROWS * 32, 0, s>>>(x, n, F, op, idx, k, out);
+  warp_rows_kernel<Op, IdxT><<<(unsigned)blocks, WARP_ROWS * 32, 0, s>>>(x, n, F, op, idx, k,
+                                                                        out);
   return (int)cudaGetLastError();
 }
 

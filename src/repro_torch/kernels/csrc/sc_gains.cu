@@ -77,6 +77,7 @@ extern "C" int sc_gains_launch(const float* cover, int64_t n, int64_t m, const f
 // the caller.  Returns cudaGetLastError().
 extern "C" int psc_gains_launch(const float* probs, int64_t n, int64_t m, const float* wm,
                                 float* out, void* stream) {
-  return rowred::launch_warp_rows(probs, n, m, rowred::PscTerm{wm}, nullptr, n, out,
+  return rowred::launch_warp_rows(probs, n, m, rowred::PscTerm{wm},
+                                  static_cast<const int32_t*>(nullptr), n, out,
                                   static_cast<cudaStream_t>(stream));
 }

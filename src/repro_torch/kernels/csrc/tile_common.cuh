@@ -109,10 +109,10 @@ __device__ __forceinline__ void mainloop(const TA* a_row, bool a_ok, const TB* b
   }
 }
 
-// Index of gathered item c: idx[c] clipped to [0, n) as the JAX gather
-// clips, or c itself when there is no idx.
-__device__ __forceinline__ int64_t gathered(const int32_t* __restrict__ idx, int64_t c,
-                                            int64_t n) {
+// Index of gathered item c: idx[c] (int32 or int64) clipped to [0, n) as
+// the JAX gather clips, or c itself when there is no idx.
+template <typename IdxT>
+__device__ __forceinline__ int64_t gathered(const IdxT* __restrict__ idx, int64_t c, int64_t n) {
   if (idx == nullptr) return c;
   const int64_t g = idx[c];
   return g < 0 ? 0 : (g >= n ? n - 1 : g);

@@ -68,7 +68,7 @@ def _launch(name: str, dist: torch.Tensor, *args) -> torch.Tensor:
         return out
     rc = getattr(_build.load(), f"{name}_launch")(
         dist.data_ptr(), n, *(a if isinstance(a, int) else a.data_ptr() for a in args),
-        out.data_ptr(), torch.cuda.current_stream(dist.device).cuda_stream,
+        out.data_ptr(), _build.raw_stream(dist),
     )
     _build.check(rc, f"{name} kernel")
     return out

@@ -6,8 +6,8 @@ feature matrix X, with g one of ``common.CONCAVE_FNS`` (sqrt / log /
 inverse), for every candidate (``fb_gains``, the port of
 ``repro/kernels/fb_gains.py::fb_gains_pallas``) or for the rows ``idx``
 (``fb_gains_at``, the port of ``fb_gains_at_pallas``; slots with idx < 0
-return NEG_INF, idx >= n reads row n - 1).  ``g(acc)`` is formed once per
-feature.
+return NEG_INF, idx >= n reads row n - 1).  The full sweep forms ``g(acc)``
+once per feature; the gathered sweep, one launch, forms it in its term.
 
 The kernel (``csrc/fb_gains.cu``) and the plain versions below sum each row
 in ``row_reduce``'s warp layout with the same rounding steps, so the
@@ -62,11 +62,13 @@ def _launch(feats, acc, w, concave, idx) -> torch.Tensor:
     out = torch.empty((k,), dtype=torch.float32, device=feats.device)
     if k == 0:
         return out
-    ga = torch.empty((F,), dtype=torch.float32, device=feats.device)  # g(acc), once per feature
+    # g(acc), formed once per feature by the full sweep; the gathered sweep
+    # forms it in its term and takes no scratch
+    ga = None if idx is not None else torch.empty((F,), dtype=torch.float32, device=feats.device)
     rc = _build.load().fb_gains_launch(
         feats.data_ptr(), n, F, acc.data_ptr(), w.data_ptr(), CONCAVE_CODES[concave],
-        None if idx is None else idx.data_ptr(), k, ga.data_ptr(), out.data_ptr(),
-        torch.cuda.current_stream(feats.device).cuda_stream,
+        None if idx is None else idx.data_ptr(), 0 if idx is None else idx.element_size(), k,
+        None if ga is None else ga.data_ptr(), out.data_ptr(), _build.raw_stream(feats),
     )
     _build.check(rc, "fb_gains kernel")
     return out
@@ -78,5 +80,6 @@ def fb_gains_cuda(feats, acc, w, concave: str = "sqrt") -> torch.Tensor:
 
 
 def fb_gains_at_cuda(feats, acc, w, idx, concave: str = "sqrt") -> torch.Tensor:
-    """Launch the gathered sweep; ``idx`` is a contiguous int32 CUDA tensor."""
+    """Launch the gathered sweep; ``idx`` is a contiguous int32 or int64
+    CUDA tensor, taken as it is."""
     return _launch(feats, acc, w, concave, idx)

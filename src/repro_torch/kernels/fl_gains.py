@@ -15,8 +15,14 @@ versions below add in exactly that order, so
 - the gathered sweep equals the full sweep bit for bit at the same index,
   whichever of the two implementations runs, and
 - the kernel and its plain version agree bit for bit as well.
+
+The first makes the crossover exact: a gathered sweep of k >=
+:data:`FULL_SWEEP_RATIO` * n columns sweeps every column and gathers the k
+slots from that (:func:`sweeps_every_column`).
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -24,7 +30,25 @@ from repro_torch.common import NEG_INF
 from repro_torch.kernels import _build
 
 ROWS_PER_CHUNK = 128  # rows summed in order before the chunk sums are added
-_MAX_GRID_Y = 65535  # CUDA's grid.y limit; the full sweep puts one chunk per grid row
+# csrc/fl_gains.cu's gathered launch: a cluster of CLUSTER blocks owns G
+# columns; a block's thread sums one chunk of one column per window
+CLUSTER = _build.FL_CLUSTER
+MAX_THREADS = 256  # the kernel's launch bound
+# G = ceil(k / CLUSTERS), at most MAX_THREADS: the widest blocks, the fewest
+# clusters.  On the card (NVIDIA H100 80GB HBM3, 700.00 W; u = n = 50,000,
+# compare_wrappers.py --layouts) 8 clusters beat 16 and 64 from k = 256 up
+# and tie them below: 0.73 / 0.80 / 0.81-0.84 ms at k = 512, 1.95 / 2.89-2.91
+# / 3.15-3.23 ms at k = 2,048 (two calls); a ninth cluster (k > 8 * 256)
+# costs more than its share (2.34-2.58 ms at k = 2,176).
+CLUSTERS = 8
+# The crossover: a gathered sweep of k >= FULL_SWEEP_RATIO * n columns sweeps
+# every column into an n-long scratch and gathers from it, as the full
+# sweep's cost grows with n and the gather's with k.  On the card (NVIDIA
+# H100 80GB HBM3, 700.00 W; u = n = 50,000, compare_wrappers.py
+# --crossover, the gather forced on and off) the gather takes 1.96 ms at
+# k = 2,048, 3.31 at 2,432, 3.34 at 2,560 and 4.19 at 3,072, the full
+# sweep and gather 3.38-3.40 ms at every k.
+FULL_SWEEP_RATIO = 0.05
 
 
 def _column_sums(cols: torch.Tensor, curmax: torch.Tensor) -> torch.Tensor:
@@ -59,6 +83,29 @@ def fl_gains_at_plain(sim: torch.Tensor, curmax: torch.Tensor, idx: torch.Tensor
     return torch.where(idx < 0, NEG_INF, _column_sums(cols, curmax))
 
 
+def sweeps_every_column(k: int, n: int) -> bool:
+    """Whether a gathered sweep of k of n columns runs as the full sweep
+    and a gather (the crossover, :data:`FULL_SWEEP_RATIO`)."""
+    return k >= FULL_SWEEP_RATIO * n
+
+
+@functools.lru_cache(maxsize=4096)
+def sweep_layout(u: int, k: int) -> tuple[int, int, int, int, int]:
+    """The gathered kernel's launch over k columns of u rows: (G columns
+    per cluster, L chunk slots per block and window, threads per block,
+    blocks, windows).  G = ceil(k / CLUSTERS), at most MAX_THREADS; a block
+    holds G columns x L slots, one chunk per thread and window, with L as
+    large as MAX_THREADS allows and no larger than the chunks need; the
+    blocks run along the grid's x axis only, and the windows loop over the
+    chunks, so no grid limit bounds u (the first design's grid.y did, at
+    65,535 chunks)."""
+    g = min(MAX_THREADS, -(-k // CLUSTERS))
+    nchunks = -(-u // ROWS_PER_CHUNK)
+    slots = max(1, min(-(-nchunks // CLUSTER), MAX_THREADS // g))
+    threads = -(-g * slots // 32) * 32
+    return g, slots, threads, -(-k // g) * CLUSTER, -(-nchunks // (CLUSTER * slots))
+
+
 def _launch(sim: torch.Tensor, curmax: torch.Tensor, idx: torch.Tensor | None) -> torch.Tensor:
     u, n = sim.shape
     k = n if idx is None else idx.shape[0]
@@ -70,18 +117,22 @@ def _launch(sim: torch.Tensor, curmax: torch.Tensor, idx: torch.Tensor | None) -
         if idx is not None:
             out.masked_fill_(idx < 0, NEG_INF)
         return out
-    nchunks = -(-u // ROWS_PER_CHUNK)
-    if nchunks > _MAX_GRID_Y:
-        raise ValueError(f"fl_gains kernel takes at most {_MAX_GRID_Y * ROWS_PER_CHUNK} rows, got {u}")
-    # scratch from the caching allocator: dropping it on return is safe while
-    # the kernel runs, as the block is reused only by later work on this stream
-    partial = torch.empty((nchunks, k), dtype=torch.float32, device=sim.device)
-    lib = _build.load()
-    rc = lib.fl_gains_launch(
+    partial = full = None
+    group = slots = threads = 0
+    if idx is None or sweeps_every_column(k, n):
+        # the full sweep's scratch, from the caching allocator: dropping it on
+        # return is safe while the kernel runs, as the block is reused only by
+        # later work on this stream
+        partial = torch.empty((-(-u // ROWS_PER_CHUNK), n), dtype=torch.float32, device=sim.device)
+        if idx is not None:
+            full = torch.empty((n,), dtype=torch.float32, device=sim.device)
+    else:
+        group, slots, threads, _, _ = sweep_layout(u, k)
+    rc = _build.load().fl_gains_launch(
         sim.data_ptr(), sim.stride(0), u, n, curmax.data_ptr(),
-        None if idx is None else idx.data_ptr(), k, ROWS_PER_CHUNK,
-        partial.data_ptr(), out.data_ptr(),
-        torch.cuda.current_stream(sim.device).cuda_stream,
+        None if idx is None else idx.data_ptr(), 0 if idx is None else idx.element_size(), k,
+        ROWS_PER_CHUNK, group, slots, threads, None if partial is None else partial.data_ptr(),
+        None if full is None else full.data_ptr(), out.data_ptr(), _build.raw_stream(sim),
     )
     _build.check(rc, "fl_gains kernel")
     return out
@@ -93,5 +144,6 @@ def fl_gains_cuda(sim: torch.Tensor, curmax: torch.Tensor) -> torch.Tensor:
 
 
 def fl_gains_at_cuda(sim: torch.Tensor, curmax: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Launch the gathered sweep; ``idx`` is a contiguous int32 CUDA tensor."""
+    """Launch the gathered sweep; ``idx`` is a contiguous int32 or int64
+    CUDA tensor, taken as it is."""
     return _launch(sim, curmax, idx)

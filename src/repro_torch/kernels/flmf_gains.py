@@ -93,7 +93,7 @@ def _launch(x, y, xx, yy, curmax, idx, metric, rbf_sigma) -> torch.Tensor:
     # the kernel runs, as the block is reused only by later work on this stream
     partial = torch.empty((nblocks, min(k, cols)), dtype=torch.float32, device=x.device)
     lib = _build.load()
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    stream = _build.raw_stream(x)
     for lo in range(0, k, cols):
         hi = min(k, lo + cols)
         rc = lib.flmf_gains_launch(

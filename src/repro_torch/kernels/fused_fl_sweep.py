@@ -67,7 +67,7 @@ def fused_fl_sweep_cuda(x: torch.Tensor, y: torch.Tensor, curmax: torch.Tensor) 
     # scratch from the caching allocator, reused by every column slice
     partial = torch.empty((nblocks, min(n, cols)), dtype=torch.float32, device=y.device)
     lib = _build.load()
-    stream = torch.cuda.current_stream(y.device).cuda_stream
+    stream = _build.raw_stream(y)
     row_bytes = d * y.element_size()
     for lo in range(0, n, cols):
         hi = min(n, lo + cols)

@@ -65,7 +65,7 @@ def _launch(sim, selmask, total, lam, idx) -> torch.Tensor:
     rc = _build.load().gc_gains_launch(
         sim.data_ptr(), n, selmask.data_ptr(), sel, blk, total.data_ptr(), lam.data_ptr(),
         None if idx is None else idx.data_ptr(), k, out.data_ptr(),
-        torch.cuda.current_stream(sim.device).cuda_stream,
+        _build.raw_stream(sim),
     )
     _build.check(rc, "gc_gains kernel")
     return out

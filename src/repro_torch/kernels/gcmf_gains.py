@@ -95,7 +95,7 @@ def _launch(y, yy, selmask, total, diag, lam, idx, metric, rbf_sigma) -> torch.T
     partial = torch.empty((nblocks, min(j, cols)), dtype=torch.float32, device=y.device)
     sel, nsel = select_cols_cuda(selmask, "nonzero")
     lib = _build.load()
-    stream = torch.cuda.current_stream(y.device).cuda_stream
+    stream = _build.raw_stream(y)
     for lo in range(0, j, cols):
         hi = min(j, lo + cols)
         rc = lib.gcmf_gains_launch(

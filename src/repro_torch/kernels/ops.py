@@ -193,7 +193,7 @@ def fl_gains_at(sim, curmax, idx) -> torch.Tensor:
     _check_idx(idx, sim)
     if not on_card:
         return fl_gains_at_plain(sim, curmax, idx)
-    out = fl_gains_at_cuda(sim, curmax, idx.to(torch.int32).contiguous())
+    out = fl_gains_at_cuda(sim, curmax, idx.contiguous())
     LAUNCHES["fl_gains_at"] += 1
     return out
 
@@ -382,7 +382,7 @@ def fb_gains_at(feats, acc, w, idx, concave: str = "sqrt") -> torch.Tensor:
         raise ValueError("fb_gains_at: feats has no rows to gather from")
     if not on_card:
         return fb_gains_at_plain(feats, acc, w, idx, concave)
-    out = fb_gains_at_cuda(feats, acc, w, idx.to(torch.int32).contiguous(), concave)
+    out = fb_gains_at_cuda(feats, acc, w, idx.contiguous(), concave)
     LAUNCHES["fb_gains_at"] += 1
     return out
 

@@ -44,7 +44,7 @@ def _launch(name: str, mat: torch.Tensor, *vecs: torch.Tensor) -> torch.Tensor:
         return out
     rc = getattr(_build.load(), f"{name}_launch")(
         mat.data_ptr(), n, m, *(v.data_ptr() for v in vecs), out.data_ptr(),
-        torch.cuda.current_stream(mat.device).cuda_stream,
+        _build.raw_stream(mat),
     )
     _build.check(rc, f"{name} kernel")
     return out

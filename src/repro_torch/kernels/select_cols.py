@@ -53,7 +53,7 @@ def select_cols_cuda(mask: torch.Tensor, pred: str) -> tuple[torch.Tensor, torch
     buf, sel, blk = scratch(n, mask.device)
     rc = _build.load().select_cols_launch(
         mask.data_ptr(), n, PREDICATES[pred], sel, blk,
-        torch.cuda.current_stream(mask.device).cuda_stream,
+        _build.raw_stream(mask),
     )
     _build.check(rc, "select_cols kernel")
     return buf[:n], buf[-1:]

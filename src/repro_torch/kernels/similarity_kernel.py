@@ -121,7 +121,7 @@ def launch_rows(x: torch.Tensor, y: torch.Tensor, metric: str, inv2s2: float) ->
     rc = lib.similarity_launch(
         x.data_ptr(), y.data_ptr(), xx.data_ptr(), yy.data_ptr(), out.data_ptr(),
         n, m, d, _METRIC_CODE[metric], inv2s2,
-        torch.cuda.current_stream(x.device).cuda_stream,
+        _build.raw_stream(x),
     )
     _build.check(rc, "similarity kernel")
     return out

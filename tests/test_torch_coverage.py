@@ -113,6 +113,19 @@ def test_fb_at_plain_matches_jax_and_equals_full_bit_for_bit(idx, concave):
         **SC_TOL)
 
 
+@pytest.mark.parametrize("concave", CONCAVES)
+@pytest.mark.parametrize("idx", SUBSET_IDX, ids=["gather", "dups", "pads", "clipped", "all"])
+def test_fb_at_takes_int32_and_int64_ids(idx, concave):
+    """The engine hands int64 ids over, other callers int32: the wrapper
+    takes both as they are, with equal results."""
+    rng = np.random.default_rng(13)
+    feats, acc, w = (_t(rng.uniform(0, 1, size=s).astype(np.float32))
+                     for s in ((48, 33), (33,), (33,)))
+    got32 = ops.fb_gains_at(feats, acc, w, _t(idx), concave)
+    got64 = ops.fb_gains_at(feats, acc, w, _t(idx.astype(np.int64)), concave)
+    assert torch.equal(got32, got64)
+
+
 @pytest.mark.parametrize("shape", SC_SHAPES)
 def test_sc_plain_matches_jax_kernel_and_oracle(shape):
     n, m = shape

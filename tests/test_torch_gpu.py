@@ -6,6 +6,8 @@ runs on a machine without JAX:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -30,6 +32,7 @@ from repro_torch.interop import (
     graph_cut_from_arrays,
     result_to_numpy,
 )
+from repro_torch.kernels import fl_gains as fl_module
 from repro_torch.kernels import ops
 from repro_torch.kernels.disp_gains import dmin_gains_plain, dsum_gains_plain
 from repro_torch.kernels.fb_gains import fb_gains_at_plain, fb_gains_plain
@@ -168,6 +171,78 @@ def test_fl_gains_kernels_match_plain(cuda, shape):
         assert torch.equal(got, fl_gains_at_plain(sim, cm, idx))
     assert ops.LAUNCHES["fl_gains"] == before["fl_gains"] + 1
     assert ops.LAUNCHES["fl_gains_at"] == before["fl_gains_at"] + 4
+
+
+# the gathered FL sweep's widths: both sides of the crossover at n =
+# FL_AT_N, every column and past it; u below one chunk, ragged, and past
+# the first design's 8,388,480-row limit (with n = 8)
+FL_AT_N = 20_000
+FL_AT_EDGE = math.ceil(fl_module.FULL_SWEEP_RATIO * FL_AT_N)  # the crossover's first k
+FL_AT_K = [1, 8, 64, 512, FL_AT_EDGE - 1, FL_AT_EDGE, FL_AT_N - 1, FL_AT_N + 3]
+FL_AT_SHAPES = [(100, FL_AT_N), (1000, FL_AT_N), (65_535 * 128 + 1, 8)]
+
+
+def _ids(g, cuda, n, k, dtype):
+    """k ids in [0, n + 3) with pads (-1, the first among them), duplicates
+    and ids >= n, which read item n - 1."""
+    idx = torch.randint(0, n + 3, (k,), generator=g, device=cuda)
+    idx[::7] = -1
+    idx[1::5] = idx[0]
+    return idx.to(dtype)
+
+
+@pytest.mark.parametrize("route", ["rule", "gather", "every column"])
+@pytest.mark.parametrize("shape", FL_AT_SHAPES)
+def test_fl_gains_at_equals_full_and_plain_for_int32_and_int64(cuda, monkeypatch, shape, route):
+    """One launch below the crossover, the full sweep and a gather from
+    it past it (``route`` forces either): bit-equal to the full sweep and
+    to the plain version at every width, with int32 and int64 ids, pads,
+    duplicates and ids >= n; one count per call."""
+    u, n = shape
+    if route != "rule":
+        monkeypatch.setattr(fl_module, "sweeps_every_column", lambda k, n_: route != "gather")
+    g = torch.Generator(device=cuda).manual_seed(40)
+    sim = torch.rand((u, n), generator=g, device=cuda)
+    cm = 0.7 * torch.rand((u,), generator=g, device=cuda)
+    full = ops.fl_gains(sim, cm)
+    assert torch.equal(full, fl_gains_plain(sim, cm))
+    for k in FL_AT_K if n == FL_AT_N else [1, 8, 9, 64]:
+        idx = _ids(g, cuda, n, k, torch.int64)
+        want = fl_gains_at_plain(sim, cm, idx)
+        for dtype in (torch.int64, torch.int32):
+            before = ops.LAUNCHES["fl_gains_at"]
+            got = ops.fl_gains_at(sim, cm, idx.to(dtype))
+            torch.cuda.synchronize()
+            assert ops.LAUNCHES["fl_gains_at"] == before + 1
+            _assert_subset(got, full, torch.clamp(idx, max=n - 1))
+            assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("concave", ["sqrt", "log", "inverse"])
+def test_fb_gains_at_equals_full_for_int32_and_int64(cuda, concave):
+    """One launch that forms g(acc) in its term: bit-equal to the full
+    sweep (which forms it once per feature) at every width, with int32 and
+    int64 ids, pads, duplicates and ids >= n; the plain version's bits
+    where torch's rounding is CUDA's (sqrt, inverse), its bar for log1p."""
+    n, F = FL_AT_N, 257
+    g = torch.Generator(device=cuda).manual_seed(41)
+    feats = torch.rand((n, F), generator=g, device=cuda)
+    acc = 3.0 * torch.rand((F,), generator=g, device=cuda)
+    w = 0.5 + torch.rand((F,), generator=g, device=cuda)
+    full = ops.fb_gains(feats, acc, w, concave)
+    for k in FL_AT_K:
+        idx = _ids(g, cuda, n, k, torch.int64)
+        want = fb_gains_at_plain(feats, acc, w, idx, concave)
+        for dtype in (torch.int64, torch.int32):
+            before = ops.LAUNCHES["fb_gains_at"]
+            got = ops.fb_gains_at(feats, acc, w, idx.to(dtype), concave)
+            torch.cuda.synchronize()
+            assert ops.LAUNCHES["fb_gains_at"] == before + 1
+            _assert_subset(got, full, torch.clamp(idx, max=n - 1))
+            if concave == "log":
+                torch.testing.assert_close(got, want, **COVER_TOL)
+            else:
+                assert torch.equal(got, want)
 
 
 def test_cuda_wrappers_raise_instead_of_falling_back(cuda):

@@ -5,14 +5,26 @@ held against their plain versions on the card by tests/test_torch_gpu.py.
 On the CPU the wrappers run the kernels' plain versions; the JAX side runs
 its Pallas kernels in interpret mode (repro.kernels.ops picks that by
 itself), so shapes stay small."""
+import math
+
 import numpy as np
 import pytest
 import torch
 
 from repro.kernels import ops as jops
 from repro_torch.common import NEG_INF
-from repro_torch.kernels import ops
-from repro_torch.kernels.fl_gains import ROWS_PER_CHUNK, fl_gains_at_plain, fl_gains_plain
+from repro_torch.kernels import _build, fl_gains, ops
+from repro_torch.kernels.fl_gains import (
+    CLUSTER,
+    CLUSTERS,
+    FULL_SWEEP_RATIO,
+    MAX_THREADS,
+    ROWS_PER_CHUNK,
+    fl_gains_at_plain,
+    fl_gains_plain,
+    sweep_layout,
+    sweeps_every_column,
+)
 from repro_torch.kernels.similarity_kernel import similarity_plain
 
 METRICS = ["dot", "cosine", "euclidean", "rbf"]
@@ -136,6 +148,89 @@ def test_fl_gains_at_plain_is_bit_equal_to_full(u, k):
     assert bool((got[~keep] == NEG_INF).all())
 
 
+@pytest.mark.parametrize("idx", SUBSET_IDX)
+def test_fl_gains_at_takes_int32_and_int64_ids(idx):
+    """The engine hands int64 ids over, other callers int32: the wrapper
+    takes both as they are, with equal results."""
+    rng = np.random.default_rng(12)
+    sim = _t(rng.uniform(0, 1, size=(70, 48)).astype(np.float32))
+    cm = _t(rng.uniform(0, 0.8, size=(70,)).astype(np.float32))
+    got32 = ops.fl_gains_at(sim, cm, _t(idx))
+    got64 = ops.fl_gains_at(sim, cm, _t(idx.astype(np.int64)))
+    assert got32.dtype == got64.dtype == torch.float32
+    assert torch.equal(got32, got64)
+
+
+@pytest.mark.parametrize("n", [1, 7, 18, 100, 4096, 50_000, 1 << 20])
+def test_crossover_rule_at_its_edges(n):
+    """A pure function of (k, n): from ceil(FULL_SWEEP_RATIO * n) columns
+    up the gathered sweep runs as the full sweep and a gather."""
+    edge = math.ceil(FULL_SWEEP_RATIO * n)
+    assert sweeps_every_column(edge, n)
+    assert sweeps_every_column(edge + 1, n)
+    assert not sweeps_every_column(edge - 1, n)
+    assert not sweeps_every_column(0, n) or edge == 0
+    assert sweeps_every_column(n, n) and sweeps_every_column(n + 3, n)
+    assert [sweeps_every_column(k, n) for k in range(max(0, edge - 3), edge + 3)] == sorted(
+        sweeps_every_column(k, n) for k in range(max(0, edge - 3), edge + 3))
+
+
+FIRST_LIMIT = 65_535 * ROWS_PER_CHUNK  # the first design's grid.y cap: 8,388,480 rows
+
+
+@pytest.mark.parametrize("u", [1, 127, 128, 129, 50_000, FIRST_LIMIT, FIRST_LIMIT + 1,
+                               1 << 24, (1 << 31) + 5])
+@pytest.mark.parametrize("k", [1, 8, 64, 200, 512, 2048, 50_000, 1 << 20])
+def test_sweep_layout_covers_every_chunk_past_the_old_row_limit(u, k):
+    """The gathered launch's layout is arithmetic on (u, k): every column
+    has its cluster, every chunk its window and slot, the grid runs along x
+    alone and stays under CUDA's limits, whatever u, past the first design's
+    8,388,480 rows."""
+    g, slots, threads, blocks, windows = sweep_layout(u, k)
+    nchunks = -(-u // ROWS_PER_CHUNK)
+    assert g == min(MAX_THREADS, -(-k // CLUSTERS))  # few enough clusters to run at once
+    assert 1 <= slots and g * slots <= threads <= MAX_THREADS and threads % 32 == 0
+    assert threads < g * slots + 32  # no whole idle warp
+    # as many slots as a block's threads hold, no more than the chunks need
+    assert slots == min(-(-nchunks // CLUSTER), MAX_THREADS // g)
+    clusters = blocks // CLUSTER
+    assert blocks % CLUSTER == 0 and clusters * g >= k > (clusters - 1) * g
+    assert blocks <= 2**31 - 1
+    window = CLUSTER * slots
+    assert windows * window >= nchunks > (windows - 1) * window
+
+
+def test_launcher_passes_rows_past_the_old_limit(monkeypatch):
+    """The Python launcher no longer refuses u > 8,388,480 rows: it hands
+    the kernel the gathered sweep's layout, or the full sweep's scratch
+    (for the full sweep and past the crossover), and the ids' width (int32
+    or int64) as they are (a stand-in library records the call; no kernel
+    runs here)."""
+    calls = []
+
+    class Lib:
+        def fl_gains_launch(self, *args):
+            calls.append(args)
+            return 0
+
+    monkeypatch.setattr(_build, "load", lambda: Lib())
+    monkeypatch.setattr(_build, "raw_stream", lambda t: 0)
+    u, n = FIRST_LIMIT + 1, 100
+    # stride-0 views: the shapes of the launch, without its memory
+    sim, cm = torch.zeros((1, n)).expand(u, n), torch.zeros((1,)).expand(u)
+    for idx, width in ((None, 0), (torch.tensor([0, -1, 9]), 8),
+                       (torch.tensor([3], dtype=torch.int32), 4), (torch.arange(n), 8)):
+        k = n if idx is None else idx.shape[0]
+        assert fl_gains._launch(sim, cm, idx).shape == (k,)
+        args = calls[-1]
+        assert args[2:4] == (u, n) and args[6:9] == (width, k, ROWS_PER_CHUNK)
+        sweep = idx is None or sweeps_every_column(k, n)
+        assert sweep == (k == n)
+        assert args[9:12] == ((0, 0, 0) if sweep else sweep_layout(u, k)[:3])
+        assert (args[12] is not None) == sweep  # the full sweep's partial sums
+        assert (args[13] is not None) == (sweep and idx is not None)  # the n-long scratch
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take():
     s = torch.rand(6, 5)
     cm = torch.rand(6)
@@ -163,4 +258,5 @@ def test_cpu_calls_are_not_kernel_launches():
     ops.similarity(s, s)
     ops.fl_gains(s, cm)
     ops.fl_gains_at(s, cm, torch.tensor([0, -1]))
+    ops.fl_gains_at(s, cm, torch.tensor([0, -1], dtype=torch.int32))
     assert ops.LAUNCHES == before
