@@ -6,7 +6,7 @@ that path against its plain PyTorch version.
     python3 chip_smoke.py --n 8192 --naive-budget 50 --lazy-budget 200 \
         --mf-n 65536 --mf-lazy-budget 200 --reps 5   # a short check
 
-Five paths run, each with its launch counts set to 0 just before it and
+Six paths run, each with its launch counts set to 0 just before it and
 read just after:
 
 - the main path, the paper's core loop: ``create_kernel`` (CUDA similarity
@@ -31,6 +31,11 @@ read just after:
   FL sweeps) and its matrix-free form, and the information measures (FL,
   GC, LogDet, Concave-Over-Modular) with a query and a private set;
   ``gccg`` runs the CUDA gc sweeps.
+- the wave path: B selection problems as one wave through
+  ``solve(specs, mode="batched")`` / ``BatchedEngine`` (one ``fl_gains``
+  launch a NaiveGreedy step and one ``fl_gains_at`` launch a LazyGreedy
+  level for the whole wave), every other kernel family in a wave, and the
+  sparse k-NN sources.
 
 Phases, each of which raises on failure (the exit code is then non-zero):
   1 device   CUDA present; the card's name and power limit
@@ -83,6 +88,20 @@ Phases, each of which raises on failure (the exit code is then non-zero):
              clustered FL against the dense one; (k) FLQMI / FLVMI / FLCG /
              FLCMI, gccg (against its plain path), GCMI, COM, LogDet and
              logdet_mi on S with 100 query and 100 private items
+  10 wave    (l) FacilityLocation waves of --wave-b members at n = --wave-n
+             and a quarter of them at 2x (cosine S of mixtures from the seed
+             + member index, budgets 50..200), NaiveGreedy and LazyGreedy,
+             through solve(specs, mode="batched"), in turns with the B
+             sequential solves: every member bit-equal to its sequential
+             solve, one fl sweep launch a step / level over all members, the
+             wave kernels against B single launches; (m) a zero-padded wave
+             (n_i from --wave-n to 2x) through BatchedEngine(valid=...),
+             bit-equal to the unpadded sequential solves; (n) GraphCut,
+             DisparitySum / Min, FeatureBased, SetCover, PSC, FLMF and GCMF
+             in waves of 4, bit-equal; (o) knn_from_features on phase 4's
+             features (top-k rows checked), FacilityLocationMF.from_knn
+             against a dense FL over its to_dense() and run twice with equal
+             bits, random neighbours over --mf-n items, GraphCutMF.from_knn
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Details go to chiprun_out/chip_smoke.json.
 Without a CUDA device, or without the repo's ``src/`` beside it, the script
@@ -181,6 +200,21 @@ CLUSTERS, KMEANS_ITERS = 100, 25  # phase 9 (j): the mixture's component count
 GUIDED = 100  # phase 9 (k): |Q| = |P|
 GUIDED_BUDGET = 500  # phase 9 (k): the FL, GC and COM measures' NaiveGreedy budget
 LOGDET_BUDGET = 100  # phase 9 (k): well under the cosine S's rank d + 1
+# phase 10 (l), (m): the members' budgets, spread evenly over this range, and
+# LazyGreedy's screen width
+WAVE_BUDGETS = (50, 200)
+WAVE_SCREEN_K = 8
+# phase 10 (n): members per family, and the NaiveGreedy / LazyGreedy budgets
+FAMILY_B = 4
+FAMILY_BUDGETS = (50, 200)
+# phase 10 (o): neighbours per row and knn_from_features' row batch on phase
+# 4's features; the million-point shape's random neighbours (the JAX
+# package's tests/test_matrix_free.py:285-296); NaiveGreedy / LazyGreedy
+# budgets of each, and GraphCutMF's NaiveGreedy budget
+KNN_K, KNN_BATCH = 10, 2048
+KNN_MILLION_K = 8
+KNN_BUDGETS = ((500, 5000), (100, 1000))
+GC_KNN_BUDGET = 100
 
 
 def log(msg: str) -> None:
@@ -1123,30 +1157,33 @@ def _lazy_levels_apart(torch, label, fns, budget, screen_k=8, must_part=True) ->
     from repro_torch.core import SelectionSpec, solve
     from repro_torch.core.optimizers import greedy
 
-    full, part, stop = greedy.full_sweep, greedy.partial_sweep, greedy._should_stop
+    full, part, stop = greedy.full_sweep_wave, greedy.partial_sweep_wave, greedy._should_stop
     runs = []
     for fn in fns:
         rec = {"levels": [[]]}  # per step, the (idx, gains) of each level
 
+        # a sequential solve is the engine's one-member wave
         def rec_full(f, s, rec=rec):
             g = full(f, s)
-            rec.setdefault("init", g.float().cpu())  # the engine's initial bounds
+            rec.setdefault("init", g[0].float().cpu())  # the engine's initial bounds
             return g
 
         def rec_part(f, s, idx, rec=rec):
             g = part(f, s, idx)
-            rec["levels"][-1].append((idx.long().cpu(), g.float().cpu()))
+            rec["levels"][-1].append((idx[0].long().cpu(), g[0].float().cpu()))
             return g
 
         def rec_stop(*a, rec=rec):
             rec["levels"].append([])
             return stop(*a)
 
-        greedy.full_sweep, greedy.partial_sweep, greedy._should_stop = rec_full, rec_part, rec_stop
+        greedy.full_sweep_wave, greedy.partial_sweep_wave, greedy._should_stop = (
+            rec_full, rec_part, rec_stop)
         try:
             res = solve(SelectionSpec(fn, budget, "LazyGreedy", screen_k=screen_k))
         finally:
-            greedy.full_sweep, greedy.partial_sweep, greedy._should_stop = full, part, stop
+            greedy.full_sweep_wave, greedy.partial_sweep_wave, greedy._should_stop = (
+                full, part, stop)
         order = res.order.cpu()
         ub, n = rec["init"].clone(), rec["init"].shape[0]
         selected = torch.zeros((n,), dtype=torch.bool)
@@ -2380,6 +2417,398 @@ def phase_slice5(torch, args) -> tuple[dict, dict]:
     return out, row
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the wave path
+
+
+def _same_bits(torch, label: str, got, want) -> None:
+    """Raise unless two results agree bit for bit: ids, gains, n_evals and
+    the value."""
+    go, wo = got.order.cpu(), want.order.cpu()
+    gg, wg = got.gains.cpu(), want.gains.cpu()
+    if go.shape != wo.shape or not (torch.equal(go, wo)
+                                    and torch.equal(gg.view(torch.int32), wg.view(torch.int32))):
+        raise AssertionError(f"{label}: ids or gains part from the sequential solve")
+    if int(got.n_evals) != int(want.n_evals):
+        raise AssertionError(f"{label}: n_evals {int(got.n_evals)} != {int(want.n_evals)}")
+    if np.float32(float(got.value)).tobytes() != np.float32(float(want.value)).tobytes():
+        raise AssertionError(f"{label}: value {float(got.value)!r} != {float(want.value)!r}")
+
+
+def _timed(torch, fn) -> tuple:
+    """(result, host seconds, peak device bytes, launches by kernel) of one
+    synchronized call, its launch counts set to 0 just before it."""
+    from repro_torch.kernels import ops
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return res, wall, torch.cuda.max_memory_allocated(), {
+        k: v for k, v in ops.LAUNCHES.items() if v}
+
+
+def _wave_turns(torch, label: str, specs) -> dict:
+    """The wave (``solve(specs, mode="batched")``) and the B sequential
+    solves in turns (wave, sequential, sequential, wave); every member of
+    every run bit-equal to its first sequential solve.  During a wave the fl
+    sweeps' calls are recorded by their member count."""
+    from repro_torch.core import solve
+    from repro_torch.kernels import ops
+
+    calls = collections.Counter()
+    originals = {name: getattr(ops, name) for name in ("fl_gains", "fl_gains_at")}
+
+    def recorder(name):
+        def call(sim, *args):
+            calls[f"{name} x{sim.shape[0] if sim.dim() == 3 else 1}"] += 1
+            return originals[name](sim, *args)
+        return call
+
+    out, runs = {"wave_s": [], "sequential_s": []}, {"wave": [], "sequential": []}
+    for turn in ("wave", "sequential", "sequential", "wave"):
+        if turn == "wave":
+            calls.clear()
+            for name in originals:
+                setattr(ops, name, recorder(name))
+            try:
+                res, wall, peak, launches = _timed(torch, lambda: solve(specs, mode="batched"))
+            finally:
+                for name, fn in originals.items():
+                    setattr(ops, name, fn)
+            out["wave_calls"] = dict(sorted(calls.items()))
+        else:
+            res, wall, peak, launches = _timed(torch, lambda: [solve(s) for s in specs])
+        runs[turn].append(res)
+        out[f"{turn}_s"].append(wall)
+        out[f"{turn}_peak_bytes"], out[f"{turn}_launches"] = peak, launches
+    seq = runs["sequential"][0]
+    for res in runs["wave"] + runs["sequential"][1:]:
+        for b, (w, s) in enumerate(zip(res, seq)):
+            _same_bits(torch, f"{label} member {b}", w, s)
+    out["n_evals"] = [int(r.n_evals) for r in seq]
+    out["picks"] = [r.order[r.order >= 0].tolist() for r in seq]
+    log(f"  ok  {label}: every member bit-equal to its sequential solve (ids, gains, n_evals, "
+        f"value); wave {' / '.join(f'{t:.3f}' for t in out['wave_s'])} s against the "
+        f"sequential solves' {' / '.join(f'{t:.3f}' for t in out['sequential_s'])} s (turns "
+        f"W S S W); launches wave {out['wave_launches']}, sequential "
+        f"{out['sequential_launches']}; wave calls {out['wave_calls']}; peak wave "
+        f"{out['wave_peak_bytes'] / 2**30:.2f} / sequential "
+        f"{out['sequential_peak_bytes'] / 2**30:.2f} GiB")
+    return out
+
+
+def _mixture_fl(torch, seed: int, n: int, d: int):
+    """FacilityLocation (backend by the decision table) over the cosine S,
+    built by the similarity kernel, of a 100-component mixture from ``seed``."""
+    from repro_torch.core import FacilityLocation, create_kernel
+
+    x = torch.as_tensor(gaussian_mixture(seed, n, d), device="cuda")
+    return FacilityLocation.from_kernel(create_kernel(x, metric="cosine", use_pallas=True),
+                                        use_kernel=None)
+
+
+def _wave_budgets(B: int) -> list[int]:
+    """B budgets spread evenly over WAVE_BUDGETS."""
+    lo, hi = WAVE_BUDGETS
+    return [lo + (hi - lo) * b // max(B - 1, 1) for b in range(B)]
+
+
+def _wave_kernel_times(torch, args, fns, picks) -> dict:
+    """fl_gains and fl_gains_at (k = 8, 64; int64 ids) over a wave's one
+    stacked S, against B single-member launches at the same state: each
+    member's curmax after its first 10 NaiveGreedy picks."""
+    from repro_torch.common import stacked_view
+    from repro_torch.core import BatchedEngine
+    from repro_torch.kernels import ops
+
+    members = BatchedEngine(fns).members
+    B, (u, n) = len(members), members[0].sim.shape
+    cms = []
+    for m, p in zip(members, picks):
+        st = m.init_state()
+        for j in p[:10]:
+            st = m.update(st, torch.tensor([j], device="cuda"))
+        cms.append(st.curmax)
+    sim, cm = stacked_view([m.sim for m in members]), torch.stack(cms)
+    gen = torch.Generator(device="cuda").manual_seed(args.seed + 10)
+    out = {"shape": [B, u, n]}
+    full = ops.fl_gains(sim, cm)
+    for b in range(B):
+        if not torch.equal(full[b], ops.fl_gains(members[b].sim, cms[b])):
+            raise AssertionError(f"wave fl_gains: member {b} != its own launch")
+    out["fl_gains_ms"] = cuda_ms(torch, lambda: ops.fl_gains(sim, cm), args.reps)
+    out["fl_gains_members_ms"] = cuda_ms(
+        torch, lambda: [ops.fl_gains(m.sim, c) for m, c in zip(members, cms)], args.reps)
+    out["fl_gains_bound_ms"], out["fl_gains_bound_by"] = bound(
+        3.0 * B * u * n, 4.0 * B * (u * n + u + n))
+    for k in (8, 64):
+        ids = torch.randint(0, n, (B, k), generator=gen, device="cuda")
+        if not torch.equal(ops.fl_gains_at(sim, cm, ids), torch.gather(full, 1, ids)):
+            raise AssertionError(f"wave fl_gains_at k={k} != the wave's full sweep")
+        out[f"fl_gains_at_k{k}_ms"] = cuda_ms(torch, lambda: ops.fl_gains_at(sim, cm, ids),
+                                              args.reps)
+        out[f"fl_gains_at_k{k}_members_ms"] = cuda_ms(
+            torch, lambda: [ops.fl_gains_at(m.sim, c, i) for m, c, i in zip(members, cms, ids)],
+            args.reps)
+        out[f"fl_gains_at_k{k}_bound_ms"], out[f"fl_gains_at_k{k}_bound_by"] = bound(
+            3.0 * B * u * k, 4.0 * B * (u * k + u + k) + 8.0 * B * k)
+    log(f"  wave kernels over the stacked S {out['shape']} (CUDA events): fl_gains "
+        f"{out['fl_gains_ms']:.4f} ms against {B} single launches {out['fl_gains_members_ms']:.4f}"
+        f" ms (bound {out['fl_gains_bound_ms']:.4f}); fl_gains_at k=8 "
+        f"{out['fl_gains_at_k8_ms']:.4f} / {out['fl_gains_at_k8_members_ms']:.4f} ms (bound "
+        f"{out['fl_gains_at_k8_bound_ms']:.5f}), k=64 {out['fl_gains_at_k64_ms']:.4f} / "
+        f"{out['fl_gains_at_k64_members_ms']:.4f} ms")
+    return out
+
+
+def phase_wave_fl(torch, args) -> dict:
+    """(l) FacilityLocation waves through solve(specs, mode="batched") and
+    (m) a zero-padded wave through BatchedEngine(fns, valid=...)."""
+    from repro_torch.core import (
+        BatchedEngine, FacilityLocation, OptimizerSpec, SelectionSpec, solve,
+    )
+
+    d, out = args.d, {}
+    for B, n in ((args.wave_b, args.wave_n), (max(args.wave_b // 4, 1), 2 * args.wave_n)):
+        label = f"(l) B={B} n={n}"
+        fns = [_mixture_fl(torch, args.seed + b, n, d) for b in range(B)]
+        budgets = _wave_budgets(B)
+        cell = {"B": B, "n": n, "budgets": budgets, "stacked_bytes": B * n * n * 4}
+        for opt, kw in (("NaiveGreedy", {}), ("LazyGreedy", {"screen_k": WAVE_SCREEN_K})):
+            r = cell[opt] = _wave_turns(
+                torch, f"{label} {opt}", [SelectionSpec(f, b, opt, **kw) for f, b in zip(fns, budgets)])
+            # one launch a NaiveGreedy step, one a LazyGreedy level, each over all B members
+            if any(not key.endswith(f" x{B}") for key in r["wave_calls"]) or (
+                    r["wave_calls"].get(f"fl_gains x{B}") != (max(budgets) if opt == "NaiveGreedy" else 1)):
+                raise AssertionError(f"{label} {opt}: wave calls {r['wave_calls']}")
+            for name in ("fl_gains", "fl_gains_at"):
+                if r["wave_launches"].get(name, 0) != r["wave_calls"].get(f"{name} x{B}", 0):
+                    raise AssertionError(f"{label} {opt}: {name} launches {r['wave_launches']} "
+                                         f"!= its wave calls {r['wave_calls']}")
+        cell["kernels"] = _wave_kernel_times(torch, args, fns, cell["NaiveGreedy"]["picks"])
+        out[f"l_B{B}_n{n}"] = cell
+        del fns
+        torch.cuda.empty_cache()
+
+    # (m) members of n_i from wave_n to 2 wave_n, S zero-padded to 2 wave_n
+    B, n_pad = max(args.wave_b // 4, 1), 2 * args.wave_n
+    sizes = [args.wave_n + (n_pad - args.wave_n) * b // max(B - 1, 1) for b in range(B)]
+    label = f"(m) padded wave, B={B}, n_i {sizes[0]}..{sizes[-1]} -> {n_pad}"
+    fns = [_mixture_fl(torch, args.seed + 500 + b, s, d) for b, s in enumerate(sizes)]
+    padded, valid = [], torch.zeros((B, n_pad), dtype=torch.bool, device="cuda")
+    for b, f in enumerate(fns):
+        Sp = torch.zeros((n_pad, n_pad), device="cuda")
+        Sp[: f.n, : f.n] = f.sim
+        padded.append(FacilityLocation(sim=Sp, n=n_pad, use_kernel=None))
+        valid[b, : f.n] = True
+    engine = BatchedEngine(padded, valid=valid)
+    del padded, Sp
+    budgets = _wave_budgets(B)
+    cell = {"B": B, "sizes": sizes, "n_pad": n_pad, "budgets": budgets}
+    for opt, kw in (("NaiveGreedy", {}), ("LazyGreedy", {"screen_k": WAVE_SCREEN_K})):
+        res, wall, peak, launches = _timed(
+            torch, lambda: engine.run(budgets, OptimizerSpec(opt, **kw)))
+        seq = [solve(SelectionSpec(f, b, opt, **kw)) for f, b in zip(fns, budgets)]
+        for b, (w, s) in enumerate(zip(res, seq)):
+            _same_bits(torch, f"{label} {opt} member {b}", w, s)
+        if launches.get("fl_gains") != (max(budgets) if opt == "NaiveGreedy" else 1):
+            raise AssertionError(f"{label} {opt}: launches {launches}")
+        cell[opt] = {"wall_s": wall, "peak_bytes": peak, "launches": launches,
+                     "n_evals": [int(r.n_evals) for r in res]}
+        log(f"  ok  {label} {opt}: every member bit-equal to its unpadded sequential solve "
+            f"(ids, gains, n_evals, value); wave {wall:.3f} s, launches {launches}, peak "
+            f"{peak / 2**30:.2f} GiB")
+    out["m"] = cell
+    del engine, fns
+    torch.cuda.empty_cache()
+    return out
+
+
+def _family_members(torch, args, b: int) -> dict:
+    """One member of every other kernel family, at n = wave_n, over a
+    mixture from the seed + 2,000 + b (use_kernel=True)."""
+    from repro_torch.core import (
+        DisparityMin, DisparitySum, FacilityLocationMF, FeatureBased, GraphCut, GraphCutMF,
+        ProbabilisticSetCover, SetCover, create_kernel,
+    )
+
+    x = gaussian_mixture_cuda(torch, args.seed + 2000 + b, args.wave_n, args.d)
+    S = create_kernel(x, metric="cosine", use_pallas=True)
+    D = create_kernel(x, metric="euclidean", use_pallas=True)
+    D.clamp_(min=1e-6).reciprocal_().sub_(1.0)
+    p = _tag_probs(torch, x, args.seed + 2000 + b)
+    return {
+        "GraphCut": GraphCut.from_kernel(S, lam=GC_LAM, use_kernel=True),
+        "DisparitySum": DisparitySum.from_distance(D, use_kernel=True),
+        "DisparityMin": DisparityMin.from_distance(D, use_kernel=True),
+        "FeatureBased": FeatureBased.from_features(torch.relu(x), concave="sqrt", use_kernel=True),
+        "SetCover": SetCover.from_cover((p > 0.5).float(), use_kernel=True),
+        "ProbabilisticSetCover": ProbabilisticSetCover.from_probs(p, use_kernel=True),
+        "FacilityLocationMF": FacilityLocationMF.from_features(x, metric="cosine", use_kernel=True),
+        "GraphCutMF": GraphCutMF.from_features(x, lam=GC_LAM, metric="cosine", use_kernel=True),
+    }
+
+
+def phase_wave_families(torch, args) -> dict:
+    """(n) every other kernel family in a wave of FAMILY_B members: each
+    member bit-equal to its sequential solve; per-member launches and ms a
+    step, wave against the sequential solves."""
+    from repro_torch.core import SelectionSpec, backend_name
+
+    members = [_family_members(torch, args, b) for b in range(FAMILY_B)]
+    out = {}
+    for family in members[0]:
+        fns = [m[family] for m in members]
+        cell = {"backend": backend_name(fns[0])}
+        for (opt, kw), budget in zip((("NaiveGreedy", {}), ("LazyGreedy", {"screen_k": 8})),
+                                     FAMILY_BUDGETS):
+            r = _wave_turns(torch, f"(n) {family} {opt} {budget}",
+                            [SelectionSpec(f, budget, opt, **kw) for f in fns])
+            # a wave sweeps every member at every level any member still needs
+            r["per_member_launches"] = {k: v / FAMILY_B for k, v in r["wave_launches"].items()}
+            r["wave_ms_per_step"] = 1e3 * min(r["wave_s"]) / budget
+            r["sequential_ms_per_step"] = 1e3 * min(r["sequential_s"]) / budget
+            if not r["wave_launches"]:
+                raise AssertionError(f"(n) {family} {opt}: no kernel launched in the wave")
+            log(f"  (n) {family} {opt}: launches per member {r['per_member_launches']} (wave) / "
+                f"{ {k: v / FAMILY_B for k, v in r['sequential_launches'].items()} } "
+                f"(sequential); {r['wave_ms_per_step']:.3f} ms a step in the wave against "
+                f"{r['sequential_ms_per_step']:.3f} for the {FAMILY_B} sequential solves")
+            del r["picks"]
+            cell[opt] = r
+        out[family] = cell
+    del members
+    torch.cuda.empty_cache()
+    return out
+
+
+def _check_topk_rows(torch, label, src, fsrc, lo, hi) -> None:
+    """Rows lo .. hi - 1 (one of knn_from_features' row batches, so that the
+    similarity is computed at the same shapes) hold the k largest entries of
+    their similarity rows, descending, ties to the lower column index."""
+    import dataclasses
+
+    block = dataclasses.replace(fsrc, x=fsrc.x[lo:hi], xx=fsrc.xx[lo:hi], n_rows=hi - lo)
+    sim = torch.cat([s[:, :w] for _, w, s in block._tiles()], dim=1)
+    idx, w = src.indices[lo:hi].long(), src.weights[lo:hi]
+    if not torch.equal(sim.gather(1, idx), w):
+        raise AssertionError(f"{label}: weights are not the rows' similarities")
+    thr = w[:, -1:]
+    # everything above the k-th value is kept, and ties at it go to the
+    # lowest columns
+    if not torch.equal((sim > thr).sum(1), (w > thr).sum(1)):
+        raise AssertionError(f"{label}: a larger similarity was left out")
+    tied = (sim == thr).cumsum(1) * (sim == thr)
+    need = (w == thr).sum(1, keepdim=True)
+    want_tied = (tied > 0) & (tied <= need)
+    got_tied = torch.zeros_like(want_tied).scatter_(1, idx, w == thr)
+    if not torch.equal(got_tied, want_tied):
+        raise AssertionError(f"{label}: ties at the k-th value not taken by the lowest columns")
+    ordered = (w[:, 1:] < w[:, :-1]) | ((w[:, 1:] == w[:, :-1]) & (idx[:, 1:] > idx[:, :-1]))
+    if not bool(ordered.all()):
+        raise AssertionError(f"{label}: a row's neighbours are not in (value desc, index asc) order")
+
+
+def phase_wave_knn(torch, args) -> dict:
+    """(o) the k-NN sources: knn_from_features on phase 4's features,
+    FacilityLocationMF.from_knn against a dense FacilityLocation over the
+    source's to_dense() and run twice; the million-point shape; and
+    GraphCutMF.from_knn."""
+    from repro_torch.core import (
+        FacilityLocation, FacilityLocationMF, GraphCut, GraphCutMF, SelectionSpec,
+        feature_source, knn_from_features, solve,
+    )
+
+    n, d, out = args.n, args.d, {}
+    x = torch.as_tensor(gaussian_mixture(args.seed, n, d), device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    src = knn_from_features(x, KNN_K, metric="cosine", batch=KNN_BATCH)
+    torch.cuda.synchronize()
+    out["knn_from_features_s"] = time.perf_counter() - t0
+    fsrc = feature_source(x, metric="cosine")
+    last = (n - 1) // KNN_BATCH * KNN_BATCH
+    for lo in sorted({0, last}):
+        _check_topk_rows(torch, "(o) knn_from_features", src, fsrc, lo, min(lo + KNN_BATCH, n))
+    del fsrc, x
+    log(f"  ok  (o) knn_from_features n={n} k={KNN_K} cosine: "
+        f"{out['knn_from_features_s']:.3f} s; the first and last row batches (rows 0.."
+        f"{min(KNN_BATCH, n) - 1}, {last}..{n - 1}) hold their k largest similarities, "
+        "descending, ties to the lower column")
+
+    fn = FacilityLocationMF.from_knn(src.indices, src.weights)
+    dense = FacilityLocation.from_kernel(src.to_dense(), use_kernel=True)
+    for opt, budget in (("NaiveGreedy", KNN_BUDGETS[0][0]), ("LazyGreedy", KNN_BUDGETS[0][1])):
+        spec = SelectionSpec(fn, budget, opt)
+        first, wall, peak, launches = _timed(torch, lambda: solve(spec))
+        again, wall2, _, _ = _timed(torch, lambda: solve(spec))
+        _same_bits(torch, f"(o) FacilityLocationMF.from_knn {opt} {budget}, second run", again,
+                   first)
+        ref, dwall, _, _ = _timed(torch, lambda: solve(SelectionSpec(dense, budget, opt)))
+        info = _replay_check(torch, f"(o) FLMF k-NN {opt} {budget} vs dense FL over to_dense()",
+                             dense, first, ref, max_steps=KNN_BUDGETS[0][0])
+        info.update(wall_s=[wall, wall2], dense_wall_s=dwall, peak_bytes=peak, launches=launches,
+                    n_evals=int(first.n_evals), dense_n_evals=int(ref.n_evals))
+        log(f"  (o) FLMF k-NN {opt} {budget}: {wall:.3f} / {wall2:.3f} s (two runs, equal bits), "
+            f"n_evals {info['n_evals']}, peak {peak / 2**30:.2f} GiB; dense FL {dwall:.3f} s, "
+            f"n_evals {info['dense_n_evals']}")
+        out[f"flmf_{opt}"] = info
+    del dense
+    torch.cuda.empty_cache()
+    gc = GraphCutMF.from_knn(src.indices, src.weights, lam=GC_LAM)
+    gc_dense = GraphCut.from_kernel(src.to_dense(), lam=GC_LAM)
+    res, wall, peak, _ = _timed(torch, lambda: solve(SelectionSpec(gc, GC_KNN_BUDGET)))
+    ref = solve(SelectionSpec(gc_dense, GC_KNN_BUDGET))
+    info = _replay_check(torch, f"(o) GraphCutMF.from_knn NaiveGreedy {GC_KNN_BUDGET} vs dense "
+                         "GraphCut", gc_dense, res, ref, gain_rtol=GC_GAIN_RTOL)
+    info.update(wall_s=wall, peak_bytes=peak)
+    out["gcmf_NaiveGreedy"] = info
+    log(f"  (o) GraphCutMF k-NN NaiveGreedy {GC_KNN_BUDGET}: {wall:.3f} s")
+    del gc, gc_dense, src
+    torch.cuda.empty_cache()
+
+    # the JAX package's million-point shape: random neighbours
+    m = args.mf_n
+    gen = torch.Generator(device="cuda").manual_seed(args.seed + 3000)
+    indices = torch.randint(0, m, (m, KNN_MILLION_K), generator=gen, device="cuda",
+                            dtype=torch.int32)
+    weights = torch.rand((m, KNN_MILLION_K), generator=gen, device="cuda")
+    big = FacilityLocationMF.from_knn(indices, weights, n_cols=m)
+    for opt, budget in (("NaiveGreedy", KNN_BUDGETS[1][0]), ("LazyGreedy", KNN_BUDGETS[1][1])):
+        res, wall, peak, _ = _timed(torch, lambda: solve(SelectionSpec(big, budget, opt)))
+        picks = res.order[res.order >= 0]
+        gains = res.gains[: picks.shape[0]]
+        if (picks.shape[0] != budget or picks.unique().shape[0] != budget
+                or not bool(gains.isfinite().all()) or bool((gains[1:] > gains[:-1] + 1e-3).any())):
+            raise AssertionError(f"(o) million-point k-NN {opt}: malformed selection")
+        out[f"million_{opt}"] = {"wall_s": wall, "peak_bytes": peak, "n_evals": int(res.n_evals)}
+        log(f"  ok  (o) FLMF k-NN n={m} k={KNN_MILLION_K} random neighbours {opt} {budget}: "
+            f"{wall:.3f} s, n_evals {int(res.n_evals)}, peak {peak / 2**30:.2f} GiB; "
+            f"{budget} distinct picks, gains non-increasing")
+    del big, indices, weights
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_wave(torch, args) -> dict:
+    """Phase 10: the wave path, (l)-(o)."""
+    t0 = time.perf_counter()
+    log(f"== phase 10: the wave path: (l) FacilityLocation waves B={args.wave_b} n={args.wave_n}"
+        f" and B={max(args.wave_b // 4, 1)} n={2 * args.wave_n}, budgets {WAVE_BUDGETS[0]}.."
+        f"{WAVE_BUDGETS[1]}; (m) a zero-padded wave; (n) every other kernel family, "
+        f"B={FAMILY_B}; (o) the k-NN sources")
+    out = phase_wave_fl(torch, args)
+    out["n"] = phase_wave_families(torch, args)
+    out["o"] = phase_wave_knn(torch, args)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 10: {out['seconds']:.1f} s")
+    return out
+
+
 def parse_args(argv):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -2392,6 +2821,10 @@ def parse_args(argv):
                    help="candidates of phases 6 (b), 8 and 9 (i), the million-point shape")
     p.add_argument("--mf-lazy-budget", type=int, default=1_000,
                    help="LazyGreedy budget of phases 6 (a) and (c), 7 (d), 8 and 9 (k)")
+    p.add_argument("--wave-b", type=int, default=64,
+                   help="phase 10 (l): members of the first wave (the second has a quarter)")
+    p.add_argument("--wave-n", type=int, default=4096,
+                   help="phase 10: n of the first wave and of (n); the second wave has 2x")
     return p.parse_args(argv)
 
 
@@ -2439,16 +2872,32 @@ def main(argv=None) -> int:
     log(f"phase 8 and its times: {cover_out['seconds']:.1f} s")
     guided_out, fused_row = phase_slice5(torch, args)
     guided_out["phase3"] = fused_bits
+    wave_out = phase_wave(torch, args)
     for rows, path in ((mf_rows, mf_out), (dense_rows, dense_out), (cover_rows, cover_out)):
         for r in rows:
             r["launches"] = r["launches_on_path"] = path["launches"][r["name"]]
     kernels += mf_rows + dense_rows + cover_rows + [fused_row]
+    # rows 2 and 3 also carry the first wave's launches (phase 10 (l)) and
+    # times over its stacked S
+    first = wave_out[f"l_B{args.wave_b}_n{args.wave_n}"]
+    waves = first["kernels"]
+    for r in kernels:
+        if r["name"] == "fl_gains":
+            r["wave"] = {"shape": waves["shape"], "launches": first["NaiveGreedy"]["wave_launches"]
+                         .get("fl_gains", 0), "ms": waves["fl_gains_ms"],
+                         "members_ms": waves["fl_gains_members_ms"],
+                         "bound_ms": waves["fl_gains_bound_ms"]}
+        if r["name"] == "fl_gains_at":
+            r["wave"] = {"shape": waves["shape"] + [8], "launches": first["LazyGreedy"]
+                         ["wave_launches"].get("fl_gains_at", 0), "ms": waves["fl_gains_at_k8_ms"],
+                         "members_ms": waves["fl_gains_at_k8_members_ms"],
+                         "bound_ms": waves["fl_gains_at_k8_bound_ms"]}
     missing = set(ops.LAUNCHES) ^ {r["name"] for r in kernels}
     if missing:
         raise AssertionError(f"kernels line and LAUNCHES differ: {sorted(missing)}")
     record = {"device": device, "build": {k: build[k] for k in ("seconds", "cached")},
               "main": main_out, "matrix_free": mf_out, "dense_pairwise": dense_out,
-              "coverage": cover_out, "guided": guided_out,
+              "coverage": cover_out, "guided": guided_out, "wave": wave_out,
               "kernels": kernels, "seconds": time.perf_counter() - t_start}
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(record, indent=1))

@@ -1,6 +1,6 @@
 """Shared utilities: the NEG_INF sentinel, tie-breaking argmax, concave fns,
-index masks, one-element indices, row padding, row blocks and device
-resolution."""
+index masks, one-element indices, row padding, member views of a stacked
+tensor, row blocks and device resolution."""
 from __future__ import annotations
 
 from typing import Callable
@@ -85,6 +85,29 @@ def pad_rows(a: torch.Tensor, rows: int, value=0) -> torch.Tensor:
     out = a.new_full((rows,) + tuple(a.shape[1:]), value)
     out[: a.shape[0]] = a
     return out
+
+
+def stacked_view(tensors) -> torch.Tensor | None:
+    """The (B, ...) tensor of which ``tensors`` are the B members, as one
+    view (no copy), or None when they are not such members: the same shape,
+    strides and dtype, in one storage, at offsets that step by one stride.
+    The batched engine hands its functions such member views of the tensors
+    it stacked once, so a wave kernel can read them all in one launch."""
+    t0 = tensors[0]
+    if len(tensors) == 1:
+        return t0[None]
+    step = tensors[1].data_ptr() - t0.data_ptr()
+    if step < 0 or step % t0.element_size():
+        return None
+    for b, t in enumerate(tensors):
+        if (t.data_ptr() - t0.data_ptr() != b * step or t.shape != t0.shape
+                or t.stride() != t0.stride() or t.dtype != t0.dtype):
+            return None
+    if t0.untyped_storage().data_ptr() != tensors[-1].untyped_storage().data_ptr():
+        return None
+    return t0.as_strided(
+        (len(tensors),) + tuple(t0.shape), (step // t0.element_size(),) + t0.stride()
+    )
 
 
 ROW_BLOCK = 1 << 16  # rows per block of the coverage families' streamed torch paths

@@ -3,9 +3,10 @@
 # (Sum, Min, MinSum), FeatureBased, SetCover, ProbabilisticSetCover, LogDet,
 # the clustered mixtures, the information measures (core/info/), the
 # similarity kernels with kmeans and the extended V ∪ Q ∪ P kernel, the
-# similarity sources, the gain-backend registry, NaiveGreedy / LazyGreedy,
-# the SelectionSpec + solve() front door (sequential mode) and the
-# deprecated maximize() shim.
+# similarity sources (features, dense, k-NN), the gain-backend registry,
+# NaiveGreedy / LazyGreedy, the SelectionSpec + solve() front door
+# (sequential and batched modes), the batched engine and the deprecated
+# maximize() / batched_maximize() shims.
 from repro_torch.core.functions.base import SetFunction
 from repro_torch.core.functions.clustered import (
     cluster_mask,
@@ -45,6 +46,7 @@ from repro_torch.core.optimizers.backends import (
     resolve_backend,
 )
 from repro_torch.core.optimizers.api import maximize
+from repro_torch.core.optimizers.batched import BatchedEngine, batched_maximize, stack_functions
 from repro_torch.core.optimizers.greedy import GreedyResult, lazy_greedy, naive_greedy
 from repro_torch.core.optimizers.spec import (
     OptimizerSpec,
@@ -55,6 +57,7 @@ from repro_torch.core.optimizers.spec import (
     register_optimizer,
     resolve_optimizer,
     solve,
+    wave_capable_names,
 )
 from repro_torch.core.similarity import (
     build_extended_kernel,
@@ -67,8 +70,11 @@ from repro_torch.core.sources import (
     TILE,
     DenseSource,
     FeatureSource,
+    KnnSource,
     dense_source,
     feature_source,
+    knn_from_features,
+    knn_source,
 )
 from repro_torch.core.info import (
     FLCG,

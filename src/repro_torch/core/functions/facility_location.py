@@ -13,6 +13,10 @@ full and its gathered-subset form.
 :class:`FacilityLocationMF` is the matrix-free variant: sim(i, j) is
 answered on demand by a source (``core/sources.py``), and its kernel
 backend runs the fused similarity + sweep of ``kernels/flmf_gains.py``.
+
+Both kernel backends sweep a batched engine's wave of dense members in one
+launch (``full_sweep_wave`` / ``partial_sweep_wave``): the members' S are
+views of the engine's one stacked tensor, read as a (B, u, n) wave.
 """
 from __future__ import annotations
 
@@ -20,14 +24,14 @@ import dataclasses
 
 import torch
 
-from repro_torch.common import as_float_tensor, one_index
+from repro_torch.common import as_float_tensor, one_index, stacked_view
 from repro_torch.core.functions.base import SetFunction
-from repro_torch.core.sources import DenseSource, FeatureSource, dense_source, feature_source
-
-# the sparse k-NN sources wait for their own slice
-KNN_NOT_PORTED = (
-    "k-NN sources (KnnSource, knn_from_features) are not ported to repro_torch yet "
-    "(ROADMAP queue 1, item 6)"
+from repro_torch.core.sources import (
+    DenseSource,
+    FeatureSource,
+    dense_source,
+    feature_source,
+    knn_source,
 )
 
 
@@ -54,6 +58,25 @@ class FLKernelSweep:
         from repro_torch.kernels import ops
 
         return ops.fl_gains_at(fn.sim, state.curmax, idx)
+
+    def full_sweep_wave(self, fns, states) -> torch.Tensor | None:
+        return _fl_wave([f.sim for f in fns], states, None)
+
+    def partial_sweep_wave(self, fns, states, idx: torch.Tensor) -> torch.Tensor | None:
+        return _fl_wave([f.sim for f in fns], states, idx)
+
+
+def _fl_wave(sims, states, idx) -> torch.Tensor | None:
+    """One ``fl_gains`` (idx None) or ``fl_gains_at`` launch for a wave
+    whose S are members of one stacked tensor; None (one launch per member)
+    when they are not.  Only the (B, u) curmax is stacked, never S."""
+    from repro_torch.kernels import ops
+
+    sim = stacked_view(sims)
+    if sim is None:
+        return None
+    curmax = torch.stack([s.curmax for s in states])
+    return ops.fl_gains(sim, curmax) if idx is None else ops.fl_gains_at(sim, curmax, idx)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -140,6 +163,18 @@ class FLMFKernelSweep:
             src.x, src.y, src.xx, src.yy, state.curmax, idx, src.metric, src.rbf_sigma
         )
 
+    # a wave of dense sources rides the dense kernel's member axis; the
+    # feature-source kernels take one member per launch (None: decline)
+    def full_sweep_wave(self, fns, states) -> torch.Tensor | None:
+        if not all(isinstance(f.src, DenseSource) for f in fns):
+            return None
+        return _fl_wave([f.src.sim for f in fns], states, None)
+
+    def partial_sweep_wave(self, fns, states, idx: torch.Tensor) -> torch.Tensor | None:
+        if not all(isinstance(f.src, DenseSource) for f in fns):
+            return None
+        return _fl_wave([f.src.sim for f in fns], states, idx)
+
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class FacilityLocationMF(SetFunction):
@@ -149,7 +184,7 @@ class FacilityLocationMF(SetFunction):
     :class:`~repro_torch.core.sources.DenseSource`), so the (|U|, n) matrix
     is never written and peak memory is O(n * d) feature bytes."""
 
-    src: object  # FeatureSource | DenseSource
+    src: object  # FeatureSource | DenseSource | KnnSource
     n: int
     # True/False routes the sweeps through the CUDA kernels / plain torch;
     # None defers to the choose_backend heuristic (backends.py).  Clustered
@@ -174,8 +209,17 @@ class FacilityLocationMF(SetFunction):
         return FacilityLocationMF(src=src, n=src.n_cols, use_kernel=use_kernel)
 
     @staticmethod
-    def from_knn(*args, **kwargs) -> "FacilityLocationMF":
-        raise NotImplementedError(KNN_NOT_PORTED)
+    def from_knn(
+        indices, weights, n_cols: int | None = None, use_kernel: bool | None = False,
+        device=None,
+    ) -> "FacilityLocationMF":
+        """FL over precomputed sparse k-NN similarity: indices (n, k) int
+        with -1 pads, nonnegative weights (n, k).  Its sweeps run on torch
+        ops (the JAX package has no kernel for them either), whatever
+        ``use_kernel`` says.  Tensors keep their device; numpy input goes to
+        ``device`` (default: the card)."""
+        src = knn_source(indices, weights, n_cols=n_cols, device=device)
+        return FacilityLocationMF(src=src, n=src.n_cols, use_kernel=use_kernel)
 
     @staticmethod
     def from_dense(sim, use_kernel: bool | None = False, device=None) -> "FacilityLocationMF":
@@ -205,7 +249,7 @@ class FacilityLocationMF(SetFunction):
             return FLMFKernelSweep()
         if isinstance(src, DenseSource):
             return FLMFKernelSweep()
-        return None  # clustered sources stay on the torch path
+        return None  # k-NN and clustered sources stay on the torch path
 
     def update(self, state: FLState, j) -> FLState:
         return FLState(curmax=torch.maximum(state.curmax, self.src.col(j)), n_rows=state.n_rows)

@@ -27,8 +27,13 @@ import torch
 
 from repro_torch.common import as_float_tensor, one_index
 from repro_torch.core.functions.base import SetFunction
-from repro_torch.core.functions.facility_location import KNN_NOT_PORTED
-from repro_torch.core.sources import DenseSource, dense_source, feature_source
+from repro_torch.core.sources import (
+    DenseSource,
+    FeatureSource,
+    dense_source,
+    feature_source,
+    knn_source,
+)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -181,7 +186,7 @@ class GraphCutMF(SetFunction):
     JAX package does); ``None`` picks them by the choose_backend table.
     Clustered sources stay on the torch path."""
 
-    src: object  # square FeatureSource | DenseSource over the ground set
+    src: object  # square FeatureSource | DenseSource | KnnSource over the ground set
     total: torch.Tensor  # (n,) sum_{i in U} S_ij
     diag: torch.Tensor  # (n,) S_jj
     lam: torch.Tensor  # 0-d trade-off
@@ -202,8 +207,12 @@ class GraphCutMF(SetFunction):
         return GraphCutMF._from_source(src, lam, use_kernel)
 
     @staticmethod
-    def from_knn(*args, **kwargs) -> "GraphCutMF":
-        raise NotImplementedError(KNN_NOT_PORTED)
+    def from_knn(
+        indices, weights, lam: float = 0.5, use_kernel: bool | None = False, device=None
+    ) -> "GraphCutMF":
+        """Graph Cut over a square sparse k-NN similarity (torch path only,
+        as in the JAX package)."""
+        return GraphCutMF._from_source(knn_source(indices, weights, device=device), lam, use_kernel)
 
     @staticmethod
     def from_dense(
@@ -247,9 +256,9 @@ class GraphCutMF(SetFunction):
             return None
         if isinstance(self.src, DenseSource):
             return GCKernelSweep()
-        if self.src.col_labels is None:
+        if isinstance(self.src, FeatureSource) and self.src.col_labels is None:
             return GCMFKernelSweep()
-        return None  # clustered sources stay on the torch path
+        return None  # k-NN and clustered sources stay on the torch path
 
     def evaluate(self, mask) -> torch.Tensor:
         m = torch.as_tensor(mask, device=self.src.device).to(torch.float32)

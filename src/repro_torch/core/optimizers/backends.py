@@ -14,6 +14,12 @@ optimizer consumes it*:
 - Optimizers call :func:`full_sweep` / :func:`partial_sweep`, which resolve
   the backend and fall back to the function's plain ``gains()`` /
   ``gains_at()`` PyTorch paths (the ``"torch"`` backend).
+- The engines sweep a wave of B functions (the batched engine's members, or
+  one function) through :func:`full_sweep_wave` / :func:`partial_sweep_wave`.
+  A backend may offer the optional hooks ``full_sweep_wave(fns, states)``
+  and ``partial_sweep_wave(fns, states, idx)``, which sweep every member in
+  one launch or return None to decline; otherwise each member is swept on
+  its own and the rows stacked.
 
 Backend names: the default is ``"torch"``; every backend that runs a
 hand-written kernel is named with the prefix ``cuda-`` (``"cuda-fl"`` for
@@ -100,11 +106,50 @@ def partial_sweep(fn, state, idx) -> torch.Tensor:
     Routed through the resolved backend's ``partial_sweep`` when it has one
     (the gathered-sweep kernels), else the function's ``gains_at`` torch
     path.  Shape follows ``idx``; idx < 0 slots return NEG_INF."""
-    backend = resolve_backend(fn)
+    return _sweep_at(resolve_backend(fn), fn, state, idx)
+
+
+def _sweep_at(backend, fn, state, idx) -> torch.Tensor:
     impl = getattr(backend, "partial_sweep", None)
-    if impl is None:
-        return fn.gains_at(state, idx)
-    return impl(fn, state, idx)
+    return fn.gains_at(state, idx) if impl is None else impl(fn, state, idx)
+
+
+def _wave_hook(backends, name: str):
+    """The wave hook ``name`` of the members' backend when every member
+    resolved to the same kind of backend, else None."""
+    kind = type(backends[0])
+    if any(type(b) is not kind for b in backends[1:]):
+        return None
+    return getattr(backends[0], name, None)
+
+
+def full_sweep_wave(fns, states) -> torch.Tensor:
+    """(B, n) gains of B functions of one shape, each at its own state.  One
+    member takes :func:`full_sweep` as it is (no copy); more take their
+    backend's wave hook, or one sweep each."""
+    if len(fns) == 1:
+        return full_sweep(fns[0], states[0])[None]
+    backends = [resolve_backend(f) for f in fns]
+    hook = _wave_hook(backends, "full_sweep_wave")
+    out = None if hook is None else hook(fns, states)
+    if out is None:
+        out = torch.stack([b.full_sweep(f, s) for b, f, s in zip(backends, fns, states)])
+    return out
+
+
+def partial_sweep_wave(fns, states, idx: torch.Tensor) -> torch.Tensor:
+    """(B, k) gains of member b at its candidates ``idx[b]`` (idx (B, k)),
+    as :func:`full_sweep_wave` routes them."""
+    if len(fns) == 1:
+        return partial_sweep(fns[0], states[0], idx[0])[None]
+    backends = [resolve_backend(f) for f in fns]
+    hook = _wave_hook(backends, "partial_sweep_wave")
+    out = None if hook is None else hook(fns, states, idx)
+    if out is None:
+        out = torch.stack([
+            _sweep_at(b, f, s, i) for b, f, s, i in zip(backends, fns, states, idx)
+        ])
+    return out
 
 
 def backend_name(fn) -> str:

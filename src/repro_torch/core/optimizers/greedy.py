@@ -11,6 +11,13 @@ Both engines run a fixed-length loop of ``budget`` steps with a ``done``
 flag, as the JAX package's ``fori_loop`` does, and keep every decision on
 the device: NaiveGreedy never waits for the card inside its loop.  The lazy
 engine's level schedule is the one exception (see ``_lazy_bucketed_impl``).
+
+Both are written over a wave of B functions of one shape, with per-member
+budgets and a (B, n) ``valid`` mask, for the batched engine
+(``batched.py``); the sequential optimizers are their B = 1 case.  Every
+step's decisions (mask, argmax, select) are exact per member, and each
+member's sweep and update see that member alone, so a member's ids, gains
+and ``n_evals`` do not depend on the wave it rides in.
 """
 from __future__ import annotations
 
@@ -19,7 +26,7 @@ import dataclasses
 import torch
 
 from repro_torch.common import NEG_INF
-from repro_torch.core.optimizers.backends import full_sweep, partial_sweep
+from repro_torch.core.optimizers.backends import full_sweep_wave, partial_sweep_wave
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -67,40 +74,74 @@ def _should_stop(gj, stop_if_zero: bool, stop_if_negative: bool):
     return stop
 
 
-def _naive_impl(fn, budget: int, stop_if_zero: bool, stop_if_negative: bool) -> GreedyResult:
-    n = fn.n
-    state = fn.init_state()
-    g = full_sweep(fn, state)
-    dev = g.device
-    selected = torch.zeros((n,), dtype=torch.bool, device=dev)
-    order = torch.full((budget,), -1, dtype=torch.int32, device=dev)
-    gains = torch.zeros((budget,), dtype=torch.float32, device=dev)
-    # (1,)-shaped step values: indexing with a 0-d tensor would read it
-    # back to the host, so j, gj, take and done stay one-element tensors
-    evals = torch.zeros((1,), dtype=torch.int32, device=dev)
-    done = torch.zeros((1,), dtype=torch.bool, device=dev)
-    for i in range(budget):
+def _naive_impl(
+    fns,
+    max_budget: int,
+    stop_if_zero: bool,
+    stop_if_negative: bool,
+    budgets: torch.Tensor | None = None,
+    valid: torch.Tensor | None = None,
+) -> GreedyResult:
+    """NaiveGreedy over a wave of B functions of equal n — the one
+    implementation behind :func:`naive_greedy` (B = 1) and the batched
+    engine.  ``budgets`` (B,) freezes a member once its budget is spent and
+    ``valid`` (B, n) masks padded candidates (NEG_INF, never selected,
+    not counted in ``n_evals``); None for either runs the unmasked loop of
+    one sequential solve.  Returns (B, max_budget) orders and gains, (B,)
+    ``n_evals`` and values."""
+    n = fns[0].n
+    states = [f.init_state() for f in fns]
+    g = full_sweep_wave(fns, states)
+    B, dev = len(fns), g.device
+    invalid = None if valid is None else ~valid.to(dev)
+    # n_evals counts the live candidates of a step
+    step_evals = n if valid is None else valid.to(dev).sum(dim=1, keepdim=True, dtype=torch.int32)
+    if budgets is not None:
+        budgets = budgets.to(dev).reshape(B, 1)
+    selected = torch.zeros((B, n), dtype=torch.bool, device=dev)
+    order = torch.full((B, max_budget), -1, dtype=torch.int32, device=dev)
+    gains = torch.zeros((B, max_budget), dtype=torch.float32, device=dev)
+    # (B, 1)-shaped step values: indexing with a 0-d tensor would read it
+    # back to the host, so j, gj, take and done stay tensors on the device
+    evals = torch.zeros((B, 1), dtype=torch.int32, device=dev)
+    done = torch.zeros((B, 1), dtype=torch.bool, device=dev)
+    for i in range(max_budget):
         if i:
-            g = full_sweep(fn, state)
-        g = torch.where(selected, NEG_INF, g)
-        j = torch.argmax(g, dim=0, keepdim=True)  # first-index tie-break
-        gj = g.gather(0, j)
+            g = full_sweep_wave(fns, states)
+        g = torch.where(selected if invalid is None else selected | invalid, NEG_INF, g)
+        j = torch.argmax(g, dim=1, keepdim=True)  # first-index tie-break
+        gj = g.gather(1, j)
         stop = done | _should_stop(gj, stop_if_zero, stop_if_negative)
+        frozen = done
+        if budgets is not None:  # a member past its budget freezes
+            past = budgets <= i
+            stop, frozen = stop | past, done | past
         take = ~stop
-        state = _where_state(take, fn.update(state, j), state)
-        selected.scatter_(0, j, selected.gather(0, j) | take)
-        order[i : i + 1] = torch.where(take, j.to(torch.int32), -1)
-        gains[i : i + 1] = torch.where(take, gj, 0.0)
-        evals += torch.where(done, 0, n).to(torch.int32)
+        states = [
+            _where_state(take[b], f.update(s, j[b]), s)
+            for b, (f, s) in enumerate(zip(fns, states))
+        ]
+        selected.scatter_(1, j, selected.gather(1, j) | take)
+        order[:, i : i + 1] = torch.where(take, j.to(torch.int32), -1)
+        gains[:, i : i + 1] = torch.where(take, gj, 0.0)
+        evals += torch.where(frozen, 0, step_evals).to(torch.int32)
         done = stop
-    return GreedyResult(order=order, gains=gains, n_evals=evals[0], value=gains.sum())
+    return GreedyResult(order=order, gains=gains, n_evals=evals[:, 0], value=gains.sum(dim=1))
 
 
 def naive_greedy(
     fn, budget: int, stop_if_zero: bool = True, stop_if_negative: bool = True
 ) -> GreedyResult:
-    """Standard greedy [Nemhauser et al. '78]: full gain sweep per step."""
-    return _naive_impl(fn, budget, stop_if_zero, stop_if_negative)
+    """Standard greedy [Nemhauser et al. '78]: full gain sweep per step.
+    This is the B = 1 case of ``_naive_impl``."""
+    return _first(_naive_impl([fn], budget, stop_if_zero, stop_if_negative))
+
+
+def _first(res: GreedyResult) -> GreedyResult:
+    """Member 0 of a wave's result."""
+    return GreedyResult(
+        order=res.order[0], gains=res.gains[0], n_evals=res.n_evals[0], value=res.value[0]
+    )
 
 
 def _screen_levels(n: int, screen_k: int) -> tuple[tuple[int, int], ...]:
@@ -138,8 +179,8 @@ def _lazy_bucketed_impl(
 
     Per step, candidates are sorted by stale upper bound (descending, ties
     broken by lowest index) and evaluated in doubling *levels* of that
-    order (``_screen_levels``) through one gathered ``partial_sweep`` per
-    member.  An instance accepts once the best true gain seen beats every
+    order (``_screen_levels``) through one gathered ``partial_sweep_wave``
+    (one launch for the wave where the backend has a wave hook).  An instance accepts once the best true gain seen beats every
     remaining stale bound (``best >= rest - 1e-6``); the last level spans
     all n, so a full miss degenerates to exactly one evaluation per
     candidate.  The winner is the first-index argmax over evaluated gains.
@@ -154,7 +195,7 @@ def _lazy_bucketed_impl(
     B, n = valid.shape
     levels = _screen_levels(n, screen_k)
     state = [f.init_state() for f in fns]
-    ub = torch.stack([full_sweep(f, s) for f, s in zip(fns, state)]).to(torch.float32)
+    ub = full_sweep_wave(fns, state).to(torch.float32)
     dev = ub.device
     budgets, valid = budgets.to(dev), valid.to(dev)
     rows = torch.arange(B, device=dev)
@@ -181,9 +222,7 @@ def _lazy_bucketed_impl(
             if lo > 0 and bool(resolved.all()):
                 break
             idx = si[:, lo:hi]  # (B, hi - lo)
-            g = torch.stack(
-                [partial_sweep(f, s, idx[b]) for b, (f, s) in enumerate(zip(fns, state))]
-            ).to(torch.float32)
+            g = partial_sweep_wave(fns, state, idx).to(torch.float32)
             g = torch.where(torch.gather(blocked, 1, idx), NEG_INF, g)
             live = ~resolved  # instances this level still works for
             geval = torch.where(live[:, None], geval.scatter(1, idx, g), geval)
@@ -235,7 +274,7 @@ def lazy_greedy(
     peaked gain distributions.  This is the B = 1 case of
     ``_lazy_bucketed_impl``.
     """
-    res = _lazy_bucketed_impl(
+    return _first(_lazy_bucketed_impl(
         [fn],
         budget,
         torch.full((1,), budget, dtype=torch.int32),
@@ -243,7 +282,4 @@ def lazy_greedy(
         screen_k,
         stop_if_zero,
         stop_if_negative,
-    )
-    return GreedyResult(
-        order=res.order[0], gains=res.gains[0], n_evals=res.n_evals[0], value=res.value[0]
-    )
+    ))

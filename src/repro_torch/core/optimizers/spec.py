@@ -10,9 +10,10 @@
   (:func:`register_family_defaults`) in exactly one place.
 - :func:`solve` — the front door: ``solve(spec)`` or ``solve([s1, s2])``.
 
-Ported so far: sequential mode, NaiveGreedy and LazyGreedy.  The batched,
-sharded, served and async modes, ``deadline_s`` / ``retry`` and the other
-optimizers are still to be ported (ROADMAP queue 1).
+Ported so far: the sequential and batched modes, NaiveGreedy and
+LazyGreedy.  The sharded, served and async modes, ``deadline_s`` /
+``retry`` and the other optimizers are still to be ported (ROADMAP queue
+1, items 9-11).
 """
 from __future__ import annotations
 
@@ -20,7 +21,13 @@ import dataclasses
 from typing import Callable, Mapping, Optional, Sequence
 
 from repro_torch.core.functions.base import SetFunction
-from repro_torch.core.optimizers.greedy import GreedyResult, lazy_greedy, naive_greedy
+from repro_torch.core.optimizers.greedy import (
+    GreedyResult,
+    _lazy_bucketed_impl,
+    _naive_impl,
+    lazy_greedy,
+    naive_greedy,
+)
 
 __all__ = [
     "OptimizerSpec",
@@ -31,6 +38,7 @@ __all__ = [
     "optimizer_names",
     "resolve_optimizer",
     "family_defaults",
+    "wave_capable_names",
 ]
 
 
@@ -67,27 +75,63 @@ def _int_min(lo: int) -> Callable:
 
 @dataclasses.dataclass(frozen=True)
 class OptimizerDef:
-    """A registered optimizer: hyperparameter schema + its sequential run
-    hook ``run(fn, budget, stop_zero, stop_neg, **params) -> GreedyResult``."""
+    """A registered optimizer: hyperparameter schema + execution hooks.
+
+    ``run(fn, budget, stop_zero, stop_neg, **params) -> GreedyResult``
+    answers one sequential query.  ``batched_run(fns, max_budget, budgets,
+    valid, stop_zero, stop_neg, **params)`` runs a wave for
+    :class:`~repro_torch.core.optimizers.batched.BatchedEngine` (``fns`` the
+    engine's member views, ``budgets`` (B,) and ``valid`` (B, n) tensors)
+    and returns a (B, ...) result.  ``sharded_run`` and ``mesh_replicated``
+    are the JAX package's mesh hooks, kept in the registry for the sharded
+    engine (ROADMAP queue 1, item 11); nothing in the port calls them yet.
+    ``None`` means the optimizer cannot ride that route: it is rejected
+    before anything runs.
+    """
 
     name: str
     params: Mapping[str, Param]
     run: Callable
+    batched_run: Optional[Callable] = None
+    sharded_run: Optional[Callable] = None
+    mesh_replicated: bool = False
+
+    @property
+    def batched_capable(self) -> bool:
+        # The JAX package also asks for a sharded hook (or mesh_replicated),
+        # since every wave may land on a mesh there.  The port has no sharded
+        # engine until ROADMAP item 11, so a batched hook is enough here.
+        return self.batched_run is not None
 
 
 _OPTIMIZERS: dict[str, OptimizerDef] = {}
 
 
 def register_optimizer(
-    name: str, run: Callable, *, params: Mapping[str, Param] | None = None
+    name: str,
+    run: Callable,
+    *,
+    params: Mapping[str, Param] | None = None,
+    batched_run: Callable | None = None,
+    sharded_run: Callable | None = None,
+    mesh_replicated: bool = False,
 ) -> OptimizerDef:
     """Register (or replace) an optimizer under ``name``.
 
     ``params`` maps hyperparameter names to :class:`Param` (default +
     validator); :class:`OptimizerSpec` construction validates against it, so
     a misspelled option fails with a ``TypeError`` naming the valid set.
+    ``batched_run`` / ``sharded_run`` / ``mesh_replicated`` are the wave
+    hooks of :class:`OptimizerDef`.
     """
-    defn = OptimizerDef(name=name, params=dict(params or {}), run=run)
+    defn = OptimizerDef(
+        name=name,
+        params=dict(params or {}),
+        run=run,
+        batched_run=batched_run,
+        sharded_run=sharded_run,
+        mesh_replicated=mesh_replicated,
+    )
     _OPTIMIZERS[name] = defn
     return defn
 
@@ -107,6 +151,12 @@ def resolve_optimizer(name: str) -> OptimizerDef:
             "(register new ones via repro_torch.core.register_optimizer)"
         )
     return defn
+
+
+def wave_capable_names() -> list[str]:
+    """The optimizers a wave route (batched) accepts: the single source for
+    every 'batched-capable optimizers: [...]' rejection."""
+    return [n for n in optimizer_names() if _OPTIMIZERS[n].batched_capable]
 
 
 # ---------------------------------------------------------------------------
@@ -328,23 +378,39 @@ class SelectionSpec:
 # solve(): the one front door
 # ---------------------------------------------------------------------------
 
+_MODES = ("sequential", "batched", "sharded", "served", "async")
 # execution routes of the JAX package that are still to be ported
 _WAITING_MODES = {
-    "batched": "ROADMAP queue 1, item 5",
-    "sharded": "ROADMAP queue 1, item 11",
-    "served": "ROADMAP queue 1, item 10",
-    "async": "ROADMAP queue 1, item 10",
+    "sharded": "the sharded engine over a 2-D mesh=, ROADMAP queue 1, item 11",
+    "served": "the serving slice, ROADMAP queue 1, item 10",
+    "async": "the serving slice, ROADMAP queue 1, item 10",
 }
 
 
-def solve(spec: SelectionSpec | Sequence[SelectionSpec], *, mode: str | None = None):
-    """Solve one spec (returns a :class:`GreedyResult`), or a sequence of
-    specs (returns a list in the same order, each solved sequentially).
+def solve(
+    spec: SelectionSpec | Sequence[SelectionSpec],
+    *,
+    mode: str | None = None,
+    mesh=None,
+    batch_axis: str = "batch",
+    data_axis: str = "data",
+    server=None,
+):
+    """Solve one spec, or a batch of specs, through one execution route.
 
-    ``mode`` is ``"sequential"`` (the default) — the one route ported so
-    far.  The JAX package's other routes raise ``ValueError`` naming the
-    ROADMAP item that brings them; their results are bit-identical to the
-    sequential route's by contract.
+    ``spec`` is a :class:`SelectionSpec` (returns one :class:`GreedyResult`)
+    or a sequence of them (returns a list in the same order).  ``mode`` is
+    ``"sequential"`` (the default for one spec; a Python loop for several)
+    or ``"batched"`` (the default for several: one wave through
+    :class:`~repro_torch.core.optimizers.batched.BatchedEngine`; the specs
+    must share the optimizer spec and stop rules, and their functions one
+    family and shape).  A batched result lies on the host, moved there in
+    one transfer for the wave.
+
+    The JAX package's ``"sharded"`` route (also chosen by passing ``mesh=``),
+    ``"served"`` and ``"async"`` routes and its ``server=`` raise
+    ``ValueError`` naming the ROADMAP item that brings them; every route
+    returns results bit-identical to the sequential one by contract.
     """
     single = isinstance(spec, SelectionSpec)
     specs = [spec] if single else list(spec)
@@ -354,18 +420,28 @@ def solve(spec: SelectionSpec | Sequence[SelectionSpec], *, mode: str | None = N
                 f"solve() takes SelectionSpec objects; item {i} is "
                 f"{type(s).__name__!r}"
             )
-    mode = "sequential" if mode is None else mode
+    if mode is None:
+        mode = "sequential" if single and mesh is None else "batched"
+    if mode == "batched" and mesh is not None:
+        mode = "sharded"
+    if mode not in _MODES:
+        raise ValueError(f"unknown mode {mode!r}; choose from {list(_MODES)}")
+    if not specs:
+        return []
     if mode in _WAITING_MODES:
         raise ValueError(
             f"mode={mode!r} is not ported to repro_torch yet "
-            f"({_WAITING_MODES[mode]}); use mode='sequential'"
+            f"({_WAITING_MODES[mode]}); use mode='sequential' or 'batched'"
         )
-    if mode != "sequential":
+    if server is not None:
         raise ValueError(
-            f"unknown mode {mode!r}; choose from ['sequential'] "
-            f"(still to be ported: {sorted(_WAITING_MODES)})"
+            "server= serves the 'served' and 'async' routes, which are not "
+            f"ported to repro_torch yet ({_WAITING_MODES['served']})"
         )
-    results = [_run_sequential(s) for s in specs]
+    if mode == "sequential":
+        results = [_run_sequential(s) for s in specs]
+    else:
+        results = _run_batched(specs)
     return results[0] if single else results
 
 
@@ -380,6 +456,36 @@ def _run_sequential(spec: SelectionSpec) -> GreedyResult:
     )
 
 
+def _check_uniform(specs: Sequence[SelectionSpec], what: str) -> None:
+    head = specs[0]
+    for s in specs[1:]:
+        if (
+            s.optimizer != head.optimizer
+            or s.stop_if_zero != head.stop_if_zero
+            or s.stop_if_negative != head.stop_if_negative
+        ):
+            raise ValueError(
+                f"mode={what!r} runs one wave, so every spec must share the "
+                "optimizer spec and stop rules; mixed workloads belong in "
+                'mode="served" (the coalescer groups them into waves)'
+            )
+
+
+def _run_batched(specs) -> list[GreedyResult]:
+    from repro_torch.core.optimizers.batched import BatchedEngine, batched_hook
+
+    _check_uniform(specs, "batched")
+    head = specs[0]
+    batched_hook(head.optimizer.name)  # an optimizer without one raises before stacking
+    engine = BatchedEngine([s.resolved_fn() for s in specs])
+    return engine.run(
+        [s.budget for s in specs],
+        head.optimizer,
+        stop_if_zero=head.stop_if_zero,
+        stop_if_negative=head.stop_if_negative,
+    )
+
+
 # ---------------------------------------------------------------------------
 # Built-in optimizer registrations
 # ---------------------------------------------------------------------------
@@ -388,13 +494,22 @@ def _naive_run(fn, budget, stop_zero, stop_neg):
     return naive_greedy(fn, budget, stop_zero, stop_neg)
 
 
+def _naive_batched(fns, max_budget, budgets, valid, stop_zero, stop_neg):
+    return _naive_impl(fns, max_budget, stop_zero, stop_neg, budgets=budgets, valid=valid)
+
+
 def _lazy_run(fn, budget, stop_zero, stop_neg, *, screen_k):
     return lazy_greedy(fn, budget, screen_k, stop_zero, stop_neg)
 
 
-register_optimizer("NaiveGreedy", _naive_run)
+def _lazy_batched(fns, max_budget, budgets, valid, stop_zero, stop_neg, *, screen_k):
+    return _lazy_bucketed_impl(fns, max_budget, budgets, valid, screen_k, stop_zero, stop_neg)
+
+
+register_optimizer("NaiveGreedy", _naive_run, batched_run=_naive_batched)
 register_optimizer(
     "LazyGreedy",
     _lazy_run,
     params={"screen_k": Param(8, _int_min(1), "lazy screen width (doubling levels)")},
+    batched_run=_lazy_batched,
 )

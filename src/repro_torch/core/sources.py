@@ -15,9 +15,11 @@ gathered-subset sweep — without writing the n x n matrix.
   ``label_i == label_j``), the paper's §8 clustered decomposition, streamed.
 - :class:`DenseSource` — the materialised matrix itself, so dense requests
   ride the same contract (and the dense FL-sweep kernels).
-
-The sparse k-NN source of the JAX package (``KnnSource``, ``knn_source``,
-``knn_from_features``) is not ported yet (ROADMAP queue 1, item 6).
+- :class:`KnnSource` — sparse k-NN similarity (each row's k neighbour ids
+  and weights, :func:`knn_source`, :func:`knn_from_features`), the
+  sparsified matrix never written.  Its column sums run over a fixed-order
+  layout built once per source, never through atomics, so a sweep gives the
+  same bits on every run.
 
 The queries every source answers:
 
@@ -41,10 +43,11 @@ computes each output column independently of its position; the tests in
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
-from repro_torch.common import NEG_INF, as_float_tensor, one_index, pad_rows
+from repro_torch.common import NEG_INF, as_float_tensor, one_index, pad_rows, resolve_device
 from repro_torch.kernels.similarity_kernel import (
     METRICS,
     TILE,
@@ -256,3 +259,182 @@ def dense_source(sim, device=None) -> DenseSource:
     device, numpy input goes to ``device`` (default: the card)."""
     sim = as_float_tensor(sim, device).contiguous()
     return DenseSource(sim=sim, n_rows=int(sim.shape[0]), n_cols=int(sim.shape[1]))
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class KnnSource:
+    """Sparse k-NN similarity in padded CSR-ish form.
+
+    Row i's neighbours are ``indices[i]`` (int32 column ids, -1 = empty pad
+    slot) with similarities ``weights[i]`` (>= 0; pad slots 0).  sim(i, j) is
+    ``weights[i, s]`` where ``indices[i, s] == j`` and exactly 0 elsewhere:
+    the sparsified matrix of ``similarity.sparsify_topk``, never written.
+    FL sweeps are O(n * k): off-neighbourhood entries contribute
+    max(0 - curmax, 0) = 0 exactly (curmax >= 0), so the sparse sweep is the
+    dense sweep over the sparsified matrix.
+
+    The JAX package sums each column with a scatter-add; on the card a
+    scatter-add (``index_add_``) adds in an order that changes from run to
+    run.  Here every column sum runs over :attr:`_layout`, built from
+    ``indices`` alone at the first sweep: a column's entries in row-major
+    order, zero-padded to a power-of-two width, summed pairwise (halves added
+    elementwise until one is left).  The order depends on the column's own
+    entries alone, so a sum is the same on every run and two columns with
+    the same entries get the same bits.  Ids >= n_cols are dropped, as the
+    JAX package's ``mode="drop"`` drops them.
+    """
+
+    indices: torch.Tensor  # (n_rows, k) int32, -1 pads
+    weights: torch.Tensor  # (n_rows, k) fp32 >= 0
+    n_rows: int
+    n_cols: int
+    k: int
+
+    @property
+    def device(self) -> torch.device:
+        return self.indices.device
+
+    @functools.cached_property
+    def _layout(self) -> tuple[tuple[torch.Tensor, torch.Tensor], ...]:
+        """((columns, table), ...) by in-degree bucket: the columns of
+        in-degree in (W/2, W], and for each a row of W flat entry positions
+        (row-major, into ``indices.reshape(-1)``) padded with the position
+        n_rows * k, which the sums read as +0.0."""
+        flat = self.indices.reshape(-1).long()
+        entries = torch.nonzero((flat >= 0) & (flat < self.n_cols)).reshape(-1)
+        cols, perm = torch.sort(flat[entries], stable=True)  # by column, then row-major
+        entries = entries[perm]
+        deg = torch.bincount(cols, minlength=self.n_cols)
+        start = torch.cumsum(deg, 0) - deg
+        bucket = torch.where(deg > 0, torch.ceil(torch.log2(deg.clamp(min=1).double())), -1.0)
+        pad = self.n_rows * self.k
+        layout = []
+        for b in torch.unique(bucket).tolist():
+            if b < 0:
+                continue
+            width = 1 << int(b)
+            cols_b = torch.nonzero(bucket == b).reshape(-1)
+            pos = start[cols_b][:, None] + torch.arange(width, device=self.device)[None, :]
+            live = pos < (start + deg)[cols_b][:, None]
+            table = torch.where(live, entries[pos.clamp(max=max(entries.shape[0] - 1, 0))], pad)
+            layout.append((cols_b, table))
+        return tuple(layout)
+
+    def _column_sums(self, contrib: torch.Tensor) -> torch.Tensor:
+        """(n_cols,) sums of the (n_rows, k) per-entry terms by column, in
+        the layout's fixed order."""
+        vals = torch.cat([contrib.reshape(-1), contrib.new_zeros(1)])
+        out = contrib.new_zeros((self.n_cols,))
+        for cols, table in self._layout:
+            v = vals[table]
+            while v.shape[1] > 1:
+                half = v.shape[1] // 2
+                v = v[:, :half] + v[:, half:]
+            out[cols] = v[:, 0]
+        return out
+
+    def _live_w(self) -> torch.Tensor:
+        return torch.where(self.indices >= 0, self.weights, 0.0)
+
+    def col(self, j) -> torch.Tensor:
+        j = one_index(j, self.device)
+        return torch.where(self.indices == j, self.weights, 0.0).sum(dim=1)
+
+    def col_sums(self) -> torch.Tensor:
+        return self._column_sums(self._live_w())
+
+    def diag(self) -> torch.Tensor:
+        # square sources only (Graph Cut): sim(j, j) is the self-neighbour
+        # weight when present, else exactly 0
+        rows = torch.arange(self.n_rows, dtype=torch.int32, device=self.device)[:, None]
+        d = torch.where(self.indices == rows, self.weights, 0.0).sum(dim=1)
+        if self.n_rows == self.n_cols:
+            return d
+        out = d.new_zeros((self.n_cols,))
+        m = min(self.n_rows, self.n_cols)
+        out[:m] = d[:m]
+        return out
+
+    def fl_gains(self, curmax: torch.Tensor) -> torch.Tensor:
+        contrib = torch.where(
+            self.indices >= 0, torch.clamp(self.weights - curmax[:, None], min=0.0), 0.0
+        )
+        return self._column_sums(contrib)
+
+    def fl_gains_at(self, curmax: torch.Tensor, idx) -> torch.Tensor:
+        # the full sweep, then a gather, as in the JAX package
+        idx = torch.as_tensor(idx, device=self.device).to(torch.long)
+        full = self.fl_gains(curmax)
+        return torch.where(idx >= 0, full[torch.clamp(idx, 0, self.n_cols - 1)], NEG_INF)
+
+    def masked_rowmax(self, mask) -> torch.Tensor:
+        mask = torch.as_tensor(mask, device=self.device).to(torch.bool)
+        safe = torch.clamp(self.indices, 0, self.n_cols - 1).long()
+        live = (self.indices >= 0) & mask[safe]
+        if self.k == 0:
+            return self.weights.new_zeros((self.n_rows,))
+        # max over an empty set is 0
+        return torch.clamp(torch.where(live, self.weights, 0.0).amax(dim=1), min=0.0)
+
+    def quad(self, mask) -> torch.Tensor:
+        m = torch.as_tensor(mask, device=self.device).to(torch.float32)
+        safe = torch.clamp(self.indices, 0, self.n_cols - 1).long()
+        inner = (self._live_w() * m[safe]).sum(dim=1)  # (n_rows,)
+        return (inner * m[: self.n_rows]).sum()
+
+    def to_dense(self) -> torch.Tensor:
+        """The sparsified matrix, written out (tests / small-n interop)."""
+        live = (self.indices >= 0) & (self.indices < self.n_cols)
+        rows = torch.arange(self.n_rows, device=self.device)[:, None].expand_as(self.indices)
+        out = self.weights.new_zeros((self.n_rows, self.n_cols))
+        out.index_put_((rows[live], self.indices[live].long()), self.weights[live], accumulate=True)
+        return out
+
+
+def knn_source(indices, weights, n_cols: int | None = None, device=None) -> KnnSource:
+    """A :class:`KnnSource` over (n, k) neighbour ids and weights; tensors
+    keep their device, numpy input goes to ``device`` (default: the card).
+    ``n_cols`` defaults to n (the square source Graph Cut needs)."""
+    if isinstance(indices, torch.Tensor):
+        dev = indices.device if device is None else resolve_device(device)
+        indices = indices.to(device=dev, dtype=torch.int32)
+    else:
+        indices = torch.tensor(indices, dtype=torch.int32, device=resolve_device(device))
+    weights = as_float_tensor(weights, indices.device)
+    if indices.shape != weights.shape or indices.dim() != 2:
+        raise ValueError(
+            f"indices/weights must both be (n, k); got {tuple(indices.shape)} "
+            f"vs {tuple(weights.shape)}"
+        )
+    n_rows, k = indices.shape
+    return KnnSource(
+        indices=indices.contiguous(), weights=weights.contiguous(), n_rows=int(n_rows),
+        n_cols=int(n_cols) if n_cols is not None else int(n_rows), k=int(k),
+    )
+
+
+def knn_from_features(
+    x, k: int, metric: str = "dot", rbf_sigma: float | None = None, batch: int = 2048,
+    device=None,
+) -> KnnSource:
+    """Top-k symmetric k-NN source from features, built in row batches so
+    peak memory is O(batch * n), never the full (n, n) matrix.  Each row
+    keeps its k largest similarities in descending order, ties to the lower
+    column index (``lax.top_k``'s rule): a stable sort of the negated row.
+    The similarity is the :class:`FeatureSource`'s (the matrix-free path's
+    TILE-wide blocks)."""
+    src = feature_source(x, metric=metric, rbf_sigma=rbf_sigma, device=device)
+    n = src.n_rows
+    if not 0 <= k <= n:
+        raise ValueError(f"k must lie in [0, {n}], got {k}")
+    idx_out, w_out = [], []
+    for lo in range(0, n, batch):
+        block = dataclasses.replace(
+            src, x=src.x[lo : lo + batch], xx=src.xx[lo : lo + batch],
+            n_rows=min(batch, n - lo),
+        )
+        sim = torch.cat([s[:, :w] for _, w, s in block._tiles()], dim=1)  # (b, n)
+        neg, order = torch.sort(-sim, dim=1, stable=True)
+        idx_out.append(order[:, :k].to(torch.int32))
+        w_out.append(-neg[:, :k])
+    return knn_source(torch.cat(idx_out), torch.cat(w_out), n_cols=n)

@@ -35,7 +35,7 @@ from repro_torch.core.info.com import ConcaveOverModular
 from repro_torch.core.info.fl import FLCG, FLCMI, FLQMI, FLVMI
 from repro_torch.core.info.gc import GCMI
 from repro_torch.core.optimizers.greedy import GreedyResult
-from repro_torch.core.sources import FeatureSource
+from repro_torch.core.sources import FeatureSource, KnnSource, knn_source
 
 
 def facility_location_from_arrays(
@@ -79,6 +79,17 @@ def feature_source_from_arrays(
         row_labels=lab(row_labels), col_labels=lab(col_labels),
         metric=metric, rbf_sigma=rbf_sigma, d=int(x_t.shape[1]),
         n_rows=int(x_t.shape[0]), n_cols=int(y_t.shape[0]),
+    )
+
+
+def knn_source_from_arrays(
+    indices: np.ndarray, weights: np.ndarray, n_cols: int | None = None, device=None
+) -> KnnSource:
+    """Port :class:`KnnSource` from a JAX source's ``indices`` / ``weights``
+    arrays (``np.asarray(jsrc.indices)``), on ``device`` (default: the card)."""
+    return knn_source(
+        np.asarray(indices, np.int32), np.asarray(weights, np.float32), n_cols=n_cols,
+        device=device,
     )
 
 

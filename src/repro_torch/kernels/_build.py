@@ -64,6 +64,11 @@ _SIGNATURES = {
          _P],
         ctypes.c_int,
     ),
+    "fl_gains_wave_launch": (
+        [_P, _I64, _I64, _I64, _I64, _I64, _P, _I64, _P, _C_INT, _I64, _I64, _I64, _C_INT,
+         _C_INT, _C_INT, _P, _P, _P, _P],
+        ctypes.c_int,
+    ),
     "flmf_gains_launch": (
         [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, ctypes.c_int, ctypes.c_float,
          _P, _P, _P],

@@ -19,6 +19,12 @@ versions below add in exactly that order, so
 The first makes the crossover exact: a gathered sweep of k >=
 :data:`FULL_SWEEP_RATIO` * n columns sweeps every column and gathers the k
 slots from that (:func:`sweeps_every_column`).
+
+Waves: every function here also takes B members of one shape at once, sim
+(B, u, n) (each member's (u, n) contiguous, any stride between members, as
+the batched engine stacks them), curmax (B, u) and idx (B, k), and returns
+(B, n) or (B, k) in one launch.  Each member's row equals its own call bit
+for bit, since the order above depends on u alone.
 """
 from __future__ import annotations
 
@@ -72,12 +78,18 @@ def _column_sums(cols: torch.Tensor, curmax: torch.Tensor) -> torch.Tensor:
 
 
 def fl_gains_plain(sim: torch.Tensor, curmax: torch.Tensor) -> torch.Tensor:
-    """sim (u, n), curmax (u,) -> gains (n,) fp32, in plain PyTorch."""
+    """sim (u, n), curmax (u,) -> gains (n,) fp32, in plain PyTorch; a wave
+    (B, u, n), (B, u) -> (B, n), member by member."""
+    if sim.dim() == 3:
+        return torch.stack([_column_sums(s, c) for s, c in zip(sim, curmax)])
     return _column_sums(sim, curmax)
 
 
 def fl_gains_at_plain(sim: torch.Tensor, curmax: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Gathered sweep in plain PyTorch: idx (k,) -> gains (k,); idx < 0 -> NEG_INF."""
+    """Gathered sweep in plain PyTorch: idx (k,) -> gains (k,); idx < 0 -> NEG_INF;
+    a wave (B, u, n), (B, u), (B, k) -> (B, k), member by member."""
+    if sim.dim() == 3:
+        return torch.stack([fl_gains_at_plain(s, c, i) for s, c, i in zip(sim, curmax, idx)])
     idx = idx.to(device=sim.device, dtype=torch.long)
     cols = sim[:, torch.clamp(idx, 0, sim.shape[1] - 1)]
     return torch.where(idx < 0, NEG_INF, _column_sums(cols, curmax))
@@ -107,9 +119,12 @@ def sweep_layout(u: int, k: int) -> tuple[int, int, int, int, int]:
 
 
 def _launch(sim: torch.Tensor, curmax: torch.Tensor, idx: torch.Tensor | None) -> torch.Tensor:
-    u, n = sim.shape
-    k = n if idx is None else idx.shape[0]
-    out = torch.empty((k,), dtype=torch.float32, device=sim.device)
+    """One launch of a sweep, or of a wave of them when sim is 3-D."""
+    wave = sim.dim() == 3
+    members = sim.shape[0] if wave else 1
+    u, n = sim.shape[-2:]
+    k = n if idx is None else idx.shape[-1]
+    out = torch.empty((members, k) if wave else (k,), dtype=torch.float32, device=sim.device)
     if k == 0:
         return out
     if u == 0:  # no rows: every sum is empty
@@ -123,27 +138,36 @@ def _launch(sim: torch.Tensor, curmax: torch.Tensor, idx: torch.Tensor | None) -
         # the full sweep's scratch, from the caching allocator: dropping it on
         # return is safe while the kernel runs, as the block is reused only by
         # later work on this stream
-        partial = torch.empty((-(-u // ROWS_PER_CHUNK), n), dtype=torch.float32, device=sim.device)
+        partial = torch.empty(
+            (members * -(-u // ROWS_PER_CHUNK), n), dtype=torch.float32, device=sim.device
+        )
         if idx is not None:
-            full = torch.empty((n,), dtype=torch.float32, device=sim.device)
+            full = torch.empty((members, n), dtype=torch.float32, device=sim.device)
     else:
         group, slots, threads, _, _ = sweep_layout(u, k)
-    rc = _build.load().fl_gains_launch(
-        sim.data_ptr(), sim.stride(0), u, n, curmax.data_ptr(),
-        None if idx is None else idx.data_ptr(), 0 if idx is None else idx.element_size(), k,
-        ROWS_PER_CHUNK, group, slots, threads, None if partial is None else partial.data_ptr(),
-        None if full is None else full.data_ptr(), out.data_ptr(), _build.raw_stream(sim),
-    )
+    lib = _build.load()
+    ids = (None, 0) if idx is None else (idx.data_ptr(), idx.element_size())
+    tail = (ROWS_PER_CHUNK, group, slots, threads, None if partial is None else partial.data_ptr(),
+            None if full is None else full.data_ptr(), out.data_ptr(), _build.raw_stream(sim))
+    if wave:  # member b at b * stride(0) of each tensor
+        rc = lib.fl_gains_wave_launch(
+            sim.data_ptr(), sim.stride(0), sim.stride(1), u, n, members, curmax.data_ptr(),
+            curmax.stride(0), *ids, 0 if idx is None else idx.stride(0), k, *tail,
+        )
+    else:
+        rc = lib.fl_gains_launch(sim.data_ptr(), sim.stride(0), u, n, curmax.data_ptr(), *ids, k,
+                                 *tail)
     _build.check(rc, "fl_gains kernel")
     return out
 
 
 def fl_gains_cuda(sim: torch.Tensor, curmax: torch.Tensor) -> torch.Tensor:
-    """Launch the full sweep on checked CUDA tensors (see ``ops.fl_gains``)."""
+    """Launch the full sweep, or a wave of them, on checked CUDA tensors
+    (see ``ops.fl_gains``)."""
     return _launch(sim, curmax, None)
 
 
 def fl_gains_at_cuda(sim: torch.Tensor, curmax: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Launch the gathered sweep; ``idx`` is a contiguous int32 or int64
-    CUDA tensor, taken as it is."""
+    """Launch the gathered sweep, or a wave of them; ``idx`` is an int32 or
+    int64 CUDA tensor whose rows are contiguous, taken as it is."""
     return _launch(sim, curmax, idx)

@@ -10,6 +10,10 @@ anything its kernel does not take.
 
 ``LAUNCHES`` counts kernel launches per wrapper (one per call that reached
 the card), so a run can prove that its path went through the kernels.
+
+``fl_gains`` and ``fl_gains_at`` also take a wave of B members of one shape
+(the batched engine's stacked S) and sweep them all in one launch, counted
+once.
 """
 from __future__ import annotations
 
@@ -135,11 +139,11 @@ def _check_len(name: str, t: torch.Tensor, n: int, of: str) -> None:
         raise ValueError(f"{name} {tuple(t.shape)} does not match the {n} {of}")
 
 
-def _check_idx(idx, like: torch.Tensor) -> None:
+def _check_idx(idx, like: torch.Tensor, ndim: int = 1) -> None:
     if not isinstance(idx, torch.Tensor) or idx.dtype not in (torch.int32, torch.int64):
         raise TypeError("idx must be an int32 or int64 torch.Tensor")
-    if idx.dim() != 1:
-        raise ValueError(f"idx must be 1-D, got shape {tuple(idx.shape)}")
+    if idx.dim() != ndim:
+        raise ValueError(f"idx must be {ndim}-D, got shape {tuple(idx.shape)}")
     if idx.device != like.device:
         raise ValueError(f"idx on {idx.device}, inputs on {like.device}")
 
@@ -169,16 +173,35 @@ def similarity(x, y, metric: str = "dot", rbf_sigma: float | None = None) -> tor
     return out
 
 
+def _check_members(name: str, t, ndim: int) -> None:
+    """``t`` an fp32 wave of B >= 1 members of ``ndim`` dimensions, each
+    member contiguous; the stride between members is free."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name} must be a torch.Tensor, got {type(t).__name__}")
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if t.dim() != ndim + 1:
+        raise ValueError(f"{name} must be {ndim + 1}-D for a wave, got shape {tuple(t.shape)}")
+    if t.shape[0] < 1 or not t[0].is_contiguous() or t.stride(0) < 0:
+        raise ValueError(f"{name} must hold at least one member, each contiguous")
+
+
 def _check_fl(sim, curmax) -> bool:
-    _check_f32("sim", sim, 2)
-    _check_f32("curmax", curmax, 1)
-    if curmax.shape[0] != sim.shape[0]:
-        raise ValueError(f"curmax {tuple(curmax.shape)} does not match sim rows {sim.shape[0]}")
+    if isinstance(sim, torch.Tensor) and sim.dim() == 3:
+        _check_members("sim", sim, 2)
+        _check_members("curmax", curmax, 1)
+    else:
+        _check_f32("sim", sim, 2)
+        _check_f32("curmax", curmax, 1)
+    if curmax.shape != sim.shape[:-1]:
+        raise ValueError(f"curmax {tuple(curmax.shape)} does not match sim {tuple(sim.shape)}")
     return _on_card(("sim", sim), ("curmax", curmax))
 
 
 def fl_gains(sim, curmax) -> torch.Tensor:
-    """sim (u, n), curmax (u,) -> gains (n,): sum_i max(sim_ij - curmax_i, 0)."""
+    """sim (u, n), curmax (u,) -> gains (n,): sum_i max(sim_ij - curmax_i, 0).
+    A wave: sim (B, u, n), curmax (B, u) -> (B, n), each row bit-equal to
+    that member's own call."""
     if not _check_fl(sim, curmax):
         return fl_gains_plain(sim, curmax)
     out = fl_gains_cuda(sim, curmax)
@@ -188,12 +211,17 @@ def fl_gains(sim, curmax) -> torch.Tensor:
 
 def fl_gains_at(sim, curmax, idx) -> torch.Tensor:
     """Gathered sweep: idx (k,) integer -> gains (k,); idx < 0 -> NEG_INF,
-    bit-identical to :func:`fl_gains` at the same indices."""
+    bit-identical to :func:`fl_gains` at the same indices.  A wave: sim
+    (B, u, n), curmax (B, u), idx (B, k) -> (B, k)."""
     on_card = _check_fl(sim, curmax)
-    _check_idx(idx, sim)
+    _check_idx(idx, sim, sim.dim() - 1)
+    if idx.shape[:-1] != sim.shape[:-2]:
+        raise ValueError(f"idx {tuple(idx.shape)} does not match sim {tuple(sim.shape)}")
     if not on_card:
         return fl_gains_at_plain(sim, curmax, idx)
-    out = fl_gains_at_cuda(sim, curmax, idx.contiguous())
+    if idx.stride(-1) != 1:
+        idx = idx.contiguous()
+    out = fl_gains_at_cuda(sim, curmax, idx)
     LAUNCHES["fl_gains_at"] += 1
     return out
 

@@ -218,6 +218,92 @@ def test_fl_gains_at_equals_full_and_plain_for_int32_and_int64(cuda, monkeypatch
             assert torch.equal(got, want)
 
 
+def _wave_stack(g, cuda, B, u, n, pad_rows=0):
+    """B members of (u + pad_rows, n) on 512-byte slabs, as the batched
+    engine stacks them (padded rows: S = 0, curmax = 0)."""
+    rows = u + pad_rows
+    stride = -(-rows * n // 128) * 128
+    sim = torch.zeros(B * stride, device=cuda).as_strided((B, rows, n), (stride, n, 1))
+    sim[:, :u] = torch.rand((B, u, n), generator=g, device=cuda)
+    cm = torch.zeros((B, rows), device=cuda)
+    cm[:, :u] = 0.7 * torch.rand((B, u), generator=g, device=cuda)
+    return sim, cm
+
+
+@pytest.mark.parametrize("B", [1, 3, 17])
+@pytest.mark.parametrize("shape", [(1000, FL_AT_N), (131, 4096), (129, 1)])
+def test_fl_wave_launch_equals_each_member_launch(cuda, B, shape):
+    """One launch for the wave, counted once: member b's row equals its own
+    launch and the plain version bit for bit, for the full sweep and the
+    gathered sweep on both sides of the crossover, int32 and int64 ids
+    (rows of a wider id tensor, as the lazy engine's sort hands them)."""
+    u, n = shape
+    g = torch.Generator(device=cuda).manual_seed(B * 7 + u)
+    sim, cm = _wave_stack(g, cuda, B, u, n)
+    before = dict(ops.LAUNCHES)
+    full = ops.fl_gains(sim, cm)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["fl_gains"] == before["fl_gains"] + 1
+    assert torch.equal(full, fl_gains_plain(sim, cm))
+    for b in range(B):
+        assert torch.equal(full[b], ops.fl_gains(sim[b], cm[b]))
+    edge = math.ceil(fl_module.FULL_SWEEP_RATIO * n)
+    for k in sorted({1, 8, max(1, edge - 1), edge, n + 3}):
+        wide = torch.stack([_ids(g, cuda, n, k + 5, torch.int64) for _ in range(B)])
+        idx = wide[:, 2 : 2 + k]
+        for dtype in (torch.int64, torch.int32):
+            ids = idx if dtype == torch.int64 else wide.to(dtype)[:, 2 : 2 + k]
+            count = ops.LAUNCHES["fl_gains_at"]
+            got = ops.fl_gains_at(sim, cm, ids)
+            torch.cuda.synchronize()
+            assert ops.LAUNCHES["fl_gains_at"] == count + 1
+            assert torch.equal(got, fl_gains_at_plain(sim, cm, idx))
+            for b in range(B):
+                assert torch.equal(got[b], ops.fl_gains_at(sim[b], cm[b], ids[b].contiguous()))
+
+
+def test_fl_wave_zero_padded_members_equal_unpadded_launches(cuda):
+    g = torch.Generator(device=cuda).manual_seed(3)
+    u, n, pad = 1000, 3000, 300
+    sim, cm = _wave_stack(g, cuda, 4, u, n, pad_rows=pad)
+    full = ops.fl_gains(sim, cm)
+    idx = torch.stack([_ids(g, cuda, n, 40, torch.int64) for _ in range(4)])
+    part = ops.fl_gains_at(sim, cm, idx)
+    torch.cuda.synchronize()
+    for b in range(4):
+        own_sim, own_cm = sim[b, :u].contiguous(), cm[b, :u].contiguous()
+        assert torch.equal(full[b], ops.fl_gains(own_sim, own_cm))
+        assert torch.equal(part[b], ops.fl_gains_at(own_sim, own_cm, idx[b]))
+
+
+@pytest.mark.parametrize("optimizer,params", OPTIMIZERS)
+def test_batched_fl_wave_on_the_card_equals_sequential(cuda, optimizer, params):
+    """solve(specs) on the card: one fl_gains launch per NaiveGreedy step
+    (one fl_gains_at per LazyGreedy level) for the whole wave, and every
+    member bit-equal to its sequential solve."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    fns = []
+    for _ in range(5):
+        x = torch.randn((KERNEL_MIN_N, 32), generator=g, device=cuda)
+        fns.append(facility_location_from_arrays(
+            torch.clamp(x @ x.T / 32.0, min=0.0).cpu().numpy(), use_kernel=True, device=cuda))
+    budgets = [12, 5, 9, 12, 7]
+    specs = [SelectionSpec(f, b, optimizer, **params) for f, b in zip(fns, budgets)]
+    before = dict(ops.LAUNCHES)
+    wave = solve(specs)
+    torch.cuda.synchronize()
+    if optimizer == "NaiveGreedy":
+        assert ops.LAUNCHES["fl_gains"] - before["fl_gains"] == max(budgets)
+    else:
+        assert ops.LAUNCHES["fl_gains"] - before["fl_gains"] == 1  # the first bounds
+    for s, r in zip(specs, wave):
+        seq = result_to_numpy(solve(s))
+        got = result_to_numpy(r)
+        np.testing.assert_array_equal(got[0], seq[0])
+        np.testing.assert_array_equal(got[1].view(np.int32), seq[1].view(np.int32))
+        assert got[2] == seq[2] and np.float32(got[3]) == np.float32(seq[3])
+
+
 @pytest.mark.parametrize("concave", ["sqrt", "log", "inverse"])
 def test_fb_gains_at_equals_full_for_int32_and_int64(cuda, concave):
     """One launch that forms g(acc) in its term: bit-equal to the full

@@ -231,6 +231,102 @@ def test_launcher_passes_rows_past_the_old_limit(monkeypatch):
         assert (args[13] is not None) == (sweep and idx is not None)  # the n-long scratch
 
 
+# -- waves: B members of one shape in one call (the batched engine's) ---------
+
+
+def _wave(B, u, n, seed, pad_rows=0):
+    """A (B, u + pad_rows, n) stack of members with their curmax, each member
+    on its own 512-byte slab as the batched engine stacks them; the padded
+    rows hold S = 0 and curmax = 0."""
+    rng = np.random.default_rng(seed)
+    rows = u + pad_rows
+    stride = -(-rows * n // 128) * 128
+    sim = torch.zeros(B * stride).as_strided((B, rows, n), (stride, n, 1))
+    sim[:, :u] = torch.from_numpy(rng.random((B, u, n), dtype=np.float32))
+    cm = torch.zeros((B, rows))
+    cm[:, :u] = torch.from_numpy(rng.random((B, u), dtype=np.float32) * 0.6)
+    return sim, cm
+
+
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("u,n", [(131, 40), (300, 257), (128, 9)])
+def test_fl_wave_equals_each_member_call_bit_for_bit(B, u, n):
+    """A wave's row b is member b's own call, bit for bit: the full sweep,
+    and gathered sweeps on both sides of the crossover (k < and >= 0.05 n),
+    with int32 and int64 ids (u not a multiple of the 128-row chunk)."""
+    sim, cm = _wave(B, u, n, seed=B * 1000 + u)
+    full = ops.fl_gains(sim, cm)
+    assert full.shape == (B, n)
+    for b in range(B):
+        assert torch.equal(full[b], ops.fl_gains(sim[b].contiguous(), cm[b].clone()))
+    rng = np.random.default_rng(u)
+    narrow = max(1, int(FULL_SWEEP_RATIO * n) - 1)
+    for k in sorted({1, narrow, math.ceil(FULL_SWEEP_RATIO * n), n + 3}):
+        ids = torch.from_numpy(rng.integers(-1, n, size=(B, k)))
+        for dtype in (torch.int32, torch.int64):
+            got = ops.fl_gains_at(sim, cm, ids.to(dtype))
+            assert got.shape == (B, k)
+            for b in range(B):
+                one = ops.fl_gains_at(sim[b].contiguous(), cm[b].clone(), ids[b].to(dtype))
+                assert torch.equal(got[b], one), (b, k, dtype)
+                want = torch.where(ids[b] < 0, NEG_INF, full[b][ids[b].clamp(min=0)])
+                assert torch.equal(got[b], want)
+
+
+def test_fl_wave_of_zero_padded_members_equals_the_unpadded_call():
+    """Zero-padded rows (S = 0, curmax = 0) add +0.0: a member padded to a
+    longer u, and to more columns, sweeps to the unpadded member's bits."""
+    u, n, pad = 200, 60, 70
+    sim, cm = _wave(3, u, n, seed=7, pad_rows=pad)
+    wide = torch.zeros((3, u + pad, n + 5))
+    wide[:, :, :n] = sim
+    full = ops.fl_gains(wide, cm)
+    ids = torch.tensor([[0, 59, -1, 3], [1, 1, 2, 58], [7, 64, 0, -1]])
+    part = ops.fl_gains_at(wide, cm, ids)
+    for b in range(3):
+        own = ops.fl_gains(sim[b, :u].contiguous(), cm[b, :u].clone())
+        assert torch.equal(full[b, :n], own)
+        assert torch.equal(full[b, n:], torch.zeros(5))
+        live = (ids[b] >= 0) & (ids[b] < n)
+        assert torch.equal(part[b][live], own[ids[b][live]])
+
+
+def test_fl_wave_wrappers_check_the_member_layout():
+    sim, cm = _wave(2, 10, 6, seed=1)
+    with pytest.raises(ValueError, match="curmax"):
+        ops.fl_gains(sim, cm[:, :9])
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.fl_gains(sim.transpose(1, 2), cm)
+    with pytest.raises(ValueError, match="at least one member"):
+        ops.fl_gains(sim[:0], cm[:0])
+    with pytest.raises(ValueError, match="idx"):
+        ops.fl_gains_at(sim, cm, torch.zeros((3, 2), dtype=torch.int64))
+    with pytest.raises(ValueError, match="2-D"):
+        ops.fl_gains_at(sim, cm, torch.zeros(2, dtype=torch.int64))
+
+
+def test_wave_launcher_passes_member_strides(monkeypatch):
+    """The wave launcher hands the kernel each tensor's member stride (a
+    stand-in library records the call; no kernel runs here)."""
+    calls = []
+
+    class Lib:
+        def fl_gains_wave_launch(self, *args):
+            calls.append(args)
+            return 0
+
+    monkeypatch.setattr(_build, "load", lambda: Lib())
+    monkeypatch.setattr(_build, "raw_stream", lambda t: 0)
+    sim, cm = _wave(3, 130, 100, seed=2)
+    ids = torch.zeros((3, 90), dtype=torch.int64)[:, 10:14]  # rows of a wider sort
+    for idx, k in ((None, 100), (ids, 4)):
+        assert fl_gains._launch(sim, cm, idx).shape == (3, k)
+        args = calls[-1]
+        assert args[1:6] == (sim.stride(0), 100, 130, 100, 3) and args[7] == 130
+        assert args[10:12] == ((0, k) if idx is None else (90, k))
+        assert (args[16] is not None) == (idx is None)  # the full sweep's partial sums
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take():
     s = torch.rand(6, 5)
     cm = torch.rand(6)

@@ -411,11 +411,15 @@ def test_selection_matches_dense_path(metric, optimizer, params):
 def test_deferred_routes_raise_naming_the_roadmap_items():
     x = _tricky()
     S = create_kernel(x, metric="cosine", device="cpu")
-    idx, w = np.zeros((37, 4), np.int32), np.ones((37, 4), np.float32)
-    for call in (lambda: FacilityLocationMF.from_knn(idx, w),
-                 lambda: GraphCutMF.from_knn(idx, w)):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            call()
+    # the k-NN sources are ported: from_knn builds the matrix-free functions
+    # over them, on the torch path whatever use_kernel says (as in the JAX
+    # package, which has no kernel for them)
+    idx = np.stack([np.arange(37), (np.arange(37) + 1) % 37], axis=1).astype(np.int32)
+    w = np.full((37, 2), 0.5, np.float32)
+    for fn in (FacilityLocationMF.from_knn(idx, w, use_kernel=True, device="cpu"),
+               GraphCutMF.from_knn(idx, w, use_kernel=True, device="cpu")):
+        assert fn.n == 37 and backend_name(fn) == "torch"
+        assert solve(SelectionSpec(fn, 3)).order.shape == (3,)
     # the dense graph-cut routes are ported: use_kernel=True takes the gc
     # kernels (their plain versions on the CPU), None the torch path here
     for fn in (GraphCut.from_kernel(S, use_kernel=True),

@@ -158,13 +158,25 @@ def test_spec_defaults_and_unported_options():
     assert optimizer_names() == ["LazyGreedy", "NaiveGreedy"]
     with pytest.raises(TypeError, match="serving slice"):
         SelectionSpec(fn, 3, deadline_s=1.0)
-    for mode in ("batched", "sharded", "served", "async", "nonsense"):
+    for mode in ("sharded", "served", "async", "nonsense"):
         with pytest.raises(ValueError, match="mode"):
             solve(spec, mode=mode)
+    # the batched route is ported: one spec through it equals its sequential solve
+    one = solve(spec, mode="batched")
+    seq = solve(spec)
+    assert one.order.tolist() == seq.order.tolist() and int(one.n_evals) == int(seq.n_evals)
+    assert torch.equal(one.gains, seq.gains.cpu())
     with pytest.raises(TypeError):
         solve([spec, "not a spec"])
-    a, b = solve([spec, SelectionSpec(fn, 2)])
+    a, b = solve([spec, SelectionSpec(fn, 2)], mode="sequential")
     assert a.order.shape == (3,) and b.order.shape == (2,)
+    # a list defaults to one batched wave, which refuses mixed optimizers, as
+    # the JAX package does
+    jfn = JFacilityLocation.from_kernel(jnp.ones((3, 4)))
+    for spec_cls, f in ((JSelectionSpec, jfn), (SelectionSpec, fn)):
+        solver = jsolve if spec_cls is JSelectionSpec else solve
+        with pytest.raises(ValueError, match="served"):
+            solver([spec_cls(f, 3, "LazyGreedy"), spec_cls(f, 2)])
 
 
 def test_choose_backend_decision_table():
