@@ -6,7 +6,7 @@ that path against its plain PyTorch version.
     python3 chip_smoke.py --n 8192 --naive-budget 50 --lazy-budget 200 \
         --mf-n 65536 --mf-lazy-budget 200 --reps 5   # a short check
 
-Six paths run, each with its launch counts set to 0 just before it and
+Seven paths run, each with its launch counts set to 0 just before it and
 read just after:
 
 - the main path, the paper's core loop: ``create_kernel`` (CUDA similarity
@@ -36,6 +36,10 @@ read just after:
   launch a NaiveGreedy step and one ``fl_gains_at`` launch a LazyGreedy
   level for the whole wave), every other kernel family in a wave, and the
   sparse k-NN sources.
+- the served path: mixed requests of twelve families through
+  ``SelectionServer`` (per-group queues, padded waves of the batched
+  engine), ``AsyncSelectionServer`` and sessions, every answer bit-equal
+  to the request's sequential ``solve()``.
 
 Phases, each of which raises on failure (the exit code is then non-zero):
   1 device   CUDA present; the card's name and power limit
@@ -102,6 +106,25 @@ Phases, each of which raises on failure (the exit code is then non-zero):
              features (top-k rows checked), FacilityLocationMF.from_knn
              against a dense FL over its to_dense() and run twice with equal
              bits, random neighbours over --mf-n items, GraphCutMF.from_knn
+  11 served  (p) SERVE_REQUESTS 128 requests (the JAX package's serve CLI
+             families fl, gc, fb, sc, psc, dsum, dmin, flqmi, gcmi, logdet,
+             and FLMF / GCMF over a cosine FeatureSource; mixtures from
+             --seed + SERVE_SEED + i at d, n from SERVE_N, budgets 50..200,
+             half NaiveGreedy, half LazyGreedy, use_kernel=None) through
+             SelectionServer(max_wave=SERVE_MAX_WAVE), a warm-up and a
+             steady round: every answer bit-equal to its sequential solve on
+             the route that solve takes (the padded requests under
+             KERNEL_MIN_N stay on the torch sweeps in the bucket above it),
+             the 15 kernels of the path launched; (q) the same through
+             AsyncSelectionServer, depth and timer triggers both firing; (r)
+             a FacilityLocationMF session fed uneven deltas to SESSION_N
+             rows, against one extend and a direct solve(), and a dense
+             FacilityLocation session in indices mode against a direct solve
+             on its active set; (s) an injected "kernel" fault opening the FL
+             breaker: the FL requests fail typed, a GraphCut request in the
+             same flush is answered, and after the cooldown a probe wave
+             closes the breaker with answers equal to the sequential solves;
+             (p)-(r) fail on any failed or retried request or open breaker
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Details go to chiprun_out/chip_smoke.json.
 Without a CUDA device, or without the repo's ``src/`` beside it, the script
@@ -198,7 +221,7 @@ FL_ROWS_PAST_LIMIT = 65_535 * 128 + 1
 HOST_CALLS, HOST_BATCHES = 200, 5
 CLUSTERS, KMEANS_ITERS = 100, 25  # phase 9 (j): the mixture's component count
 GUIDED = 100  # phase 9 (k): |Q| = |P|
-GUIDED_BUDGET = 500  # phase 9 (k): the FL, GC and COM measures' NaiveGreedy budget
+GUIDED_BUDGET = 250  # phase 9 (k): the FL, GC and COM measures' NaiveGreedy budget
 LOGDET_BUDGET = 100  # phase 9 (k): well under the cosine S's rank d + 1
 # phase 10 (l), (m): the members' budgets, spread evenly over this range, and
 # LazyGreedy's screen width
@@ -213,8 +236,34 @@ FAMILY_BUDGETS = (50, 200)
 # budgets of each, and GraphCutMF's NaiveGreedy budget
 KNN_K, KNN_BATCH = 10, 2048
 KNN_MILLION_K = 8
-KNN_BUDGETS = ((500, 5000), (100, 1000))
+KNN_BUDGETS = ((500, 2500), (100, 1000))
 GC_KNN_BUDGET = 100
+# phase 11: the served workload's families (the JAX package's serve CLI ten,
+# src/repro/launch/serve.py:971-1025, and FLMF / GCMF over a FeatureSource),
+# budgets, seed offset and query rows; AsyncSelectionServer's triggers;
+# the FLMF session's final n, its seed rows and uneven deltas (as given at
+# 8,192 rows, scaled for another SESSION_N), its LazyGreedy budget; the
+# kernel fault's n and the breaker's cooldown
+SERVE_REQUESTS = 128
+SERVE_N = (3072, 4096, 6144, 8192)
+SERVE_MAX_WAVE = 64
+SERVE_KINDS = ("fl", "gc", "fb", "sc", "psc", "dsum", "dmin", "flqmi", "gcmi", "logdet",
+               "flmf", "gcmf")
+KERNEL_FAMILIES = ("FacilityLocation", "GraphCut", "FeatureBased", "SetCover",
+                   "ProbabilisticSetCover", "DisparitySum", "DisparityMin", "FacilityLocationMF",
+                   "GraphCutMF")
+SERVED_KERNELS = ("similarity", "fl_gains", "fl_gains_at", "flmf_gains", "flmf_gains_at",
+                  "gc_gains", "gc_gains_at", "gcmf_gains", "gcmf_gains_at", "fb_gains",
+                  "fb_gains_at", "sc_gains", "psc_gains", "dsum_gains", "dmin_gains")
+SERVE_BUDGETS = (50, 200)
+SERVE_SEED = 7000
+SERVE_QUERIES = 16
+SERVE_MAX_PENDING, SERVE_FLUSH_INTERVAL = 2, 0.05
+SESSION_N = 8192
+SESSION_DELTAS = (1000, 37, 2048, 1)
+SESSION_BUDGET = 100
+FAULT_N = (4096, 6144)
+FAULT_COOLDOWN_S = 60.0  # on the breaker board's own clock, which (s) moves
 
 
 def log(msg: str) -> None:
@@ -2809,6 +2858,390 @@ def phase_wave(torch, args) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the served path
+
+
+def _served_function(torch, kind: str, seed: int, n: int, d: int):
+    """One request's function (use_kernel=None: the decision table's choice)
+    over a 100-component mixture from ``seed`` at width ``d``: the JAX
+    package's serve CLI families on phase 10's cosine S, fb on relu(x), sc /
+    psc on phase 8's tagger, dsum / dmin on phase 7's distances, and FLMF /
+    GCMF over the cosine FeatureSource."""
+    from repro_torch.core import (
+        FLQMI, GCMI, DisparityMin, DisparitySum, FacilityLocation, FacilityLocationMF,
+        FeatureBased, GraphCut, GraphCutMF, LogDet, ProbabilisticSetCover, SetCover,
+        create_kernel,
+    )
+
+    x = gaussian_mixture_cuda(torch, seed, n, d)
+
+    def cos(a, b=None):
+        return create_kernel(a, b, metric="cosine", use_pallas=True)
+
+    if kind == "fl":
+        return FacilityLocation.from_kernel(cos(x), use_kernel=None)
+    if kind == "gc":
+        return GraphCut.from_kernel(cos(x), lam=GC_LAM, use_kernel=None)
+    if kind == "fb":
+        return FeatureBased.from_features(torch.relu(x), concave="sqrt", use_kernel=None)
+    if kind in ("sc", "psc"):
+        p = _tag_probs(torch, x, seed)
+        if kind == "sc":
+            return SetCover.from_cover((p > 0.5).float(), use_kernel=None)
+        return ProbabilisticSetCover.from_probs(p, use_kernel=None)
+    if kind in ("dsum", "dmin"):
+        D = create_kernel(x, metric="euclidean", use_pallas=True)
+        D.clamp_(min=1e-6).reciprocal_().sub_(1.0)
+        cls = DisparitySum if kind == "dsum" else DisparityMin
+        return cls.from_distance(D, use_kernel=None)
+    q = gaussian_mixture_cuda(torch, seed + 1, SERVE_QUERIES, d)
+    if kind == "flqmi":
+        return FLQMI.build(cos(q, x))
+    if kind == "gcmi":
+        return GCMI.build(cos(x, q), lam=GC_LAM)
+    if kind == "logdet":
+        S = cos(x)
+        S.diagonal().add_(0.5)
+        return LogDet.from_kernel(S, max_select=SERVE_BUDGETS[1])
+    if kind == "flmf":
+        return FacilityLocationMF.from_features(x, metric="cosine", use_kernel=None)
+    if kind == "gcmf":
+        return GraphCutMF.from_features(x, lam=GC_LAM, metric="cosine", use_kernel=None)
+    raise KeyError(kind)
+
+
+def _served_specs(torch, args) -> list:
+    """The workload: request i is family SERVE_KINDS[(i // 2) % 12], n drawn
+    from SERVE_N by --seed + i, a budget in SERVE_BUDGETS, NaiveGreedy
+    for even i and LazyGreedy (screen_k 8) for odd i.  Dispersion requests
+    keep selecting past negative gains, as the serve CLI has them."""
+    from repro_torch.core import SelectionSpec
+
+    specs = []
+    for i in range(SERVE_REQUESTS):
+        rng = np.random.default_rng(args.seed + SERVE_SEED + i)
+        kind = SERVE_KINDS[(i // 2) % len(SERVE_KINDS)]
+        n = int(rng.choice(SERVE_N))
+        budget = int(rng.integers(SERVE_BUDGETS[0], SERVE_BUDGETS[1] + 1))
+        opt, kw = (("NaiveGreedy", {}) if i % 2 == 0
+                   else ("LazyGreedy", {"screen_k": WAVE_SCREEN_K}))
+        fn = _served_function(torch, kind, args.seed + SERVE_SEED + i, n, args.d)
+        specs.append(SelectionSpec(fn, budget, opt, **kw,
+                                   stopIfNegativeGain=kind not in ("dsum", "dmin")))
+    return specs
+
+
+def _launch_counts() -> dict:
+    from repro_torch.kernels import ops
+
+    return {k: v for k, v in ops.LAUNCHES.items() if v}
+
+
+def _latency_summary(responses) -> dict:
+    lat = sorted(r.latency_s for r in responses)
+    return {"p50_s": lat[max(0, -(-len(lat) // 2) - 1)],
+            "p99_s": lat[max(0, -(-99 * len(lat) // 100) - 1)]}
+
+
+def _serve_round(torch, specs, max_wave: int) -> dict:
+    """One round through a fresh SelectionServer: submit every spec, flush;
+    the launch counts are set to 0 just before it and read just after."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import SelectionServer
+
+    server = SelectionServer(max_wave=max_wave)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    rids = [server.submit_spec(s) for s in specs]
+    out = server.flush()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    responses = [out[r] for r in rids]
+    snap = server.stats.snapshot()
+    return {"server": server, "responses": responses, "wall_s": wall,
+            "qps": len(specs) / wall, "launches": _launch_counts(),
+            "waves": snap["counters"]["waves"], "slots": snap["counters"]["slots"],
+            "wave_s": snap["wave_s"], "queue_s": snap["queue_s"],
+            "latency": _latency_summary(responses), "snapshot": snap}
+
+
+def _held(torch, label, got, want) -> None:
+    _same_bits(torch, label, getattr(got, "result", got), getattr(want, "result", want))
+
+
+def _no_trouble(label, server, responses) -> None:
+    """(p)-(r) fail on any failed or retried request or opened breaker."""
+    bad = [r.rid for r in responses if r.attempts != 1]
+    failed = server.take_failures()
+    counters = server.metrics.counters
+    opened = {k: v for k, v in server.breakers.states().items() if v != "closed"}
+    if bad or failed or opened or counters["retries_total"] or counters["flush_errors"]:
+        raise AssertionError(f"{label}: retried responses {bad}, failures {failed}, "
+                             f"breakers {opened}, counters {counters}")
+
+
+def phase_served_async(torch, specs, sequential, max_wave) -> dict:
+    """(q) the same requests through AsyncSelectionServer: depth-triggered
+    (max_pending 2) and timer-triggered flushes, each answer bit-equal."""
+    import collections as _c
+
+    from repro_torch.launch.async_serve import AsyncSelectionServer
+    from repro_torch.launch.serve import SelectionServer
+
+    triggers = _c.Counter()
+    server = SelectionServer(max_wave=max_wave)
+    front = AsyncSelectionServer(server, max_pending=SERVE_MAX_PENDING,
+                                 flush_interval=SERVE_FLUSH_INTERVAL)
+    due = front._due_groups
+
+    def counted(now):  # called under the front's lock: tally each group's trigger
+        keys, wake = due(now)
+        depth = {key: dep for key, dep, _, _ in server.group_states()}
+        for key in keys:
+            triggers["depth" if depth[key] >= front.max_pending else "timer"] += 1
+        return keys, wake
+
+    front._due_groups = counted
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    futures = [front.submit(s) for s in specs]
+    responses = [f.result(timeout=600) for f in futures]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    front.close()
+    for i, (r, want) in enumerate(zip(responses, sequential)):
+        _held(torch, f"(q) async request {i}", r, want)
+    _no_trouble("(q)", server, responses)
+    if not (triggers["depth"] and triggers["timer"]):
+        raise AssertionError(f"(q) flush triggers {dict(triggers)}: want depth and timer both")
+    out = {"wall_s": wall, "qps": len(specs) / wall, "triggers": dict(triggers),
+           "flushes": front.flushes, "latency": _latency_summary(responses)}
+    log(f"  ok  (q) AsyncSelectionServer (max_pending {SERVE_MAX_PENDING}, flush_interval "
+        f"{SERVE_FLUSH_INTERVAL} s): {len(specs)} requests in {wall:.3f} s "
+        f"({out['qps']:.1f} q/s), triggers {out['triggers']}, {front.flushes} flushes; every "
+        "answer bit-equal to its sequential solve")
+    return out
+
+
+def phase_served_sessions(torch, args) -> dict:
+    """(r) a FacilityLocationMF session over a cosine FeatureSource fed
+    uneven deltas up to SESSION_N rows, against one extend of the
+    stream and a direct solve(); a dense FacilityLocation session in indices
+    mode, against a direct solve on its active set."""
+    from repro_torch.core import FacilityLocation, FacilityLocationMF, SelectionSpec, solve
+    from repro_torch.launch.serve import SelectionServer
+
+    n, d, out = SESSION_N, args.d, {}
+    x = gaussian_mixture_cuda(torch, args.seed + SERVE_SEED - 1, n, d)
+    sizes = [max(1, s * n // 8192) for s in SESSION_DELTAS]  # as given at n = 8,192
+    lo, deltas = sizes[0], []
+    for s in sizes[1:]:
+        deltas.append(x[lo : lo + s])
+        lo += s
+    deltas.append(x[lo:])
+
+    def spec(rows):
+        return SelectionSpec(FacilityLocationMF.from_features(rows, metric="cosine",
+                                                              use_kernel=None),
+                             SESSION_BUDGET, "LazyGreedy", screen_k=WAVE_SCREEN_K)
+
+    server = SelectionServer()
+    t0 = time.perf_counter()
+    sess = server.open_session(spec(x[: sizes[0]]))
+    updates = [sess.extend(features=dlt) for dlt in deltas]
+    torch.cuda.synchronize()
+    out["uneven_s"] = time.perf_counter() - t0
+    one = SelectionServer().open_session(spec(x[: sizes[0]])).extend(features=x[sizes[0]:])
+    direct = solve(spec(x))
+    last = updates[-1]
+    _held(torch, "(r) FLMF session, uneven deltas vs one extend", last.result, one.result)
+    _held(torch, "(r) FLMF session vs direct solve()", last.result, direct)
+    if last.n_total != n or last.response.backend != "cuda-flmf":
+        raise AssertionError(f"(r) FLMF session: n {last.n_total}, backend {last.response.backend}")
+    _no_trouble("(r) FLMF session", server, [u.response for u in updates])
+    out["flmf"] = {"deltas": [int(dl.shape[0]) for dl in deltas], "seed_rows": sizes[0],
+                   "backends": [u.response.backend for u in updates],
+                   "n_evals": int(direct.n_evals), "churn": [u.churn for u in updates]}
+    log(f"  ok  (r) FacilityLocationMF session (cosine FeatureSource, seed {sizes[0]} rows, "
+        f"deltas {out['flmf']['deltas']} -> n = {n}): bit-equal to one extend and to a direct "
+        f"solve(); backends {out['flmf']['backends']}; {out['uneven_s']:.3f} s")
+    del x, deltas, updates, one, direct, sess
+
+    # indices mode over a dense S of n items
+    uni = _served_function(torch, "fl", args.seed + SERVE_SEED - 2, n, d)
+    gen = torch.Generator().manual_seed(args.seed + SERVE_SEED)
+    order = torch.randperm(n, generator=gen).tolist()
+    unlocks = [order[: n // 4], order[n // 4 : n // 2] + order[:8], order[n // 2 : 5 * n // 8]]
+    server = SelectionServer()
+    sess = server.open_session(SelectionSpec(uni, SESSION_BUDGET))
+    updates = [sess.extend(indices=u) for u in unlocks]
+    active = order[: 5 * n // 8]
+    direct = solve(SelectionSpec(FacilityLocation.from_kernel(
+        uni.sim.index_select(1, torch.tensor(active, device="cuda")), use_kernel=None),
+        SESSION_BUDGET))
+    ids = [j for j, _ in updates[-1].selection]
+    want = [active[j] for j in direct.order.tolist() if j >= 0]
+    if ids != want:
+        raise AssertionError(f"(r) indices session: universe ids part from the direct solve")
+    _held(torch, "(r) indices session vs direct solve on the active set", updates[-1].result, direct)
+    _no_trouble("(r) indices session", server, [u.response for u in updates])
+    out["indices"] = {"active": len(active), "backend": updates[-1].response.backend,
+                      "n_bucket": updates[-1].response.n_bucket}
+    log(f"  ok  (r) FacilityLocation session in indices mode over S of {n} items: "
+        f"{len(active)} active, universe ids and gains equal to a direct solve on the active "
+        f"set (backend {out['indices']['backend']}, bucket {out['indices']['n_bucket']})")
+    del uni
+    return out
+
+
+def phase_served_fault(torch, args) -> dict:
+    """(s) an injected "kernel" fault on cuda-* for FacilityLocation opens
+    its breaker: the FL requests fail typed (breaker_open; the port serves
+    no answer off the kernels), a GraphCut request in the same flush is
+    answered bit-equal, and once the cooldown has passed on the board's
+    clock a probe wave closes the breaker, its answers bit-equal to the
+    sequential kernel-route solves."""
+    from repro_torch.core import SelectionSpec, backend_name, solve
+    from repro_torch.launch import faults
+    from repro_torch.launch.resilience import BreakerBoard, BreakerOpen, RetryPolicy
+    from repro_torch.launch.serve import SelectionServer
+
+    specs = []
+    for i, n in enumerate(FAULT_N):
+        fn = _served_function(torch, "fl", args.seed + SERVE_SEED - 10 - i, n, args.d)
+        specs.append(SelectionSpec(fn, 50, ("NaiveGreedy", "LazyGreedy")[i % 2]))
+    gc = SelectionSpec(_served_function(torch, "gc", args.seed + SERVE_SEED - 20, FAULT_N[0],
+                                        args.d), 50)
+    want = [solve(s) for s in specs]
+    want_gc = solve(gc)
+    now = [0.0]
+    server = SelectionServer(retry_policy=RetryPolicy(max_attempts=2, backoff_s=0.0, jitter=0.0),
+                             breakers=BreakerBoard(threshold=1, cooldown_s=FAULT_COOLDOWN_S,
+                                                   clock=lambda: now[0]))
+    rids = [server.submit_spec(s) for s in specs]
+    rid_gc = server.submit_spec(gc)
+    plan = faults.FaultPlan([faults.FaultSpec(site="kernel", family="FacilityLocation",
+                                              backend="cuda-*", times=None)])
+    with faults.inject(plan):
+        out = server.flush()
+    fails = server.take_failures()
+    if set(out) != {rid_gc} or set(fails) != set(rids):
+        raise AssertionError(f"(s) answered {sorted(out)}, failed {sorted(fails)}")
+    _held(torch, "(s) GraphCut beside the open FL breaker", out[rid_gc], want_gc)
+    if out[rid_gc].backend != backend_name(gc.fn):
+        raise AssertionError(f"(s) GraphCut served by {out[rid_gc].backend}")
+    for rid in rids:
+        err = fails[rid]
+        if err.reason != "breaker_open" or not isinstance(err.__cause__, BreakerOpen):
+            raise AssertionError(f"(s) request {rid}: {err!r}")
+    opened = server.breakers.states()
+    if opened.get("FacilityLocation/kernel") != "open":
+        raise AssertionError(f"(s) breakers {opened}")
+    now[0] = FAULT_COOLDOWN_S  # the fault is gone: a probe wave closes it
+    rids = [server.submit_spec(s) for s in specs]
+    out = server.flush()
+    for rid, w, s in zip(rids, want, specs):
+        if out[rid].backend != "cuda-fl":
+            raise AssertionError(f"(s) probe n={s.fn.n}: backend {out[rid].backend}")
+        _held(torch, f"(s) probe n={s.fn.n} {s.optimizer.name}", out[rid], w)
+    closed = server.breakers.states()
+    if closed.get("FacilityLocation/kernel") != "closed":
+        raise AssertionError(f"(s) breakers after the probe {closed}")
+    res = {"fired": plan.counts()[0]["fired"], "failed": {str(r): fails[r].reason for r in fails},
+           "breakers_open": opened, "breakers_after_probe": closed,
+           "counters": {k: server.metrics.counters[k]
+                        for k in ("retries_total", "fallbacks_total", "flush_errors")}}
+    log(f"  ok  (s) injected kernel faults on cuda-* for FacilityLocation (n {list(FAULT_N)}): "
+        f"breaker opened, the FL requests failed typed (breaker_open), the GraphCut request "
+        f"beside them bit-equal; after the cooldown the probe wave closed it, answers bit-equal "
+        f"to the sequential kernel-route solves; {res}")
+    return res
+
+
+def phase_served(torch, args) -> dict:
+    """Phase 11: (p) SelectionServer, two rounds; (q) AsyncSelectionServer;
+    (r) sessions; (s) a kernel fault through the breaker."""
+    from repro_torch.core import backend_name, solve
+    from repro_torch.core.optimizers.backends import KERNEL_MIN_N, MF_KERNEL_MIN_N
+    from repro_torch.kernels import ops
+
+    t_start = time.perf_counter()
+    log(f"== phase 11: the served path: {SERVE_REQUESTS} requests over "
+        f"{len(SERVE_KINDS)} families, n in {list(SERVE_N)}, d = {args.d}, budgets "
+        f"{SERVE_BUDGETS[0]}..{SERVE_BUDGETS[1]}, max_wave {SERVE_MAX_WAVE}")
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    specs = _served_specs(torch, args)
+    torch.cuda.synchronize()
+    build = {"s": time.perf_counter() - t0, "launches": _launch_counts()}
+    routes = [backend_name(s.fn) for s in specs]
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sequential = [solve(s) for s in specs]
+    torch.cuda.synchronize()
+    seq = {"wall_s": time.perf_counter() - t0, "launches": _launch_counts()}
+    seq["qps"] = len(specs) / seq["wall_s"]
+    rounds = {}
+    for label in ("warm-up", "steady"):
+        r = _serve_round(torch, specs, SERVE_MAX_WAVE)
+        for i, (resp, want, route) in enumerate(zip(r["responses"], sequential, routes)):
+            _held(torch, f"(p) {label} request {i} ({type(specs[i].fn).__name__} "
+                  f"n={specs[i].fn.n})", resp, want)
+            if resp.backend != route:
+                raise AssertionError(f"(p) request {i}: served by {resp.backend}, its "
+                                     f"sequential solve by {route}")
+        _no_trouble(f"(p) {label}", r["server"], r["responses"])
+        del r["server"]
+        rounds[label] = r
+    steady = rounds["steady"]
+    crossing = [i for i, s in enumerate(specs) if s.fn.n < KERNEL_MIN_N
+                and steady["responses"][i].n_bucket >= KERNEL_MIN_N]
+    if not crossing:
+        raise AssertionError("(p) no request was padded across KERNEL_MIN_N")
+    on_card = sorted({r for r in routes if r.startswith("cuda-")})
+    for s, route in zip(specs, routes):  # the kernel families take their kernels past the gates
+        gate = {"FacilityLocationMF": MF_KERNEL_MIN_N, "GraphCutMF": MF_KERNEL_MIN_N}.get(
+            type(s.fn).__name__, KERNEL_MIN_N)
+        if type(s.fn).__name__ in KERNEL_FAMILIES and route.startswith("cuda-") != (s.fn.n >= gate):
+            raise AssertionError(f"(p) {type(s.fn).__name__} n={s.fn.n} routed to {route}")
+    if "similarity" not in build["launches"]:
+        raise AssertionError(f"(p) building the requests launched {build['launches']}")
+    missing = [k for k in SERVED_KERNELS if k != "similarity" and not steady["launches"].get(k)]
+    if missing:
+        raise AssertionError(f"(p) kernels of the served path not launched: {missing}")
+    for label, r in rounds.items():
+        log(f"  ok  (p) {label} round: {len(specs)} requests in {r['wall_s']:.3f} s "
+            f"({r['qps']:.2f} q/s), {r['waves']} waves, {r['slots']} slots; "
+            f"ServerMetrics wave_s p50 "
+            f"{r['wave_s']['p50']} p99 {r['wave_s']['p99']} s, queue_s p50 "
+            f"{r['queue_s']['p50']} p99 {r['queue_s']['p99']} s; latency p50 "
+            f"{r['latency']['p50_s']:.4f} p99 {r['latency']['p99_s']:.4f} s; launches "
+            f"{r['launches']}; every answer bit-equal to its sequential solve (ids, gains, "
+            "n_evals, value) on the route that solve takes")
+    log(f"  (p) the {len(specs)} sequential solves: {seq['wall_s']:.3f} s ({seq['qps']:.2f} "
+        f"q/s), launches {seq['launches']}; building the requests {build['s']:.3f} s, "
+        f"launches {build['launches']}; {len(crossing)} requests below KERNEL_MIN_N padded "
+        f"across it kept their torch route; kernel routes {on_card}")
+    out = {"build": build, "sequential": seq, "routes": routes, "crossing": crossing,
+           "kinds": [type(s.fn).__name__ for s in specs], "n": [s.fn.n for s in specs],
+           "budgets": [s.budget for s in specs], "optimizers": [s.optimizer.name for s in specs]}
+    for label, r in rounds.items():
+        del r["responses"]
+        out[label] = r
+    out["q"] = phase_served_async(torch, specs, sequential, SERVE_MAX_WAVE)
+    del specs, sequential
+    torch.cuda.empty_cache()
+    out["r"] = phase_served_sessions(torch, args)
+    out["s"] = phase_served_fault(torch, args)
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_start
+    log(f"phase 11: {out['seconds']:.1f} s")
+    return out
+
+
 def parse_args(argv):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -2873,6 +3306,7 @@ def main(argv=None) -> int:
     guided_out, fused_row = phase_slice5(torch, args)
     guided_out["phase3"] = fused_bits
     wave_out = phase_wave(torch, args)
+    served = phase_served(torch, args)
     for rows, path in ((mf_rows, mf_out), (dense_rows, dense_out), (cover_rows, cover_out)):
         for r in rows:
             r["launches"] = r["launches_on_path"] = path["launches"][r["name"]]
@@ -2892,12 +3326,17 @@ def main(argv=None) -> int:
                          ["wave_launches"].get("fl_gains_at", 0), "ms": waves["fl_gains_at_k8_ms"],
                          "members_ms": waves["fl_gains_at_k8_members_ms"],
                          "bound_ms": waves["fl_gains_at_k8_bound_ms"]}
+    # every row also carries its launches on the served path (phase 11's
+    # steady round; similarity's while the requests were built)
+    for r in kernels:
+        src = served["build"] if r["name"] == "similarity" else served["steady"]
+        r["served"] = {"launches": src["launches"].get(r["name"], 0)}
     missing = set(ops.LAUNCHES) ^ {r["name"] for r in kernels}
     if missing:
         raise AssertionError(f"kernels line and LAUNCHES differ: {sorted(missing)}")
     record = {"device": device, "build": {k: build[k] for k in ("seconds", "cached")},
               "main": main_out, "matrix_free": mf_out, "dense_pairwise": dense_out,
-              "coverage": cover_out, "guided": guided_out, "wave": wave_out,
+              "coverage": cover_out, "guided": guided_out, "wave": wave_out, "served": served,
               "kernels": kernels, "seconds": time.perf_counter() - t_start}
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(record, indent=1))

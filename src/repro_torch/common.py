@@ -1,6 +1,6 @@
 """Shared utilities: the NEG_INF sentinel, tie-breaking argmax, concave fns,
 index masks, one-element indices, row padding, member views of a stacked
-tensor, row blocks and device resolution."""
+tensor, row blocks, row sums in a fixed order and device resolution."""
 from __future__ import annotations
 
 from typing import Callable
@@ -126,3 +126,24 @@ def map_row_blocks(fn: Callable[[torch.Tensor], torch.Tensor], mat: torch.Tensor
         fn(mat[lo : lo + ROW_BLOCK] if rows is None else mat[rows[lo : lo + ROW_BLOCK]])
         for lo in range(0, k, ROW_BLOCK)
     ])
+
+
+def row_sums_fixed(t: torch.Tensor) -> torch.Tensor:
+    """(R, C) -> (C,): the sum of ``t``'s rows, in a fixed order.
+
+    The rows are folded onto the first h, h the largest power of two below
+    the count (row i += row h + i), until one is left: elementwise adds
+    only, so a column's bits never depend on how many columns there are, and
+    trailing zero rows add exact zeros.  ``torch.sum`` over rows picks its
+    blocking from the column count too, on the CPU and the card alike, so a
+    column summed inside a zero-padded matrix (a served wave's member) could
+    part by ulps from the same column summed unpadded.  ``t`` is
+    overwritten."""
+    r = t.shape[0]
+    if r == 0:
+        return t.new_zeros(t.shape[1:])
+    while r > 1:
+        h = 1 << ((r - 1).bit_length() - 1)
+        t[: r - h].add_(t[h:r])
+        r = h
+    return t[0].clone()

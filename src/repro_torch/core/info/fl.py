@@ -22,7 +22,7 @@ import dataclasses
 
 import torch
 
-from repro_torch.common import as_float_tensor, one_index
+from repro_torch.common import as_float_tensor, one_index, row_sums_fixed
 from repro_torch.core.functions.base import SetFunction
 from repro_torch.core.functions.facility_location import FLState
 
@@ -98,13 +98,16 @@ class FLQMI(SetFunction):
     def init_state(self) -> FLState:
         return _fl_state(self.sim_qv)
 
+    # the rows fold in a fixed order: a served FLQMI is column-padded under
+    # its query rows (launch/coalesce.py), and torch.sum's order follows
+    # the column count
     def gains(self, state: FLState) -> torch.Tensor:
-        rep = torch.clamp(self.sim_qv - state.curmax[:, None], min=0.0).sum(dim=0)
+        rep = row_sums_fixed(torch.clamp(self.sim_qv - state.curmax[:, None], min=0.0))
         return rep + self.modular
 
     def gains_at(self, state: FLState, idxs) -> torch.Tensor:
         idxs = idxs.to(self.sim_qv.device)
-        rep = torch.clamp(self.sim_qv[:, idxs] - state.curmax[:, None], min=0.0).sum(dim=0)
+        rep = row_sums_fixed(torch.clamp(self.sim_qv[:, idxs] - state.curmax[:, None], min=0.0))
         return rep + self.modular[idxs]
 
     def update(self, state: FLState, j) -> FLState:

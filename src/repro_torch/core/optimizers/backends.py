@@ -83,16 +83,30 @@ def register_gain_backend(
 
 def resolve_backend(fn) -> GainBackend:
     """The backend serving ``fn``'s sweeps: registry entry, else the
-    function's own ``gain_backend()``, else the torch fallback."""
+    function's own ``gain_backend()``, else the torch fallback.
+
+    Resolving to a CUDA-kernel backend crosses the serving stack's
+    ``"kernel"`` fault boundary (``repro_torch.launch.faults``), so injected
+    kernel failures hit the same retry / breaker path a real kernel failure
+    would."""
+    backend = None
     for klass in type(fn).__mro__:
         factory = _REGISTRY.get(klass)
         if factory is not None:
             backend = factory(fn)
             if backend is not None:
-                return backend
-    hook = getattr(fn, "gain_backend", None)
-    backend = hook() if callable(hook) else None
-    return _TORCH if backend is None else backend
+                break
+    if backend is None:
+        hook = getattr(fn, "gain_backend", None)
+        backend = hook() if callable(hook) else None
+    if backend is None:
+        return _TORCH
+    name = getattr(backend, "name", "torch")
+    if name != "torch":
+        from repro_torch.launch import faults
+
+        faults.check("kernel", family=type(fn).__name__, backend=name)
+    return backend
 
 
 def full_sweep(fn, state) -> torch.Tensor:

@@ -10,14 +10,15 @@
   (:func:`register_family_defaults`) in exactly one place.
 - :func:`solve` — the front door: ``solve(spec)`` or ``solve([s1, s2])``.
 
-Ported so far: the sequential and batched modes, NaiveGreedy and
-LazyGreedy.  The sharded, served and async modes, ``deadline_s`` /
-``retry`` and the other optimizers are still to be ported (ROADMAP queue
-1, items 9-11).
+Ported so far: the sequential, batched, served and async modes,
+NaiveGreedy and LazyGreedy, and the serving options ``deadline_s`` /
+``retry``.  The sharded mode and the other optimizers are still to be
+ported (ROADMAP queue 1, items 9 and 11).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, Mapping, Optional, Sequence
 
 from repro_torch.core.functions.base import SetFunction
@@ -28,6 +29,7 @@ from repro_torch.core.optimizers.greedy import (
     lazy_greedy,
     naive_greedy,
 )
+from repro_torch.launch.resilience import RetryPolicy
 
 __all__ = [
     "OptimizerSpec",
@@ -257,10 +259,6 @@ def family_defaults(cls: type) -> dict[str, bool]:
 # SelectionSpec
 # ---------------------------------------------------------------------------
 
-# SelectionSpec options of the JAX package that wait for the serving slice
-_NOT_PORTED = {"deadline_s", "retry"}
-
-
 @dataclasses.dataclass(frozen=True, init=False, eq=False)
 class SelectionSpec:
     """One selection request: select ``budget`` items under ``fn``.
@@ -275,6 +273,19 @@ class SelectionSpec:
     ``use_kernel`` is the backend choice: ``None`` leaves the function as
     built; ``True`` / ``False`` rebuilds it with the CUDA kernel sweep
     forced on / off at solve time (only for families exposing the flag).
+
+    ``deadline_s`` is an optional per-request latency budget in seconds
+    (positive, finite).  Sequential and batched execution ignore it; the
+    async serving scheduler honors it by flushing the request's group no
+    later than ``deadline_s`` after submission (a deadline shapes
+    *scheduling*, it never changes the selection).
+
+    ``retry`` is an optional :class:`~repro_torch.launch.resilience.
+    RetryPolicy` consumed by the serving front doors: transient dispatch
+    failures are retried with deterministic backoff, and the request is
+    quarantined with a typed ``RequestFailed`` after ``max_attempts`` (its
+    ``timeout_s`` is the request's wall-clock budget across attempts).
+    Sequential and batched ``solve()`` ignore it.
     """
 
     fn: object
@@ -283,6 +294,8 @@ class SelectionSpec:
     stop_if_zero: bool
     stop_if_negative: bool
     use_kernel: Optional[bool]
+    deadline_s: Optional[float]
+    retry: Optional[RetryPolicy]
 
     def __init__(
         self,
@@ -293,6 +306,8 @@ class SelectionSpec:
         stopIfZeroGain: bool | None = None,
         stopIfNegativeGain: bool | None = None,
         use_kernel: bool | None = None,
+        deadline_s: float | None = None,
+        retry: RetryPolicy | None = None,
         **optimizer_params,
     ):
         if not isinstance(fn, SetFunction):
@@ -300,12 +315,6 @@ class SelectionSpec:
                 "SelectionSpec needs a SetFunction instance (e.g. "
                 "FacilityLocation.from_kernel(...)); got "
                 f"{type(fn).__name__!r}"
-            )
-        waiting = _NOT_PORTED & set(optimizer_params)
-        if waiting:
-            raise TypeError(
-                f"{sorted(waiting)} are not ported to repro_torch yet; they "
-                "come with the serving slice (ROADMAP queue 1, item 10)"
             )
         if isinstance(optimizer, OptimizerSpec):
             if optimizer_params:
@@ -340,6 +349,18 @@ class SelectionSpec:
                     "leave use_kernel=None for this family"
                 )
             use_kernel = bool(use_kernel)
+        if deadline_s is not None:
+            deadline_s = float(deadline_s)
+            if not math.isfinite(deadline_s) or deadline_s <= 0:
+                raise ValueError(
+                    "deadline_s must be a positive finite number of seconds "
+                    f"(or None for no deadline), got {deadline_s!r}"
+                )
+        if retry is not None and not isinstance(retry, RetryPolicy):
+            raise TypeError(
+                "retry must be a repro_torch.launch.resilience.RetryPolicy (or "
+                f"None for single-attempt semantics), got {type(retry).__name__!r}"
+            )
         defaults = family_defaults(type(fn))
         stop_zero = (
             defaults["stopIfZeroGain"] if stopIfZeroGain is None else bool(stopIfZeroGain)
@@ -355,6 +376,8 @@ class SelectionSpec:
         object.__setattr__(self, "stop_if_zero", stop_zero)
         object.__setattr__(self, "stop_if_negative", stop_neg)
         object.__setattr__(self, "use_kernel", use_kernel)
+        object.__setattr__(self, "deadline_s", deadline_s)
+        object.__setattr__(self, "retry", retry)
         self.resolved_fn()  # a backend the family cannot honor raises here
 
     def resolved_fn(self):
@@ -370,7 +393,10 @@ class SelectionSpec:
             f"budget={self.budget}, optimizer={self.optimizer!r}, "
             f"stopIfZeroGain={self.stop_if_zero}, "
             f"stopIfNegativeGain={self.stop_if_negative}, "
-            f"use_kernel={self.use_kernel})"
+            f"use_kernel={self.use_kernel}"
+            + (f", deadline_s={self.deadline_s}" if self.deadline_s else "")
+            + (f", retry={self.retry!r}" if self.retry is not None else "")
+            + ")"
         )
 
 
@@ -382,8 +408,6 @@ _MODES = ("sequential", "batched", "sharded", "served", "async")
 # execution routes of the JAX package that are still to be ported
 _WAITING_MODES = {
     "sharded": "the sharded engine over a 2-D mesh=, ROADMAP queue 1, item 11",
-    "served": "the serving slice, ROADMAP queue 1, item 10",
-    "async": "the serving slice, ROADMAP queue 1, item 10",
 }
 
 
@@ -400,17 +424,21 @@ def solve(
 
     ``spec`` is a :class:`SelectionSpec` (returns one :class:`GreedyResult`)
     or a sequence of them (returns a list in the same order).  ``mode`` is
-    ``"sequential"`` (the default for one spec; a Python loop for several)
-    or ``"batched"`` (the default for several: one wave through
+    ``"sequential"`` (the default for one spec; a Python loop for several),
+    ``"batched"`` (the default for several: one wave through
     :class:`~repro_torch.core.optimizers.batched.BatchedEngine`; the specs
     must share the optimizer spec and stop rules, and their functions one
-    family and shape).  A batched result lies on the host, moved there in
-    one transfer for the wave.
+    family and shape), ``"served"`` (heterogeneous specs coalesced into
+    padded waves by a :class:`~repro_torch.launch.serve.SelectionServer`)
+    or ``"async"`` (submitted to an :class:`~repro_torch.launch.async_serve.
+    AsyncSelectionServer` and awaited).  ``server`` is an existing server of
+    the route's kind to go through; one is built, and torn down, here when
+    it is omitted.  Batched and served results lie on the host, moved there
+    in one transfer per wave.
 
-    The JAX package's ``"sharded"`` route (also chosen by passing ``mesh=``),
-    ``"served"`` and ``"async"`` routes and its ``server=`` raise
-    ``ValueError`` naming the ROADMAP item that brings them; every route
-    returns results bit-identical to the sequential one by contract.
+    The JAX package's ``"sharded"`` route (also chosen by passing ``mesh=``)
+    raises ``ValueError`` naming the ROADMAP item that brings it; every
+    route returns results bit-identical to the sequential one by contract.
     """
     single = isinstance(spec, SelectionSpec)
     specs = [spec] if single else list(spec)
@@ -428,20 +456,20 @@ def solve(
         raise ValueError(f"unknown mode {mode!r}; choose from {list(_MODES)}")
     if not specs:
         return []
-    if mode in _WAITING_MODES:
+    if mode in _WAITING_MODES or mesh is not None:
         raise ValueError(
-            f"mode={mode!r} is not ported to repro_torch yet "
-            f"({_WAITING_MODES[mode]}); use mode='sequential' or 'batched'"
-        )
-    if server is not None:
-        raise ValueError(
-            "server= serves the 'served' and 'async' routes, which are not "
-            f"ported to repro_torch yet ({_WAITING_MODES['served']})"
+            f"mode={mode!r} with mesh= is not ported to repro_torch yet "
+            f"({_WAITING_MODES['sharded']}); use mode='sequential', 'batched', "
+            "'served' or 'async'"
         )
     if mode == "sequential":
         results = [_run_sequential(s) for s in specs]
-    else:
+    elif mode == "batched":
         results = _run_batched(specs)
+    elif mode == "served":
+        results = _run_served(specs, server)
+    else:  # async
+        results = _run_async(specs, server)
     return results[0] if single else results
 
 
@@ -484,6 +512,32 @@ def _run_batched(specs) -> list[GreedyResult]:
         stop_if_zero=head.stop_if_zero,
         stop_if_negative=head.stop_if_negative,
     )
+
+
+def _run_served(specs, server):
+    from repro_torch.launch.serve import SelectionServer
+
+    if server is None:
+        server = SelectionServer()
+    # select() (not a bare flush) so responses to requests the caller
+    # enqueued earlier on their own server are re-held for THEIR next
+    # flush() instead of being dropped here
+    return [resp.result for resp in server.select(specs)]
+
+
+def _run_async(specs, server):
+    from repro_torch.launch.async_serve import AsyncSelectionServer
+
+    owned = server is None
+    if owned:
+        server = AsyncSelectionServer()
+    try:
+        futures = [server.submit(s) for s in specs]
+        server.flush_now()
+        return [f.result().result for f in futures]
+    finally:
+        if owned:
+            server.close()
 
 
 # ---------------------------------------------------------------------------

@@ -53,6 +53,7 @@ from repro_torch.kernels.similarity_kernel import (
     TILE,
     _normalize,
     inv_two_sigma_sq,
+    row_sq_norms,
     similarity_tiles,
 )
 
@@ -189,7 +190,7 @@ def feature_source(
     if metric == "cosine":
         x32 = _normalize(x32)
     x32 = x32.contiguous()
-    xx = (x32 * x32).sum(dim=1)
+    xx = row_sq_norms(x32)
 
     def _labels(lab):
         return None if lab is None else torch.as_tensor(lab, device=dev).to(torch.int32)
@@ -203,7 +204,7 @@ def feature_source(
         if metric == "cosine":
             y32 = _normalize(y32)
         y32 = y32.contiguous()
-        yy = (y32 * y32).sum(dim=1)
+        yy = row_sq_norms(y32)
         clab = _labels(col_labels)
     if (row_labels is None) != (clab is None):
         raise ValueError("clustered sources need labels on both axes")

@@ -104,6 +104,13 @@ _lib: ctypes.CDLL | None = None
 BUILD_INFO: dict = {}
 
 
+class KernelError(RuntimeError):
+    """A kernel failed to build or to launch: ``nvcc`` missing or failing, or
+    a launch function returning a CUDA error.  The serving stack charges
+    these, and only these, to a family's kernel breaker; wrong inputs raise
+    ``TypeError`` / ``ValueError`` before any launch."""
+
+
 def _nvcc() -> str:
     home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
     cand = Path(home) / "bin" / "nvcc"
@@ -111,7 +118,7 @@ def _nvcc() -> str:
         return str(cand)
     found = shutil.which("nvcc")
     if found is None:
-        raise RuntimeError(
+        raise KernelError(
             "nvcc not found (looked in $CUDA_HOME/bin, /usr/local/cuda/bin and "
             "PATH): the CUDA kernels are built on the machine with the card"
         )
@@ -150,14 +157,14 @@ def _compile(target: Path, csrc: Path = CSRC) -> list[str]:
             if p.returncode != 0:
                 failed.append(f"{src.name} (exit {p.returncode})")
         if failed:
-            raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n" + "\n".join(report))
+            raise KernelError("nvcc failed for " + ", ".join(failed) + ":\n" + "\n".join(report))
         tmp_lib = Path(tmp) / target.name
         link = subprocess.run(
             [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp_lib), *(str(o) for _, o, _ in procs)],
             capture_output=True, text=True,
         )
         if link.returncode != 0:
-            raise RuntimeError("nvcc link failed:\n" + link.stdout + link.stderr)
+            raise KernelError("nvcc link failed:\n" + link.stdout + link.stderr)
         tmp_report = Path(tmp) / _report_path(target).name
         tmp_report.write_text("".join(line + "\n" for line in report))
         # atomic, the report first: a concurrent loader that sees the library sees its report
@@ -207,4 +214,4 @@ def check(rc: int, what: str) -> None:
     """Raise if a launch function returned a CUDA error code."""
     if rc != 0:
         msg = load().repro_cuda_error_string(rc).decode()
-        raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
+        raise KernelError(f"{what}: CUDA error {rc} ({msg})")

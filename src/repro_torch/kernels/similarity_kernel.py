@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.common import pad_rows
+from repro_torch.common import pad_rows, row_sums_fixed
 from repro_torch.kernels import _build
 
 METRICS = ("dot", "cosine", "euclidean", "rbf")
@@ -31,8 +31,16 @@ def _sigma(d: int, rbf_sigma: float | None) -> float:
     return float(rbf_sigma) if rbf_sigma is not None else float(d) ** 0.5
 
 
+def row_sq_norms(x: torch.Tensor) -> torch.Tensor:
+    """(r, d) -> (r,) sums of squares, each row's in an order set by d
+    alone (``common.row_sums_fixed`` over the columns), so a row's bits do
+    not depend on how many rows ride with it: a session that feeds rows in
+    deltas of any size builds the same source as one build of the stream."""
+    return row_sums_fixed((x * x).t())
+
+
 def _normalize(x: torch.Tensor) -> torch.Tensor:
-    return x / torch.clamp(torch.linalg.norm(x, dim=1, keepdim=True), min=1e-12)
+    return x / torch.clamp(torch.sqrt(row_sq_norms(x))[:, None], min=1e-12)
 
 
 def inv_two_sigma_sq(d: int, rbf_sigma: float | None) -> float:

@@ -408,11 +408,15 @@ def test_solve_mode_validation():
         solve([spec], mode="sharded")
     with pytest.raises(ValueError, match="item 11"):
         solve([spec], mesh=object())
-    for mode in ("served", "async"):
-        with pytest.raises(ValueError, match="item 10"):
-            solve([spec], mode=mode)
-    with pytest.raises(ValueError, match="item 10"):
-        solve([spec], server=object())
+    # the served and async routes are ported: one spec through each (and
+    # through a server of the caller's) equals its sequential solve
+    from repro_torch.launch.serve import SelectionServer
+
+    seq = solve(spec)
+    for mode, server in (("served", None), ("async", None), ("served", SelectionServer())):
+        _same(solve([spec], mode=mode, server=server)[0], seq, mode)
+    with pytest.raises(ValueError, match="item 11"):
+        solve([spec], mode="served", mesh=object())
     with pytest.raises(TypeError, match="SelectionSpec"):
         solve([spec, "nope"])
 

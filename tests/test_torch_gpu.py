@@ -1071,3 +1071,112 @@ def test_fused_fl_sweep_raises_instead_of_falling_back(cuda):
         ops.fused_fl_sweep(x, y.cpu(), cm)
     with pytest.raises(ValueError, match="contiguous"):
         ops.fused_fl_sweep(x, torch.rand((4, 6), device=cuda).T, cm)
+
+
+# -- the served path: served against sequential, bit for bit -----------------
+
+SERVED_N = (3072, 4096, 6144)
+SERVED_KINDS = ("fl", "gc", "fb", "sc", "psc", "dsum", "dmin", "flmf", "gcmf")
+
+
+def _served_fn(kind, n, seed, cuda):
+    """One request of a kernel family (use_kernel=None: the decision table
+    picks the route by the request's own n) over a random cosine S / its
+    features on the card."""
+    from repro_torch.core import FacilityLocation, GraphCut, create_kernel
+
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn((n, 64), generator=gen, device=cuda)
+    if kind in ("fl", "gc", "dsum", "dmin"):
+        S = create_kernel(x, metric="cosine", use_pallas=True)
+        if kind == "fl":
+            return FacilityLocation.from_kernel(S, use_kernel=None)
+        if kind == "gc":
+            return GraphCut.from_kernel(S, lam=0.4, use_kernel=None)
+        cls = DisparitySum if kind == "dsum" else DisparityMin
+        return cls.from_distance(1.0 - S, use_kernel=None)
+    if kind == "fb":
+        return FeatureBased.from_features(torch.relu(x), use_kernel=None)
+    if kind in ("sc", "psc"):
+        p = torch.sigmoid(x @ torch.randn((64, 200), generator=gen, device=cuda) / 8.0 - 2.0)
+        if kind == "sc":
+            return SetCover.from_cover((p > 0.5).float(), use_kernel=None)
+        return ProbabilisticSetCover.from_probs(p, use_kernel=None)
+    cls = FacilityLocationMF if kind == "flmf" else GraphCutMF
+    kw = {} if kind == "flmf" else {"lam": 0.4}
+    return cls.from_features(x, metric="cosine", use_kernel=None, **kw)
+
+
+def _served_specs(cuda):
+    specs = []
+    for i, kind in enumerate(SERVED_KINDS):
+        for j, n in enumerate(SERVED_N):
+            opt = ("NaiveGreedy", "LazyGreedy")[(i + j) % 2]
+            stop = kind not in ("dsum", "dmin")
+            specs.append(SelectionSpec(_served_fn(kind, n, 100 * i + j, cuda), 40, opt,
+                                       stopIfZeroGain=stop, stopIfNegativeGain=stop))
+    return specs
+
+
+def _bits(a, b, what):
+    oa, ga, ea, va = result_to_numpy(a)
+    ob, gb, eb, vb = result_to_numpy(b)
+    np.testing.assert_array_equal(oa, ob, err_msg=what)
+    np.testing.assert_array_equal(ga.view(np.int32), gb.view(np.int32), err_msg=what)
+    assert ea == eb and np.float32(va).view(np.int32) == np.float32(vb).view(np.int32), what
+
+
+def test_served_equals_sequential_on_the_card(cuda):
+    """One request per kernel family at n = 3,072, 4,096 and 6,144 through
+    SelectionServer: each answer bit-equal to its sequential solve, on the
+    route that solve takes (a padded family's 3,072 pads into the 4,096
+    bucket and stays on the torch sweeps under KERNEL_MIN_N; FL and FLMF
+    ride at their own n; the rest launch their kernels)."""
+    from repro_torch.launch.serve import SelectionServer
+
+    specs = _served_specs(cuda)
+    seq = [solve(s) for s in specs]
+    ops.reset_launches()
+    responses = SelectionServer().select(specs)
+    assert sum(ops.LAUNCHES.values()) > 0
+    for s, r, q in zip(specs, responses, seq):
+        what = f"{type(s.fn).__name__} n={s.fn.n} {s.optimizer.name}"
+        _bits(r.result, q, what)
+        assert r.backend == backend_name(s.fn) and r.attempts == 1, what
+        matrix_free = isinstance(s.fn, (FacilityLocationMF, GraphCutMF))
+        assert r.backend.startswith("cuda-") == (matrix_free or s.fn.n >= KERNEL_MIN_N), what
+
+
+def test_served_async_equals_sequential_on_the_card(cuda):
+    from repro_torch.launch.async_serve import AsyncSelectionServer
+
+    specs = _served_specs(cuda)[::2]
+    seq = [solve(s) for s in specs]
+    with AsyncSelectionServer(max_pending=2, flush_interval=0.02) as front:
+        futures = [front.submit(s) for s in specs]
+        responses = [f.result(timeout=600) for f in futures]
+    for s, r, q in zip(specs, responses, seq):
+        _bits(r.result, q, f"{type(s.fn).__name__} n={s.fn.n}")
+
+
+def test_served_torch_route_is_padding_invariant_on_the_card(cuda):
+    """Zero-padded requests on the torch route (here forced, 6,144
+    candidates padded to 8,192) equal their sequential solves on the card
+    too: FLQMI's column sums under its 16 query rows fold in an order set
+    by the row count alone (common.row_sums_fixed), GraphCut pads both
+    axes; FL rides at its own n."""
+    from repro_torch.core import FLQMI, FacilityLocation, GraphCut, create_kernel
+    from repro_torch.launch.serve import SelectionServer
+
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    x = torch.randn((6144, 64), generator=gen, device=cuda)
+    q = torch.randn((16, 64), generator=gen, device=cuda)
+    S = create_kernel(x, metric="cosine")
+    fns = [FLQMI.build(create_kernel(q, x, metric="cosine")),
+           GraphCut.from_kernel(S, lam=0.4, use_kernel=False),
+           FacilityLocation.from_kernel(S, use_kernel=False)]
+    specs = [SelectionSpec(f, 30, opt) for f in fns for opt in ("NaiveGreedy", "LazyGreedy")]
+    for s, r in zip(specs, SelectionServer().select(specs)):
+        want = 6144 if isinstance(s.fn, FacilityLocation) else 8192
+        assert r.n_bucket == want and r.backend == "torch"
+        _bits(r.result, solve(s), f"{type(s.fn).__name__} {s.optimizer.name}")

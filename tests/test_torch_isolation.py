@@ -58,6 +58,8 @@ def test_importing_the_port_loads_no_jax_and_builds_nothing():
     code = (
         "import sys\n"
         "import repro_torch, repro_torch.core, repro_torch.interop\n"
+        "import repro_torch.launch.serve, repro_torch.launch.async_serve\n"
+        "import repro_torch.launch.sessions, repro_torch.ckpt.checkpoint\n"
         "from repro_torch.kernels import _build, ops\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"

@@ -156,9 +156,13 @@ def test_spec_defaults_and_unported_options():
     assert spec.resolved_fn() is fn
     assert SelectionSpec(fn, 3, use_kernel=True).resolved_fn().use_kernel is True
     assert optimizer_names() == ["LazyGreedy", "NaiveGreedy"]
-    with pytest.raises(TypeError, match="serving slice"):
-        SelectionSpec(fn, 3, deadline_s=1.0)
-    for mode in ("sharded", "served", "async", "nonsense"):
+    # the serving options are ported, with the JAX package's validation
+    assert SelectionSpec(fn, 3, deadline_s=1.0).deadline_s == 1.0
+    with pytest.raises(ValueError, match="deadline_s"):
+        SelectionSpec(fn, 3, deadline_s=0.0)
+    with pytest.raises(TypeError, match="RetryPolicy"):
+        SelectionSpec(fn, 3, retry={"max_attempts": 2})
+    for mode in ("sharded", "nonsense"):
         with pytest.raises(ValueError, match="mode"):
             solve(spec, mode=mode)
     # the batched route is ported: one spec through it equals its sequential solve
