@@ -6,7 +6,7 @@ that path against its plain PyTorch version.
     python3 chip_smoke.py --n 8192 --naive-budget 50 --lazy-budget 200 \
         --mf-n 65536 --mf-lazy-budget 200 --reps 5   # a short check
 
-Seven paths run, each with its launch counts set to 0 just before it and
+Eight paths run, each with its launch counts set to 0 just before it and
 read just after:
 
 - the main path, the paper's core loop: ``create_kernel`` (CUDA similarity
@@ -40,6 +40,11 @@ read just after:
   ``SelectionServer`` (per-group queues, padded waves of the batched
   engine), ``AsyncSelectionServer`` and sessions, every answer bit-equal
   to the request's sequential ``solve()``.
+- the remaining optimizers: StochasticGreedy, LazierThanLazyGreedy,
+  SieveStreaming, ThresholdGreedy, the constrained greedies and the host
+  heap greedy on the main path's S (CUDA FL sweeps, full and gathered, the
+  sieves on a member-stride-0 wave), streaming requests served and a
+  streaming session (the FB sweeps too).
 
 Phases, each of which raises on failure (the exit code is then non-zero):
   1 device   CUDA present; the card's name and power limit
@@ -125,6 +130,24 @@ Phases, each of which raises on failure (the exit code is then non-zero):
              same flush is answered, and after the cooldown a probe wave
              closes the breaker with answers equal to the sequential solves;
              (p)-(r) fail on any failed or retried request or open breaker
+  12 remaining  on phase 4's S rebuilt, each solve on the kernel route
+             (use_kernel=None) and the plain route (use_kernel=False), equal
+             ids and n_evals, gains within FL_TOL: 12.1 StochasticGreedy and
+             LazierThanLazyGreedy 5,000, eps 0.01 (s = 47), seeds 0 and 1,
+             with their values over phase 4's LazyGreedy 5,000 value; 12.2
+             SieveStreaming 100, eps 0.1, seed None and 0, ThresholdGreedy
+             100, buffer 64, with fl_gains_at's launches an arrival; 12.3
+             knapsack_greedy, matroid_greedy (labels: the mixture component
+             mod 10, caps 10) and cover_greedy, max_steps 500, and the
+             Sieve under that matroid; 12.4 host_lazy_greedy 500, whose ids
+             must be phase 4's NaiveGreedy ids; 12.5 32 SieveStreaming /
+             ThresholdGreedy requests over FL and FeatureBased at n in
+             SERVE_N through SelectionServer, each bit-equal to its
+             sequential solve, and a FeatureBased session of 10 deltas
+             bit-equal to the direct solve; after the path's counts are
+             read, fl_gains_at on a member-stride-0 wave of S against its
+             plain version; 12.6 the threefry draws and the ladders' exp /
+             log on the card bit-equal to the CPU's
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Details go to chiprun_out/chip_smoke.json.
 Without a CUDA device, or without the repo's ``src/`` beside it, the script
@@ -3242,6 +3265,294 @@ def phase_served(torch, args) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the remaining optimizers
+# ---------------------------------------------------------------------------
+
+SAMPLED_BUDGET = 5000
+SAMPLED_EPS = 0.01  # s = 47 at n = 50,000
+SAMPLED_SEEDS = (0, 1)
+STREAM_BUDGET = 100
+STREAM_EPS = 0.1
+STREAM_BUFFER = 64
+CONSTRAINED_STEPS = 500
+MATROID_PARTS, MATROID_CAP = 10, 10
+KNAPSACK_BUDGET = 60.0
+COVER_PREFIX = 100  # cover_greedy's target: 0.999 f(phase 4's first 100 picks)
+HOST_LAZY_BUDGET = 500
+STREAM_REQUESTS = 32
+STREAM_SERVE_BUDGETS = (20, 100)
+STREAM_SESSION_N = 8192
+STREAM_SESSION_DELTAS = 10
+DRAW_CASES = ((0, 0, 1), (1, 7, 1000), (12345, 3, 4096), (2**31 - 1, 4999, 50_000))
+STRIDE0_MEMBERS, STRIDE0_K = 8, 1024
+
+
+def mixture_labels(seed: int, n: int, d: int, components: int = 100) -> np.ndarray:
+    """The component of each row of ``gaussian_mixture(seed, n, d)``."""
+    rng = np.random.default_rng(seed)
+    rng.normal(size=(components, d))
+    return rng.integers(0, components, size=n)
+
+
+def _routes(torch, label, run, fn_kern, fn_plain, tol=FL_TOL, want_ids=None) -> dict:
+    """``run(fn)`` on the kernel route, then on the plain route (which must
+    launch nothing): equal ids and n_evals, gains within ``tol``; each wall
+    on the host clock, synchronized, and the kernel route's launches."""
+    from repro_torch.kernels import ops
+
+    before = dict(ops.LAUNCHES)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    kern = run(fn_kern)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: ops.LAUNCHES[k] - before[k] for k in ops.LAUNCHES if ops.LAUNCHES[k] != before[k]}
+    before = dict(ops.LAUNCHES)
+    t0 = time.perf_counter()
+    plain = run(fn_plain)
+    torch.cuda.synchronize()
+    pwall = time.perf_counter() - t0
+    if ops.LAUNCHES != before:
+        raise AssertionError(f"{label}: the plain route launched a kernel")
+
+    def parts(r):
+        if isinstance(r, tuple):  # host_lazy_greedy's (order, gains, n_evals)
+            return np.asarray(r[0], np.int64), np.asarray(r[1], np.float64), int(r[2]), None
+        return (r.order.cpu().numpy().astype(np.int64), r.gains.cpu().numpy(), int(r.n_evals),
+                float(r.value))
+
+    ko, kg, ke, kv = parts(kern)
+    po, pg, pe, pv = parts(plain)
+    if not np.isfinite(kg).all() or not np.array_equal(ko, po):
+        first = np.nonzero(ko[: min(len(ko), len(po))] != po[: min(len(ko), len(po))])[0]
+        raise AssertionError(f"{label}: ids part between the kernel and plain routes at "
+                             f"{first[:1].tolist()}")
+    if ke != pe:
+        raise AssertionError(f"{label}: n_evals {ke} (kernel) != {pe} (plain)")
+    check_close(f"{label} gains, kernel vs plain route", torch.as_tensor(kg),
+                torch.as_tensor(pg), *tol, quiet=True)
+    ids = [int(j) for j in ko if j >= 0]
+    if want_ids is not None and ids != list(want_ids):
+        raise AssertionError(f"{label}: ids part from the reference ids")
+    out = {"wall_s": wall, "plain_wall_s": pwall, "n_evals": ke, "picked": len(ids),
+           "value": kv if kv is not None else float(np.sum(kg)), "plain_value": pv,
+           "launches": launches}
+    log(f"  ok  {label}: {len(ids)} picks, n_evals {ke}, f(A) {out['value']:.6f}; kernel "
+        f"route {wall:.3f} s (launches {launches}), plain route {pwall:.3f} s; ids and "
+        f"n_evals equal, gains within {tol}")
+    return out
+
+
+def _stream_served(torch, args) -> dict:
+    """12.5: STREAM_REQUESTS SieveStreaming / ThresholdGreedy requests over FL
+    and FeatureBased at n in SERVE_N through SelectionServer, each bit-equal to
+    its sequential solve; a FeatureBased session of STREAM_SESSION_DELTAS
+    deltas, bit-equal to the direct solve."""
+    from repro_torch.core import FeatureBased, SelectionSpec, backend_name, solve
+    from repro_torch.launch.serve import SelectionServer
+
+    specs = []
+    for i in range(STREAM_REQUESTS):
+        rng = np.random.default_rng(args.seed + SERVE_SEED + 500 + i)
+        kind = ("fl", "fb")[i % 2]
+        n = int(rng.choice(SERVE_N))
+        budget = int(rng.integers(STREAM_SERVE_BUDGETS[0], STREAM_SERVE_BUDGETS[1] + 1))
+        opt = ("SieveStreaming", "ThresholdGreedy")[(i // 2) % 2]
+        kw = {"epsilon": STREAM_EPS, "seed": None if i % 3 else i}
+        if opt == "ThresholdGreedy":
+            kw["buffer_size"] = STREAM_BUFFER
+        fn = _served_function(torch, kind, args.seed + SERVE_SEED + 500 + i, n, args.d)
+        specs.append(SelectionSpec(fn, budget, opt, **kw))
+    routes = [backend_name(s.fn) for s in specs]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sequential = [solve(s) for s in specs]
+    torch.cuda.synchronize()
+    seq_s = time.perf_counter() - t0
+    # one round through a fresh server (the path's launch counts run on)
+    server = SelectionServer(max_wave=SERVE_MAX_WAVE)
+    t0 = time.perf_counter()
+    rids = [server.submit_spec(s) for s in specs]
+    flushed = server.flush()
+    torch.cuda.synchronize()
+    r = {"server": server, "responses": [flushed[i] for i in rids],
+         "wall_s": time.perf_counter() - t0,
+         "waves": server.stats.snapshot()["counters"]["waves"]}
+    for i, (resp, want) in enumerate(zip(r["responses"], sequential)):
+        _held(torch, f"12.5 request {i} ({type(specs[i].fn).__name__} n={specs[i].fn.n} "
+              f"{specs[i].optimizer.name})", resp, want)
+        if resp.backend != routes[i]:
+            raise AssertionError(f"12.5 request {i}: served by {resp.backend}, its sequential "
+                                 f"solve by {routes[i]}")
+    _no_trouble("12.5 served streaming", r["server"], r["responses"])
+    out = {"requests": len(specs), "sequential_s": seq_s, "served_s": r["wall_s"],
+           "waves": r["waves"], "routes": sorted(set(routes))}
+    log(f"  ok  12.5 {len(specs)} streaming requests (FL / FeatureBased, n in {list(SERVE_N)}): "
+        f"served in {r['wall_s']:.3f} s over {r['waves']} waves (sequential {seq_s:.3f} s), "
+        f"every answer bit-equal to its sequential solve; routes {out['routes']}")
+    del specs, sequential, r
+
+    x = torch.relu(gaussian_mixture_cuda(torch, args.seed + SERVE_SEED + 499, STREAM_SESSION_N,
+                                         args.d))
+    cuts = np.linspace(0, STREAM_SESSION_N, STREAM_SESSION_DELTAS + 2).astype(int)[1:]
+
+    def spec(rows):
+        return SelectionSpec(FeatureBased.from_features(rows, use_kernel=None), STREAM_BUDGET,
+                             "SieveStreaming", epsilon=STREAM_EPS)
+
+    server = SelectionServer()
+    t0 = time.perf_counter()
+    sess = server.open_session(spec(x[: cuts[0]]))
+    updates = [sess.extend(features=x[a:b]) for a, b in zip(cuts[:-1], cuts[1:])]
+    torch.cuda.synchronize()
+    sess_s = time.perf_counter() - t0
+    _held(torch, "12.5 FeatureBased streaming session vs direct solve", updates[-1].result,
+          solve(spec(x)))
+    _no_trouble("12.5 session", server, [u.response for u in updates])
+    out["session"] = {"deltas": len(updates), "n": int(updates[-1].n_total), "s": sess_s,
+                      "backends": sorted({u.response.backend for u in updates})}
+    log(f"  ok  12.5 FeatureBased SieveStreaming session, {len(updates)} deltas to n = "
+        f"{updates[-1].n_total}: bit-equal to the direct solve; {sess_s:.3f} s, backends "
+        f"{out['session']['backends']}")
+    return out
+
+
+def _draws_on_card(torch) -> dict:
+    """12.6: the threefry draws and the ladders' exp / log on the card equal
+    the CPU's bit for bit (the CPU's equal jax.random / XLA's, tests)."""
+    from repro_torch.core.optimizers import _threefry
+    from repro_torch.core.optimizers._fp32 import exp32, log32
+
+    for seed, step, n in DRAW_CASES:
+        key = _threefry.fold_in(_threefry.prng_key(seed), step)
+        for what, f in (("uniform", lambda dev: _threefry.uniform(key, n, dev)),
+                        ("step block", lambda dev: _threefry.step_bits(key, range(4), n, dev)),
+                        ("arrival uniforms", lambda dev: _threefry.fold_in_uniforms(key, n, dev))):
+            if not torch.equal(f("cuda").cpu(), f("cpu")):
+                raise AssertionError(f"12.6 {what} (seed {seed}, step {step}, n {n}) parts "
+                                     "between the card and the CPU")
+    gen = torch.Generator().manual_seed(12)
+    x = torch.empty(1 << 20).uniform_(-90, 90, generator=gen)
+    m = torch.exp(torch.empty(1 << 20).uniform_(-80, 80, generator=gen))
+    if not (torch.equal(exp32(x.cuda()).cpu(), exp32(x))
+            and torch.equal(log32(m.cuda()).cpu(), log32(m))):
+        raise AssertionError("12.6 exp32 / log32 part between the card and the CPU")
+    log(f"  ok  12.6 threefry draws at (seed, step, n) {list(DRAW_CASES)} and the ladders' "
+        f"exp / log over 2^20 inputs: bit-equal on the card and the CPU")
+    return {"cases": [list(c) for c in DRAW_CASES], "fp32_inputs": 1 << 20}
+
+
+def phase_remaining(torch, args, main: dict | None) -> dict:
+    """Phase 12: StochasticGreedy, LazierThanLazyGreedy, SieveStreaming,
+    ThresholdGreedy, the constrained greedies and the host heap greedy on
+    phase 4's S, each on the kernel and the plain route; served and session
+    streaming; the seeded draws on the card."""
+    from repro_torch.common import stacked_view
+    from repro_torch.core import (
+        FacilityLocation, PartitionMatroid, SelectionSpec, backend_name,
+        cover_greedy, create_kernel, host_lazy_greedy, knapsack_greedy, matroid_greedy,
+        naive_greedy, solve,
+    )
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.fl_gains import fl_gains_at_plain
+
+    t_start = time.perf_counter()
+    n, d = args.n, args.d
+    log(f"== phase 12: the remaining optimizers on phase 4's S (n={n}, d={d}, cosine)")
+    x = gaussian_mixture(args.seed, n, d)
+    labels = tuple(int(v) % MATROID_PARTS for v in mixture_labels(args.seed, n, d))
+    out = {}
+    ops.reset_launches()  # the path's counts: the kernel route's runs below
+    S = create_kernel(x, metric="cosine", use_pallas=True)
+    kern = FacilityLocation.from_kernel(S, use_kernel=None)
+    plain = FacilityLocation.from_kernel(S, use_kernel=False)
+    if backend_name(kern) != "cuda-fl":
+        raise AssertionError(f"phase 12: backend {backend_name(kern)!r}, expected 'cuda-fl'")
+    if main is None:  # phase 12 alone: phase 4's NaiveGreedy ids, LazyGreedy value
+        naive = naive_greedy(kern, args.naive_budget)
+        main = {"naive_ids": naive.order.cpu().tolist(),
+                "naive_gains": naive.gains.cpu().tolist(), "LazyGreedy": None}
+
+    # 12.1 the sampled greedies
+    lazy_value = main["LazyGreedy"]["value"] if main.get("LazyGreedy") else None
+    for opt in ("StochasticGreedy", "LazierThanLazyGreedy"):
+        for seed in SAMPLED_SEEDS:
+            label = f"12.1 {opt} {SAMPLED_BUDGET}, eps {SAMPLED_EPS}, seed {seed}"
+            r = _routes(torch, label, lambda f: solve(SelectionSpec(
+                f, SAMPLED_BUDGET, opt, seed=seed, epsilon=SAMPLED_EPS)), kern, plain)
+            r["vs_lazy_value"] = None if lazy_value is None else r["value"] / lazy_value
+            out[f"{opt}_seed{seed}"] = r
+    log(f"  12.1 values over phase 4's LazyGreedy {SAMPLED_BUDGET} value: "
+        f"{ {k: v['vs_lazy_value'] for k, v in out.items()} }")
+
+    # 12.2 the streaming ladders
+    cons = PartitionMatroid(labels, (MATROID_CAP,) * MATROID_PARTS)
+    streams = [("SieveStreaming", {"seed": None}), ("SieveStreaming", {"seed": 0}),
+               ("ThresholdGreedy", {"buffer_size": STREAM_BUFFER}),
+               ("SieveStreaming", {"constraint": cons})]
+    for opt, kw in streams:
+        tag = "12.3" if "constraint" in kw else "12.2"
+        label = (f"{tag} {opt} {STREAM_BUDGET}, eps {STREAM_EPS}, "
+                 + ", ".join(f"{k} {'PartitionMatroid' if k == 'constraint' else v}"
+                             for k, v in kw.items()))
+        r = _routes(torch, label, lambda f: solve(SelectionSpec(
+            f, STREAM_BUDGET, opt, epsilon=STREAM_EPS, **kw)), kern, plain)
+        r["fl_gains_at_per_arrival"] = r["launches"].get("fl_gains_at", 0) / n
+        out[label.split(" ", 1)[1]] = r
+
+    # 12.3 the constrained greedies
+    rng = np.random.default_rng(args.seed + 12)
+    costs = rng.uniform(0.5, 2.0, n).astype(np.float32)
+    coverage = 0.999 * float(np.sum(np.asarray(main["naive_gains"][:COVER_PREFIX], np.float64)))
+    out["knapsack_greedy"] = _routes(torch, f"12.3 knapsack_greedy (budget {KNAPSACK_BUDGET})",
+                                     lambda f: knapsack_greedy(f, KNAPSACK_BUDGET,
+                                                               CONSTRAINED_STEPS, costs),
+                                     kern, plain)
+    out["matroid_greedy"] = _routes(torch, f"12.3 matroid_greedy ({MATROID_PARTS} parts, caps "
+                                    f"{MATROID_CAP})",
+                                    lambda f: matroid_greedy(f, cons, CONSTRAINED_STEPS),
+                                    kern, plain)
+    out["cover_greedy"] = _routes(torch, f"12.3 cover_greedy (coverage {coverage:.3f})",
+                                  lambda f: cover_greedy(f, coverage, CONSTRAINED_STEPS),
+                                  kern, plain)
+
+    # 12.4 the host heap greedy: phase 4's NaiveGreedy ids
+    want = main["naive_ids"][:HOST_LAZY_BUDGET]
+    out["host_lazy_greedy"] = _routes(torch, f"12.4 host_lazy_greedy {HOST_LAZY_BUDGET}",
+                                      lambda f: host_lazy_greedy(f, HOST_LAZY_BUDGET),
+                                      kern, plain, want_ids=want)
+
+    # 12.5 served and session streaming
+    out["served"] = _stream_served(torch, args)
+    torch.cuda.synchronize()
+    out["launches"] = _launch_counts()
+    for k in ("similarity", "fl_gains", "fl_gains_at", "fb_gains_at"):
+        if not out["launches"].get(k):
+            raise AssertionError(f"phase 12: kernel {k} was not launched on the path")
+    log(f"  phase 12 launches on the path: {out['launches']}")
+
+    # the sieves' member-stride-0 wave against its plain version
+    # (comparison launches, after the path's counts were read)
+    gen = torch.Generator(device="cuda").manual_seed(args.seed + 12)
+    wave = stacked_view([S] * STRIDE0_MEMBERS)
+    cm = 0.5 * torch.rand((STRIDE0_MEMBERS, n), generator=gen, device="cuda")
+    idx = torch.randint(0, n, (STRIDE0_MEMBERS, STRIDE0_K), generator=gen, device="cuda")
+    got = ops.fl_gains_at(wave, cm, idx)
+    if not (wave.stride(0) == 0 and torch.equal(got, fl_gains_at_plain(wave, cm, idx))
+            and torch.equal(got[1], ops.fl_gains_at(S, cm[1], idx[1]))):
+        raise AssertionError("fl_gains_at on a member-stride-0 wave parts from its plain version")
+    log(f"  ok  fl_gains_at on a member-stride-0 wave of {STRIDE0_MEMBERS} x {n} x {n}, "
+        f"k = {STRIDE0_K}: bit-equal to its plain version and to one member's call")
+    del wave, cm, idx, got, S, kern, plain
+    torch.cuda.empty_cache()
+
+    out["draws"] = _draws_on_card(torch)
+    out["seconds"] = time.perf_counter() - t_start
+    log(f"phase 12: {out['seconds']:.1f} s")
+    return out
+
+
 def parse_args(argv):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -3307,6 +3618,7 @@ def main(argv=None) -> int:
     guided_out["phase3"] = fused_bits
     wave_out = phase_wave(torch, args)
     served = phase_served(torch, args)
+    remaining = phase_remaining(torch, args, main_out)
     for rows, path in ((mf_rows, mf_out), (dense_rows, dense_out), (cover_rows, cover_out)):
         for r in rows:
             r["launches"] = r["launches_on_path"] = path["launches"][r["name"]]
@@ -3331,13 +3643,15 @@ def main(argv=None) -> int:
     for r in kernels:
         src = served["build"] if r["name"] == "similarity" else served["steady"]
         r["served"] = {"launches": src["launches"].get(r["name"], 0)}
+        # and on the remaining optimizers' path (phase 12)
+        r["remaining"] = {"launches": remaining["launches"].get(r["name"], 0)}
     missing = set(ops.LAUNCHES) ^ {r["name"] for r in kernels}
     if missing:
         raise AssertionError(f"kernels line and LAUNCHES differ: {sorted(missing)}")
     record = {"device": device, "build": {k: build[k] for k in ("seconds", "cached")},
               "main": main_out, "matrix_free": mf_out, "dense_pairwise": dense_out,
               "coverage": cover_out, "guided": guided_out, "wave": wave_out, "served": served,
-              "kernels": kernels, "seconds": time.perf_counter() - t_start}
+              "remaining": remaining, "kernels": kernels, "seconds": time.perf_counter() - t_start}
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     log(f"total {record['seconds']:.1f} s; details in {OUT_DIR / 'chip_smoke.json'}")

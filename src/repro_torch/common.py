@@ -1,6 +1,7 @@
 """Shared utilities: the NEG_INF sentinel, tie-breaking argmax, concave fns,
 index masks, one-element indices, row padding, member views of a stacked
-tensor, row blocks, row sums in a fixed order and device resolution."""
+tensor, row blocks, row sums in a fixed order (and the FL column sums over
+them) and device resolution."""
 from __future__ import annotations
 
 from typing import Callable
@@ -126,6 +127,25 @@ def map_row_blocks(fn: Callable[[torch.Tensor], torch.Tensor], mat: torch.Tensor
         fn(mat[lo : lo + ROW_BLOCK] if rows is None else mat[rows[lo : lo + ROW_BLOCK]])
         for lo in range(0, k, ROW_BLOCK)
     ])
+
+
+# elements of one (rows, columns) temporary of :func:`relu_col_sums`
+COL_BLOCK_ELEMS = 1 << 24
+
+
+def relu_col_sums(sim: torch.Tensor, curmax: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """(k,) ``sum_i max(sim[i, idx_j] - curmax_i, 0)`` for indices ``idx``
+    >= 0, each column summed in :func:`row_sums_fixed`'s order, a block of
+    columns at a time: a column's bits depend on its own values alone, not
+    on which or how many columns are gathered with it, on the CPU and the
+    card alike."""
+    idx = idx.to(device=sim.device, dtype=torch.long)
+    out = sim.new_empty(idx.shape)
+    step = max(1, COL_BLOCK_ELEMS // max(sim.shape[0], 1))
+    for lo in range(0, idx.numel(), step):
+        cols = sim.index_select(1, idx[lo : lo + step])
+        out[lo : lo + step] = row_sums_fixed(cols.sub_(curmax[:, None]).clamp_(min=0.0))
+    return out
 
 
 def row_sums_fixed(t: torch.Tensor) -> torch.Tensor:

@@ -4,9 +4,11 @@
 # the clustered mixtures, the information measures (core/info/), the
 # similarity kernels with kmeans and the extended V ∪ Q ∪ P kernel, the
 # similarity sources (features, dense, k-NN), the gain-backend registry,
-# NaiveGreedy / LazyGreedy, the SelectionSpec + solve() front door
-# (sequential and batched modes), the batched engine and the deprecated
-# maximize() / batched_maximize() shims.
+# every optimizer (Naive, Lazy, Stochastic and LazierThanLazy greedy, the
+# host heap greedy, the cover / knapsack / matroid greedies with their
+# Knapsack / PartitionMatroid constraints, SieveStreaming and
+# ThresholdGreedy), the SelectionSpec + solve() front door, the batched
+# engine and the deprecated maximize() / batched_maximize() shims.
 from repro_torch.core.functions.base import SetFunction
 from repro_torch.core.functions.clustered import (
     cluster_mask,
@@ -47,7 +49,22 @@ from repro_torch.core.optimizers.backends import (
 )
 from repro_torch.core.optimizers.api import maximize
 from repro_torch.core.optimizers.batched import BatchedEngine, batched_maximize, stack_functions
-from repro_torch.core.optimizers.greedy import GreedyResult, lazy_greedy, naive_greedy
+from repro_torch.core.optimizers.constrained import (
+    Knapsack,
+    PartitionMatroid,
+    cover_greedy,
+    knapsack_greedy,
+    matroid_greedy,
+)
+from repro_torch.core.optimizers.greedy import (
+    GreedyResult,
+    lazier_than_lazy_greedy,
+    lazy_greedy,
+    naive_greedy,
+    stochastic_greedy,
+)
+from repro_torch.core.optimizers.host_lazy import host_lazy_greedy
+from repro_torch.core.optimizers.streaming import sieve_streaming, threshold_greedy
 from repro_torch.core.optimizers.spec import (
     OptimizerSpec,
     SelectionSpec,

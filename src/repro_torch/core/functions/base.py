@@ -49,6 +49,11 @@ class SetFunction:
     """Duck-typed base; concrete functions are frozen dataclasses."""
 
     n: int  # ground-set size
+    # True where gains_at's value at an index does not depend on the other
+    # indices gathered with it, bit for bit (tests/test_torch_streaming.py
+    # checks every family that says so).  The streaming optimizers sweep
+    # windows of arrivals at once only then, else one arrival at a time.
+    local_gathers = False
 
     def __init_subclass__(cls, **kwargs):
         super().__init_subclass__(**kwargs)

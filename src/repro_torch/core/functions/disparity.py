@@ -72,6 +72,7 @@ class DSumKernelSweep:
 class DisparitySum(SetFunction):
     dist: torch.Tensor  # (n, n) pairwise distances, zero diagonal
     n: int
+    local_gathers = True  # gains_at's value at an index ignores the others
     # True/False routes full sweeps through the CUDA kernel / plain torch;
     # None defers to the choose_backend table (backends.py)
     use_kernel: bool | None = False
@@ -141,6 +142,7 @@ class DMinKernelSweep:
 class DisparityMin(SetFunction):
     dist: torch.Tensor  # (n, n) pairwise distances
     n: int
+    local_gathers = True  # gains_at's value at an index ignores the others
     use_kernel: bool | None = False  # as DisparitySum's
 
     @staticmethod

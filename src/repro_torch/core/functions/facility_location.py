@@ -24,7 +24,7 @@ import dataclasses
 
 import torch
 
-from repro_torch.common import as_float_tensor, one_index, stacked_view
+from repro_torch.common import as_float_tensor, one_index, relu_col_sums, stacked_view
 from repro_torch.core.functions.base import SetFunction
 from repro_torch.core.sources import (
     DenseSource,
@@ -46,6 +46,7 @@ class FLKernelSweep:
     (full and gathered-subset entry points; see kernels/fl_gains.py)."""
 
     name = "cuda-fl"
+    local_gathers = True  # the gathered kernel equals the full sweep bit for bit
 
     def full_sweep(self, fn: "FacilityLocation", state: FLState) -> torch.Tensor:
         from repro_torch.kernels import ops
@@ -86,6 +87,7 @@ class FacilityLocation(SetFunction):
     # True/False routes the gain sweeps through the CUDA kernel / plain torch;
     # None defers to the choose_backend heuristic (backends.py)
     use_kernel: bool | None = False
+    local_gathers = True  # gains_at's value at an index ignores the others
 
     @staticmethod
     def from_kernel(sim, use_kernel: bool | None = False, device=None) -> "FacilityLocation":
@@ -116,8 +118,10 @@ class FacilityLocation(SetFunction):
         return FLKernelSweep() if on else None
 
     def gains_at(self, state: FLState, idxs) -> torch.Tensor:
-        cols = self.sim[:, idxs.to(self.sim.device)]  # (|U|, k)
-        return torch.clamp(cols - state.curmax[:, None], min=0.0).sum(dim=0)
+        # each column in a fixed order of its own: a gathered sweep's value
+        # at an index does not depend on the other indices swept with it
+        # (the streaming optimizers' windows rely on it)
+        return relu_col_sums(self.sim, state.curmax, idxs)
 
     def update(self, state: FLState, j) -> FLState:
         col = self.sim.index_select(1, one_index(j, self.sim.device))[:, 0]
@@ -140,6 +144,7 @@ class FLMFKernelSweep:
     materialised-matrix kernel (kernels/fl_gains.py)."""
 
     name = "cuda-flmf"
+    local_gathers = True  # the gathered kernel equals the full sweep bit for bit
 
     def full_sweep(self, fn: "FacilityLocationMF", state: FLState) -> torch.Tensor:
         from repro_torch.kernels import ops
@@ -186,6 +191,7 @@ class FacilityLocationMF(SetFunction):
 
     src: object  # FeatureSource | DenseSource | KnnSource
     n: int
+    local_gathers = True  # gains_at's value at an index ignores the others
     # True/False routes the sweeps through the CUDA kernels / plain torch;
     # None defers to the choose_backend heuristic (backends.py).  Clustered
     # (labelled) sources always take the torch path.

@@ -31,6 +31,7 @@ class FBKernelSweep:
     the feature matrix (kernels/fb_gains.py), full and gathered."""
 
     name = "cuda-fb"
+    local_gathers = True  # the gathered kernel equals the full sweep bit for bit
 
     def full_sweep(self, fn: "FeatureBased", state: FBState) -> torch.Tensor:
         from repro_torch.kernels import ops
@@ -48,6 +49,7 @@ class FeatureBased(SetFunction):
     feats: torch.Tensor  # (n, F) non-negative feature scores
     w: torch.Tensor  # (F,)
     n: int
+    local_gathers = True  # gains_at's value at an index ignores the others
     concave: str = "sqrt"
     # True/False routes sweeps through the CUDA kernels / plain torch; None
     # defers to the choose_backend table (backends.py)

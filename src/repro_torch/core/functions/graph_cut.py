@@ -93,6 +93,7 @@ class GraphCut(SetFunction):
     total: torch.Tensor  # (n,) sum_{i in U} S_ij  (modular representation term)
     lam: torch.Tensor  # 0-d trade-off
     n: int
+    local_gathers = True  # gains_at's value at an index ignores the others
     use_kernel: bool | None = False
 
     @staticmethod

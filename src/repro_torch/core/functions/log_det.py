@@ -50,6 +50,7 @@ def _log_pivot(d2: torch.Tensor) -> torch.Tensor:
 class LogDet(SetFunction):
     L: torch.Tensor  # (n, n) PSD similarity kernel
     n: int
+    local_gathers = True  # gains_at's value at an index ignores the others
     max_select: int
 
     @staticmethod

@@ -64,6 +64,7 @@ class SetCover(SetFunction):
     cover: torch.Tensor  # (n, m) binary: element i covers concept u
     w: torch.Tensor  # (m,) concept weights
     n: int
+    local_gathers = True  # gains_at's value at an index ignores the others
     # True/False routes full sweeps through the CUDA kernel / plain torch;
     # None defers to the choose_backend table (backends.py)
     use_kernel: bool | None = False
@@ -143,6 +144,7 @@ class ProbabilisticSetCover(SetFunction):
     probs: torch.Tensor  # (n, m) 1 - exp(log_miss), formed once (module docstring)
     w: torch.Tensor  # (m,)
     n: int
+    local_gathers = True  # gains_at's value at an index ignores the others
     use_kernel: bool | None = False  # as SetCover's
 
     @staticmethod

@@ -89,6 +89,7 @@ class FLQMI(SetFunction):
     sim_qv: torch.Tensor  # (|Q|, n) query-to-ground kernel — the only kernel needed
     modular: torch.Tensor  # (n,) eta * max_{q in Q} S_jq
     n: int
+    local_gathers = True  # gains_at's value at an index ignores the others
 
     @staticmethod
     def build(sim_qv, eta: float = 1.0, device=None) -> "FLQMI":

@@ -26,6 +26,7 @@ from repro_torch.core.functions.graph_cut import GraphCut
 class GCMI(SetFunction):
     qsum: torch.Tensor  # (n,) 2*lam*sum_{j in Q} S_ij — a modular function
     n: int
+    local_gathers = True  # gains_at's value at an index ignores the others
 
     @staticmethod
     def build(sim_vq, lam: float = 1.0, device=None) -> "GCMI":

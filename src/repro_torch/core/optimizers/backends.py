@@ -128,6 +128,19 @@ def _sweep_at(backend, fn, state, idx) -> torch.Tensor:
     return fn.gains_at(state, idx) if impl is None else impl(fn, state, idx)
 
 
+def local_gathers(fn, backend=None) -> bool:
+    """Whether a gathered sweep of ``fn`` gives each index the value it
+    would have alone, bit for bit, whatever else is swept with it: the
+    kernel backend's declaration when it runs the gathered sweep, else the
+    function's (``SetFunction.local_gathers``).  Engines that sweep ahead
+    of their decisions (streaming windows, the host heap greedy) rely on
+    it, and sweep one index at a time without it."""
+    backend = resolve_backend(fn) if backend is None else backend
+    if getattr(backend, "name", "torch") != "torch" and hasattr(backend, "partial_sweep"):
+        return bool(getattr(backend, "local_gathers", False))
+    return bool(getattr(fn, "local_gathers", False))
+
+
 def _wave_hook(backends, name: str):
     """The wave hook ``name`` of the members' backend when every member
     resolved to the same kind of backend, else None."""

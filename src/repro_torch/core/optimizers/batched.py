@@ -253,12 +253,8 @@ class BatchedEngine:
             self.members, max_budget, b_arr, self.valid, stop_if_zero, stop_if_negative,
             **opt.params,
         )
-        # each value sums the member's own gains, in a fresh (1, budget)
-        # tensor as its sequential solve does: a sum over the wave's longer
-        # or offset row may add in another order
-        values = torch.cat([
-            res.gains[b : b + 1, :bud].clone().sum(dim=1) for b, bud in enumerate(budgets)
-        ])
+        # the hook reports each member's value as its sequential solve does
+        values = res.value.to(torch.float32)
         # one transfer for the whole wave, then host-side slicing
         packed = torch.cat([
             res.order.reshape(-1),

@@ -22,11 +22,18 @@ and ``n_evals`` do not depend on the wave it rides in.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
 from repro_torch.common import NEG_INF
-from repro_torch.core.optimizers.backends import full_sweep_wave, partial_sweep_wave
+from repro_torch.core.optimizers import _threefry
+from repro_torch.core.optimizers.backends import (
+    full_sweep,
+    full_sweep_wave,
+    partial_sweep,
+    partial_sweep_wave,
+)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -66,12 +73,11 @@ def _where_state(pred, new, old):
 
 
 def _should_stop(gj, stop_if_zero: bool, stop_if_negative: bool):
-    stop = torch.zeros_like(gj, dtype=torch.bool)
-    if stop_if_zero:
-        stop |= gj <= 0.0
+    if stop_if_zero:  # gj <= 0 covers the negative gains too
+        return gj <= 0.0
     if stop_if_negative:
-        stop |= gj < 0.0
-    return stop
+        return gj < 0.0
+    return torch.zeros_like(gj, dtype=torch.bool)
 
 
 def _naive_impl(
@@ -135,6 +141,14 @@ def naive_greedy(
     """Standard greedy [Nemhauser et al. '78]: full gain sweep per step.
     This is the B = 1 case of ``_naive_impl``."""
     return _first(_naive_impl([fn], budget, stop_if_zero, stop_if_negative))
+
+
+def member_values(gains: torch.Tensor, budgets) -> torch.Tensor:
+    """(B,) values of a wave's (B, max_budget) gains: each member's own
+    gains summed in a fresh (1, budget) tensor, as its sequential solve
+    sums them (a sum over the wave's longer or offset row may add in
+    another order)."""
+    return torch.cat([gains[b : b + 1, :bud].clone().sum(dim=1) for b, bud in enumerate(budgets)])
 
 
 def _first(res: GreedyResult) -> GreedyResult:
@@ -283,3 +297,193 @@ def lazy_greedy(
         stop_if_zero,
         stop_if_negative,
     ))
+
+
+# ---------------------------------------------------------------------------
+# Sampled greedies: StochasticGreedy and LazierThanLazyGreedy
+# ---------------------------------------------------------------------------
+
+def _sample_size(n: int, budget: int, epsilon: float, sample_size) -> int:
+    """The per-step sample: ``sample_size``, else (n / budget) log(1 /
+    epsilon) rounded up and held to [1, n], in Python float arithmetic as
+    the JAX package computes it."""
+    s = sample_size or max(1, min(n, int(math.ceil(n / budget * math.log(1.0 / epsilon)))))
+    if s > n:
+        raise ValueError(f"sample_size {s} exceeds the ground set (n = {n})")
+    return int(s)
+
+
+def _draw_keys(mant: torch.Tensor, rev_iota: torch.Tensor) -> torch.Tensor:
+    """int64 keys that order a step's uniforms as ``jax.lax.top_k`` orders
+    them: the 23 mantissa bits order the uniforms as the floats do, plus
+    one to stay above a selected entry's 0, above the reversed index, so
+    the keys are distinct and ties go to the lower index, on any device."""
+    return ((mant + 1) << 32) | rev_iota
+
+
+def _sample_unselected(keys: torch.Tensor, selected: torch.Tensor, rev_iota: torch.Tensor,
+                       size: int) -> torch.Tensor:
+    """``size`` indices in ``jax.lax.top_k`` order of the step's uniforms,
+    selected entries (-1 there) at the bottom: the Gumbel top-k subsample of
+    the JAX package."""
+    return torch.topk(torch.where(selected, rev_iota, keys), size).indices
+
+
+def _step_keys(key, n: int, budget: int, rev_iota: torch.Tensor):
+    """The :func:`_draw_keys` of every step's uniforms ``uniform(fold_in(
+    key, i), (n,))``, yielded step by step, drawn a block of steps at a
+    time."""
+    block = _threefry.block_steps(n)
+    for lo in range(0, budget, block):
+        bits = _threefry.step_bits(key, range(lo, min(budget, lo + block)), n, rev_iota.device)
+        yield from _draw_keys(bits >> 9, rev_iota)
+
+
+def _device_of_state(state):
+    """The device of the first tensor of a state's tree."""
+    if isinstance(state, torch.Tensor):
+        return state.device
+    if dataclasses.is_dataclass(state):
+        children = [getattr(state, f.name) for f in dataclasses.fields(state)]
+    elif isinstance(state, (tuple, list)):
+        children = list(state)
+    else:
+        return None
+    for c in children:
+        dev = _device_of_state(c)
+        if dev is not None:
+            return dev
+    return None
+
+
+def stochastic_greedy(
+    fn,
+    budget: int,
+    key=None,
+    epsilon: float = 0.01,
+    sample_size: int | None = None,
+    stop_if_zero: bool = True,
+    stop_if_negative: bool = True,
+) -> GreedyResult:
+    """Stochastic greedy [Mirzasoleiman et al. '15] (paper §5.3.3): each
+    step evaluates gains on a random (n/b) log(1/eps) subsample of the
+    remaining ground set.  Linear total running time independent of
+    budget, 1-1/e-eps in expectation.
+
+    ``key`` is a threefry key (``_threefry.prng_key(seed)``; None: seed 0).
+    Step i draws ``uniform(fold_in(key, i), (n,))`` as the JAX package does,
+    so the same seed samples the same candidates.  No step waits for the
+    card: the loop keeps every decision on the device, as NaiveGreedy does.
+    """
+    n = fn.n
+    key = _threefry.prng_key(0) if key is None else key
+    s = _sample_size(n, budget, epsilon, sample_size)
+    state = fn.init_state()
+    dev = _device_of_state(state)
+    rev_iota = 0xFFFFFFFF - torch.arange(n, dtype=torch.int64, device=dev)
+    selected = torch.zeros((n,), dtype=torch.bool, device=dev)
+    done = torch.zeros((1,), dtype=torch.bool, device=dev)
+    picks, picked_gains, takes = [], [], []
+    for keys in _step_keys(key, n, budget, rev_iota):
+        cand = _sample_unselected(keys, selected, rev_iota, s)
+        g = partial_sweep(fn, state, cand).to(torch.float32)
+        # sampled entries that are selected (fewer than s unselected left)
+        g = torch.where(selected[cand], NEG_INF, g)
+        bi = torch.argmax(g, dim=0, keepdim=True)  # first-index tie-break
+        j, gj = cand[bi], g[bi]
+        stop = done | _should_stop(gj, stop_if_zero, stop_if_negative)
+        take = ~stop
+        state = _where_state(take, fn.update(state, j), state)
+        selected.scatter_(0, j, selected[j] | take)
+        picks.append(j)
+        picked_gains.append(gj)
+        takes.append(take)
+        done = stop
+    return _sampled_result(picks, picked_gains, takes, s, budget)
+
+
+def _sampled_result(picks, picked_gains, takes, s: int, budget: int) -> GreedyResult:
+    """The result of a sampled greedy's steps: a step that did not take its
+    pick holds -1 and gain 0.  Every step up to and including the one that
+    stopped evaluated a sample of ``s``."""
+    take = torch.cat(takes)
+    gains = torch.where(take, torch.cat(picked_gains), 0.0)
+    picked = int(take.sum())
+    return GreedyResult(
+        order=torch.where(take, torch.cat(picks).to(torch.int32), -1),
+        gains=gains,
+        n_evals=torch.tensor(s * min(budget, picked + 1), dtype=torch.int32, device=take.device),
+        value=gains.sum(),
+    )
+
+
+def lazier_than_lazy_greedy(
+    fn,
+    budget: int,
+    key=None,
+    epsilon: float = 0.01,
+    sample_size: int | None = None,
+    screen_k: int = 8,
+    stop_if_zero: bool = True,
+    stop_if_negative: bool = True,
+) -> GreedyResult:
+    """Random sampling + lazy evaluation [Mirzasoleiman et al. '15]
+    (paper §5.3.4): per step, draw the stochastic-greedy subsample, then
+    apply the stale-bound screen *within the sample*, evaluating true gains
+    only on the sample's top-``screen_k`` bounds and falling back to the
+    whole sample on a bound violation.
+
+    The draws are :func:`stochastic_greedy`'s.  The screen orders the
+    sample's bounds as ``jax.lax.top_k`` does (descending, ties to the lower
+    position) with a stable sort.  Whether the screen held, and whether its
+    pick stops the run, are read back once a step, as the lazy engine reads
+    its levels (a second read when the sample is swept).  ``n_evals``
+    counts the initial full sweep, then ``screen_k`` or the sample per step.
+    """
+    n = fn.n
+    key = _threefry.prng_key(0) if key is None else key
+    s = _sample_size(n, budget, epsilon, sample_size)
+    k = min(screen_k, s)
+    state = fn.init_state()
+    ub = full_sweep(fn, state).to(torch.float32)
+    dev = ub.device
+    rev_iota = 0xFFFFFFFF - torch.arange(n, dtype=torch.int64, device=dev)
+    selected = torch.zeros((n,), dtype=torch.bool, device=dev)
+    order = torch.full((budget,), -1, dtype=torch.int32, device=dev)
+    gains = torch.zeros((budget,), dtype=torch.float32, device=dev)
+    evals = n
+    for i, keys in enumerate(_step_keys(key, n, budget, rev_iota)):
+        cand = _sample_unselected(keys, selected, rev_iota, s)
+        picked = selected[cand]
+        ub_cand = torch.where(picked, NEG_INF, ub[cand])
+        top_pos = torch.sort(ub_cand, descending=True, stable=True).indices[:k]
+        top_idx = cand[top_pos]
+        true_g = partial_sweep(fn, state, top_idx).to(torch.float32)
+        true_g = torch.where(selected[top_idx], NEG_INF, true_g)
+        bi = torch.argmax(true_g, dim=0, keepdim=True)
+        rest = ub_cand.index_fill(0, top_pos, NEG_INF)
+        ok = true_g[bi] >= rest.amax(dim=0, keepdim=True) - 1e-6
+        # one read-back a step: did the screen hold, and would its pick stop?
+        screened, stop = torch.cat(
+            [ok, _should_stop(true_g[bi], stop_if_zero, stop_if_negative)]).tolist()
+        if screened:
+            # refresh bounds only for the screened entries; the rest keep
+            # their stale (still valid) bounds
+            j, gj, cost = top_idx[bi], true_g[bi], k
+            upd = ub_cand.index_copy(0, top_pos, true_g)
+        else:
+            upd = torch.where(picked, NEG_INF, partial_sweep(fn, state, cand).to(torch.float32))
+            b = torch.argmax(upd, dim=0, keepdim=True)
+            j, gj, cost = cand[b], upd[b], s
+            stop = bool(_should_stop(gj, stop_if_zero, stop_if_negative))
+        ub[cand] = upd
+        evals += cost
+        if stop:
+            break  # the step that stops takes nothing; nothing changes after it
+        state = fn.update(state, j)
+        selected[j] = True
+        order[i : i + 1] = j.to(torch.int32)
+        gains[i : i + 1] = gj
+    return GreedyResult(order=order, gains=gains,
+                        n_evals=torch.tensor(evals, dtype=torch.int32, device=dev),
+                        value=gains.sum())

@@ -10,10 +10,12 @@
   (:func:`register_family_defaults`) in exactly one place.
 - :func:`solve` — the front door: ``solve(spec)`` or ``solve([s1, s2])``.
 
-Ported so far: the sequential, batched, served and async modes,
-NaiveGreedy and LazyGreedy, and the serving options ``deadline_s`` /
-``retry``.  The sharded mode and the other optimizers are still to be
-ported (ROADMAP queue 1, items 9 and 11).
+Ported: the sequential, batched, served and async modes, every optimizer
+of the JAX package (NaiveGreedy, LazyGreedy, StochasticGreedy,
+LazierThanLazyGreedy, and SieveStreaming / ThresholdGreedy, which register
+from ``streaming.py``), and the serving options ``deadline_s`` /
+``retry``.  The sharded mode is still to be ported (ROADMAP queue 1, item
+11).
 """
 from __future__ import annotations
 
@@ -22,12 +24,16 @@ import math
 from typing import Callable, Mapping, Optional, Sequence
 
 from repro_torch.core.functions.base import SetFunction
+from repro_torch.core.optimizers import _threefry
 from repro_torch.core.optimizers.greedy import (
     GreedyResult,
     _lazy_bucketed_impl,
     _naive_impl,
+    lazier_than_lazy_greedy,
     lazy_greedy,
+    member_values,
     naive_greedy,
+    stochastic_greedy,
 )
 from repro_torch.launch.resilience import RetryPolicy
 
@@ -71,6 +77,22 @@ def _int_min(lo: int) -> Callable:
     return convert
 
 
+def _opt_int_min(lo: int) -> Callable:
+    base = _int_min(lo)
+
+    def convert(v):
+        return None if v is None else base(v)
+
+    return convert
+
+
+def _unit_float(v) -> float:
+    f = float(v)
+    if not 0.0 < f <= 1.0:
+        raise ValueError(f"must be a float in (0, 1], got {v!r}")
+    return f
+
+
 # ---------------------------------------------------------------------------
 # Optimizer registry
 # ---------------------------------------------------------------------------
@@ -84,7 +106,8 @@ class OptimizerDef:
     valid, stop_zero, stop_neg, **params)`` runs a wave for
     :class:`~repro_torch.core.optimizers.batched.BatchedEngine` (``fns`` the
     engine's member views, ``budgets`` (B,) and ``valid`` (B, n) tensors)
-    and returns a (B, ...) result.  ``sharded_run`` and ``mesh_replicated``
+    and returns a (B, ...) result whose values are each member's value as
+    its sequential solve reports it.  ``sharded_run`` and ``mesh_replicated``
     are the JAX package's mesh hooks, kept in the registry for the sharded
     engine (ROADMAP queue 1, item 11); nothing in the port calls them yet.
     ``None`` means the optimizer cannot ride that route: it is rejected
@@ -549,7 +572,16 @@ def _naive_run(fn, budget, stop_zero, stop_neg):
 
 
 def _naive_batched(fns, max_budget, budgets, valid, stop_zero, stop_neg):
-    return _naive_impl(fns, max_budget, stop_zero, stop_neg, budgets=budgets, valid=valid)
+    return _own_values(
+        _naive_impl(fns, max_budget, stop_zero, stop_neg, budgets=budgets, valid=valid), budgets
+    )
+
+
+def _own_values(res: GreedyResult, budgets) -> GreedyResult:
+    """``res`` with each member's value summed over its own gains
+    (:func:`~repro_torch.core.optimizers.greedy.member_values`)."""
+    values = member_values(res.gains, budgets.tolist())
+    return dataclasses.replace(res, value=values)
 
 
 def _lazy_run(fn, budget, stop_zero, stop_neg, *, screen_k):
@@ -557,13 +589,51 @@ def _lazy_run(fn, budget, stop_zero, stop_neg, *, screen_k):
 
 
 def _lazy_batched(fns, max_budget, budgets, valid, stop_zero, stop_neg, *, screen_k):
-    return _lazy_bucketed_impl(fns, max_budget, budgets, valid, screen_k, stop_zero, stop_neg)
+    return _own_values(
+        _lazy_bucketed_impl(fns, max_budget, budgets, valid, screen_k, stop_zero, stop_neg),
+        budgets,
+    )
 
+
+def _stochastic_run(fn, budget, stop_zero, stop_neg, *, seed, epsilon, sample_size):
+    return stochastic_greedy(
+        fn, budget, _threefry.prng_key(seed), epsilon, sample_size, stop_zero, stop_neg
+    )
+
+
+def _ltl_run(fn, budget, stop_zero, stop_neg, *, seed, epsilon, sample_size, screen_k):
+    return lazier_than_lazy_greedy(
+        fn, budget, _threefry.prng_key(seed), epsilon, sample_size, screen_k, stop_zero,
+        stop_neg,
+    )
+
+
+_SCREEN_K = Param(8, _int_min(1), "lazy screen width (doubling levels)")
+_SAMPLING = {
+    "seed": Param(0, _int_min(0), "PRNG seed for the per-step subsample"),
+    "epsilon": Param(0.01, _unit_float, "approximation slack in (0, 1]"),
+    "sample_size": Param(
+        None, _opt_int_min(1), "per-step subsample size (None: from epsilon)"
+    ),
+}
 
 register_optimizer("NaiveGreedy", _naive_run, batched_run=_naive_batched)
 register_optimizer(
     "LazyGreedy",
     _lazy_run,
-    params={"screen_k": Param(8, _int_min(1), "lazy screen width (doubling levels)")},
+    params={"screen_k": _SCREEN_K},
     batched_run=_lazy_batched,
 )
+# the sampled greedies have no wave hooks, as in the JAX package: the
+# serving front doors refuse them at submit time
+register_optimizer("StochasticGreedy", _stochastic_run, params=dict(_SAMPLING))
+register_optimizer(
+    "LazierThanLazyGreedy",
+    _ltl_run,
+    params={**_SAMPLING, "screen_k": _SCREEN_K},
+)
+
+# The streaming optimizers (SieveStreaming / ThresholdGreedy) register
+# themselves on import, as in the JAX package: every name above is bound
+# when this runs, and streaming.py imports only names of this module.
+from repro_torch.core.optimizers import streaming as _streaming  # noqa: E402,F401

@@ -47,7 +47,14 @@ import functools
 
 import torch
 
-from repro_torch.common import NEG_INF, as_float_tensor, one_index, pad_rows, resolve_device
+from repro_torch.common import (
+    NEG_INF,
+    as_float_tensor,
+    one_index,
+    pad_rows,
+    relu_col_sums,
+    resolve_device,
+)
 from repro_torch.kernels.similarity_kernel import (
     METRICS,
     TILE,
@@ -241,8 +248,7 @@ class DenseSource:
 
     def fl_gains_at(self, curmax: torch.Tensor, idx) -> torch.Tensor:
         idx = torch.as_tensor(idx, device=self.device).to(torch.long)
-        cols = self.sim.index_select(1, torch.clamp(idx, 0, self.n_cols - 1))
-        g = torch.clamp(cols - curmax[:, None], min=0.0).sum(dim=0)
+        g = relu_col_sums(self.sim, curmax, torch.clamp(idx, 0, self.n_cols - 1))
         return torch.where(idx < 0, NEG_INF, g)
 
     def masked_rowmax(self, mask) -> torch.Tensor:

@@ -124,7 +124,7 @@ def test_submit_validation_is_synchronous(rng):
     with AsyncSelectionServer(max_pending=100, flush_interval=600.0) as server:
         with pytest.raises(NotImplementedError, match="register_padder"):
             server.submit(SelectionSpec(DisparityMinSum.from_distance(d, device=CPU), 2))
-        with pytest.raises(ValueError, match="unknown optimizer"):
+        with pytest.raises(ValueError, match="batched-capable"):
             server.submit(_spec(rng, optimizer="StochasticGreedy"))
         ok = server.submit(_spec(rng))
         server.flush_now()

@@ -437,7 +437,9 @@ def test_solve_batched_rejects_unbatchable_optimizer():
     register_optimizer("SequentialOnlyGreedy", lambda f, b, z, ng: naive_greedy(f, b, z, ng))
     try:
         assert "SequentialOnlyGreedy" not in wave_capable_names()
-        assert wave_capable_names() == ["LazyGreedy", "NaiveGreedy"]
+        assert wave_capable_names() == [
+            "LazyGreedy", "NaiveGreedy", "SieveStreaming", "ThresholdGreedy"
+        ]
         spec = SelectionSpec(fn, 3, "SequentialOnlyGreedy")
         with pytest.raises(ValueError, match=r"batched-capable optimizers: \['LazyGreedy'"):
             solve([spec], mode="batched")

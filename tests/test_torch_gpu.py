@@ -1180,3 +1180,78 @@ def test_served_torch_route_is_padding_invariant_on_the_card(cuda):
         want = 6144 if isinstance(s.fn, FacilityLocation) else 8192
         assert r.n_bucket == want and r.backend == "torch"
         _bits(r.result, solve(s), f"{type(s.fn).__name__} {s.optimizer.name}")
+
+
+# -- the remaining optimizers: stride-0 rung waves, seeded draws, streaming --
+
+
+@pytest.mark.parametrize("members,k", [(57, 32), (13, 1024), (3, 1)])
+def test_fl_gains_at_with_member_stride_zero(cuda, members, k):
+    """The streaming sieves sweep one S at many states: a member-stride-0
+    view of S, one launch, bit-equal to the plain version and to one call
+    per member."""
+    from repro_torch.common import stacked_view
+
+    g = torch.Generator(device=cuda).manual_seed(5)
+    sim = torch.rand((5000, 6000), generator=g, device=cuda)
+    wave = stacked_view([sim] * members)
+    assert wave.stride(0) == 0
+    cm = 0.9 * torch.rand((members, 5000), generator=g, device=cuda)
+    idx = torch.randint(0, 6000, (members, k), generator=g, device=cuda)
+    idx[:, ::5] = -1
+    before = ops.LAUNCHES["fl_gains_at"]
+    got = ops.fl_gains_at(wave, cm, idx)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["fl_gains_at"] == before + 1
+    assert torch.equal(got, fl_gains_at_plain(wave, cm, idx))
+    for b in (0, members - 1):
+        assert torch.equal(got[b], ops.fl_gains_at(sim, cm[b], idx[b]))
+
+
+def test_seeded_draws_and_ladder_math_equal_on_cpu_and_card(cuda):
+    """The threefry draws and the ladders' exp / log give the same bits on
+    the card as on the CPU (the CPU's are the JAX package's,
+    tests/test_torch_optimizers.py and test_torch_streaming.py)."""
+    from repro_torch.core.optimizers import _threefry
+    from repro_torch.core.optimizers._fp32 import exp32, log32
+
+    for seed, step, n in ((0, 0, 1), (1, 7, 1000), (2**31 - 1, 4999, 50_000)):
+        key = _threefry.fold_in(_threefry.prng_key(seed), step)
+        assert torch.equal(_threefry.uniform(key, n, cuda).cpu(), _threefry.uniform(key, n, "cpu"))
+        assert torch.equal(_threefry.step_bits(key, range(3), n, cuda).cpu(),
+                           _threefry.step_bits(key, range(3), n, "cpu"))
+        assert torch.equal(_threefry.fold_in_uniforms(key, n, cuda).cpu(),
+                           _threefry.fold_in_uniforms(key, n, "cpu"))
+    x = torch.empty(1 << 20).uniform_(-90, 90)
+    assert torch.equal(exp32(x.to(cuda)).cpu(), exp32(x))
+    m = torch.exp(torch.empty(1 << 20).uniform_(-80, 80))
+    assert torch.equal(log32(m.to(cuda)).cpu(), log32(m))
+
+
+@pytest.mark.parametrize("optimizer", ["SieveStreaming", "ThresholdGreedy", "StochasticGreedy",
+                                       "LazierThanLazyGreedy"])
+def test_remaining_optimizers_kernel_route_equals_plain_route(cuda, optimizer):
+    """A small run of each on the FL kernel route (fl_gains / fl_gains_at,
+    the sieves on a member-stride-0 wave) against the plain route: the same
+    ids and n_evals, gains within the FL bar."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    x = torch.randn((6000, 32), generator=g, device=cuda)
+    from repro_torch.core import FacilityLocation, create_kernel
+
+    S = create_kernel(x, metric="cosine", use_pallas=True)
+    kern = FacilityLocation.from_kernel(S, use_kernel=True)
+    plain = FacilityLocation.from_kernel(S, use_kernel=False)
+    opts = {"SieveStreaming": dict(epsilon=0.1, seed=0),
+            "ThresholdGreedy": dict(epsilon=0.1, buffer_size=64),
+            "StochasticGreedy": dict(seed=1), "LazierThanLazyGreedy": dict(seed=1)}[optimizer]
+    ops.reset_launches()
+    got = solve(SelectionSpec(kern, 40, optimizer, **opts))
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["fl_gains_at"] > 0
+    before = dict(ops.LAUNCHES)
+    want = solve(SelectionSpec(plain, 40, optimizer, **opts))
+    assert dict(ops.LAUNCHES) == before
+    a, b = result_to_numpy(got), result_to_numpy(want)
+    np.testing.assert_array_equal(a[0], b[0])
+    assert a[2] == b[2]
+    np.testing.assert_allclose(a[1], b[1], rtol=1e-5, atol=1e-4)

@@ -4,9 +4,9 @@ stream bit for bit (ids, gains, ``n_evals``, value), whatever the sizes of
 its deltas, and the JAX package's direct solve over the same rows (ids and
 ``n_evals`` equal, gains within the family's bar).
 
-Mirrors the single-device session tests of tests/test_streaming.py; those
-run SieveStreaming / ThresholdGreedy, which wait for ROADMAP queue 1, item
-9, so these run NaiveGreedy and LazyGreedy.
+Mirrors the single-device session tests of tests/test_streaming.py, with
+SieveStreaming / ThresholdGreedy as there (seeded arrival orders and
+constraints included) and NaiveGreedy / LazyGreedy besides.
 """
 import numpy as np
 import pytest
@@ -14,6 +14,7 @@ import torch
 
 from repro.core import FacilityLocationMF as JFacilityLocationMF
 from repro.core import FeatureBased as JFeatureBased
+from repro.core import Knapsack as JKnapsack
 from repro.core import SelectionSpec as JSelectionSpec
 from repro.core import solve as jsolve
 from repro_torch.core import (
@@ -22,9 +23,12 @@ from repro_torch.core import (
     FacilityLocationMF,
     FeatureBased,
     GraphCut,
+    Knapsack,
+    PartitionMatroid,
     ProbabilisticSetCover,
     SelectionSpec,
     SetCover,
+    create_kernel,
     sc_mi,
     solve,
 )
@@ -58,22 +62,27 @@ def _grow(spec, deltas, server=None):
     return upd
 
 
-@pytest.mark.parametrize("optimizer", ["NaiveGreedy", "LazyGreedy"])
+STREAMING = ("SieveStreaming", "ThresholdGreedy")
+
+
+@pytest.mark.parametrize("optimizer", ["NaiveGreedy", "LazyGreedy", *STREAMING])
 def test_session_ten_deltas_bit_identical_to_direct_solve(optimizer):
     """10 feature deltas through a session == one solve() over the
     concatenated stream (the port's bits; the JAX package's ids)."""
     rng = np.random.default_rng(0)
     rows = rng.uniform(0, 1, size=(44, 6)).astype(np.float32)
-    spec = SelectionSpec(FeatureBased.from_features(rows[:4], device=CPU), 5, optimizer)
+    opts = {"epsilon": 0.1} if optimizer in STREAMING else {}
+    spec = SelectionSpec(FeatureBased.from_features(rows[:4], device=CPU), 5, optimizer, **opts)
     session = SelectionServer().open_session(spec)
     for lo in range(4, 44, 4):
         upd = session.extend(features=rows[lo : lo + 4])
     assert session.deltas_absorbed == 10 and upd.seq == 10 and upd.n_total == 44
-    direct = solve(SelectionSpec(FeatureBased.from_features(rows, device=CPU), 5, optimizer))
+    direct = solve(SelectionSpec(FeatureBased.from_features(rows, device=CPU), 5, optimizer,
+                                 **opts))
     same(upd.result, direct)
     assert [j for j, _ in upd.selection] == [int(j) for j in direct.order.tolist() if j >= 0]
     near_ref(upd.result, jsolve(JSelectionSpec(JFeatureBased.from_features(rows), 5,
-                                               optimizer)), 1e-4)
+                                               optimizer, **opts)), 1e-4)
     session.close()
 
 
@@ -154,6 +163,78 @@ def test_session_arrival_order_is_replayed_deterministically():
     for ua, ub in zip(run(), run()):
         same(ua.result, ub.result)
         assert ua.selection == ub.selection
+
+
+@pytest.mark.parametrize("optimizer", STREAMING)
+def test_streaming_session_single_extend_equals_many_deltas(optimizer):
+    """tests/test_streaming.py's streaming form: a FacilityLocationMF over
+    features fed uneven deltas, one extend and a direct build stream the
+    same answer bit for bit, the JAX package's ids."""
+    rows = np.random.default_rng(4).normal(size=(36, 7)).astype(np.float32)
+
+    def spec(x):
+        return SelectionSpec(FacilityLocationMF.from_features(x, device=CPU), 4, optimizer,
+                             epsilon=0.1)
+
+    many = _grow(spec(rows[:6]), _chunks(rows[6:], UNEVEN))
+    one = _grow(spec(rows[:6]), [rows[6:]])
+    same(many.result, one.result)
+    same(solve(spec(rows)), one.result)
+    near_ref(one.result, jsolve(JSelectionSpec(JFacilityLocationMF.from_features(rows), 4,
+                                               optimizer, epsilon=0.1)), 2e-5)
+
+
+@pytest.mark.parametrize("optimizer", STREAMING)
+def test_streaming_session_seeded_arrivals_replay_deterministically(optimizer):
+    """Same seed and deltas: bit-identical updates at every step, the
+    seeded arrival order included, each equal to the direct solve."""
+    rows = np.random.default_rng(5).uniform(0, 1, size=(30, 5)).astype(np.float32)
+
+    def run():
+        sess = SelectionServer().open_session(
+            SelectionSpec(FeatureBased.from_features(rows[:10], device=CPU), 4, optimizer,
+                          epsilon=0.2, seed=7))
+        ups = [sess.extend(features=rows[lo : lo + 10]) for lo in (10, 20)]
+        sess.close()
+        return ups
+
+    a, b = run(), run()
+    for ua, ub in zip(a, b):
+        same(ua.result, ub.result)
+        assert ua.selection == ub.selection
+    same(a[-1].result, solve(SelectionSpec(FeatureBased.from_features(rows, device=CPU), 4,
+                                           optimizer, epsilon=0.2, seed=7)))
+
+
+def test_streaming_session_under_constraint():
+    """Sessions and constraints compose: every update respects the
+    knapsack, the last equals the direct constrained solve bit for bit and
+    the JAX package's ids."""
+    rng = np.random.default_rng(6)
+    rows = rng.uniform(0, 1, size=(24, 5)).astype(np.float32)
+    costs = tuple(float(c) for c in rng.uniform(0.4, 1.2, size=24))
+    sess = SelectionServer().open_session(
+        SelectionSpec(FeatureBased.from_features(rows[:8], device=CPU), 5, "SieveStreaming",
+                      epsilon=0.1, constraint=Knapsack(costs, 2.0)))
+    for lo in (8, 16):
+        upd = sess.extend(features=rows[lo : lo + 8])
+        assert sum(costs[j] for j, _ in upd.selection) <= 2.0 + 1e-6
+    sess.close()
+    direct = solve(SelectionSpec(FeatureBased.from_features(rows, device=CPU), 5,
+                                 "SieveStreaming", epsilon=0.1, constraint=Knapsack(costs, 2.0)))
+    same(direct, upd.result)
+    near_ref(direct, jsolve(JSelectionSpec(JFeatureBased.from_features(rows), 5, "SieveStreaming",
+                                           epsilon=0.1, constraint=JKnapsack(costs, 2.0))), 1e-4)
+
+
+def test_constrained_streaming_served_equals_sequential():
+    """The constraint rides the OptimizerSpec as static metadata, so a
+    constrained streaming request coalesces and serves bit-identically."""
+    x = np.random.default_rng(7).normal(size=(24, 8)).astype(np.float32)
+    fn = FacilityLocation.from_kernel(create_kernel(x, metric="euclidean", device=CPU))
+    cons = PartitionMatroid(tuple(int(v) for v in np.arange(24) % 3), (2, 2, 2))
+    spec = SelectionSpec(fn, 5, "SieveStreaming", epsilon=0.1, constraint=cons)
+    same(SelectionServer().select([spec])[0].result, solve(spec))
 
 
 def test_session_indices_mode_maps_universe_ids():

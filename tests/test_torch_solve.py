@@ -155,7 +155,10 @@ def test_spec_defaults_and_unported_options():
     assert spec.stop_if_zero and spec.stop_if_negative and spec.use_kernel is None
     assert spec.resolved_fn() is fn
     assert SelectionSpec(fn, 3, use_kernel=True).resolved_fn().use_kernel is True
-    assert optimizer_names() == ["LazyGreedy", "NaiveGreedy"]
+    assert optimizer_names() == [
+        "LazierThanLazyGreedy", "LazyGreedy", "NaiveGreedy", "SieveStreaming",
+        "StochasticGreedy", "ThresholdGreedy",
+    ]
     # the serving options are ported, with the JAX package's validation
     assert SelectionSpec(fn, 3, deadline_s=1.0).deadline_s == 1.0
     with pytest.raises(ValueError, match="deadline_s"):
