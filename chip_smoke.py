@@ -6,7 +6,7 @@ that path against its plain PyTorch version.
     python3 chip_smoke.py --n 8192 --naive-budget 50 --lazy-budget 200 \
         --mf-n 65536 --mf-lazy-budget 200 --reps 5   # a short check
 
-Eight paths run, each with its launch counts set to 0 just before it and
+Nine paths run, each with its launch counts set to 0 just before it and
 read just after:
 
 - the main path, the paper's core loop: ``create_kernel`` (CUDA similarity
@@ -45,6 +45,11 @@ read just after:
   heap greedy on the main path's S (CUDA FL sweeps, full and gathered, the
   sieves on a member-stride-0 wave), streaming requests served and a
   streaming session (the FB sweeps too).
+- the sharded path: the distributed engine on ``torch.distributed``, a
+  world of 1 on NCCL in this process and a 2x2 world of four ranks on the
+  one card over gloo: the partition greedies and sharded waves of every
+  family through ``solve(specs, mesh=mesh)``, each member bit-equal to its
+  sequential solve (the FL, FB, SC and PSC sweeps per shard).
 
 Phases, each of which raises on failure (the exit code is then non-zero):
   1 device   CUDA present; the card's name and power limit
@@ -148,6 +153,23 @@ Phases, each of which raises on failure (the exit code is then non-zero):
              read, fl_gains_at on a member-stride-0 wave of S against its
              plain version; 12.6 the threefry draws and the ladders' exp /
              log on the card bit-equal to the CPU's
+  13 distributed  (t) a world of 1 on NCCL: distributed_fl_greedy
+             --naive-budget on phase 4's S (rebuilt), its ids phase 4's
+             NaiveGreedy ids up to the first near-tie, called twice (the
+             first call sets up the communicators); FL waves B = 4 at n =
+             8,192 (NaiveGreedy and LazyGreedy 200 / 120) and FB / SC / PSC
+             waves (50 / 25) through solve(specs, mesh=mesh), each run twice
+             beside mode="batched" and the sequential solves, every member
+             bit-equal, the FL waves' launches the batched wave's, the
+             collectives counted; (u) four ranks of this script
+             (--rank-2x2) on the card over gloo, a 2x2 ("batch", "data")
+             mesh: the 13 families with a shard rule at n = 4,096, B = 4,
+             NaiveGreedy and LazyGreedy 50 / 25, every member bit-equal to
+             rank 0's sequential solve and the batch the same on every
+             rank; on ("data", "model") distributed_fl_greedy at phase 4's
+             n (each rank's block cut from S built on one rank at a time)
+             against (t)'s ids, the stochastic and FLQMI partition greedies
+             at n = 8,192 against plain references; each rank's peak memory
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Details go to chiprun_out/chip_smoke.json.
 Without a CUDA device, or without the repo's ``src/`` beside it, the script
@@ -157,6 +179,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import ctypes
 import itertools
 import json
@@ -903,7 +926,7 @@ def phase_times(torch, args, fn, naive_res, main: dict) -> list[dict]:
         "library_ms": None, "torch_backend_ms": torch_ms,
     })
     log(f"  fl_gains {n}x{n}: kernel {fl_ms:.3f} ms, plain {fl_plain_ms:.3f} ms, torch backend "
-        f"expression {torch_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by})")
+        f"sweep {torch_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by})")
 
     # fl_gains_at: a fresh random index set per launch, so L2 holds no column;
     # int64 ids (the engine's, taken as they are) and int32 ids
@@ -968,10 +991,11 @@ def phase_times(torch, args, fn, naive_res, main: dict) -> list[dict]:
     gsim = torch.rand((g_n, g_n), generator=gen, device="cuda")
     gcm = 0.8 * torch.rand((g_n,), generator=gen, device="cuda")
     gate_k = cuda_ms(torch, lambda: ops.fl_gains(gsim, gcm), reps)
-    gate_t = cuda_ms(torch, lambda: torch.clamp(gsim - gcm[:, None], min=0.0).sum(dim=0), reps)
+    gfn, gstate = FacilityLocation(sim=gsim, n=g_n, use_kernel=False), FLState(gcm, g_n)
+    gate_t = cuda_ms(torch, lambda: gfn.gains(gstate), reps)
     gate_p = cuda_ms(torch, lambda: fl_gains_plain(gsim, gcm), max(2, reps // 10))
     log(f"  KERNEL_MIN_N gate, fl_gains at u=n={g_n}: kernel {gate_k:.4f} ms, torch backend "
-        f"expression {gate_t:.4f} ms, fl_gains_plain {gate_p:.3f} ms")
+        f"sweep {gate_t:.4f} ms, fl_gains_plain {gate_p:.3f} ms")
     main["kernel_min_n_gate"] = {"n": g_n, "kernel_ms": gate_k, "torch_ms": gate_t,
                                  "plain_ms": gate_p}
     return rows
@@ -3553,6 +3577,456 @@ def phase_remaining(torch, args, main: dict | None) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the distributed engine
+# ---------------------------------------------------------------------------
+
+DIST_SEED = 13000
+DIST_KINDS = ("fl", "gc", "fb", "sc", "psc", "dsum", "dmin", "gcmi", "logdet", "flqmi", "flvmi",
+              "flcg", "flcmi")
+DIST_N = 4096  # (u): every family's n, at the kernel gate
+DIST_B = 4
+DIST_BUDGETS = (50, 25)  # (u) and (t)'s FB / SC / PSC waves: members alternate
+DIST_FL_N = 8192  # (t): the FL waves
+DIST_FL_BUDGETS = (200, 120)
+DIST_PART_N = 8192  # (u): the stochastic and FLQMI partition greedies
+DIST_PART_BUDGET = 100
+DIST_SAMPLE = 1024
+DIST_PG_TIMEOUT_S = 120  # every process group's timeout in phase 13
+DIST_JOIN_TIMEOUT_S = 420  # (u): the parent kills the world after this
+SHARDED_KERNELS = ("fl_gains", "fl_gains_at", "fb_gains", "fb_gains_at", "sc_gains", "psc_gains")
+
+
+def _dist_function(torch, kind: str, seed: int, n: int, d: int):
+    """A member of phase 13's waves: phase 11's served family (the
+    memoized GC / DSum / DMin, use_kernel=False, as a mesh takes them), or
+    an FL measure over the cosine S with SERVE_QUERIES query and private
+    items."""
+    import dataclasses
+
+    from repro_torch.core import FLCG, FLCMI, FLVMI, create_kernel
+
+    if kind not in ("flvmi", "flcg", "flcmi"):
+        fn = _served_function(torch, kind, seed, n, d)
+        return dataclasses.replace(fn, use_kernel=False) if kind in ("gc", "dsum", "dmin") else fn
+    x = gaussian_mixture_cuda(torch, seed, n, d)
+    S = create_kernel(x, metric="cosine", use_pallas=True)
+    q = create_kernel(x, gaussian_mixture_cuda(torch, seed + 1, SERVE_QUERIES, d),
+                      metric="cosine", use_pallas=True)
+    p = create_kernel(x, gaussian_mixture_cuda(torch, seed + 2, SERVE_QUERIES, d),
+                      metric="cosine", use_pallas=True)
+    if kind == "flvmi":
+        return FLVMI.build(S, q)
+    return FLCG.build(S, p) if kind == "flcg" else FLCMI.build(S, q, p)
+
+
+def _dist_specs(fns, opt: str, kind: str, budgets) -> list:
+    from repro_torch.core import SelectionSpec
+
+    kw = {"screen_k": WAVE_SCREEN_K} if opt == "LazyGreedy" else {}
+    return [SelectionSpec(f, b, opt, **kw, stopIfNegativeGain=kind not in ("dsum", "dmin"))
+            for f, b in zip(fns, budgets)]
+
+
+def _dist_timed(torch, fn) -> tuple:
+    """(result, host seconds, launches) of one synchronized call, its launch
+    counts set to 0 just before it (the peak-memory record is left alone)."""
+    from repro_torch.kernels import ops
+
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0, _launch_counts()
+
+
+def _digest(results) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for r in results:
+        for t in (r.order, r.gains, r.n_evals, r.value):
+            h.update(t.cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _agree_to_near_tie(label: str, ids, gains, ref_ids, ref_gains) -> dict:
+    """Ids equal to a reference's up to their first difference, where the
+    two picks' gains must be a near-tie (NEAR_TIE_REL); gains to GAIN_RTOL
+    before it."""
+    a, b = np.asarray(ids), np.asarray(ref_ids)
+    ga, gb = np.asarray(gains, np.float64), np.asarray(ref_gains, np.float64)
+    steps = min(len(a), len(b))
+    diff = np.nonzero(a[:steps] != b[:steps])[0]
+    t = int(diff[0]) if diff.size else steps
+    if t < steps and abs(ga[t] - gb[t]) > NEAR_TIE_REL * abs(gb[t]):
+        raise AssertionError(f"{label}: ids differ at step {t} without a near-tie "
+                             f"({ga[t]!r} against {gb[t]!r})")
+    if (np.abs(ga[:t] - gb[:t]) > GAIN_RTOL * np.abs(gb[:t])).any():
+        raise AssertionError(f"{label}: gains differ beyond rtol {GAIN_RTOL} before step {t}")
+    log(f"  ok  {label}: ids agree over {t} of {steps} steps; gains within rtol {GAIN_RTOL}")
+    return {"agreeing_steps": t, "steps": steps}
+
+
+@contextlib.contextmanager
+def _counting_collectives():
+    """Counts of the torch.distributed collectives called inside, by name."""
+    import torch.distributed as dist
+
+    counts = collections.Counter()
+    names = ("all_reduce", "all_gather_into_tensor")
+    originals = {name: getattr(dist, name) for name in names}
+
+    def counted(name):
+        def call(*a, **k):
+            counts[name] += 1
+            return originals[name](*a, **k)
+        return call
+
+    for name in names:
+        setattr(dist, name, counted(name))
+    try:
+        yield counts
+    finally:
+        for name, fn in originals.items():
+            setattr(dist, name, fn)
+
+
+def _dist_world_of_one(torch, args, main: dict) -> dict:
+    """(t) A world of 1 on NCCL in this process."""
+    import datetime
+    import tempfile
+    import types
+
+    import torch.distributed as dist
+
+    from repro_torch.core import create_kernel, distributed_fl_greedy, make_mesh, solve
+
+    out = {}
+    totals = collections.Counter()
+    timeout = datetime.timedelta(seconds=DIST_PG_TIMEOUT_S)
+    store = Path(tempfile.mkdtemp()) / "store"
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0, world_size=1,
+                            timeout=timeout)
+    try:
+        # t.1 the partition greedy on phase 4's S
+        mesh_dm = make_mesh((1, 1), ("data", "model"), timeout=timeout)
+        S = create_kernel(gaussian_mixture(args.seed, args.n, args.d), metric="cosine",
+                          use_pallas=True)
+        # the first call also sets up the NCCL communicators of its groups
+        (order, gains), cold, launches = _dist_timed(
+            torch, lambda: distributed_fl_greedy(S, args.naive_budget, mesh_dm))
+        totals.update(launches)
+        (again, _), wall, _ = _dist_timed(
+            torch, lambda: distributed_fl_greedy(S, args.naive_budget, mesh_dm))
+        if not torch.equal(again, order):
+            raise AssertionError("13 (t) distributed_fl_greedy: a second call picks other ids")
+        del S
+        torch.cuda.empty_cache()
+        out["fl_partition"] = {"cold_wall_s": cold, "wall_s": wall, "launches": launches,
+                               "ids": order.cpu().tolist(), "gains": gains.cpu().tolist()}
+        out["fl_partition"].update(_vs_reference(
+            f"13 (t) distributed_fl_greedy {args.naive_budget} vs phase 4's NaiveGreedy",
+            types.SimpleNamespace(order=order, gains=gains), main["naive_ids"],
+            main["naive_gains"], main.get("first_near_tie")))
+        log(f"  13 (t) distributed_fl_greedy: {cold:.3f} s (first call), {wall:.3f} s "
+            f"(again), launches {launches}")
+
+        # t.2 waves through solve(specs, mesh=mesh), beside mode="batched"
+        mesh = make_mesh((1, 1), ("batch", "data"), timeout=timeout)
+        groups = [("fl", DIST_FL_N, DIST_FL_BUDGETS), ("fb", DIST_FL_N, DIST_BUDGETS),
+                  ("sc", DIST_FL_N, DIST_BUDGETS), ("psc", DIST_FL_N, DIST_BUDGETS)]
+        for k, (kind, n, budgets) in enumerate(groups):
+            fns = [_mixture_fl(torch, args.seed + DIST_SEED + 10 * k + b, n, args.d)
+                   if kind == "fl" else
+                   _dist_function(torch, kind, args.seed + DIST_SEED + 10 * k + b, n, args.d)
+                   for b in range(DIST_B)]
+            for opt in ("NaiveGreedy", "LazyGreedy"):
+                label = f"13 (t) {kind} wave B={DIST_B} n={n} {opt} {budgets[0]}"
+                specs = _dist_specs(fns, opt, kind, budgets * (DIST_B // 2))
+                seq, seq_wall, _ = _dist_timed(torch, lambda: [solve(s) for s in specs])
+                batched, b_wall, b_launch = _dist_timed(torch, lambda: solve(specs,
+                                                                             mode="batched"))
+                # twice: the first wave also sets up the mesh's NCCL communicators
+                s_walls = []
+                for turn in range(2):
+                    with _counting_collectives() as colls:
+                        sharded, s_wall, s_launch = _dist_timed(torch, lambda: solve(specs,
+                                                                                     mesh=mesh))
+                    s_walls.append(s_wall)
+                    for b, (got, want) in enumerate(zip(sharded, seq)):
+                        _same_bits(torch, f"{label} member {b} (sharded, turn {turn})", got, want)
+                totals.update(s_launch)
+                for b, (bat, want) in enumerate(zip(batched, seq)):
+                    _same_bits(torch, f"{label} member {b} (batched)", bat, want)
+                if kind == "fl" and opt == "NaiveGreedy" and s_launch.get("fl_gains") != budgets[0]:
+                    raise AssertionError(f"{label}: {s_launch.get('fl_gains')} fl_gains launches, "
+                                         f"not one a step ({budgets[0]})")
+                if kind == "fl" and s_launch != b_launch:
+                    raise AssertionError(f"{label}: sharded launches {s_launch} differ from the "
+                                         f"batched wave's {b_launch}")
+                out[label] = {"sharded_s": s_walls, "batched_s": b_wall, "sequential_s": seq_wall,
+                              "sharded_launches": s_launch, "batched_launches": b_launch,
+                              "collectives": dict(colls)}
+                log(f"  ok  {label}: every member bit-equal to its sequential solve; sharded "
+                    f"{' / '.join(f'{t:.3f}' for t in s_walls)} s (turns 1 / 2), batched "
+                    f"{b_wall:.3f} s, sequential {seq_wall:.3f} s; "
+                    f"launches sharded {s_launch}, batched {b_launch}; collectives {dict(colls)}")
+            del fns
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    out["launches"] = dict(totals)
+    return out
+
+
+def _stochastic_reference(torch, S, budget: int, key, s: int, shards: int):
+    """The stochastic partition greedy's semantics on one device, plainly:
+    each column shard's sample of fold_in(fold_in(key, i), shard), the
+    gains of the sampled columns over every row, the best of each shard,
+    the best of those (the lowest id on a tie)."""
+    from repro_torch.common import NEG_INF, relu_col_sums
+    from repro_torch.core.optimizers import _threefry
+    from repro_torch.core.optimizers.greedy import _draw_keys, _sample_unselected
+
+    U, n = S.shape
+    V = n // shards
+    rev = 0xFFFFFFFF - torch.arange(V, dtype=torch.int64, device=S.device)
+    curmax = torch.zeros((U,), device=S.device)
+    selected = torch.zeros((n,), dtype=torch.bool, device=S.device)
+    ids, gains = [], []
+    for i in range(budget):
+        best = None
+        for c in range(shards):
+            sub = _threefry.fold_in(_threefry.fold_in(key, i), c)
+            keys = _draw_keys(_threefry.random_bits(sub, V, S.device) >> 9, rev)
+            cand = _sample_unselected(keys, selected[c * V : (c + 1) * V], rev, s) + c * V
+            g = torch.where(selected[cand], NEG_INF, relu_col_sums(S, curmax, cand))
+            bi = int(torch.argmax(g))
+            if best is None or float(g[bi]) > best[0]:
+                best = (float(g[bi]), int(cand[bi]))
+        ids.append(best[1])
+        gains.append(best[0])
+        curmax = torch.maximum(curmax, S[:, best[1]])
+        selected[best[1]] = True
+    return ids, gains
+
+
+def _partition_2x2(torch, args, mesh, rank: int) -> dict:
+    """(u) The partition greedies on the ("data", "model") mesh: FL at
+    phase 4's n, each rank's block cut from S built on one rank at a time;
+    the stochastic and FLQMI ones at DIST_PART_N, with rank 0's plain
+    references."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Shard
+
+    from repro_torch.core import (
+        FLQMI, create_kernel, distributed_fl_greedy, distributed_flqmi_greedy,
+        distributed_stochastic_fl_greedy, naive_greedy,
+    )
+    from repro_torch.core.optimizers import _threefry
+
+    out, totals = {}, collections.Counter()
+    data, model = mesh.get_coordinate()
+    h = args.n // 2
+    block = None
+    x = gaussian_mixture(args.seed, args.n, args.d)  # on the host, the ranks at once
+    for r in range(dist.get_world_size()):  # one rank's 10 GB S at a time
+        if r == rank:
+            S = create_kernel(x, metric="cosine", use_pallas=True)
+            block = S[model * h : (model + 1) * h, data * h : (data + 1) * h].clone()
+            del S
+            torch.cuda.empty_cache()
+        dist.barrier()
+    sim = DTensor.from_local(block, mesh, [Shard(1), Shard(0)])
+    (order, gains), wall, launches = _dist_timed(torch, lambda: distributed_fl_greedy(
+        sim, args.naive_budget, mesh, row_axes=("model",), col_axes=("data",)))
+    totals.update(launches)
+    out["fl"] = {"ids": order.cpu().tolist(), "gains": gains.cpu().tolist(), "wall_s": wall,
+                 "launches": launches}
+    del sim, block
+    torch.cuda.empty_cache()
+
+    x = gaussian_mixture_cuda(torch, args.seed + DIST_SEED + 500, DIST_PART_N, args.d)
+    S = create_kernel(x, metric="cosine", use_pallas=True)
+    sim_qv = create_kernel(gaussian_mixture_cuda(torch, args.seed + DIST_SEED + 501,
+                                                 SERVE_QUERIES, args.d), x, metric="cosine",
+                           use_pallas=True)
+    modular = sim_qv.amax(dim=0)
+    key = _threefry.prng_key(args.seed)
+    runs = {
+        "stochastic": lambda: distributed_stochastic_fl_greedy(
+            S, DIST_PART_BUDGET, mesh, key, sample_per_shard=DIST_SAMPLE),
+        "flqmi": lambda: distributed_flqmi_greedy(sim_qv, modular, DIST_PART_BUDGET, mesh),
+    }
+    for name, run in runs.items():
+        (order, gains), wall, launches = _dist_timed(torch, run)
+        totals.update(launches)
+        out[name] = {"ids": order.cpu().tolist(), "gains": gains.cpu().tolist(), "wall_s": wall,
+                     "launches": launches}
+    if rank == 0:  # the plain references
+        out["stochastic"]["ref"] = _stochastic_reference(torch, S, DIST_PART_BUDGET, key,
+                                                         DIST_SAMPLE, 2)
+        ref = naive_greedy(FLQMI(sim_qv=sim_qv, modular=modular, n=DIST_PART_N),
+                           DIST_PART_BUDGET, False, False)
+        out["flqmi"]["ref"] = (ref.order.cpu().tolist(), ref.gains.cpu().tolist())
+    out["launches"] = dict(totals)
+    return out
+
+
+def _rank_2x2(args) -> int:
+    """One rank of (u)'s 2x2 world on the one card, over gloo: every family's
+    waves on ("batch", "data"), then the partition greedies on ("data",
+    "model"); its results go to DIR/rank{r}.json."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.core import make_mesh, solve
+
+    rank, tmp = args.rank_2x2, Path(args.dir_2x2)
+    timeout = datetime.timedelta(seconds=DIST_PG_TIMEOUT_S)
+    dist.init_process_group("gloo", init_method=f"file://{tmp / 'store'}", rank=rank,
+                            world_size=DIST_B, timeout=timeout)
+    try:
+        out = {"rank": rank, "failures": [], "families": {}}
+        totals = collections.Counter()
+        mesh = make_mesh((2, 2), ("batch", "data"), timeout=timeout)
+        t_fam = time.perf_counter()
+        for k, kind in enumerate(DIST_KINDS):
+            fns = [_dist_function(torch, kind, args.seed + DIST_SEED + 100 + 10 * k + b,
+                                  DIST_N, args.d) for b in range(DIST_B)]
+            for opt in ("NaiveGreedy", "LazyGreedy"):
+                label = f"13 (u) {kind} B={DIST_B} n={DIST_N} {opt} {DIST_BUDGETS[0]}"
+                specs = _dist_specs(fns, opt, kind, DIST_BUDGETS * (DIST_B // 2))
+                seq = [solve(s) for s in specs] if rank == 0 else None
+                res, wall, launches = _dist_timed(torch, lambda: solve(specs, mesh=mesh))
+                totals.update(launches)
+                for b in range(DIST_B if rank == 0 else 0):
+                    try:
+                        _same_bits(torch, f"{label} member {b}", res[b], seq[b])
+                    except AssertionError as e:  # reported once every rank is done
+                        out["failures"].append(str(e))
+                out["families"][label] = {"wall_s": wall, "launches": launches,
+                                          "digest": _digest(res)}
+            del fns
+            torch.cuda.empty_cache()
+        out["families_s"] = time.perf_counter() - t_fam
+        mesh_dm = make_mesh((2, 2), ("data", "model"), timeout=timeout)
+        t_part = time.perf_counter()
+        out["partition"] = _partition_2x2(torch, args, mesh_dm, rank)
+        out["partition_s"] = time.perf_counter() - t_part
+        totals.update(out["partition"]["launches"])
+        out["launches"] = dict(totals)
+        out["peak_bytes"] = torch.cuda.max_memory_allocated()
+        (tmp / f"rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _dist_2x2(torch, args, t_out: dict) -> dict:
+    """(u) Four ranks on the one card over gloo, spawned and joined here."""
+    import tempfile
+
+    tmp = Path(tempfile.mkdtemp())
+    argv = [sys.executable, str(ROOT / "chip_smoke.py"), "--n", str(args.n), "--d", str(args.d),
+            "--seed", str(args.seed), "--naive-budget", str(args.naive_budget),
+            "--dir-2x2", str(tmp)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(argv + ["--rank-2x2", str(r)], stdout=open(tmp / f"rank{r}.out", "w"),
+                              stderr=subprocess.STDOUT) for r in range(DIST_B)]
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, DIST_JOIN_TIMEOUT_S - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+        raise AssertionError(f"13 (u): the 2x2 world did not finish in {DIST_JOIN_TIMEOUT_S} s")
+    finally:
+        for p in procs:
+            p.wait()
+    bad = [f"rank {r} exit {p.returncode}:\n{(tmp / f'rank{r}.out').read_text()[-3000:]}"
+           for r, p in enumerate(procs) if p.returncode]
+    if bad:
+        raise AssertionError("13 (u): " + "\n".join(bad))
+    ranks = [json.loads((tmp / f"rank{r}.json").read_text()) for r in range(DIST_B)]
+    wall = time.perf_counter() - t0
+    failures = [f for r in ranks for f in r["failures"]]
+    if failures:
+        raise AssertionError("13 (u): " + "\n".join(failures))
+    for label, fam in ranks[0]["families"].items():
+        if any(r["families"][label]["digest"] != fam["digest"] for r in ranks[1:]):
+            raise AssertionError(f"{label}: the ranks' batches differ")
+        log(f"  ok  {label}: every member bit-equal to rank 0's sequential solve, the same "
+            f"batch on every rank; {fam['wall_s']:.3f} s, rank 0's launches {fam['launches']}")
+    out = {"seconds": wall, "families_s": [r["families_s"] for r in ranks],
+           "partition_s": [r["partition_s"] for r in ranks],
+           "peak_bytes": [r["peak_bytes"] for r in ranks],
+           "families": ranks[0]["families"]}
+    part = [r["partition"] for r in ranks]
+    for name in ("fl", "stochastic", "flqmi"):
+        if any(p[name]["ids"] != part[0][name]["ids"] for p in part[1:]):
+            raise AssertionError(f"13 (u) {name} partition greedy: the ranks' ids differ")
+    t_fl = t_out["fl_partition"]
+    out["fl_partition"] = _agree_to_near_tie(
+        f"13 (u) distributed_fl_greedy {args.naive_budget} on 2x2 (rows over model) vs (t)",
+        part[0]["fl"]["ids"], part[0]["fl"]["gains"], t_fl["ids"], t_fl["gains"])
+    for name in ("stochastic", "flqmi"):
+        ids, gains = part[0][name]["ref"]
+        out[name] = _agree_to_near_tie(
+            f"13 (u) distributed_{name} {DIST_PART_BUDGET} at n={DIST_PART_N} vs its plain "
+            f"reference", part[0][name]["ids"], part[0][name]["gains"], ids, gains)
+    out["partition_walls_s"] = {name: part[0][name]["wall_s"]
+                                for name in ("fl", "stochastic", "flqmi")}
+    launches = collections.Counter()
+    for r in ranks:
+        launches.update(r["launches"])
+    out["launches"] = dict(launches)
+    log(f"  13 (u): {wall:.1f} s in all; families {out['families_s']} s, partition "
+        f"{out['partition_s']} s by rank; peak per rank "
+        f"{[round(b / 2**30, 2) for b in out['peak_bytes']]} GiB; launches {out['launches']}")
+    return out
+
+
+def phase_distributed(torch, args, main: dict | None) -> dict:
+    """Phase 13: the distributed engine, (t) a world of 1 on NCCL in this
+    process and (u) a spawned 2x2 world of four ranks on the card over
+    gloo."""
+    from repro_torch.core import FacilityLocation, create_kernel, naive_greedy
+
+    t_start = time.perf_counter()
+    log(f"== phase 13: the distributed engine (n={args.n}, d={args.d})")
+    if main is None:  # phase 13 alone: phase 4's NaiveGreedy ids and gains
+        S = create_kernel(gaussian_mixture(args.seed, args.n, args.d), metric="cosine",
+                          use_pallas=True)
+        naive = naive_greedy(FacilityLocation.from_kernel(S, use_kernel=None), args.naive_budget)
+        main = {"naive_ids": naive.order.cpu().tolist(),
+                "naive_gains": naive.gains.cpu().tolist()}
+        del S, naive
+        torch.cuda.empty_cache()
+    else:
+        main = dict(main, first_near_tie=main["NaiveGreedy"]["first_near_tie"])
+    out = {"t": _dist_world_of_one(torch, args, main)}
+    torch.cuda.empty_cache()
+    out["u"] = _dist_2x2(torch, args, out["t"])
+    launches = collections.Counter(out["t"]["launches"])
+    launches.update(out["u"]["launches"])
+    out["launches"] = dict(launches)
+    for k in SHARDED_KERNELS:
+        if not launches.get(k):
+            raise AssertionError(f"phase 13: kernel {k} was not launched on the sharded path")
+    out["seconds"] = time.perf_counter() - t_start
+    log(f"  phase 13 launches on the sharded path (t) + (u): {out['launches']}")
+    log(f"phase 13: {out['seconds']:.1f} s")
+    return out
+
+
 def parse_args(argv):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -3569,6 +4043,9 @@ def parse_args(argv):
                    help="phase 10 (l): members of the first wave (the second has a quarter)")
     p.add_argument("--wave-n", type=int, default=4096,
                    help="phase 10: n of the first wave and of (n); the second wave has 2x")
+    # phase 13 (u) starts its ranks as this script with these
+    p.add_argument("--rank-2x2", type=int, default=None, help=argparse.SUPPRESS)
+    p.add_argument("--dir-2x2", default=None, help=argparse.SUPPRESS)
     return p.parse_args(argv)
 
 
@@ -3582,6 +4059,8 @@ def main(argv=None) -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch/ not found beside this script", file=sys.stderr)
         return 2
+    if args.rank_2x2 is not None:
+        return _rank_2x2(args)
     sys.path.insert(0, str(ROOT / "src"))
     # the plain versions run in full fp32 on the card: no TF32 anywhere
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3619,6 +4098,7 @@ def main(argv=None) -> int:
     wave_out = phase_wave(torch, args)
     served = phase_served(torch, args)
     remaining = phase_remaining(torch, args, main_out)
+    distributed = phase_distributed(torch, args, main_out)
     for rows, path in ((mf_rows, mf_out), (dense_rows, dense_out), (cover_rows, cover_out)):
         for r in rows:
             r["launches"] = r["launches_on_path"] = path["launches"][r["name"]]
@@ -3645,13 +4125,16 @@ def main(argv=None) -> int:
         r["served"] = {"launches": src["launches"].get(r["name"], 0)}
         # and on the remaining optimizers' path (phase 12)
         r["remaining"] = {"launches": remaining["launches"].get(r["name"], 0)}
+        # and on the sharded path (phase 13 (t) and (u))
+        r["sharded"] = {"launches": distributed["launches"].get(r["name"], 0)}
     missing = set(ops.LAUNCHES) ^ {r["name"] for r in kernels}
     if missing:
         raise AssertionError(f"kernels line and LAUNCHES differ: {sorted(missing)}")
     record = {"device": device, "build": {k: build[k] for k in ("seconds", "cached")},
               "main": main_out, "matrix_free": mf_out, "dense_pairwise": dense_out,
               "coverage": cover_out, "guided": guided_out, "wave": wave_out, "served": served,
-              "remaining": remaining, "kernels": kernels, "seconds": time.perf_counter() - t_start}
+              "remaining": remaining, "distributed": distributed, "kernels": kernels,
+              "seconds": time.perf_counter() - t_start}
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     log(f"total {record['seconds']:.1f} s; details in {OUT_DIR / 'chip_smoke.json'}")

@@ -8,7 +8,9 @@
 # host heap greedy, the cover / knapsack / matroid greedies with their
 # Knapsack / PartitionMatroid constraints, SieveStreaming and
 # ThresholdGreedy), the SelectionSpec + solve() front door, the batched
-# engine and the deprecated maximize() / batched_maximize() shims.
+# engine, the distributed engine on torch.distributed (the partition
+# greedies, the shard rules and the sharded waves over make_mesh's meshes)
+# and the deprecated maximize() / batched_maximize() shims.
 from repro_torch.core.functions.base import SetFunction
 from repro_torch.core.functions.clustered import (
     cluster_mask,
@@ -62,6 +64,16 @@ from repro_torch.core.optimizers.greedy import (
     lazy_greedy,
     naive_greedy,
     stochastic_greedy,
+)
+from repro_torch.core.optimizers.distributed import (
+    ShardRule,
+    distributed_fl_greedy,
+    distributed_flqmi_greedy,
+    distributed_stochastic_fl_greedy,
+    make_mesh,
+    register_shard_rule,
+    sharded_batched_greedy,
+    sharded_batched_lazy,
 )
 from repro_torch.core.optimizers.host_lazy import host_lazy_greedy
 from repro_torch.core.optimizers.streaming import sieve_streaming, threshold_greedy

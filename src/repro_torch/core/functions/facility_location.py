@@ -24,7 +24,13 @@ import dataclasses
 
 import torch
 
-from repro_torch.common import as_float_tensor, one_index, relu_col_sums, stacked_view
+from repro_torch.common import (
+    as_float_tensor,
+    one_index,
+    relu_col_sums,
+    row_sums_fixed,
+    stacked_view,
+)
 from repro_torch.core.functions.base import SetFunction
 from repro_torch.core.sources import (
     DenseSource,
@@ -109,7 +115,9 @@ class FacilityLocation(SetFunction):
             from repro_torch.kernels import ops
 
             return ops.fl_gains(self.sim, state.curmax)
-        return torch.clamp(self.sim - state.curmax[:, None], min=0.0).sum(dim=0)
+        # each column in row_sums_fixed's order: torch.sum's follows the
+        # column count, and a mesh shard holds a slice of the columns
+        return row_sums_fixed(torch.clamp(self.sim - state.curmax[:, None], min=0.0))
 
     def gain_backend(self) -> FLKernelSweep | None:
         from repro_torch.core.optimizers.backends import kernel_enabled

@@ -8,7 +8,11 @@ FLCMI  I(A;Q|P) = sum_i max(min(max_A S_ij, eta qmax_i) - nu pmax_i, 0)
 All use the memoized ``curmax`` statistic of FL (paper Table 4), vectorized
 over the full candidate set per step, in torch ops (the JAX package has no
 kernel for them).  A sweep forms its (|V|, n) temporary once and finishes
-it in place, so it holds one such block beside the kernel, not three.
+it in place, so it holds one such block beside the kernel, not three, and
+folds its rows in ``common.row_sums_fixed``'s order: a candidate's gain
+then does not depend on how many columns are swept with it (``torch.sum``'s
+order follows the column count), so a gathered sweep, a padded served
+request and a mesh shard's column slice all give the sequential bits.
 FLQMI only needs the (Q × V) kernel — the paper's "very efficient to
 optimize" variant used for targeted selection.
 
@@ -66,7 +70,7 @@ class FLVMI(SetFunction):
         cur = torch.minimum(state.curmax, self.qmax)  # (|V|,) current contribution
         new = torch.maximum(state.curmax[:, None], cols)
         torch.minimum(new, self.qmax[:, None], out=new)
-        return new.sub_(cur[:, None]).sum(dim=0)
+        return row_sums_fixed(new.sub_(cur[:, None]))
 
     def gains(self, state: FLState) -> torch.Tensor:
         return self._gains(state, self.sim)
@@ -99,9 +103,6 @@ class FLQMI(SetFunction):
     def init_state(self) -> FLState:
         return _fl_state(self.sim_qv)
 
-    # the rows fold in a fixed order: a served FLQMI is column-padded under
-    # its query rows (launch/coalesce.py), and torch.sum's order follows
-    # the column count
     def gains(self, state: FLState) -> torch.Tensor:
         rep = row_sums_fixed(torch.clamp(self.sim_qv - state.curmax[:, None], min=0.0))
         return rep + self.modular
@@ -139,7 +140,7 @@ class FLCG(SetFunction):
     def _gains(self, state: FLState, cols: torch.Tensor) -> torch.Tensor:
         cur = torch.clamp(state.curmax - self.pmax, min=0.0)
         new = torch.maximum(state.curmax[:, None], cols).sub_(self.pmax[:, None]).clamp_(min=0.0)
-        return new.sub_(cur[:, None]).sum(dim=0)
+        return row_sums_fixed(new.sub_(cur[:, None]))
 
     def gains(self, state: FLState) -> torch.Tensor:
         return self._gains(state, self.sim)
@@ -186,7 +187,7 @@ class FLCMI(SetFunction):
         new = torch.maximum(state.curmax[:, None], cols)
         torch.minimum(new, self.qmax[:, None], out=new)
         new.sub_(self.pmax[:, None]).clamp_(min=0.0)
-        return new.sub_(cur[:, None]).sum(dim=0)
+        return row_sums_fixed(new.sub_(cur[:, None]))
 
     def gains(self, state: FLState) -> torch.Tensor:
         return self._gains(state, self.sim)

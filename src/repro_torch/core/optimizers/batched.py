@@ -30,7 +30,9 @@ slab starts on a 512-byte boundary, as a fresh allocation does, so that no
 torch or BLAS reduction over a member's own tensors takes another path (and
 order) than it takes over the sequential function's.
 
-``mesh=`` (the sharded engine) is not ported yet: ROADMAP queue 1, item 11.
+With ``mesh=`` the wave runs sharded over a 2-D device mesh
+(``distributed.py``): the batch over ``batch_axis``, every member's
+candidates over ``data_axis``, each rank holding its own slice only.
 """
 from __future__ import annotations
 
@@ -82,16 +84,17 @@ def _structure(obj):
     return ("static", obj)
 
 
-def _stack_leaves(ts: list[torch.Tensor]) -> torch.Tensor:
+def _stack_leaves(ts: list[torch.Tensor], device=None) -> torch.Tensor:
     """(B, ...) of equal-shape tensors, member b contiguous at b * stride,
-    the stride rounded up to a whole 512-byte slab."""
+    the stride rounded up to a whole 512-byte slab, on ``device`` (default:
+    the tensors' own)."""
     t0 = ts[0]
     for t in ts[1:]:
         if t.shape != t0.shape or t.dtype != t0.dtype or t.device != t0.device:
             raise ValueError(_SHAPES)
     stride = max(_SLAB, -(-t0.numel() // _SLAB) * _SLAB)
     inner = torch.empty(t0.shape, dtype=t0.dtype, device="meta").stride()
-    out = t0.new_empty((len(ts) * stride,)).as_strided(
+    out = t0.new_empty((len(ts) * stride,), device=device).as_strided(
         (len(ts),) + tuple(t0.shape), (stride,) + inner
     )
     for b, t in enumerate(ts):
@@ -161,16 +164,22 @@ def _device_of(obj) -> torch.device | None:
     return None
 
 
-def batched_hook(name: str):
-    """The batched hook of optimizer ``name``, or a ``ValueError`` naming the
-    batched-capable set."""
+def wave_hook(name: str, mesh: bool = False):
+    """(hook, sharded) of optimizer ``name`` for a wave, or a ``ValueError``
+    naming the batched-capable set.  On a mesh an optimizer with a sharded
+    engine runs it; a ``mesh_replicated`` one runs its batched hook on every
+    rank (it is sequential in its data pass, so each rank computes the same
+    answer)."""
     defn = resolve_optimizer(name)
-    if defn.batched_run is None:
+    sharded = mesh and defn.sharded_run is not None
+    hook = defn.sharded_run if sharded else defn.batched_run
+    if hook is None or (mesh and not sharded and not defn.mesh_replicated):
         raise ValueError(
-            f"optimizer {defn.name!r} does not support batched execution; "
+            f"optimizer {defn.name!r} does not support "
+            f"{'sharded' if mesh else 'batched'} execution; "
             f"batched-capable optimizers: {wave_capable_names()}"
         )
-    return defn.batched_run
+    return hook, sharded
 
 
 class BatchedEngine:
@@ -180,8 +189,13 @@ class BatchedEngine:
     engine does it once, at construction, and then answers many selection
     calls against the resident batch (:meth:`run`).  It keeps the stacked
     copy only, so the caller may drop the functions it was built from.
-    ``batch_axis`` / ``data_axis`` name ``mesh=``'s axes, as in the JAX
-    package; they wait for the sharded engine with it.
+
+    With ``mesh=`` (a mesh from ``distributed.make_mesh``; every rank builds
+    the engine with the same functions) each rank keeps its slice of the
+    batch instead (``distributed.ShardedWave``): the batch over
+    ``batch_axis``, the candidates over ``data_axis``; B and n must each be
+    a multiple of that axis's size.  The functions stay referenced there,
+    for an optimizer that runs replicated on a mesh.
     """
 
     def __init__(
@@ -195,16 +209,19 @@ class BatchedEngine:
         fns = list(fns)
         if not fns:
             raise ValueError("BatchedEngine: need at least one instance")
-        if mesh is not None:
-            raise ValueError(
-                "BatchedEngine(mesh=...) is the sharded engine, not ported to "
-                "repro_torch yet (ROADMAP queue 1, item 11)"
-            )
         self.batch_size = len(fns)
         self.n = fns[0].n
-        self.stacked = stack_functions(fns)
-        self.members = [member(self.stacked, b) for b in range(self.batch_size)]
-        self.device = _device_of(self.stacked) or torch.device("cpu")
+        self.mesh = mesh
+        self._fns = None
+        if mesh is None:
+            self._stack(fns)
+        else:
+            from repro_torch.core.optimizers.distributed import ShardedWave
+
+            self._fns, self._members = fns, None
+            self.wave = ShardedWave(fns, mesh, valid=valid, batch_axes=(batch_axis,),
+                                    col_axes=(data_axis,))
+        self.device = _device_of(fns[0]) or torch.device("cpu")
         if valid is None:
             self.valid = torch.ones((self.batch_size, self.n), dtype=torch.bool, device=self.device)
         else:
@@ -214,6 +231,18 @@ class BatchedEngine:
                 f"valid mask must be ({self.batch_size}, {self.n}), "
                 f"got {tuple(self.valid.shape)}"
             )
+
+    def _stack(self, fns) -> None:
+        self.stacked = stack_functions(fns)
+        self._members = [member(self.stacked, b) for b in range(self.batch_size)]
+
+    @property
+    def members(self) -> list:
+        """The member views of the stacked functions; stacked lazily on a
+        mesh, where only a replicated optimizer needs them."""
+        if self._members is None:
+            self._stack(self._fns)
+        return self._members
 
     def run(
         self,
@@ -228,13 +257,14 @@ class BatchedEngine:
 
         The optimizer (an :class:`OptimizerSpec`, or a name built into one)
         carries its validated hyperparameters, and the registry supplies the
-        batched hook; an optimizer without one is rejected here with the
-        batched-capable set named.  ``max_budget`` optionally raises the loop
-        bound above max(budgets).  The results lie on the host: one transfer
-        for the whole wave.
+        batched hook (the sharded one on a mesh); an optimizer without one
+        is rejected here with the batched-capable set named.  ``max_budget``
+        optionally raises the loop bound above max(budgets).  The results
+        lie on the host: one transfer for the whole wave (on a mesh, every
+        rank gets the whole batch's).
         """
         opt = optimizer if isinstance(optimizer, OptimizerSpec) else OptimizerSpec(optimizer)
-        hook = batched_hook(opt.name)
+        hook, sharded = wave_hook(opt.name, self.mesh is not None)
         B = self.batch_size
         budgets = (
             [int(budget)] * B
@@ -248,11 +278,15 @@ class BatchedEngine:
             raise ValueError(
                 f"max_budget {max_budget} < largest per-instance budget {max(budgets)}"
             )
-        b_arr = torch.tensor(budgets, dtype=torch.int32, device=self.device)
-        res = hook(
-            self.members, max_budget, b_arr, self.valid, stop_if_zero, stop_if_negative,
-            **opt.params,
-        )
+        if sharded:
+            res = hook(self.wave, max_budget, budgets, stop_if_zero, stop_if_negative,
+                       **opt.params)
+        else:
+            b_arr = torch.tensor(budgets, dtype=torch.int32, device=self.device)
+            res = hook(
+                self.members, max_budget, b_arr, self.valid, stop_if_zero,
+                stop_if_negative, **opt.params,
+            )
         # the hook reports each member's value as its sequential solve does
         values = res.value.to(torch.float32)
         # one transfer for the whole wave, then host-side slicing

@@ -10,12 +10,12 @@
   (:func:`register_family_defaults`) in exactly one place.
 - :func:`solve` — the front door: ``solve(spec)`` or ``solve([s1, s2])``.
 
-Ported: the sequential, batched, served and async modes, every optimizer
-of the JAX package (NaiveGreedy, LazyGreedy, StochasticGreedy,
-LazierThanLazyGreedy, and SieveStreaming / ThresholdGreedy, which register
-from ``streaming.py``), and the serving options ``deadline_s`` /
-``retry``.  The sharded mode is still to be ported (ROADMAP queue 1, item
-11).
+Ported: every mode of the JAX package (sequential, batched, sharded,
+served and async; the served and async routes on a mesh wait for ROADMAP
+queue 1, item 11b), every optimizer (NaiveGreedy, LazyGreedy,
+StochasticGreedy, LazierThanLazyGreedy, and SieveStreaming /
+ThresholdGreedy, which register from ``streaming.py``), and the serving
+options ``deadline_s`` / ``retry``.
 """
 from __future__ import annotations
 
@@ -107,11 +107,14 @@ class OptimizerDef:
     :class:`~repro_torch.core.optimizers.batched.BatchedEngine` (``fns`` the
     engine's member views, ``budgets`` (B,) and ``valid`` (B, n) tensors)
     and returns a (B, ...) result whose values are each member's value as
-    its sequential solve reports it.  ``sharded_run`` and ``mesh_replicated``
-    are the JAX package's mesh hooks, kept in the registry for the sharded
-    engine (ROADMAP queue 1, item 11); nothing in the port calls them yet.
-    ``None`` means the optimizer cannot ride that route: it is rejected
-    before anything runs.
+    its sequential solve reports it.  ``sharded_run(wave, max_budget,
+    budgets, stop_zero, stop_neg, **params)`` runs the same wave over a mesh
+    (``wave`` a rank's ``distributed.ShardedWave``, ``budgets`` the B
+    budgets) and returns the whole batch's result on every rank.
+    ``mesh_replicated`` declares the batched hook valid on a mesh as it is
+    (a program sequential in its data pass gives every rank the same
+    answer): the streaming optimizers set it.  ``None`` means the optimizer
+    cannot ride that route: it is rejected before anything runs.
     """
 
     name: str
@@ -123,10 +126,10 @@ class OptimizerDef:
 
     @property
     def batched_capable(self) -> bool:
-        # The JAX package also asks for a sharded hook (or mesh_replicated),
-        # since every wave may land on a mesh there.  The port has no sharded
-        # engine until ROADMAP item 11, so a batched hook is enough here.
-        return self.batched_run is not None
+        # every wave may land on a mesh, so a wave needs both routes
+        return self.batched_run is not None and (
+            self.sharded_run is not None or self.mesh_replicated
+        )
 
 
 _OPTIMIZERS: dict[str, OptimizerDef] = {}
@@ -428,10 +431,6 @@ class SelectionSpec:
 # ---------------------------------------------------------------------------
 
 _MODES = ("sequential", "batched", "sharded", "served", "async")
-# execution routes of the JAX package that are still to be ported
-_WAITING_MODES = {
-    "sharded": "the sharded engine over a 2-D mesh=, ROADMAP queue 1, item 11",
-}
 
 
 def solve(
@@ -451,17 +450,19 @@ def solve(
     ``"batched"`` (the default for several: one wave through
     :class:`~repro_torch.core.optimizers.batched.BatchedEngine`; the specs
     must share the optimizer spec and stop rules, and their functions one
-    family and shape), ``"served"`` (heterogeneous specs coalesced into
-    padded waves by a :class:`~repro_torch.launch.serve.SelectionServer`)
-    or ``"async"`` (submitted to an :class:`~repro_torch.launch.async_serve.
-    AsyncSelectionServer` and awaited).  ``server`` is an existing server of
-    the route's kind to go through; one is built, and torn down, here when
-    it is omitted.  Batched and served results lie on the host, moved there
-    in one transfer per wave.
-
-    The JAX package's ``"sharded"`` route (also chosen by passing ``mesh=``)
-    raises ``ValueError`` naming the ROADMAP item that brings it; every
-    route returns results bit-identical to the sequential one by contract.
+    family and shape), ``"sharded"`` (the batched wave over a 2-D ``mesh=``
+    from ``distributed.make_mesh``, batch over ``batch_axis`` and candidates
+    over ``data_axis``; passing a mesh with the mode unset or batched
+    implies it; every rank makes the same call), ``"served"``
+    (heterogeneous specs coalesced into padded waves by a
+    :class:`~repro_torch.launch.serve.SelectionServer`) or ``"async"``
+    (submitted to an :class:`~repro_torch.launch.async_serve.
+    AsyncSelectionServer` and awaited; neither serves on a mesh yet,
+    ROADMAP queue 1, item 11b).  ``server`` is an existing server of the
+    route's kind to go through; one is built, and torn down, here when it
+    is omitted.  Batched, sharded and served results lie on the host, moved
+    there in one transfer per wave.  Every route returns results
+    bit-identical to the sequential one by contract.
     """
     single = isinstance(spec, SelectionSpec)
     specs = [spec] if single else list(spec)
@@ -479,20 +480,16 @@ def solve(
         raise ValueError(f"unknown mode {mode!r}; choose from {list(_MODES)}")
     if not specs:
         return []
-    if mode in _WAITING_MODES or mesh is not None:
-        raise ValueError(
-            f"mode={mode!r} with mesh= is not ported to repro_torch yet "
-            f"({_WAITING_MODES['sharded']}); use mode='sequential', 'batched', "
-            "'served' or 'async'"
-        )
     if mode == "sequential":
         results = [_run_sequential(s) for s in specs]
-    elif mode == "batched":
-        results = _run_batched(specs)
+    elif mode in ("batched", "sharded"):
+        if mode == "sharded" and mesh is None:
+            raise ValueError('mode="sharded" needs a 2-D mesh= (batch x data)')
+        results = _run_batched(specs, mesh=mesh, batch_axis=batch_axis, data_axis=data_axis)
     elif mode == "served":
-        results = _run_served(specs, server)
+        results = _run_served(specs, server, mesh=mesh)
     else:  # async
-        results = _run_async(specs, server)
+        results = _run_async(specs, server, mesh=mesh)
     return results[0] if single else results
 
 
@@ -522,13 +519,15 @@ def _check_uniform(specs: Sequence[SelectionSpec], what: str) -> None:
             )
 
 
-def _run_batched(specs) -> list[GreedyResult]:
-    from repro_torch.core.optimizers.batched import BatchedEngine, batched_hook
+def _run_batched(specs, *, mesh, batch_axis, data_axis) -> list[GreedyResult]:
+    from repro_torch.core.optimizers.batched import BatchedEngine, wave_hook
 
-    _check_uniform(specs, "batched")
+    _check_uniform(specs, "sharded" if mesh is not None else "batched")
     head = specs[0]
-    batched_hook(head.optimizer.name)  # an optimizer without one raises before stacking
-    engine = BatchedEngine([s.resolved_fn() for s in specs])
+    # an optimizer without the route's hook raises before stacking or slicing
+    wave_hook(head.optimizer.name, mesh is not None)
+    engine = BatchedEngine([s.resolved_fn() for s in specs], mesh=mesh, batch_axis=batch_axis,
+                           data_axis=data_axis)
     return engine.run(
         [s.budget for s in specs],
         head.optimizer,
@@ -537,23 +536,23 @@ def _run_batched(specs) -> list[GreedyResult]:
     )
 
 
-def _run_served(specs, server):
+def _run_served(specs, server, *, mesh):
     from repro_torch.launch.serve import SelectionServer
 
     if server is None:
-        server = SelectionServer()
+        server = SelectionServer(mesh=mesh)
     # select() (not a bare flush) so responses to requests the caller
     # enqueued earlier on their own server are re-held for THEIR next
     # flush() instead of being dropped here
     return [resp.result for resp in server.select(specs)]
 
 
-def _run_async(specs, server):
+def _run_async(specs, server, *, mesh):
     from repro_torch.launch.async_serve import AsyncSelectionServer
 
     owned = server is None
     if owned:
-        server = AsyncSelectionServer()
+        server = AsyncSelectionServer(mesh=mesh)
     try:
         futures = [server.submit(s) for s in specs]
         server.flush_now()
@@ -577,6 +576,15 @@ def _naive_batched(fns, max_budget, budgets, valid, stop_zero, stop_neg):
     )
 
 
+# The sharded hooks import lazily: distributed.py imports the engines this
+# module imports, and batched.py imports this module.
+def _naive_sharded(wave, max_budget, budgets, stop_zero, stop_neg):
+    from repro_torch.core.optimizers.distributed import sharded_batched_greedy
+
+    return sharded_batched_greedy(wave, budgets, max_budget=max_budget, stop_if_zero=stop_zero,
+                                  stop_if_negative=stop_neg)
+
+
 def _own_values(res: GreedyResult, budgets) -> GreedyResult:
     """``res`` with each member's value summed over its own gains
     (:func:`~repro_torch.core.optimizers.greedy.member_values`)."""
@@ -593,6 +601,13 @@ def _lazy_batched(fns, max_budget, budgets, valid, stop_zero, stop_neg, *, scree
         _lazy_bucketed_impl(fns, max_budget, budgets, valid, screen_k, stop_zero, stop_neg),
         budgets,
     )
+
+
+def _lazy_sharded(wave, max_budget, budgets, stop_zero, stop_neg, *, screen_k):
+    from repro_torch.core.optimizers.distributed import sharded_batched_lazy
+
+    return sharded_batched_lazy(wave, budgets, max_budget=max_budget, screen_k=screen_k,
+                                stop_if_zero=stop_zero, stop_if_negative=stop_neg)
 
 
 def _stochastic_run(fn, budget, stop_zero, stop_neg, *, seed, epsilon, sample_size):
@@ -617,12 +632,14 @@ _SAMPLING = {
     ),
 }
 
-register_optimizer("NaiveGreedy", _naive_run, batched_run=_naive_batched)
+register_optimizer("NaiveGreedy", _naive_run, batched_run=_naive_batched,
+                   sharded_run=_naive_sharded)
 register_optimizer(
     "LazyGreedy",
     _lazy_run,
     params={"screen_k": _SCREEN_K},
     batched_run=_lazy_batched,
+    sharded_run=_lazy_sharded,
 )
 # the sampled greedies have no wave hooks, as in the JAX package: the
 # serving front doors refuse them at submit time

@@ -89,7 +89,7 @@ class AsyncSelectionServer:
         submit wait for space instead of raising ``ServerOverloaded``.
       mesh, batch_axis, data_axis, max_wave: forwarded to the internal
         ``SelectionServer`` when ``server`` is None (``mesh`` raises there:
-        ROADMAP queue 1, item 11).
+        ROADMAP queue 1, item 11b).
     """
 
     # the two-lock protocol: _cv guards the queues + futures map ONLY;

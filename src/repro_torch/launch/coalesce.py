@@ -42,8 +42,7 @@ fixed query rows; its sweep sums the rows in ``common.row_sums_fixed``'s
 order, which does not depend on the column count).  FacilityLocation and
 the FL measures FLVMI / FLCG / FLCMI are served at their own n: their
 padded layout would keep their n represented rows, so padding would merge
-no group, and their torch sweeps sum those rows with ``torch.sum``, whose
-order follows the column count.  The matrix-free families pad their
+no group.  The matrix-free families pad their
 similarity SOURCE: GraphCutMF pads both axes (feature sources zero feature
 rows, k-NN sources -1/0 rows, dense sources zero rows+columns);
 FacilityLocationMF pads the candidate axis (zero feature rows, or a k-NN

@@ -25,8 +25,8 @@ Three pieces:
   Where the JAX package reroutes a wave of an open kernel breaker to its
   plain sweeps, the port refuses the wave with :class:`BreakerOpen`: no
   answer is served off the kernels its sequential solve takes.  The
-  ``(family, "mesh")`` breaker waits for the sharded engine (ROADMAP queue
-  1, item 11).
+  ``(family, "mesh")`` breaker waits for serving on a mesh (ROADMAP queue
+  1, item 11b).
 """
 from __future__ import annotations
 

@@ -41,8 +41,10 @@ kernels its sequential solves take: an open kernel breaker refuses the wave
     PYTHONPATH=src python -m repro_torch.launch.serve --requests 32
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --requests 16
 
-``launch/metrics.py`` has the metrics schema.  The sharded engine's
-``mesh=`` waits for ROADMAP queue 1, item 11.
+``launch/metrics.py`` has the metrics schema.  Serving on a mesh
+(``mesh=``) waits for ROADMAP queue 1, item 11b: every rank is its own
+process, so a wave's clock-driven decisions need a control plane that
+agrees on them first.
 """
 from __future__ import annotations
 
@@ -180,7 +182,7 @@ class ServerStats:
         return self.metrics.counters["slots"]
 
     @property
-    def padded_slots(self) -> int:  # batch-pad slots (0: no mesh, item 11)
+    def padded_slots(self) -> int:  # batch-pad slots (0: no mesh, item 11b)
         return self.metrics.counters["padded_slots"]
 
     @property
@@ -230,8 +232,9 @@ class SelectionServer:
     """Per-group coalescing selection server over :class:`BatchedEngine`.
 
     Args:
-      mesh: the sharded engine's 2-D mesh in the JAX package; not ported yet
-        (ROADMAP queue 1, item 11), so anything but None raises.
+      mesh: the sharded engine's 2-D mesh in the JAX package; serving on a
+        mesh is not ported yet (ROADMAP queue 1, item 11b), so anything but
+        None raises.
       max_wave: cap on real requests per wave (bounds per-wave latency).
       max_queue: admission-control cap on TOTAL pending requests across all
         group queues; ``submit`` raises :class:`ServerOverloaded` beyond it.
@@ -279,8 +282,9 @@ class SelectionServer:
     ):
         if mesh is not None:
             raise ValueError(
-                "SelectionServer(mesh=...) serves through the sharded engine, not "
-                "ported to repro_torch yet (ROADMAP queue 1, item 11)"
+                "SelectionServer(mesh=...) serves over a mesh, not ported to "
+                "repro_torch yet (ROADMAP queue 1, item 11b: the ranks' control "
+                "plane); solve(specs, mesh=mesh) runs the sharded engine"
             )
         self.mesh = None
         self.batch_axis = batch_axis
@@ -1002,8 +1006,8 @@ def main(argv=None):
     ap.add_argument(
         "--mesh",
         default=None,
-        help="BATCHxDATA device grid of the sharded engine (not ported yet: "
-        "ROADMAP queue 1, item 11)",
+        help="BATCHxDATA device grid of the sharded engine (serving on a mesh "
+        "is not ported yet: ROADMAP queue 1, item 11b)",
     )
     ap.add_argument("--max-wave", type=int, default=64)
     ap.add_argument(

@@ -16,6 +16,7 @@ from repro_torch.common import NEG_INF
 from repro_torch.core import (
     DisparityMin,
     DisparitySum,
+    FacilityLocation,
     FacilityLocationMF,
     FeatureBased,
     GraphCutMF,
@@ -1255,3 +1256,35 @@ def test_remaining_optimizers_kernel_route_equals_plain_route(cuda, optimizer):
     np.testing.assert_array_equal(a[0], b[0])
     assert a[2] == b[2]
     np.testing.assert_allclose(a[1], b[1], rtol=1e-5, atol=1e-4)
+
+
+def test_nccl_world_of_one_fl_wave_equals_sequential_on_the_card(cuda, tmp_path):
+    """A world of 1 on NCCL: FL waves through solve(specs, mesh=mesh) on
+    the kernel route, NaiveGreedy and LazyGreedy, every member bit-equal to
+    its sequential solve, the sweeps launched on the card."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.core import make_mesh
+
+    timeout = datetime.timedelta(seconds=120)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'store'}", rank=0,
+                            world_size=1, timeout=timeout)
+    try:
+        mesh = make_mesh((1, 1), ("batch", "data"), timeout=timeout)
+        gen = torch.Generator(device="cuda").manual_seed(11)
+        n = KERNEL_MIN_N
+        fns = [FacilityLocation.from_kernel(torch.rand((n, n), generator=gen, device="cuda"),
+                                            use_kernel=None) for _ in range(2)]
+        assert backend_name(fns[0]) == "cuda-fl"
+        for opt in ("NaiveGreedy", "LazyGreedy"):
+            specs = [SelectionSpec(f, b, opt) for f, b in zip(fns, (20, 12))]
+            seq = [solve(s) for s in specs]
+            ops.reset_launches()
+            got = solve(specs, mesh=mesh)
+            assert ops.LAUNCHES["fl_gains_at" if opt == "LazyGreedy" else "fl_gains"] > 0, opt
+            for s, r, q in zip(specs, got, seq):
+                _bits(r, q, f"{opt} budget {s.budget}")
+    finally:
+        dist.destroy_process_group()

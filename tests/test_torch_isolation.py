@@ -18,7 +18,10 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    # the distributed tests' spawned ranks run tests/_torch_dist_world.py
+    # with the port alone
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                         ROOT / "tests" / "_torch_dist_world.py"]
 
 
 def _imported_roots(tree):
@@ -60,6 +63,7 @@ def test_importing_the_port_loads_no_jax_and_builds_nothing():
         "import repro_torch, repro_torch.core, repro_torch.interop\n"
         "import repro_torch.launch.serve, repro_torch.launch.async_serve\n"
         "import repro_torch.launch.sessions, repro_torch.ckpt.checkpoint\n"
+        "import repro_torch.core.optimizers.distributed\n"
         "from repro_torch.kernels import _build, ops\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"

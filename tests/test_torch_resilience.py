@@ -2,7 +2,7 @@
 (``repro_torch.launch.faults`` / ``resilience`` / ``sessions``) on the CPU.
 
 Mirrors tests/test_resilience.py without its mesh cells (ROADMAP queue 1,
-item 11):
+item 11b):
 
 - every submitted rid resolves to EXACTLY ONE response or one typed
   ``RequestFailed`` under every fault class, and recovered answers equal

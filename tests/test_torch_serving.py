@@ -9,8 +9,8 @@ arrays (ids and ``n_evals`` equal, gains within the family's bar).
 
 Mirrors the single-device tests of tests/test_serving.py (coalescing, the
 server, per-group queues, failure discipline, backpressure, latency and
-stats); the mesh cases wait for the sharded engine (ROADMAP queue 1, item
-11).  Times are driven by replacing ``coalesce.clock``, not by sleeping.
+stats); the mesh cases wait for serving on a mesh (ROADMAP queue 1, item
+11b).  Times are driven by replacing ``coalesce.clock``, not by sleeping.
 """
 import warnings
 
@@ -187,7 +187,7 @@ def test_server_rejects_unknown_family_with_clear_error():
 
 
 def test_server_mesh_raises_naming_item_11():
-    with pytest.raises(ValueError, match="item 11"):
+    with pytest.raises(ValueError, match="item 11b"):
         SelectionServer(mesh=object())
 
 
@@ -556,7 +556,7 @@ def test_serve_cli_runs_on_cpu(capsys):
           "--families", "fl,gc,fb,sc,psc,dsum,dmin,flqmi,gcmi,logdet", "--metrics"])
     out = capsys.readouterr().out
     assert "round 1: 6 requests" in out and "server stats" in out and '"counters"' in out
-    with pytest.raises(ValueError, match="item 11"):
+    with pytest.raises(ValueError, match="item 11b"):
         main(["--device", "cpu", "--requests", "2", "--mesh", "2x2"])
 
 
