@@ -6,7 +6,7 @@ that path against its plain PyTorch version.
     python3 chip_smoke.py --n 8192 --naive-budget 50 --lazy-budget 200 \
         --mf-n 65536 --mf-lazy-budget 200 --reps 5   # a short check
 
-Nine paths run, each with its launch counts set to 0 just before it and
+Ten paths run, each with its launch counts set to 0 just before it and
 read just after:
 
 - the main path, the paper's core loop: ``create_kernel`` (CUDA similarity
@@ -50,6 +50,12 @@ read just after:
   one card over gloo: the partition greedies and sharded waves of every
   family through ``solve(specs, mesh=mesh)``, each member bit-equal to its
   sequential solve (the FL, FB, SC and PSC sweeps per shard).
+- the mesh-served path: ``SelectionServer(mesh=)``,
+  ``AsyncSelectionServer(mesh=)`` and a session on a world of 1 on NCCL,
+  and a 2x2 mesh of four ranks on the one card over gloo where rank 0
+  serves and the others follow its waves; then the training pipeline's
+  selection stage (``SubmodularSelector`` on a qwen3-0.6b-wide pool and its
+  ``selection_step`` on the mesh).
 
 Phases, each of which raises on failure (the exit code is then non-zero):
   1 device   CUDA present; the card's name and power limit
@@ -170,6 +176,24 @@ Phases, each of which raises on failure (the exit code is then non-zero):
              n (each rank's block cut from S built on one rank at a time)
              against (t)'s ids, the stochastic and FLQMI partition greedies
              at n = 8,192 against plain references; each rank's peak memory
+  14 mesh    (v) on 13 (t)'s world of 1: 48 requests of the 13 families with
+             a shard rule (n 3,072..8,192, budgets 50..150, half
+             LazyGreedy) through SelectionServer(mesh=), the first 8 through
+             AsyncSelectionServer(mesh=), an FB session, every answer
+             bit-equal to its sequential solve and no fallback; one wave
+             under dispatch faults on the mesh, served degraded
+             ("single-device"), bit-equal and counted; (w) four ranks of
+             this script (--rank-mesh) on the card over gloo, a 2x2
+             ("batch", "data") mesh: rank 0 serves 32 requests at n 2,048 /
+             4,096 (two FL requests of n = 4,097 on the kernels, NaiveGreedy
+             and LazyGreedy, each padded to 4,098), the others follow; every
+             answer bit-equal to rank 0's sequential solve, each follower's
+             waves and results digest rank 0's, batch pads counted, the
+             plans' bytes and broadcast share; (x) SubmodularSelector at
+             n = 16,384, d = 1,024, budget 512: the four objectives under
+             LazyGreedy on the kernel route against the plain route, and
+             selection_step against a single-device FL NaiveGreedy on its
+             kernel
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Details go to chiprun_out/chip_smoke.json.
 Without a CUDA device, or without the repo's ``src/`` beside it, the script
@@ -3651,6 +3675,12 @@ def _digest(results) -> str:
     return h.hexdigest()
 
 
+def _digest_of(digests) -> str:
+    import hashlib
+
+    return hashlib.sha256("".join(digests).encode()).hexdigest()
+
+
 def _agree_to_near_tie(label: str, ids, gains, ref_ids, ref_gains) -> dict:
     """Ids equal to a reference's up to their first difference, where the
     two picks' gains must be a near-tie (NEAR_TIE_REL); gains to GAIN_RTOL
@@ -3693,90 +3723,112 @@ def _counting_collectives():
             setattr(dist, name, fn)
 
 
-def _dist_world_of_one(torch, args, main: dict) -> dict:
-    """(t) A world of 1 on NCCL in this process."""
+# phases 13 (t) and 14 (v), (x): the world of 1 on NCCL in this process and its
+# two meshes, made on first use and torn down at the end of phase 14
+_WORLD1: dict = {}
+
+
+def _world_of_one() -> dict:
     import datetime
     import tempfile
-    import types
 
     import torch.distributed as dist
 
-    from repro_torch.core import create_kernel, distributed_fl_greedy, make_mesh, solve
+    from repro_torch.core import make_mesh
+
+    if not _WORLD1:
+        timeout = datetime.timedelta(seconds=DIST_PG_TIMEOUT_S)
+        store = Path(tempfile.mkdtemp()) / "store"
+        dist.init_process_group("nccl", init_method=f"file://{store}", rank=0, world_size=1,
+                                timeout=timeout)
+        _WORLD1.update(timeout=timeout,
+                       dm=make_mesh((1, 1), ("data", "model"), timeout=timeout),
+                       bd=make_mesh((1, 1), ("batch", "data"), timeout=timeout))
+    return _WORLD1
+
+
+def _close_world_of_one() -> None:
+    import torch.distributed as dist
+
+    if _WORLD1:
+        _WORLD1.clear()
+        dist.destroy_process_group()
+
+
+def _dist_world_of_one(torch, args, main: dict) -> dict:
+    """(t) A world of 1 on NCCL in this process (left up for phase 14)."""
+    import types
+
+    from repro_torch.core import create_kernel, distributed_fl_greedy, solve
 
     out = {}
     totals = collections.Counter()
-    timeout = datetime.timedelta(seconds=DIST_PG_TIMEOUT_S)
-    store = Path(tempfile.mkdtemp()) / "store"
-    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0, world_size=1,
-                            timeout=timeout)
-    try:
-        # t.1 the partition greedy on phase 4's S
-        mesh_dm = make_mesh((1, 1), ("data", "model"), timeout=timeout)
-        S = create_kernel(gaussian_mixture(args.seed, args.n, args.d), metric="cosine",
-                          use_pallas=True)
-        # the first call also sets up the NCCL communicators of its groups
-        (order, gains), cold, launches = _dist_timed(
-            torch, lambda: distributed_fl_greedy(S, args.naive_budget, mesh_dm))
-        totals.update(launches)
-        (again, _), wall, _ = _dist_timed(
-            torch, lambda: distributed_fl_greedy(S, args.naive_budget, mesh_dm))
-        if not torch.equal(again, order):
-            raise AssertionError("13 (t) distributed_fl_greedy: a second call picks other ids")
-        del S
-        torch.cuda.empty_cache()
-        out["fl_partition"] = {"cold_wall_s": cold, "wall_s": wall, "launches": launches,
-                               "ids": order.cpu().tolist(), "gains": gains.cpu().tolist()}
-        out["fl_partition"].update(_vs_reference(
-            f"13 (t) distributed_fl_greedy {args.naive_budget} vs phase 4's NaiveGreedy",
-            types.SimpleNamespace(order=order, gains=gains), main["naive_ids"],
-            main["naive_gains"], main.get("first_near_tie")))
-        log(f"  13 (t) distributed_fl_greedy: {cold:.3f} s (first call), {wall:.3f} s "
-            f"(again), launches {launches}")
+    world = _world_of_one()
+    # t.1 the partition greedy on phase 4's S
+    mesh_dm = world["dm"]
+    S = create_kernel(gaussian_mixture(args.seed, args.n, args.d), metric="cosine",
+                      use_pallas=True)
+    # the first call also sets up the NCCL communicators of its groups
+    (order, gains), cold, launches = _dist_timed(
+        torch, lambda: distributed_fl_greedy(S, args.naive_budget, mesh_dm))
+    totals.update(launches)
+    (again, _), wall, _ = _dist_timed(
+        torch, lambda: distributed_fl_greedy(S, args.naive_budget, mesh_dm))
+    if not torch.equal(again, order):
+        raise AssertionError("13 (t) distributed_fl_greedy: a second call picks other ids")
+    del S
+    torch.cuda.empty_cache()
+    out["fl_partition"] = {"cold_wall_s": cold, "wall_s": wall, "launches": launches,
+                           "ids": order.cpu().tolist(), "gains": gains.cpu().tolist()}
+    out["fl_partition"].update(_vs_reference(
+        f"13 (t) distributed_fl_greedy {args.naive_budget} vs phase 4's NaiveGreedy",
+        types.SimpleNamespace(order=order, gains=gains), main["naive_ids"],
+        main["naive_gains"], main.get("first_near_tie")))
+    log(f"  13 (t) distributed_fl_greedy: {cold:.3f} s (first call), {wall:.3f} s "
+        f"(again), launches {launches}")
 
-        # t.2 waves through solve(specs, mesh=mesh), beside mode="batched"
-        mesh = make_mesh((1, 1), ("batch", "data"), timeout=timeout)
-        groups = [("fl", DIST_FL_N, DIST_FL_BUDGETS), ("fb", DIST_FL_N, DIST_BUDGETS),
-                  ("sc", DIST_FL_N, DIST_BUDGETS), ("psc", DIST_FL_N, DIST_BUDGETS)]
-        for k, (kind, n, budgets) in enumerate(groups):
-            fns = [_mixture_fl(torch, args.seed + DIST_SEED + 10 * k + b, n, args.d)
-                   if kind == "fl" else
-                   _dist_function(torch, kind, args.seed + DIST_SEED + 10 * k + b, n, args.d)
-                   for b in range(DIST_B)]
-            for opt in ("NaiveGreedy", "LazyGreedy"):
-                label = f"13 (t) {kind} wave B={DIST_B} n={n} {opt} {budgets[0]}"
-                specs = _dist_specs(fns, opt, kind, budgets * (DIST_B // 2))
-                seq, seq_wall, _ = _dist_timed(torch, lambda: [solve(s) for s in specs])
-                batched, b_wall, b_launch = _dist_timed(torch, lambda: solve(specs,
-                                                                             mode="batched"))
-                # twice: the first wave also sets up the mesh's NCCL communicators
-                s_walls = []
-                for turn in range(2):
-                    with _counting_collectives() as colls:
-                        sharded, s_wall, s_launch = _dist_timed(torch, lambda: solve(specs,
-                                                                                     mesh=mesh))
-                    s_walls.append(s_wall)
-                    for b, (got, want) in enumerate(zip(sharded, seq)):
-                        _same_bits(torch, f"{label} member {b} (sharded, turn {turn})", got, want)
-                totals.update(s_launch)
-                for b, (bat, want) in enumerate(zip(batched, seq)):
-                    _same_bits(torch, f"{label} member {b} (batched)", bat, want)
-                if kind == "fl" and opt == "NaiveGreedy" and s_launch.get("fl_gains") != budgets[0]:
-                    raise AssertionError(f"{label}: {s_launch.get('fl_gains')} fl_gains launches, "
-                                         f"not one a step ({budgets[0]})")
-                if kind == "fl" and s_launch != b_launch:
-                    raise AssertionError(f"{label}: sharded launches {s_launch} differ from the "
-                                         f"batched wave's {b_launch}")
-                out[label] = {"sharded_s": s_walls, "batched_s": b_wall, "sequential_s": seq_wall,
-                              "sharded_launches": s_launch, "batched_launches": b_launch,
-                              "collectives": dict(colls)}
-                log(f"  ok  {label}: every member bit-equal to its sequential solve; sharded "
-                    f"{' / '.join(f'{t:.3f}' for t in s_walls)} s (turns 1 / 2), batched "
-                    f"{b_wall:.3f} s, sequential {seq_wall:.3f} s; "
-                    f"launches sharded {s_launch}, batched {b_launch}; collectives {dict(colls)}")
-            del fns
-            torch.cuda.empty_cache()
-    finally:
-        dist.destroy_process_group()
+    # t.2 waves through solve(specs, mesh=mesh), beside mode="batched"
+    mesh = world["bd"]
+    groups = [("fl", DIST_FL_N, DIST_FL_BUDGETS), ("fb", DIST_FL_N, DIST_BUDGETS),
+              ("sc", DIST_FL_N, DIST_BUDGETS), ("psc", DIST_FL_N, DIST_BUDGETS)]
+    for k, (kind, n, budgets) in enumerate(groups):
+        fns = [_mixture_fl(torch, args.seed + DIST_SEED + 10 * k + b, n, args.d)
+               if kind == "fl" else
+               _dist_function(torch, kind, args.seed + DIST_SEED + 10 * k + b, n, args.d)
+               for b in range(DIST_B)]
+        for opt in ("NaiveGreedy", "LazyGreedy"):
+            label = f"13 (t) {kind} wave B={DIST_B} n={n} {opt} {budgets[0]}"
+            specs = _dist_specs(fns, opt, kind, budgets * (DIST_B // 2))
+            seq, seq_wall, _ = _dist_timed(torch, lambda: [solve(s) for s in specs])
+            batched, b_wall, b_launch = _dist_timed(torch, lambda: solve(specs,
+                                                                         mode="batched"))
+            # twice: the first wave also sets up the mesh's NCCL communicators
+            s_walls = []
+            for turn in range(2):
+                with _counting_collectives() as colls:
+                    sharded, s_wall, s_launch = _dist_timed(torch, lambda: solve(specs,
+                                                                                 mesh=mesh))
+                s_walls.append(s_wall)
+                for b, (got, want) in enumerate(zip(sharded, seq)):
+                    _same_bits(torch, f"{label} member {b} (sharded, turn {turn})", got, want)
+            totals.update(s_launch)
+            for b, (bat, want) in enumerate(zip(batched, seq)):
+                _same_bits(torch, f"{label} member {b} (batched)", bat, want)
+            if kind == "fl" and opt == "NaiveGreedy" and s_launch.get("fl_gains") != budgets[0]:
+                raise AssertionError(f"{label}: {s_launch.get('fl_gains')} fl_gains launches, "
+                                     f"not one a step ({budgets[0]})")
+            if kind == "fl" and s_launch != b_launch:
+                raise AssertionError(f"{label}: sharded launches {s_launch} differ from the "
+                                     f"batched wave's {b_launch}")
+            out[label] = {"sharded_s": s_walls, "batched_s": b_wall, "sequential_s": seq_wall,
+                          "sharded_launches": s_launch, "batched_launches": b_launch,
+                          "collectives": dict(colls)}
+            log(f"  ok  {label}: every member bit-equal to its sequential solve; sharded "
+                f"{' / '.join(f'{t:.3f}' for t in s_walls)} s (turns 1 / 2), batched "
+                f"{b_wall:.3f} s, sequential {seq_wall:.3f} s; "
+                f"launches sharded {s_launch}, batched {b_launch}; collectives {dict(colls)}")
+        del fns
+        torch.cuda.empty_cache()
     out["launches"] = dict(totals)
     return out
 
@@ -4027,6 +4079,422 @@ def phase_distributed(torch, args, main: dict | None) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: serving on a mesh, and the training pipeline's selection stage
+# ---------------------------------------------------------------------------
+
+MESH_SEED = 14000
+MESH_REQUESTS = 48  # (v): requests over the 13 families with a shard rule
+MESH_N = SERVE_N  # (v): n in {3,072, 4,096, 6,144, 8,192}
+MESH_BUDGETS = (50, 150)  # cut from 200 to keep phase 14 near 90 s
+MESH_ASYNC = 8  # (v): the first requests again, through AsyncSelectionServer
+MESH_SESSION_N, MESH_SESSION_DELTAS = 3072, (1000, 37, 2048)  # (v): an FB session
+MESH_2X2_REQUESTS = 32  # (w)
+MESH_2X2_N = (2048, 4096)
+MESH_2X2_ODD_N = 4097  # (w): FL requests the data axis of 2 does not divide, at the kernel gate
+MESH_CONTROL_S = 60  # (w): the control group's timeout (idle headers every 15 s)
+MESH_JOIN_TIMEOUT_S = 300  # (w): the parent kills the world after this
+SELECT_ARCH = "qwen3-0.6b"  # (x): the pool's width is its d_model, 1,024
+SELECT_N = 16384  # (x): launch/dryrun.py's represented rows
+SELECT_BUDGET = 512
+SELECT_EXTRA = 100  # (x): query and private items
+SELECT_OBJECTIVES = ("representative", "targeted", "diverse", "privacy")
+MESH_KERNELS = SHARDED_KERNELS + ("similarity",)
+
+
+def _mesh_specs(torch, args, count: int, ns, budgets, seed: int, odd_n=None) -> list:
+    """Requests of the 13 families with a shard rule (GraphCut and Disparity*
+    memoized, use_kernel=False, as a mesh takes them): request i is family
+    DIST_KINDS[(i // 2) % 13], n drawn from ``ns`` by ``seed`` + i, a budget
+    in ``budgets``, NaiveGreedy for even i and LazyGreedy for odd i;
+    ``odd_n`` replaces the n of requests 0 and 1 (FL, NaiveGreedy and
+    LazyGreedy)."""
+    specs = []
+    for i in range(count):
+        rng = np.random.default_rng(seed + i)
+        kind = DIST_KINDS[(i // 2) % len(DIST_KINDS)]
+        n = int(rng.choice(ns)) if i > 1 or odd_n is None else odd_n
+        budget = int(rng.integers(budgets[0], budgets[1] + 1))
+        fn = _dist_function(torch, kind, seed + i, n, args.d)
+        specs += _dist_specs([fn], ("NaiveGreedy", "LazyGreedy")[i % 2], kind, [budget])
+    return specs
+
+
+def _mesh_served_checks(torch, label, server, responses, sequential) -> dict:
+    """Every answer bit-equal to its sequential solve, none degraded, no
+    retry, failure or breaker; rank 0's mesh waves are the server's waves."""
+    for i, (resp, want) in enumerate(zip(responses, sequential)):
+        _held(torch, f"{label} request {i}", resp, want)
+        if resp.degraded is not None:
+            raise AssertionError(f"{label} request {i}: served {resp.degraded}")
+    _no_trouble(label, server, responses)
+    summary = server.stats.summary()
+    if summary["fallbacks_total"]:
+        raise AssertionError(f"{label}: {summary['fallbacks_total']} waves fell back")
+    mesh = server.mesh_stats
+    if mesh["waves"] != summary["waves"]:
+        raise AssertionError(f"{label}: {mesh['waves']} mesh waves of {summary['waves']}")
+    return {"summary": summary, "mesh_waves": mesh["waves"], "plan_bytes": mesh["plan_bytes"],
+            "broadcast_s": mesh["broadcast_s"]}
+
+
+def _mesh_world_of_one(torch, args) -> dict:
+    """(v) A world of 1 on NCCL: SelectionServer, AsyncSelectionServer and an
+    FB session on a (1, 1) mesh, then a wave under a dispatch fault."""
+    from repro_torch.core import FeatureBased, SelectionSpec, solve
+    from repro_torch.kernels import ops
+    from repro_torch.launch import faults
+    from repro_torch.launch.async_serve import AsyncSelectionServer
+    from repro_torch.launch.resilience import BreakerBoard, RetryPolicy
+    from repro_torch.launch.serve import SelectionServer
+
+    mesh = _world_of_one()["bd"]
+    totals, out = collections.Counter(), {}
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    specs = _mesh_specs(torch, args, MESH_REQUESTS, MESH_N, MESH_BUDGETS, args.seed + MESH_SEED)
+    torch.cuda.synchronize()
+    out["build"] = {"s": time.perf_counter() - t0, "launches": _launch_counts()}
+    totals.update(out["build"]["launches"])
+    seq, seq_wall, _ = _dist_timed(torch, lambda: [solve(s) for s in specs])
+    server = SelectionServer(mesh=mesh)
+    responses, wall, launches = _dist_timed(torch, lambda: server.select(specs))
+    totals.update(launches)
+    out["sync"] = _mesh_served_checks(torch, "14 (v) mesh server", server, responses, seq)
+    out["sync"].update(wall_s=wall, sequential_s=seq_wall, launches=launches,
+                       latency=_latency_summary(responses))
+    server.close()
+    log(f"  ok  14 (v) SelectionServer(mesh=(1, 1) NCCL): {len(specs)} requests in {wall:.3f} s "
+        f"(sequential {seq_wall:.3f} s), {out['sync']['summary']['waves']} mesh waves, "
+        f"{out['sync']['plan_bytes']} plan bytes; latency p50 "
+        f"{out['sync']['latency']['p50_s']:.4f} p99 {out['sync']['latency']['p99_s']:.4f} s; "
+        f"launches {launches}; every answer bit-equal to its sequential solve, 0 fallbacks")
+
+    front = AsyncSelectionServer(mesh=mesh, max_pending=SERVE_MAX_PENDING,
+                                 flush_interval=SERVE_FLUSH_INTERVAL)
+    sub = specs[:MESH_ASYNC]
+
+    def run_async():
+        futures = [front.submit(s) for s in sub]
+        return [f.result(timeout=600) for f in futures]
+
+    responses, wall, launches = _dist_timed(torch, run_async)
+    totals.update(launches)
+    out["async"] = _mesh_served_checks(torch, "14 (v) mesh async", front._server, responses,
+                                       seq[:MESH_ASYNC])
+    out["async"].update(wall_s=wall, launches=launches, flushes=front.flushes)
+    front.close()
+    log(f"  ok  14 (v) AsyncSelectionServer(mesh=): {len(sub)} requests in {wall:.3f} s, "
+        f"{front.flushes} flushes, launches {launches}; every answer bit-equal")
+
+    x = torch.relu(gaussian_mixture_cuda(torch, args.seed + MESH_SEED - 1,
+                                          MESH_SESSION_N + sum(MESH_SESSION_DELTAS), args.d))
+    server = SelectionServer(mesh=mesh)
+    cuts = list(itertools.accumulate((MESH_SESSION_N,) + MESH_SESSION_DELTAS))
+
+    def spec(rows):
+        return SelectionSpec(FeatureBased.from_features(rows, concave="sqrt", use_kernel=None),
+                             SESSION_BUDGET, "LazyGreedy", screen_k=WAVE_SCREEN_K)
+
+    def run_session():
+        sess = server.open_session(spec(x[: cuts[0]]))
+        return [sess.extend(features=x[lo:hi]) for lo, hi in zip(cuts, cuts[1:])]
+
+    updates, wall, launches = _dist_timed(torch, run_session)
+    totals.update(launches)
+    for upd, hi in zip(updates, cuts[1:]):
+        _held(torch, f"14 (v) mesh FB session at n = {hi}", upd.result, solve(spec(x[:hi])))
+    out["session"] = _mesh_served_checks(torch, "14 (v) mesh session", server,
+                                         [u.response for u in updates], [])
+    out["session"].update(wall_s=wall, launches=launches, n=cuts)
+    server.close()
+    log(f"  ok  14 (v) FB session on the mesh, n {cuts}: every update bit-equal to solve() "
+        f"over the stream so far; {wall:.3f} s")
+
+    server = SelectionServer(mesh=mesh, retry_policy=RetryPolicy(max_attempts=2, backoff_s=0.0,
+                                                                 jitter=0.0),
+                             breakers=BreakerBoard(threshold=1))
+    plan = faults.FaultPlan([faults.FaultSpec(site="dispatch", mesh=True, times=None)])
+
+    def run_fault():
+        with faults.inject(plan):
+            return server.select(specs[:1])
+
+    (resp,), wall, launches = _dist_timed(torch, run_fault)
+    totals.update(launches)
+    _held(torch, "14 (v) the degraded wave", resp, seq[0])
+    fallbacks = server.stats.summary()["fallbacks_total"]
+    state = server.breakers.states().get(f"{type(specs[0].fn).__name__}/mesh")
+    if resp.degraded != "single-device" or fallbacks != 1 or state != "open":
+        raise AssertionError(f"14 (v) dispatch fault on the mesh: degraded {resp.degraded}, "
+                             f"fallbacks {fallbacks}, mesh breaker {state}")
+    out["fault"] = {"degraded": resp.degraded, "fallbacks_total": fallbacks, "attempts":
+                    resp.attempts, "fired": plan.counts()[0]["fired"], "wall_s": wall}
+    server.close()
+    log(f"  ok  14 (v) dispatch faults on the mesh: the mesh breaker opened, the wave came back "
+        f"degraded={resp.degraded!r}, bit-equal, counted (fallbacks_total {fallbacks})")
+    out["launches"] = dict(totals)
+    del specs, seq, x
+    torch.cuda.empty_cache()
+    return out
+
+
+def _rank_mesh(args) -> int:
+    """One rank of (w)'s 2x2 ("batch", "data") world on the one card over
+    gloo: rank 0 serves MESH_2X2_REQUESTS requests through a mesh server
+    and holds each against its sequential solve; the others follow.  Its
+    results go to DIR/rank{r}.json."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.core import make_mesh, solve
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import SelectionServer
+
+    rank, tmp = args.rank_mesh, Path(args.dir_mesh)
+    timeout = datetime.timedelta(seconds=DIST_PG_TIMEOUT_S)
+    dist.init_process_group("gloo", init_method=f"file://{tmp / 'store'}", rank=rank,
+                            world_size=4, timeout=timeout)
+    try:
+        mesh = make_mesh((2, 2), ("batch", "data"), timeout=timeout)
+        wave_digests = []  # each mesh wave's whole batch, on every rank
+        server = SelectionServer(mesh=mesh,
+                                 control_timeout=datetime.timedelta(seconds=MESH_CONTROL_S),
+                                 on_mesh_wave=lambda res: wave_digests.append(_digest(res)))
+        out = {"rank": rank, "failures": []}
+        if server.is_follower:
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            server.follow()
+            torch.cuda.synchronize()
+            out.update(followed=True, follow_s=time.perf_counter() - t0,
+                       launches=_launch_counts())
+        else:
+            specs = _mesh_specs(torch, args, MESH_2X2_REQUESTS, MESH_2X2_N, DIST_BUDGETS[::-1],
+                                args.seed + MESH_SEED + 500, odd_n=MESH_2X2_ODD_N)
+            seq, seq_wall, _ = _dist_timed(torch, lambda: [solve(s) for s in specs])
+            try:
+                responses, wall, launches = _dist_timed(torch, lambda: server.select(specs))
+            finally:
+                server.close()
+            for i, (resp, want) in enumerate(zip(responses, seq)):
+                try:
+                    _held(torch, f"14 (w) request {i}", resp, want)
+                except AssertionError as e:  # reported once every rank is done
+                    out["failures"].append(str(e))
+            mesh_stats = server.mesh_stats
+            out.update(wall_s=wall, sequential_s=seq_wall, launches=launches,
+                       summary=server.stats.summary(), plans=mesh_stats["plans"],
+                       plan_bytes=mesh_stats["plan_bytes"], broadcast_s=mesh_stats["broadcast_s"],
+                       odd=[[specs[i].fn.n, responses[i].n_bucket, responses[i].backend]
+                            for i in (0, 1)],
+                       degraded=[r.degraded for r in responses if r.degraded],
+                       latency=_latency_summary(responses))
+        out.update(waves=server.mesh_stats["waves"], digest=_digest_of(wave_digests),
+                   peak_bytes=torch.cuda.max_memory_allocated())
+        (tmp / f"rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _mesh_2x2(torch, args) -> dict:
+    """(w) Four ranks on the one card over gloo, spawned and joined here."""
+    import tempfile
+
+    tmp = Path(tempfile.mkdtemp())
+    argv = [sys.executable, str(ROOT / "chip_smoke.py"), "--d", str(args.d), "--seed",
+            str(args.seed), "--dir-mesh", str(tmp)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(argv + ["--rank-mesh", str(r)], stdout=open(tmp / f"rank{r}.out", "w"),
+                              stderr=subprocess.STDOUT) for r in range(4)]
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, MESH_JOIN_TIMEOUT_S - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+        raise AssertionError(f"14 (w): the 2x2 world did not finish in {MESH_JOIN_TIMEOUT_S} s")
+    finally:
+        for p in procs:
+            p.wait()
+    bad = [f"rank {r} exit {p.returncode}:\n{(tmp / f'rank{r}.out').read_text()[-3000:]}"
+           for r, p in enumerate(procs) if p.returncode]
+    if bad:
+        raise AssertionError("14 (w): " + "\n".join(bad))
+    ranks = [json.loads((tmp / f"rank{r}.json").read_text()) for r in range(4)]
+    wall = time.perf_counter() - t0
+    lead = ranks[0]
+    if lead["failures"]:
+        raise AssertionError("14 (w): " + "\n".join(lead["failures"]))
+    for r in ranks[1:]:
+        if not r.get("followed") or r["waves"] != lead["waves"] or r["digest"] != lead["digest"]:
+            raise AssertionError(f"14 (w) rank {r['rank']}: followed {r.get('followed')}, "
+                                 f"{r['waves']} waves of rank 0's {lead['waves']}, digest "
+                                 f"{'equal' if r['digest'] == lead['digest'] else 'differs'}")
+    s = lead["summary"]
+    if s["fallbacks_total"] or lead["degraded"] or s["padded_slots"] < 1:
+        raise AssertionError(f"14 (w): fallbacks {s['fallbacks_total']}, degraded "
+                             f"{lead['degraded']}, padded slots {s['padded_slots']}")
+    if (any(n != MESH_2X2_ODD_N or bucket != n + 1 or backend == "torch"
+            for n, bucket, backend in lead["odd"])
+            or not (lead["launches"].get("fl_gains") and lead["launches"].get("fl_gains_at"))):
+        raise AssertionError(f"14 (w): the odd FL requests (n, bucket, backend) {lead['odd']} "
+                             f"with rank 0's launches {lead['launches']}")
+    plans = lead["plans"]
+    share = sum(p["broadcast_s"] for p in plans) / max(sum(p["wave_s"] for p in plans), 1e-9)
+    launches = collections.Counter()
+    for r in ranks:
+        launches.update(r["launches"])
+    out = {"seconds": wall, "wall_s": lead["wall_s"], "sequential_s": lead["sequential_s"],
+           "waves": lead["waves"], "padded_slots": s["padded_slots"], "slots": s["slots"],
+           "fallbacks_total": s["fallbacks_total"], "plan_bytes": lead["plan_bytes"],
+           "broadcast_s": lead["broadcast_s"], "broadcast_share": share,
+           "plans": [[p["bytes"], round(p["broadcast_s"], 6), round(p["wave_s"], 6)]
+                     for p in plans],
+           "latency": lead["latency"], "follow_s": [r["follow_s"] for r in ranks[1:]],
+           "peak_bytes": [r["peak_bytes"] for r in ranks], "launches": dict(launches),
+           "odd_fl": lead["odd"]}
+    log(f"  ok  14 (w) 2x2 mesh over gloo on one card: {MESH_2X2_REQUESTS} requests in "
+        f"{lead['wall_s']:.3f} s (sequential {lead['sequential_s']:.3f} s), {lead['waves']} mesh "
+        f"waves, padded slots {s['padded_slots']} of {s['slots']}, fallbacks "
+        f"{s['fallbacks_total']}; the FL requests (n, bucket, backend) {lead['odd']}; every "
+        f"answer bit-equal to rank 0's sequential solve; each "
+        f"follower ran rank 0's {lead['waves']} waves (digests equal) and ended at close()")
+    log(f"  14 (w) plans: {lead['plan_bytes']} bytes in all, per plan "
+        f"{min(p['bytes'] for p in plans)}..{max(p['bytes'] for p in plans)}; broadcast "
+        f"{lead['broadcast_s']:.3f} s, {100 * share:.1f}% of the waves' wall; peak per rank "
+        f"{[round(b / 2**30, 2) for b in out['peak_bytes']]} GiB; {wall:.1f} s in all; "
+        f"launches {out['launches']}")
+    return out
+
+
+def _unit_rows(torch, x):
+    return x / torch.linalg.vector_norm(x, dim=1, keepdim=True)
+
+
+def _selector_parting(torch, label, fn, plain_fn, ids, ref) -> dict:
+    """Ids of the kernel route equal the plain route's up to their first
+    difference, where the two picks must be a near-tie within twice what the
+    two routes' gains differ by at that state (each route's kernel)."""
+    parted = np.nonzero(np.asarray(ids) != np.asarray(ref))[0]
+    t = int(parted[0]) if parted.size else len(ids)
+    if not parted.size:
+        log(f"  ok  {label}: ids equal to the plain route's over all {t} picks")
+        return {"agreeing_steps": t, "steps": len(ids)}
+    state, pstate = fn.init_state(), plain_fn.init_state()
+    for j in ids[:t]:
+        jt = torch.tensor([int(j)], device="cuda")
+        state, pstate = fn.update(state, jt), plain_fn.update(pstate, jt)
+    g, pg = fn.gains(state).float(), plain_fn.gains(pstate).float()
+    a, b = int(ids[t]), int(ref[t])
+    spread = float((g - pg).abs().max())
+    gaps = (float(g[a] - g[b]), float(pg[b] - pg[a]))
+    if not all(0.0 <= gap <= 2 * spread for gap in gaps):
+        raise AssertionError(f"{label}: ids part at step {t} ({a} against {b}) with top-two "
+                             f"gaps {gaps} beyond twice the routes' spread {spread}")
+    log(f"  ok  {label}: ids equal to the plain route's over {t} of {len(ids)} picks, then a "
+        f"near-tie (top-two gaps {gaps}, the routes' gains {spread} apart)")
+    return {"agreeing_steps": t, "steps": len(ids), "top_two_gap": gaps, "spread": spread}
+
+
+def _selector(torch, args) -> dict:
+    """(x) SubmodularSelector on a qwen3-0.6b-wide pool: the four objectives
+    under LazyGreedy on the kernel route against the plain route, then
+    selection_step on the world of 1 against a single-device FL NaiveGreedy
+    on the same S."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import FacilityLocation, SelectionSpec, create_kernel, solve
+    from repro_torch.data.selection import SelectorConfig, SubmodularSelector
+
+    cfg = get_config(SELECT_ARCH)
+    d, seed = cfg.d_model, args.seed + MESH_SEED + 900
+    pool = _unit_rows(torch, gaussian_mixture_cuda(torch, seed, SELECT_N, d))
+    q = _unit_rows(torch, gaussian_mixture_cuda(torch, seed + 1, SELECT_EXTRA, d))
+    p = _unit_rows(torch, gaussian_mixture_cuda(torch, seed + 2, SELECT_EXTRA, d))
+    totals, out = collections.Counter(), {"d": d, "n": SELECT_N, "budget": SELECT_BUDGET}
+    for objective in SELECT_OBJECTIVES:
+        def selector(kernels):
+            return SubmodularSelector(cfg, SelectorConfig(objective=objective,
+                                                          budget=SELECT_BUDGET,
+                                                          use_pallas_kernel=kernels))
+
+        kern, plain = selector(True), selector(False)
+        ids, wall, launches = _dist_timed(torch, lambda: kern.select(pool, q, p))
+        totals.update(launches)
+        ref, plain_wall, plain_launches = _dist_timed(torch, lambda: plain.select(pool, q, p))
+        if plain_launches:
+            raise AssertionError(f"14 (x) {objective}: the plain route launched {plain_launches}")
+        if len(ids) != SELECT_BUDGET or len(set(ids.tolist())) != len(ids):
+            raise AssertionError(f"14 (x) {objective}: {len(ids)} ids, "
+                                 f"{len(set(ids.tolist()))} distinct")
+        label = f"14 (x) {objective} LazyGreedy {SELECT_BUDGET} (kernel vs plain route)"
+        out[objective] = _selector_parting(torch, label, kern.build_function(pool, q, p),
+                                           plain.build_function(pool, q, p), ids, ref)
+        out[objective].update(wall_s=wall, plain_s=plain_wall, launches=launches)
+        log(f"  14 (x) {objective}: {wall:.3f} s (plain route {plain_wall:.3f} s), launches "
+            f"{launches}")
+        torch.cuda.empty_cache()
+    mesh = _world_of_one()["dm"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sel = SubmodularSelector(cfg, SelectorConfig(budget=SELECT_BUDGET))
+    (order, gains), wall, launches = _dist_timed(torch, lambda: sel.selection_step(pool, mesh))
+    peak = torch.cuda.max_memory_allocated()
+    totals.update(launches)
+    S = create_kernel(pool, metric="euclidean", use_pallas=True)
+    # distributed_fl_greedy stops at a zero gain and never at a negative one
+    ref, direct_wall, _ = _dist_timed(torch, lambda: solve(SelectionSpec(
+        FacilityLocation.from_kernel(S, use_kernel=True), SELECT_BUDGET, "NaiveGreedy",
+        stopIfZeroGain=True, stopIfNegativeGain=False)))
+    o2, g2 = ref.order.to(order.device), ref.gains.to(gains.device)
+    if not (torch.equal(order, o2) and torch.equal(gains.view(torch.int32), g2.view(torch.int32))):
+        raise AssertionError("14 (x) selection_step parts from the single-device FL NaiveGreedy "
+                             "on its S")
+    out["selection_step"] = {"wall_s": wall, "single_device_s": direct_wall,
+                             "launches": launches, "peak_bytes": peak,
+                             "picked": int((order >= 0).sum())}
+    log(f"  ok  14 (x) selection_step on the world of 1 ({SELECT_BUDGET} picks of {SELECT_N}): "
+        f"{wall:.3f} s, ids and gains bit-equal to a single-device FL NaiveGreedy on its kernel "
+        f"({direct_wall:.3f} s); peak {peak / 2**30:.2f} GiB; launches {launches}")
+    out["launches"] = dict(totals)
+    del pool, q, p, S
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_mesh_served(torch, args) -> dict:
+    """Phase 14: (v) serving on a (1, 1) NCCL mesh, (w) a 2x2 mesh of four
+    ranks over gloo, (x) the selection stage."""
+    t_start = time.perf_counter()
+    log(f"== phase 14: serving on a mesh and the selection stage (d = {args.d})")
+    out = {}
+    try:
+        out["v"] = _mesh_world_of_one(torch, args)
+        out["x"] = _selector(torch, args)
+    finally:
+        _close_world_of_one()
+    out["w"] = _mesh_2x2(torch, args)
+    launches = collections.Counter()
+    for part in ("v", "w", "x"):
+        launches.update(out[part]["launches"])
+    out["launches"] = dict(launches)
+    missing = [k for k in MESH_KERNELS if not launches.get(k)]
+    if missing:
+        raise AssertionError(f"phase 14: kernels not launched on the mesh-served path: {missing}")
+    out["seconds"] = time.perf_counter() - t_start
+    log(f"  phase 14 launches on the mesh-served path (v) + (w) + (x): {out['launches']}")
+    log(f"phase 14: {out['seconds']:.1f} s")
+    return out
+
+
 def parse_args(argv):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -4046,6 +4514,9 @@ def parse_args(argv):
     # phase 13 (u) starts its ranks as this script with these
     p.add_argument("--rank-2x2", type=int, default=None, help=argparse.SUPPRESS)
     p.add_argument("--dir-2x2", default=None, help=argparse.SUPPRESS)
+    # phase 14 (w) likewise
+    p.add_argument("--rank-mesh", type=int, default=None, help=argparse.SUPPRESS)
+    p.add_argument("--dir-mesh", default=None, help=argparse.SUPPRESS)
     return p.parse_args(argv)
 
 
@@ -4061,6 +4532,8 @@ def main(argv=None) -> int:
         return 2
     if args.rank_2x2 is not None:
         return _rank_2x2(args)
+    if args.rank_mesh is not None:
+        return _rank_mesh(args)
     sys.path.insert(0, str(ROOT / "src"))
     # the plain versions run in full fp32 on the card: no TF32 anywhere
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4099,6 +4572,7 @@ def main(argv=None) -> int:
     served = phase_served(torch, args)
     remaining = phase_remaining(torch, args, main_out)
     distributed = phase_distributed(torch, args, main_out)
+    mesh_served = phase_mesh_served(torch, args)
     for rows, path in ((mf_rows, mf_out), (dense_rows, dense_out), (cover_rows, cover_out)):
         for r in rows:
             r["launches"] = r["launches_on_path"] = path["launches"][r["name"]]
@@ -4127,13 +4601,16 @@ def main(argv=None) -> int:
         r["remaining"] = {"launches": remaining["launches"].get(r["name"], 0)}
         # and on the sharded path (phase 13 (t) and (u))
         r["sharded"] = {"launches": distributed["launches"].get(r["name"], 0)}
+        # and on the mesh-served path (phase 14 (v), (w)'s four ranks and (x))
+        r["served_mesh"] = {"launches": mesh_served["launches"].get(r["name"], 0)}
     missing = set(ops.LAUNCHES) ^ {r["name"] for r in kernels}
     if missing:
         raise AssertionError(f"kernels line and LAUNCHES differ: {sorted(missing)}")
     record = {"device": device, "build": {k: build[k] for k in ("seconds", "cached")},
               "main": main_out, "matrix_free": mf_out, "dense_pairwise": dense_out,
               "coverage": cover_out, "guided": guided_out, "wave": wave_out, "served": served,
-              "remaining": remaining, "distributed": distributed, "kernels": kernels,
+              "remaining": remaining, "distributed": distributed, "mesh_served": mesh_served,
+              "kernels": kernels,
               "seconds": time.perf_counter() - t_start}
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(record, indent=1))

@@ -106,6 +106,7 @@ class _MeshInfo:
     device: torch.device
     # sorted tuple of mesh dimensions -> the group of this rank's coset
     groups: dict
+    timeout: datetime.timedelta = DEFAULT_TIMEOUT  # every group's
     axes: dict = dataclasses.field(default_factory=dict)  # memo of _axis
 
 
@@ -166,7 +167,7 @@ def make_mesh(shape: Sequence[int], names: Sequence[str], device=None,
                 g = dist.new_group(ranks=ranks, timeout=timeout)
                 if me in ranks:
                     groups[dims] = g
-    _MESHES[id(mesh)] = _MeshInfo(device=dev, groups=groups)
+    _MESHES[id(mesh)] = _MeshInfo(device=dev, groups=groups, timeout=timeout)
     weakref.finalize(mesh, _MESHES.pop, id(mesh), None)
     return mesh
 

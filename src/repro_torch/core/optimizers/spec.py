@@ -11,8 +11,8 @@
 - :func:`solve` — the front door: ``solve(spec)`` or ``solve([s1, s2])``.
 
 Ported: every mode of the JAX package (sequential, batched, sharded,
-served and async; the served and async routes on a mesh wait for ROADMAP
-queue 1, item 11b), every optimizer (NaiveGreedy, LazyGreedy,
+served and async, the last two on a mesh too, under rank 0's control
+plane: ``launch/mesh_plane.py``), every optimizer (NaiveGreedy, LazyGreedy,
 StochasticGreedy, LazierThanLazyGreedy, and SieveStreaming /
 ThresholdGreedy, which register from ``streaming.py``), and the serving
 options ``deadline_s`` / ``retry``.
@@ -457,10 +457,13 @@ def solve(
     (heterogeneous specs coalesced into padded waves by a
     :class:`~repro_torch.launch.serve.SelectionServer`) or ``"async"``
     (submitted to an :class:`~repro_torch.launch.async_serve.
-    AsyncSelectionServer` and awaited; neither serves on a mesh yet,
-    ROADMAP queue 1, item 11b).  ``server`` is an existing server of the
-    route's kind to go through; one is built, and torn down, here when it
-    is omitted.  Batched, sharded and served results lie on the host, moved
+    AsyncSelectionServer` and awaited).  With ``mesh=`` the served and
+    async routes serve on it: every rank makes the same call; rank 0's
+    server coalesces and dispatches, the others follow its waves, and
+    every rank returns rank 0's results.  ``server`` is an existing server
+    of the route's kind to go through (on a mesh, rank 0's; its followers
+    run ``server.follow()`` themselves); one is built, and torn down, here
+    when it is omitted.  Batched, sharded and served results lie on the host, moved
     there in one transfer per wave.  Every route returns results
     bit-identical to the sequential one by contract.
     """
@@ -487,9 +490,11 @@ def solve(
             raise ValueError('mode="sharded" needs a 2-D mesh= (batch x data)')
         results = _run_batched(specs, mesh=mesh, batch_axis=batch_axis, data_axis=data_axis)
     elif mode == "served":
-        results = _run_served(specs, server, mesh=mesh)
+        results = _run_served(specs, server, mesh=mesh, batch_axis=batch_axis,
+                              data_axis=data_axis)
     else:  # async
-        results = _run_async(specs, server, mesh=mesh)
+        results = _run_async(specs, server, mesh=mesh, batch_axis=batch_axis,
+                             data_axis=data_axis)
     return results[0] if single else results
 
 
@@ -536,30 +541,61 @@ def _run_batched(specs, *, mesh, batch_axis, data_axis) -> list[GreedyResult]:
     )
 
 
-def _run_served(specs, server, *, mesh):
+def _mesh_call(server, serve):
+    """``serve(server)`` on rank 0 of a mesh server built for this call,
+    its results handed to the followers with the stop; a follower returns
+    them (or raises rank 0's failure, typed)."""
+    from repro_torch.launch.mesh_plane import MeshFailed
+
+    if server.is_follower:
+        status, payload = server.follow()
+        if status == "ok":
+            return payload
+        raise MeshFailed(f"rank 0 failed the served call: {payload}")
+    try:
+        results = serve(server)
+    except BaseException as e:
+        server.close(("error", f"{type(e).__name__}: {e}"))
+        raise
+    server.close(("ok", results))
+    return results
+
+
+def _run_served(specs, server, *, mesh, batch_axis, data_axis):
     from repro_torch.launch.serve import SelectionServer
 
-    if server is None:
-        server = SelectionServer(mesh=mesh)
-    # select() (not a bare flush) so responses to requests the caller
-    # enqueued earlier on their own server are re-held for THEIR next
-    # flush() instead of being dropped here
-    return [resp.result for resp in server.select(specs)]
+    def serve(srv):
+        # select() (not a bare flush) so responses to requests the caller
+        # enqueued earlier on their own server are re-held for THEIR next
+        # flush() instead of being dropped here
+        return [resp.result for resp in srv.select(specs)]
+
+    if server is None and mesh is not None:
+        return _mesh_call(SelectionServer(mesh=mesh, batch_axis=batch_axis,
+                                          data_axis=data_axis), serve)
+    return serve(server if server is not None else SelectionServer())
 
 
-def _run_async(specs, server, *, mesh):
+def _run_async(specs, server, *, mesh, batch_axis, data_axis):
     from repro_torch.launch.async_serve import AsyncSelectionServer
+    from repro_torch.launch.serve import SelectionServer
 
-    owned = server is None
-    if owned:
-        server = AsyncSelectionServer(mesh=mesh)
-    try:
-        futures = [server.submit(s) for s in specs]
-        server.flush_now()
+    def serve(front):
+        futures = [front.submit(s) for s in specs]
+        front.flush_now()
         return [f.result().result for f in futures]
-    finally:
-        if owned:
-            server.close()
+
+    def serve_closed(srv):
+        # the front end wraps srv, so its close() leaves srv open for the stop
+        with AsyncSelectionServer(srv) as front:
+            return serve(front)
+
+    if server is not None:
+        return serve(server)
+    if mesh is not None:
+        return _mesh_call(SelectionServer(mesh=mesh, batch_axis=batch_axis,
+                                          data_axis=data_axis), serve_closed)
+    return serve_closed(SelectionServer())
 
 
 # ---------------------------------------------------------------------------

@@ -61,6 +61,14 @@ typed :class:`~repro_torch.launch.resilience.RequestFailed` (never a bare engine
 error, never a stranded future).  Wave-build (padder) failures are always
 handled resiliently here, whatever the policy: they fail the affected
 requests typed instead of killing the flush thread.
+
+On a mesh (``mesh=``, or a mesh ``server``) the triggers decide on rank 0
+only: rank 0's flush thread drains and dispatches, each mesh wave's plan
+and collectives issued from the dispatching thread under the dispatch
+lock.  On every other rank the wrapper starts no thread and ``submit``
+raises :class:`~repro_torch.launch.mesh_plane.FollowerError`: there the
+wrapped server's ``follow()`` runs the waves rank 0 sends until rank 0's
+``close()`` stops them.
 """
 from __future__ import annotations
 
@@ -87,9 +95,10 @@ class AsyncSelectionServer:
         setting untouched.
       block: default for ``submit(..., block=)`` — True makes a full-queue
         submit wait for space instead of raising ``ServerOverloaded``.
-      mesh, batch_axis, data_axis, max_wave: forwarded to the internal
-        ``SelectionServer`` when ``server`` is None (``mesh`` raises there:
-        ROADMAP queue 1, item 11b).
+      mesh, batch_axis, data_axis, max_wave, control_timeout: forwarded to
+        the internal ``SelectionServer`` when ``server`` is None (every rank
+        of a mesh builds it; ``close()`` on rank 0 then also stops the
+        followers).
     """
 
     # the two-lock protocol: _cv guards the queues + futures map ONLY;
@@ -109,6 +118,7 @@ class AsyncSelectionServer:
         batch_axis: str = "batch",
         data_axis: str = "data",
         max_wave: int = 64,
+        control_timeout=None,
     ):
         if max_pending < 1:
             raise ValueError(f"max_pending must be >= 1, got {max_pending}")
@@ -116,6 +126,7 @@ class AsyncSelectionServer:
             raise ValueError(
                 f"flush_interval must be positive, got {flush_interval}"
             )
+        self._owns_server = server is None
         self._server = (
             server
             if server is not None
@@ -124,6 +135,7 @@ class AsyncSelectionServer:
                 batch_axis=batch_axis,
                 data_axis=data_axis,
                 max_wave=max_wave,
+                control_timeout=control_timeout,
             )
         )
         if max_queue is not None:
@@ -141,7 +153,8 @@ class AsyncSelectionServer:
         self._thread = threading.Thread(
             target=self._loop, name="AsyncSelectionServer", daemon=True
         )
-        self._thread.start()
+        if not self._server.is_follower:  # the triggers decide on rank 0 only
+            self._thread.start()
 
     # -- client API ----------------------------------------------------------
 
@@ -213,6 +226,15 @@ class AsyncSelectionServer:
                 return
             self._closed = True
             self._cv.notify_all()  # wake the loop and any blocked submitters
+        if self._server.is_follower:
+            return
+        try:
+            self._close(flush)
+        finally:
+            if self._owns_server:
+                self._server.close()  # on a mesh: stop the followers
+
+    def _close(self, flush: bool) -> None:
         self._thread.join()  # an in-flight _execute finishes (and may requeue)
         if flush:
             while True:

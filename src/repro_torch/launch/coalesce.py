@@ -50,6 +50,19 @@ source's column count) only where its represented rows are not its ground
 set, and is otherwise served at its own n, as is a dense source.
 ``register_padder`` plugs in more families; unsupported ones raise a
 ``NotImplementedError`` naming it.
+
+**On a mesh** (``launch/serve.py``, ``mesh=``) the sharded engine needs
+every wave's n to divide over the data axis and its batch over the batch
+axis, so the server passes the two axis sizes as ``n_multiple`` /
+``b_multiple`` (the JAX package's names; both 1 off a mesh, where nothing
+changes).  A bucket is the power of two rounded up to ``n_multiple``; the
+FL family's own n is rounded up to it too, with zero COLUMNS under its
+untouched rows (a candidate's gain is a fixed-order sum over the rows,
+``common.row_sums_fixed``, so the pad columns change no other column's
+bits, and the ``valid`` mask blocks them).  A FacilityLocationMF served at
+its own n keeps it: it has no shard rule, so the mesh refuses its waves
+anyway.  A wave's batch is padded to ``b_multiple`` with budget-0 copies of
+its slot 0, dropped at demux; their ``valid`` rows follow slot 0's true n.
 """
 from __future__ import annotations
 
@@ -116,9 +129,14 @@ def next_pow2(x: int) -> int:
     return 1 if x <= 1 else 1 << (int(x) - 1).bit_length()
 
 
-def bucket_size(n: int) -> int:
-    """Power-of-two bucket >= n."""
-    return next_pow2(n)
+def round_up(n: int, multiple: int) -> int:
+    return -(-int(n) // int(multiple)) * int(multiple)
+
+
+def bucket_size(n: int, multiple: int = 1) -> int:
+    """Power-of-two bucket >= n, rounded up to a multiple (the mesh data-axis
+    size, so sharded waves always divide evenly)."""
+    return round_up(next_pow2(n), multiple)
 
 
 # ---------------------------------------------------------------------------
@@ -145,8 +163,16 @@ def _pad_square(t: torch.Tensor, n_to: int) -> torch.Tensor:
 
 
 def _unpadded(fn, n_to: int):
-    """The padder of a family served at its own n (:func:`bucket_for`)."""
+    """The refusal of a size other than the one a family served at its own n
+    rides at (:func:`bucket_for`)."""
     raise ValueError(f"{type(fn).__name__} is served at its own n = {fn.n}, not padded to {n_to}")
+
+
+def _pad_own_n(fn, n_to: int):
+    """The FL family's padder: zero COLUMNS of ``sim`` under its untouched
+    represented rows (the per-row ``qmax`` / ``pmax`` of the measures keep
+    their length), used only to round its own n up to a mesh's data axis."""
+    return dataclasses.replace(fn, sim=_pad_cols(fn.sim, n_to), n=n_to)
 
 
 def _pad_gc(fn: GraphCut, n_to: int) -> GraphCut:
@@ -256,7 +282,7 @@ def _pad_gcmf(fn: GraphCutMF, n_to: int) -> GraphCutMF:
 
 
 _PADDERS: dict[type, Callable] = {
-    FacilityLocation: _unpadded,
+    FacilityLocation: _pad_own_n,
     GraphCut: _pad_gc,
     FeatureBased: _pad_fb,
     SetCover: _pad_sc,
@@ -266,9 +292,9 @@ _PADDERS: dict[type, Callable] = {
     LogDet: _pad_logdet,
     GCMI: _pad_gcmi,
     FLQMI: _pad_flqmi,
-    FLVMI: _unpadded,
-    FLCG: _unpadded,
-    FLCMI: _unpadded,
+    FLVMI: _pad_own_n,
+    FLCG: _pad_own_n,
+    FLCMI: _pad_own_n,
     FacilityLocationMF: _pad_flmf,
     GraphCutMF: _pad_gcmf,
 }
@@ -301,17 +327,23 @@ def served_unpadded(fn) -> bool:
     measures; a FacilityLocationMF whose represented rows are its ground
     set, or over a dense source) keys its group on that n whatever the
     bucket, so padding would merge nothing and only widen its sweeps."""
-    if resolve_padder(type(fn)) is _unpadded:
+    if resolve_padder(type(fn)) is _pad_own_n:
         return True
     if isinstance(fn, FacilityLocationMF):
         return isinstance(fn.src, DenseSource) or fn.src.n_rows == fn.n
     return False
 
 
-def bucket_for(fn) -> int:
+def bucket_for(fn, n_multiple: int = 1) -> int:
     """The ground-set size ``fn`` rides a wave at: its own n where it is
-    :func:`served_unpadded`, else the power-of-two bucket of n."""
-    return fn.n if served_unpadded(fn) else bucket_size(fn.n)
+    :func:`served_unpadded` (the FL family's rounded up to ``n_multiple``,
+    the mesh's data axis), else the power-of-two bucket of n rounded up to
+    ``n_multiple``."""
+    if not served_unpadded(fn):
+        return bucket_size(fn.n, n_multiple)
+    if resolve_padder(type(fn)) is _pad_own_n:
+        return round_up(fn.n, n_multiple)
+    return fn.n
 
 
 def resolve_gate(fn):
@@ -326,10 +358,11 @@ def resolve_gate(fn):
     return dataclasses.replace(fn, use_kernel=on)
 
 
-def pad_function(fn, n_to: int):
+def pad_function(fn, n_to: int, *, n_multiple: int = 1):
     """Zero-pad ``fn``'s candidate axis to ``n_to``, its backend gate
     resolved first (:func:`resolve_gate`); the gate-resolved ``fn`` itself
-    when no padding is needed.
+    when no padding is needed.  A family served at its own n takes only
+    that n, rounded up to ``n_multiple`` (:func:`bucket_for`).
 
     The registry is consulted even when no padding is needed: a family
     without a padder must fail the same way at every ground-set size.  This
@@ -342,10 +375,10 @@ def pad_function(fn, n_to: int):
     if fn.n > n_to:
         raise ValueError(f"cannot pad n={fn.n} down to {n_to}")
     fn = resolve_gate(fn)
+    if served_unpadded(fn) and n_to != bucket_for(fn, n_multiple):
+        return _unpadded(fn, n_to)
     if fn.n == n_to:
         return fn
-    if served_unpadded(fn):
-        return _unpadded(fn, n_to)
     return padder(fn, n_to)
 
 
@@ -366,6 +399,16 @@ class Wave:
     stop_if_zero: bool
     stop_if_negative: bool
     n_bucket: int
+
+    @property
+    def batch_size(self) -> int:
+        """Engine slots, batch pads included."""
+        return len(self.fns)
+
+    @property
+    def n_padded_slots(self) -> int:
+        """Batch-pad slots: budget-0 copies of slot 0 (a mesh's batch axis)."""
+        return len(self.fns) - len(self.requests)
 
     @property
     def label(self) -> str:
@@ -417,7 +460,7 @@ def _to_meta(obj):
     return obj
 
 
-def _padded_layout(fn, n_bucket: int) -> tuple:
+def _padded_layout(fn, n_bucket: int, n_multiple: int = 1) -> tuple:
     """(structure, tensor shapes and dtypes) of ``pad_function(fn,
     n_bucket)``, found without touching any data."""
     fn = resolve_gate(fn)
@@ -425,11 +468,12 @@ def _padded_layout(fn, n_bucket: int) -> tuple:
         _structure(fn),
         tuple((tuple(t.shape), t.dtype) for t in _tensors(fn)),
         n_bucket,
+        n_multiple,
     )
     layout = _LAYOUT_CACHE.get(cache_key)
     if layout is None:
         with faults.suspended():  # shapes only: not the padder boundary
-            padded = pad_function(_to_meta(fn), n_bucket)
+            padded = pad_function(_to_meta(fn), n_bucket, n_multiple=n_multiple)
         layout = (
             _structure(padded),
             tuple((tuple(t.shape), t.dtype) for t in _tensors(padded)),
@@ -438,7 +482,7 @@ def _padded_layout(fn, n_bucket: int) -> tuple:
     return layout
 
 
-def group_key(req: SelectionRequest) -> tuple:
+def group_key(req: SelectionRequest, *, n_multiple: int = 1) -> tuple:
     """The (family, n-bucket) group identity of a request.
 
     Two requests with equal keys coalesce into the same wave: padded
@@ -449,7 +493,7 @@ def group_key(req: SelectionRequest) -> tuple:
     deadline shapes flush *scheduling*, never wave membership.
     """
     fn = req.fn  # the spec's backend choice applied
-    structure, shapes = _padded_layout(fn, bucket_for(fn))
+    structure, shapes = _padded_layout(fn, bucket_for(fn, n_multiple), n_multiple)
     spec = req.spec
     return (
         structure,
@@ -461,27 +505,34 @@ def group_key(req: SelectionRequest) -> tuple:
     )
 
 
-def group_label(req: SelectionRequest) -> str:
+def group_label(req: SelectionRequest, *, n_multiple: int = 1) -> str:
     """Human-readable metrics label for the request's group:
     ``Family/n<bucket>/<Optimizer>`` (coarser than :func:`group_key` — leaf
     shapes beyond the n-bucket are folded away for readability)."""
     fn = req.spec.fn
     return (
-        f"{type(fn).__name__}/n{bucket_for(fn)}"
+        f"{type(fn).__name__}/n{bucket_for(fn, n_multiple)}"
         f"/{req.spec.optimizer.name}"
     )
 
 
 def waves_for_group(
-    requests: Sequence[SelectionRequest], *, max_wave: int = 64
+    requests: Sequence[SelectionRequest],
+    *,
+    max_wave: int = 64,
+    n_multiple: int = 1,
+    b_multiple: int = 1,
 ) -> list[Wave]:
     """Build dispatchable waves from requests sharing one :func:`group_key`
     (one queue's drain).  Padding is materialized HERE, at flush time —
-    submit time only ever computes shapes."""
+    submit time only ever computes shapes.  ``n_multiple`` / ``b_multiple``
+    round each n up and pad each batch to the mesh's data / batch axis."""
     members = []
     for req in requests:
         fn = req.fn
-        members.append((req, pad_function(fn, bucket_for(fn))))
+        members.append(
+            (req, pad_function(fn, bucket_for(fn, n_multiple), n_multiple=n_multiple))
+        )
     head = requests[0].spec
     waves = []
     for lo in range(0, len(members), max_wave):
@@ -489,10 +540,14 @@ def waves_for_group(
         reqs = [r for r, _ in chunk]
         fns = [f for _, f in chunk]
         budgets = [r.budget for r in reqs]
+        # batch pads: budget-0 copies of slot 0, dropped at demux
+        b_total = round_up(len(fns), b_multiple)
+        fns = fns + [fns[0]] * (b_total - len(fns))
+        budgets = budgets + [0] * (b_total - len(reqs))
         n_bucket = fns[0].n
-        valid = np.zeros((len(fns), n_bucket), bool)
-        for i, r in enumerate(reqs):
-            valid[i, : r.spec.fn.n] = True
+        valid = np.zeros((b_total, n_bucket), bool)
+        for i in range(b_total):
+            valid[i, : reqs[i if i < len(reqs) else 0].spec.fn.n] = True
         waves.append(
             Wave(
                 requests=reqs,
@@ -509,16 +564,24 @@ def waves_for_group(
     return waves
 
 
-def coalesce(requests: Sequence[SelectionRequest], *, max_wave: int = 64) -> list[Wave]:
+def coalesce(
+    requests: Sequence[SelectionRequest],
+    *,
+    max_wave: int = 64,
+    n_multiple: int = 1,
+    b_multiple: int = 1,
+) -> list[Wave]:
     """Group requests into dispatchable waves, in first-arrival order of
     each group's earliest request.  The serving front door keeps per-group
     queues keyed by :func:`group_key` and drains them through
     :func:`waves_for_group` directly; this is the one-shot composition of
-    the two for flat request lists."""
+    the two for flat request lists.  ``n_multiple`` / ``b_multiple``: the
+    mesh's data- and batch-axis sizes (1 off a mesh)."""
     groups: dict[tuple, list[SelectionRequest]] = {}
     for req in requests:
-        groups.setdefault(group_key(req), []).append(req)
+        groups.setdefault(group_key(req, n_multiple=n_multiple), []).append(req)
     waves = []
     for members in groups.values():
-        waves.extend(waves_for_group(members, max_wave=max_wave))
+        waves.extend(waves_for_group(members, max_wave=max_wave, n_multiple=n_multiple,
+                                     b_multiple=b_multiple))
     return waves

@@ -17,7 +17,7 @@ Schema (``ServerMetrics.snapshot()``)::
         "requests": int,        # real requests served
         "waves": int,           # engine dispatches
         "slots": int,           # engine slots incl. batch pads
-        "padded_slots": int,    # batch-pad slots (0 in the port: no mesh)
+        "padded_slots": int,    # batch-pad slots (a mesh's batch axis)
         "rejections": int,      # submits refused by backpressure
         "flush_errors": int,    # dispatch errors (FlushError raised)
         "requeued": int,        # requests re-enqueued after a flush error
@@ -27,8 +27,8 @@ Schema (``ServerMetrics.snapshot()``)::
         "session_deltas": int,  # extend() deltas absorbed across sessions
         "session_churn": int,   # total selection churn across all deltas
         "retries_total": int,   # wave re-dispatch attempts scheduled
-        "fallbacks_total": int, # waves served degraded (0 in the port: an
-                                #   open breaker refuses the wave)
+        "fallbacks_total": int, # waves an open mesh breaker served on one
+                                #   device (an open kernel breaker refuses)
         "quarantined_total": int, # requests failed typed after N attempts
       },
       "queue_s":  {count, sum, max, p50, p99},   # submit -> dispatch start

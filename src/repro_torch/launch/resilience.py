@@ -20,13 +20,17 @@ Three pieces:
   (``reason="breaker_open"``); carries the full attempt history.
 - :class:`CircuitBreaker` / :class:`BreakerBoard` — per-key
   closed -> open -> half-open breakers.  The serving stack keys them by
-  ``(family, "kernel")`` and charges them only for kernel faults (a
-  ``"kernel"`` injected fault, a kernel that fails to build or launch).
+  ``(family, "kernel")``, charged only for kernel faults (a ``"kernel"``
+  injected fault, a kernel that fails to build or launch), and on a mesh by
+  ``(family, "mesh")``, charged by a dispatch fault on the mesh and by any
+  error that refuses a wave there before it runs (a family without a shard
+  rule, a ``use_kernel=True`` GraphCut / DisparitySum / DisparityMin).
   Where the JAX package reroutes a wave of an open kernel breaker to its
   plain sweeps, the port refuses the wave with :class:`BreakerOpen`: no
-  answer is served off the kernels its sequential solve takes.  The
-  ``(family, "mesh")`` breaker waits for serving on a mesh (ROADMAP queue
-  1, item 11b).
+  answer is served off the kernels its sequential solve takes.  An open
+  mesh breaker, as in the JAX package, serves the family's waves on rank
+  0's card alone, on the same kernels: every such response says
+  ``degraded="single-device"`` and ``fallbacks_total`` counts the wave.
 """
 from __future__ import annotations
 

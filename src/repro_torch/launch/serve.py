@@ -38,13 +38,26 @@ spent stays frozen while its wave runs on.  No wave is ever served off the
 kernels its sequential solves take: an open kernel breaker refuses the wave
 (:class:`~repro_torch.launch.resilience.BreakerOpen`) instead.
 
+**On a mesh** (``mesh=`` from ``distributed.make_mesh``; every rank builds
+the server, in the same order) the waves run on the sharded engine, batch
+over ``batch_axis`` and candidates over ``data_axis``; the coalescer rounds
+each n up to the data axis and pads each batch to the batch axis
+(``coalesce.py``).  Rank 0 is the front door and the other ranks follow the
+waves it sends (``launch/mesh_plane.py``: the control plane, its idle
+headers and why a failure inside a wave's collectives is fatal,
+:class:`~repro_torch.launch.mesh_plane.MeshFailed`).  A wave the mesh
+refuses before it runs (a family without a shard rule, a ``use_kernel=True``
+GraphCut / DisparitySum / DisparityMin) or an injected dispatch fault on
+the mesh charges the ``(family, "mesh")`` breaker; while that breaker is
+open, the family's waves are served on rank 0's card alone, on the same
+kernels, and every such response says ``degraded="single-device"``
+(counted in ``fallbacks_total``).
+
     PYTHONPATH=src python -m repro_torch.launch.serve --requests 32
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --requests 16
+    torchrun --nproc-per-node 4 -m repro_torch.launch.serve --mesh 2x2
 
-``launch/metrics.py`` has the metrics schema.  Serving on a mesh
-(``mesh=``) waits for ROADMAP queue 1, item 11b: every rank is its own
-process, so a wave's clock-driven decisions need a control plane that
-agrees on them first.
+``launch/metrics.py`` has the metrics schema.
 """
 from __future__ import annotations
 
@@ -72,6 +85,7 @@ from repro_torch.launch.coalesce import (
     group_label,
     waves_for_group,
 )
+from repro_torch.launch.mesh_plane import FollowerError, MeshFailed, MeshPlane
 from repro_torch.launch.metrics import ServerMetrics
 from repro_torch.launch.resilience import (
     SINGLE_ATTEMPT,
@@ -149,6 +163,7 @@ class SelectionResponse:
     wave_s: float = 0.0  # wave dispatch wall time (shared by the wave)
     deadline_missed: bool = False  # delivered after the spec's deadline_s
     attempts: int = 1  # dispatch attempts this request survived (retries + 1)
+    degraded: Optional[str] = None  # "single-device": an open mesh breaker rerouted it
 
 
 class ServerStats:
@@ -161,9 +176,8 @@ class ServerStats:
     keeps the historical keys (requests / waves / slots / padded_slots /
     total_s / qps) and adds the latency-decomposition and backpressure
     fields; ``snapshot()`` is the full structured tree.  The keys are the
-    JAX package's; ``padded_slots`` (its mesh's batch pads) and
-    ``fallbacks_total`` (its degraded waves) stay 0 in the port, which pads
-    no batch and degrades no wave.
+    JAX package's: ``padded_slots`` counts a mesh's batch pads and
+    ``fallbacks_total`` the waves an open mesh breaker served on one device.
     """
 
     def __init__(self, metrics: ServerMetrics | None = None):
@@ -182,7 +196,7 @@ class ServerStats:
         return self.metrics.counters["slots"]
 
     @property
-    def padded_slots(self) -> int:  # batch-pad slots (0: no mesh, item 11b)
+    def padded_slots(self) -> int:  # batch-pad slots (a mesh's batch axis)
         return self.metrics.counters["padded_slots"]
 
     @property
@@ -232,9 +246,10 @@ class SelectionServer:
     """Per-group coalescing selection server over :class:`BatchedEngine`.
 
     Args:
-      mesh: the sharded engine's 2-D mesh in the JAX package; serving on a
-        mesh is not ported yet (ROADMAP queue 1, item 11b), so anything but
-        None raises.
+      mesh: a mesh from ``distributed.make_mesh`` to serve on (None: one
+        device).  Every rank builds the server with it; rank 0 is the front
+        door and every other rank a follower that runs :meth:`follow`.
+        ``batch_axis`` / ``data_axis`` name its axes (validated here).
       max_wave: cap on real requests per wave (bounds per-wave latency).
       max_queue: admission-control cap on TOTAL pending requests across all
         group queues; ``submit`` raises :class:`ServerOverloaded` beyond it.
@@ -256,7 +271,15 @@ class SelectionServer:
         build or launch) charge ``(family, "kernel")``; while it is open,
         dispatch refuses that family's kernel waves with
         :class:`~repro_torch.launch.resilience.BreakerOpen` (typed
-        failures, never a reroute to the torch sweeps).
+        failures, never a reroute to the torch sweeps).  On a mesh,
+        ``(family, "mesh")`` is charged by a dispatch fault there and by any
+        error that refuses a wave on the mesh before it runs; while it is
+        open the family's waves run on rank 0's card alone, on the same
+        kernels (``degraded="single-device"``, ``fallbacks_total``).
+      control_timeout: the mesh control group's timeout (default: the
+        mesh's); rank 0 sends an idle header every quarter of it.
+      on_mesh_wave: called on this rank with each mesh wave's whole-batch
+        results, in wave order (for checks that compare the ranks).
 
     The dispatch path is synchronous; ``submit`` only enqueues (into the
     request's group queue — the coalescer's wave identity promoted to queue
@@ -279,14 +302,16 @@ class SelectionServer:
         max_queue: int | None = None,
         retry_policy: RetryPolicy | None = None,
         breakers: BreakerBoard | None = None,
+        control_timeout=None,
+        on_mesh_wave=None,
     ):
-        if mesh is not None:
-            raise ValueError(
-                "SelectionServer(mesh=...) serves over a mesh, not ported to "
-                "repro_torch yet (ROADMAP queue 1, item 11b: the ranks' control "
-                "plane); solve(specs, mesh=mesh) runs the sharded engine"
-            )
-        self.mesh = None
+        # on a mesh: the control plane (a collective: every rank builds it)
+        self._plane = (None if mesh is None
+                       else MeshPlane(mesh, batch_axis, data_axis, timeout=control_timeout,
+                                      on_wave=on_mesh_wave))
+        self.mesh = mesh
+        self.b_multiple = 1 if mesh is None else self._plane.b_multiple
+        self.n_multiple = 1 if mesh is None else self._plane.n_multiple
         self.batch_axis = batch_axis
         self.data_axis = data_axis
         self.max_wave = max_wave
@@ -311,6 +336,54 @@ class SelectionServer:
         self.metrics = ServerMetrics()
         self.stats = ServerStats(self.metrics)
         self.breakers.bind(self.metrics.set_breaker)
+
+    # -- the mesh's ranks -----------------------------------------------------
+
+    @property
+    def is_follower(self) -> bool:
+        """True on a mesh rank other than 0: it runs :meth:`follow`."""
+        return self._plane is not None and not self._plane.leader
+
+    def _front_door(self, what: str, alive: bool = True) -> None:
+        """Raise unless this rank may take ``what``: rank 0 of a mesh server
+        (whose plane, with ``alive``, has not failed), or any server off a
+        mesh."""
+        if self._plane is None:
+            return
+        if not self._plane.leader:
+            raise FollowerError(
+                f"SelectionServer.{what} runs on rank 0, the mesh server's front door; "
+                f"rank {self._plane.rank} follows it: call server.follow()"
+            )
+        if alive:
+            self._plane.check_alive()
+
+    def follow(self):
+        """Run the mesh waves rank 0 sends until its :meth:`close` (a
+        follower's whole job); returns the payload of rank 0's stop.
+        Raises :class:`~repro_torch.launch.mesh_plane.MeshFailed` when the
+        mesh fails, and ``FollowerError`` on rank 0."""
+        if self._plane is None:
+            raise FollowerError("follow() is for a mesh server's ranks other than 0")
+        return self._plane.follow()
+
+    def close(self, payload=None) -> None:
+        """Rank 0 of a mesh server: stop the followers (their ``follow()``
+        returns ``payload``).  Idempotent; nothing to do off a mesh or on a
+        follower."""
+        if self._plane is not None:
+            self._plane.close(payload)
+
+    @property
+    def mesh_stats(self) -> dict:
+        """The control plane's counters on this rank: mesh waves run, the
+        member-tensor bytes and broadcast seconds of rank 0's plans, and its
+        latest plans (bytes, broadcast and wave seconds each)."""
+        p = self._plane
+        if p is None:
+            return {}
+        return {"rank": p.rank, "waves": p.waves, "plan_bytes": p.plan_bytes,
+                "broadcast_s": p.broadcast_s, "plans": list(p.plans)}
 
     # -- request ingest ------------------------------------------------------
 
@@ -344,6 +417,7 @@ class SelectionServer:
             raise TypeError(
                 f"submit_spec() takes a SelectionSpec, got {type(spec).__name__!r}"
             )
+        self._front_door("submit")
         coalesce.resolve_padder(type(spec.fn))  # raises NotImplementedError if unsupported
         defn = resolve_optimizer(spec.optimizer.name)
         if not defn.batched_capable:
@@ -362,10 +436,10 @@ class SelectionServer:
             rid = self._next_rid
             self._next_rid += 1
         req = SelectionRequest(rid=rid, spec=spec)
-        key = group_key(req)
+        key = group_key(req, n_multiple=self.n_multiple)
         queue = self._queues.setdefault(key, [])
         queue.append(req)
-        self.metrics.observe_enqueue(group_label(req), len(queue))
+        self.metrics.observe_enqueue(group_label(req, n_multiple=self.n_multiple), len(queue))
         return rid
 
     def submit(
@@ -421,6 +495,7 @@ class SelectionServer:
         :func:`~repro_torch.launch.sessions.restore_sessions`."""
         from repro_torch.launch.sessions import SelectionSession
 
+        self._front_door("open_session")
         return SelectionSession(self, spec, sid=sid, journal=journal)
 
     def cancel(self, rid) -> bool:
@@ -458,17 +533,27 @@ class SelectionServer:
 
     # -- dispatch ------------------------------------------------------------
 
+    def _waves(self, requests, max_wave: int) -> list[Wave]:
+        return waves_for_group(requests, max_wave=max_wave, n_multiple=self.n_multiple,
+                               b_multiple=self.b_multiple)
+
     def _dispatch(self, wave: Wave) -> dict:
         fam = type(wave.requests[0].spec.fn).__name__
         widx = self._dispatch_seq
         self._dispatch_seq += 1
-        # bookkeeping probe: the wave's backend, for the breaker and fault
+        # bookkeeping probe: the wave's backend, for the breakers and fault
         # addressing — suspended so it never consumes fault budget
         with faults.suspended():
             name = backend_name(wave.fns[0])
         key = None if name == "torch" else (fam, "kernel")
         if key is not None and not self.breakers.allow(key):
             raise BreakerOpen(key)
+        on_mesh = self._plane is not None
+        degraded = None
+        if on_mesh and not self.breakers.allow((fam, "mesh")):
+            # open mesh breaker: rank 0's card alone, the same kernels
+            on_mesh, degraded = False, "single-device"
+            self.metrics.inc("fallbacks_total")
         t0 = coalesce.clock()
         try:
             faults.check(
@@ -476,7 +561,7 @@ class SelectionServer:
                 family=fam,
                 backend=name,
                 wave_index=widx,
-                mesh=False,
+                mesh=on_mesh,
                 rids=tuple(r.rid for r in wave.requests),
                 label=wave.label,
             )
@@ -484,25 +569,37 @@ class SelectionServer:
             # (resolve_backend), crossed once per dispatch as in the JAX
             # package, whose engine resolves backends once, at trace time
             backend_name(wave.fns[0])
-            with faults.suspended():
-                engine = BatchedEngine(wave.fns, valid=wave.valid)
-                results = engine.run(
-                    wave.budgets,
-                    wave.optimizer,
-                    stop_if_zero=wave.stop_if_zero,
-                    stop_if_negative=wave.stop_if_negative,
-                    max_budget=wave.max_budget,
-                )
+            if on_mesh:
+                self._plane.check(wave)  # refusals, before any plan goes out
+                results = self._plane.run_wave(wave, widx)
+            else:
+                with faults.suspended():
+                    engine = BatchedEngine(wave.fns, valid=wave.valid)
+                    results = engine.run(
+                        wave.budgets,
+                        wave.optimizer,
+                        stop_if_zero=wave.stop_if_zero,
+                        stop_if_negative=wave.stop_if_negative,
+                        max_budget=wave.max_budget,
+                    )
+        except MeshFailed:
+            raise  # fatal: the plane refuses every later call
         except Exception as e:
             # only kernel faults charge the kernel breaker: not bad input,
-            # not a dispatch fault, not running out of memory
+            # not a dispatch fault, not running out of memory; on the mesh
+            # every other failure (all of them before the plan) charges the
+            # mesh breaker
             if key is not None and (
                 isinstance(e, KernelError) or getattr(e, "site", None) == "kernel"
             ):
                 self.breakers.record_failure(key)
+            elif on_mesh:
+                self.breakers.record_failure((fam, "mesh"))
             raise
         if key is not None:
             self.breakers.record_success(key)
+        if on_mesh:
+            self.breakers.record_success((fam, "mesh"))
         t1 = coalesce.clock()
         wave_s = t1 - t0
         label = wave.label
@@ -510,8 +607,8 @@ class SelectionServer:
             label,
             wave_s,
             requests=len(wave.requests),
-            slots=len(wave.fns),
-            padded_slots=0,
+            slots=wave.batch_size,
+            padded_slots=wave.n_padded_slots,
         )
         by_rid = wave.demux(results)
         out = {}
@@ -530,6 +627,7 @@ class SelectionServer:
                 queue_s=queue_s,
                 wave_s=wave_s,
                 deadline_missed=missed,
+                degraded=degraded,
             )
         return out
 
@@ -550,6 +648,7 @@ class SelectionServer:
         queue entry is removed, so a wave-build error leaves the server
         state fully intact (nothing half-drained).
         """
+        self._front_door("drain", alive=False)
         if keys is None:
             keys = list(self._queues)
         waves: list[Wave] = []
@@ -557,7 +656,7 @@ class SelectionServer:
             requests = self._queues.get(key)
             if not requests:
                 continue
-            waves.extend(waves_for_group(requests, max_wave=self.max_wave))
+            waves.extend(self._waves(requests, self.max_wave))
         for key in keys:
             self._queues.pop(key, None)
         undelivered: dict = {}
@@ -572,12 +671,17 @@ class SelectionServer:
         lock guarding them.  On an engine error it raises
         :class:`FlushError` carrying the exact work partition (completed
         responses / failed wave / undispatched waves); the caller decides
-        how to re-hold and re-enqueue.
+        how to re-hold and re-enqueue.  A mesh failure
+        (:class:`~repro_torch.launch.mesh_plane.MeshFailed`) is fatal and
+        raises as it is.
         """
+        self._front_door("dispatch_waves")
         responses: dict = {}
         for i, wave in enumerate(waves):
             try:
                 responses.update(self._dispatch(wave))
+            except MeshFailed:
+                raise
             except Exception as e:
                 self.metrics.inc("flush_errors")
                 undispatched = [r for w in waves[i + 1 :] for r in w.requests]
@@ -598,7 +702,7 @@ class SelectionServer:
         group queues, original arrival stamps intact (so queue-time
         accounting spans the failure, truthfully)."""
         for req in reversed(list(requests)):
-            key = group_key(req)
+            key = group_key(req, n_multiple=self.n_multiple)
             self._queues.setdefault(key, []).insert(0, req)
         if requests:
             self.metrics.inc("requeued", len(requests))
@@ -663,7 +767,7 @@ class SelectionServer:
         returned."""
         while True:
             try:
-                return waves_for_group([req], max_wave=1)[0]
+                return self._waves([req], 1)[0]
             except Exception as e:
                 self.metrics.inc("flush_errors")
                 term = self._note_attempt(req, e)
@@ -690,8 +794,10 @@ class SelectionServer:
         (they succeed alone on the next attempt).  Backoff between attempts
         follows each request's policy with jitter seeded by its rid, so
         reruns back off identically.  Like :meth:`dispatch_waves` this
-        touches no queues and is safe outside any queue lock.
+        touches no queues and is safe outside any queue lock.  A mesh
+        failure is fatal, not retried: it raises as it is.
         """
+        self._front_door("dispatch_resilient")
         responses: dict = {}
         failures: dict = {}
         pending: list[Wave] = list(waves)
@@ -699,6 +805,8 @@ class SelectionServer:
             wave = pending.pop(0)
             try:
                 out = self._dispatch(wave)
+            except MeshFailed:
+                raise
             except Exception as e:
                 self.metrics.inc("flush_errors")
                 retryable = []
@@ -753,6 +861,7 @@ class SelectionServer:
         (this method never sleeps — the async front end calls it under its
         lock).
         """
+        self._front_door("drain_resilient", alive=False)
         if keys is None:
             keys = list(self._queues)
         waves: list[Wave] = []
@@ -776,7 +885,7 @@ class SelectionServer:
                 self._queues.pop(key, None)
                 continue
             try:
-                group_waves = waves_for_group(live, max_wave=self.max_wave)
+                group_waves = self._waves(live, self.max_wave)
             except Exception as e:
                 self.metrics.inc("flush_errors")
                 keep = []
@@ -869,6 +978,7 @@ class SelectionServer:
         failures via :meth:`take_failures` — :class:`FlushError` is never
         raised.
         """
+        self._front_door("flush")
         if self._resilience_active():
             return self._flush_resilient()
         waves, responses = self.drain()
@@ -1000,15 +1110,42 @@ def _random_requests(
     return reqs
 
 
+def _join_mesh(a):
+    """``--mesh BxD``: join the world (``--dist-init``; torchrun's
+    environment by default) and build the ("batch", "data") mesh on this
+    rank's device.  Returns (mesh, device)."""
+    import os
+
+    import torch.distributed as dist
+
+    from repro_torch.common import resolve_device
+    from repro_torch.core.optimizers.distributed import _info, make_mesh
+
+    b, d = (int(v) for v in a.mesh.lower().split("x"))
+    on_cpu = resolve_device(a.device).type == "cpu"
+    backend = "gloo" if on_cpu else "nccl"
+    rank = a.rank if a.rank is not None else int(os.environ.get("RANK", -1))
+    world = a.world_size if a.world_size is not None else int(os.environ.get("WORLD_SIZE", -1))
+    dist.init_process_group(backend, init_method=a.dist_init, rank=rank, world_size=world)
+    mesh = make_mesh((b, d), ("batch", "data"), device="cpu" if on_cpu else None)
+    return mesh, _info(mesh).device
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--requests", type=int, default=32)
     ap.add_argument(
         "--mesh",
         default=None,
-        help="BATCHxDATA device grid of the sharded engine (serving on a mesh "
-        "is not ported yet: ROADMAP queue 1, item 11b)",
+        help="BATCHxDATA mesh to serve on, e.g. 2x2: every rank runs this "
+        "command (torchrun --nproc-per-node B*D); rank 0 makes the requests "
+        "and reports, the others follow (default: one device)",
     )
+    ap.add_argument("--dist-init", default="env://",
+                    help="--mesh: init_method of the world (e.g. file:///tmp/store)")
+    ap.add_argument("--rank", type=int, default=None, help="--mesh: this rank (default $RANK)")
+    ap.add_argument("--world-size", type=int, default=None,
+                    help="--mesh: the world's size (default $WORLD_SIZE)")
     ap.add_argument("--max-wave", type=int, default=64)
     ap.add_argument(
         "--max-queue",
@@ -1034,13 +1171,38 @@ def main(argv=None):
 
     from repro_torch.common import resolve_device
 
-    device = resolve_device(a.device)
-    server = SelectionServer(mesh=a.mesh, max_wave=a.max_wave, max_queue=a.max_queue)
+    if a.mesh is None:
+        _serve(a, SelectionServer(max_wave=a.max_wave, max_queue=a.max_queue),
+               resolve_device(a.device))
+        return
+    import torch.distributed as dist
+
+    mesh, device = _join_mesh(a)
+    try:
+        server = SelectionServer(mesh=mesh, max_wave=a.max_wave, max_queue=a.max_queue)
+        if server.is_follower:
+            server.follow()
+        else:
+            try:
+                _serve(a, server, device)
+            finally:
+                server.close()
+    finally:
+        dist.destroy_process_group()
+
+
+def _serve(a, server: SelectionServer, device) -> None:
+    """Rank 0's (or the single device's) rounds of the CLI workload."""
     families = tuple(a.families.split(","))
     requests = _random_requests(a.requests, seed=a.seed, families=families, device=device)
     # same family indexing as _random_requests: dispersion requests ride with
     # stopping disabled, otherwise their selections are silently empty
     kinds = [families[i % len(families)] for i in range(len(requests))]
+    # GraphCut / Disparity* run on a mesh in their memoized form only
+    # (their stateless kernels sum in another order than the shard rules)
+    memo = ("gc", "dsum", "dmin") if server.mesh is not None else ()
+    requests = [(dataclasses.replace(fn, use_kernel=False) if kind in memo else fn, budget)
+                for (fn, budget), kind in zip(requests, kinds)]
 
     for rnd in range(a.rounds):
         t0 = time.perf_counter()
@@ -1063,6 +1225,8 @@ def main(argv=None):
 
     s = server.stats.summary()
     print(f"\nserver stats: {s}")
+    if server.mesh is not None:
+        print(f"mesh: { {k: v for k, v in server.mesh_stats.items() if k != 'plans'} }")
     r0 = responses[0]
     print(
         f"sample response: rid={r0.rid} wave={r0.wave_size} "

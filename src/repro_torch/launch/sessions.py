@@ -19,7 +19,9 @@ everyone else's requests, ride padded waves, and obey backpressure and
 deadlines exactly like one-shot requests.  Because the k-th update *is*
 ``solve()`` over the concatenated stream, a session fed N deltas returns a
 final selection bit-identical (ids, gains, n_evals) to one direct
-``solve()`` over the same data — there is no incremental state to drift.
+``solve()`` over the same data, on or off a mesh (a mesh server's session
+lives on rank 0 and its deltas ride the mesh waves) — there is no
+incremental state to drift.
 
 Two delta modes, fixed by the first ``extend``:
 

@@ -15,12 +15,20 @@ A job is a dict:
   each beside the port's sequential ``solve`` of its members (on this rank);
   a case that raises on every rank records the exception instead;
 - ``partition``: the partition greedies on one mesh;
-- ``die_rank``: that rank exits before its first collective.
+- ``serving``: a mesh server (``launch/serve.py``) on one mesh: rank 0
+  serves rounds of requests (sync, LazyGreedy, after an idle spell past the
+  control group's timeout, async, a session) and ``solve(mode="served" |
+  "async", mesh=)`` on every rank, the other ranks follow;
+- ``selection``: ``SubmodularSelector.selection_step`` on one mesh;
+- ``die_rank``: that rank exits before its first collective;
+- ``serve_dies``: after the cases, a second mesh server whose follower
+  ``rank`` exits; every other rank records how it ended (``dies{r}.pt``).
 
 Children import the port alone (no JAX, no JAX package):
 tests/test_torch_isolation.py walks this file with the port.
 """
 import datetime
+import hashlib
 import os
 import subprocess
 import sys
@@ -128,6 +136,134 @@ def partition(job: dict, mesh) -> dict:
     return {k: (o.numpy(), g.numpy()) for k, (o, g) in out.items()}
 
 
+def _spec(req: dict):
+    from repro_torch.core import SelectionSpec
+
+    z, ng = req.get("stops", (True, True))
+    return SelectionSpec(req["fn"], req["budget"], req.get("optimizer", "NaiveGreedy"),
+                         stopIfZeroGain=z, stopIfNegativeGain=ng, **req.get("params", {}))
+
+
+def _response(resp) -> dict:
+    return {"result": _as_numpy(resp.result), "degraded": resp.degraded,
+            "n_bucket": resp.n_bucket, "wave_size": resp.wave_size}
+
+
+def _raises(call) -> tuple | None:
+    try:
+        call()
+    except Exception as e:  # the type and message are the test's to check
+        return type(e).__name__, str(e)
+    return None
+
+
+def serving(sj: dict, mesh) -> dict:
+    """The serving job: rank 0's rounds and sequential solves, every rank's
+    control-plane counters and solve(mode=..., mesh=) results."""
+    from repro_torch.core import FeatureBased, SelectionSpec, solve
+    from repro_torch.launch.async_serve import AsyncSelectionServer
+    from repro_torch.launch.resilience import BreakerBoard, RetryPolicy
+    from repro_torch.launch.serve import SelectionServer
+
+    specs = {name: [_spec(r) for r in reqs] for name, reqs in sj["rounds"].items()}
+    h = hashlib.sha256()
+
+    def digest(results):  # each mesh wave's whole batch, in wave order, on every rank
+        for r in results:
+            for t in (r.order, r.gains, r.n_evals, r.value):
+                h.update(t.cpu().numpy().tobytes())
+
+    server = SelectionServer(
+        mesh=mesh, control_timeout=datetime.timedelta(seconds=sj["control_timeout_s"]),
+        retry_policy=RetryPolicy(max_attempts=3, backoff_s=0.0, jitter=0.0),
+        breakers=BreakerBoard(threshold=1), on_mesh_wave=digest)
+    out = {}
+    if server.is_follower:
+        out["follower_submit"] = _raises(lambda: server.submit(specs["mixed"][0]))
+        out["follower_flush"] = _raises(server.flush)
+        front = AsyncSelectionServer(server)  # starts no flush thread on a follower
+        out["follower_async_submit"] = _raises(lambda: front.submit(specs["mixed"][0]))
+        front.close()
+        out["followed"] = server.follow()
+    else:
+        try:
+            rounds = {name: [_response(r) for r in server.select(specs[name])]
+                      for name in ("mixed", "lazy")}
+            time.sleep(sj["idle_s"])  # idle past the control group's timeout
+            rounds["after_idle"] = [_response(r) for r in server.select(specs["after_idle"])]
+            with AsyncSelectionServer(server, max_pending=sj["max_pending"],
+                                      flush_interval=0.05) as front:
+                futures = [front.submit(s) for s in specs["async"]]
+                rounds["async"] = [_response(f.result(timeout=60)) for f in futures]
+            f0, deltas, budget = sj["session"]
+            session = server.open_session(
+                SelectionSpec(FeatureBased.from_features(f0, concave="sqrt", device="cpu"),
+                              budget))
+            rounds["session"] = [_as_numpy(session.extend(features=x).result) for x in deltas]
+            out["rounds"] = rounds
+            out["sequential"] = {name: [_as_numpy(solve(s)) for s in specs[name]]
+                                 for name in specs}
+            out["stats"] = server.stats.summary()
+        finally:
+            server.close()
+    out["mesh"], out["digest"] = server.mesh_stats, h.hexdigest()
+    # the solve() routes: every rank makes the same call, each gets rank 0's results
+    out["solve"] = {mode: [_as_numpy(r) for r in solve(specs["solve"], mode=mode, mesh=mesh)]
+                    for mode in ("served", "async")}
+    return out
+
+
+def selection(sj: dict, mesh) -> dict:
+    """``selection_step`` on every rank, as numpy (order, gains): on the
+    selector's own kernel, and (``S``) on the kernel the job hands it."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.selection import SelectorConfig, SubmodularSelector
+
+    sel = SubmodularSelector(get_config(sj["arch"]), SelectorConfig(**sj["config"]),
+                             device="cpu")
+
+    def step():
+        order, gains = sel.selection_step(torch.tensor(sj["pool"]), mesh, sj["budget"])
+        return order.numpy(), gains.numpy()
+
+    out = {"own": step()}
+    if "S" in sj:
+        sel._kernel = lambda x, y=None: torch.tensor(sj["S"])
+        out["given"] = step()
+    return out
+
+
+def serve_dies(dj: dict, rank: int, d: Path) -> None:
+    """A mesh server on a mesh of its own (short timeouts) whose follower
+    ``dj["rank"]`` exits: rank 0's wave and every other follower must end
+    typed (MeshFailed) within the timeouts."""
+    from repro_torch.core import make_mesh
+    from repro_torch.launch.mesh_plane import MeshFailed
+    from repro_torch.launch.serve import SelectionServer
+
+    timeout = datetime.timedelta(seconds=dj["timeout_s"])
+    mesh = make_mesh((2, 2), ("batch", "data"), device="cpu", timeout=timeout)
+    server = SelectionServer(mesh=mesh, control_timeout=timeout)
+    if rank == dj["rank"]:
+        os._exit(3)
+    t0 = time.monotonic()
+    out = {}
+    try:
+        if server.is_follower:
+            server.follow()
+            out["outcome"] = "returned"
+        else:
+            spec = _spec(dj["request"])
+            server.select([spec])
+            out["outcome"] = "served"
+    except MeshFailed as e:
+        out["outcome"], out["error"] = "MeshFailed", str(e)
+    out["seconds"] = time.monotonic() - t0
+    if not server.is_follower:
+        out["later"] = _raises(lambda: server.submit(_spec(dj["request"])))
+    torch.save(out, d / f"dies{rank}.pt")
+
+
 def _run(d: Path, rank: int, world: int) -> None:
     import torch.distributed as dist
 
@@ -148,7 +284,13 @@ def _run(d: Path, rank: int, world: int) -> None:
                for name, case in job.get("waves", {}).items()}
         if "partition" in job:
             out["partition"] = partition(job["partition"], meshes[job["partition"]["mesh"]])
+        if "serving" in job:
+            out["serving"] = serving(job["serving"], meshes[job["serving"]["mesh"]])
+        if "selection" in job:
+            out["selection"] = selection(job["selection"], meshes[job["selection"]["mesh"]])
         torch.save(out, d / f"result{rank}.pt")
+        if "serve_dies" in job:
+            serve_dies(job["serve_dies"], rank, d)
     finally:
         dist.destroy_process_group()
 

@@ -415,7 +415,7 @@ def test_solve_mode_validation():
     seq = solve(spec)
     for mode, server in (("served", None), ("async", None), ("served", SelectionServer())):
         _same(solve([spec], mode=mode, server=server)[0], seq, mode)
-    with pytest.raises(ValueError, match="item 11b"):  # serving on a mesh
+    with pytest.raises(TypeError, match="make_mesh"):  # serving on a mesh
         solve([spec], mode="served", mesh=object())
     with pytest.raises(TypeError, match="SelectionSpec"):
         solve([spec, "nope"])

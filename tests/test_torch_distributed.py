@@ -418,11 +418,12 @@ def test_mesh_rejections(cases, world1):
         BatchedEngine(fns, mesh=mesh, valid=np.ones((4, N + 1), bool))
     with pytest.raises(ValueError, match='needs a 2-D mesh'):
         solve([SelectionSpec(fns[0], 3)], mode="sharded")
-    # serving on a mesh waits for its control plane
-    with pytest.raises(ValueError, match="item 11b"):
-        solve([SelectionSpec(fns[0], 3)], mode="served", mesh=mesh)
-    with pytest.raises(ValueError, match="item 11b"):
-        solve([SelectionSpec(fns[0], 3)], mode="async", mesh=mesh)
+    # serving on a mesh (tests/test_torch_mesh_serving.py): a missing axis
+    # is refused as the sharded route refuses it
+    with pytest.raises(ValueError, match="no axis"):
+        solve([SelectionSpec(fns[0], 3)], mode="served", mesh=mesh, data_axis="model")
+    with pytest.raises(ValueError, match="no axis"):
+        solve([SelectionSpec(fns[0], 3)], mode="async", mesh=mesh, batch_axis="x")
     with pytest.raises(ValueError, match="holds 4 ranks"):
         make_mesh((2, 2), ("batch", "data"), device=CPU)
 

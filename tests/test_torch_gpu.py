@@ -1288,3 +1288,114 @@ def test_nccl_world_of_one_fl_wave_equals_sequential_on_the_card(cuda, tmp_path)
                 _bits(r, q, f"{opt} budget {s.budget}")
     finally:
         dist.destroy_process_group()
+
+
+def _nccl_world_of_one(tmp_path):
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.core import make_mesh
+
+    timeout = datetime.timedelta(seconds=120)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'store'}", rank=0,
+                            world_size=1, timeout=timeout)
+    return make_mesh((1, 1), ("batch", "data"), timeout=timeout)
+
+
+def test_nccl_mesh_server_waves_equal_sequential_on_the_card(cuda, tmp_path):
+    """A world of 1 on NCCL: a mesh SelectionServer over FL, FB, SC and PSC
+    requests at the kernel gate, NaiveGreedy and LazyGreedy; every answer
+    bit-equal to its sequential solve, served on the mesh (no fallback),
+    through the kernels."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.serve import SelectionServer
+
+    mesh = _nccl_world_of_one(tmp_path)
+    try:
+        gen = torch.Generator(device="cuda").manual_seed(12)
+        n = KERNEL_MIN_N
+        fns = [
+            FacilityLocation.from_kernel(torch.rand((n, n), generator=gen, device="cuda"),
+                                         use_kernel=None),
+            FeatureBased.from_features(torch.rand((n, 64), generator=gen, device="cuda"),
+                                       use_kernel=None),
+            SetCover.from_cover((torch.rand((n, 64), generator=gen, device="cuda") < 0.1)
+                                .float(), use_kernel=None),
+            ProbabilisticSetCover.from_probs(
+                0.5 * torch.rand((n, 64), generator=gen, device="cuda"), use_kernel=None),
+        ]
+        specs = [SelectionSpec(f, b, opt) for f in fns
+                 for b, opt in ((20, "NaiveGreedy"), (12, "LazyGreedy"))]
+        seq = [solve(s) for s in specs]
+        server = SelectionServer(mesh=mesh)
+        ops.reset_launches()
+        got = server.select(specs)
+        torch.cuda.synchronize()
+        for name in ("fl_gains", "fl_gains_at", "fb_gains", "sc_gains", "psc_gains"):
+            assert ops.LAUNCHES[name] > 0, name
+        for s, r, q in zip(specs, got, seq):
+            _bits(r.result, q, f"{type(s.fn).__name__} {s.optimizer.name}")
+            assert r.degraded is None and r.backend != "torch"
+        assert server.stats.summary()["fallbacks_total"] == 0
+        assert server.mesh_stats["waves"] == server.stats.waves
+        server.close()
+    finally:
+        dist.destroy_process_group()
+
+
+def test_nccl_mesh_server_refuses_a_kernel_graph_cut(cuda, tmp_path):
+    """A use_kernel=None GraphCut at n >= KERNEL_MIN_N resolves to its
+    stateless kernel on the card, which the mesh refuses as the JAX package
+    does: the wave fails typed before any plan and charges the mesh
+    breaker; no answer is served."""
+    import torch.distributed as dist
+
+    from repro_torch.core import GraphCut
+    from repro_torch.launch.serve import FlushError, SelectionServer
+
+    mesh = _nccl_world_of_one(tmp_path)
+    try:
+        gen = torch.Generator(device="cuda").manual_seed(13)
+        S = torch.rand((KERNEL_MIN_N, KERNEL_MIN_N), generator=gen, device="cuda")
+        fn = GraphCut.from_kernel(S, lam=0.3, use_kernel=None)
+        assert backend_name(fn) != "torch"
+        server = SelectionServer(mesh=mesh)
+        rid = server.submit(SelectionSpec(fn, 10))
+        with pytest.raises(FlushError, match="use_kernel") as ei:
+            server.flush()
+        assert isinstance(ei.value.__cause__, ValueError)
+        assert ei.value.failed_rids == [rid]
+        assert server.breakers.get(("GraphCut", "mesh"))._failures == 1
+        assert server.mesh_stats["waves"] == 0
+        server.close()
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("opt", ["NaiveGreedy", "LazyGreedy"])
+def test_fl_kernel_padded_to_the_data_axis_is_bit_exact_on_the_card(cuda, opt):
+    """An FL request of odd n at the kernel gate, padded with a zero column
+    to a data axis of 2 as a mesh server pads it: its wave member, on the
+    CUDA FL kernels, equals its unpadded sequential solve bit for bit."""
+    from repro_torch.core import BatchedEngine
+    from repro_torch.launch.coalesce import bucket_for, pad_function
+
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    n = KERNEL_MIN_N + 1
+    fn = FacilityLocation.from_kernel(torch.rand((n, n), generator=gen, device="cuda"),
+                                      use_kernel=True)
+    spec = SelectionSpec(fn, 40, opt)
+    want = solve(spec)
+    padded = pad_function(fn, bucket_for(fn, 2), n_multiple=2)
+    assert padded.n == n + 1 and backend_name(padded) != "torch"
+    valid = np.zeros((2, n + 1), bool)
+    valid[:, :n] = True
+    ops.reset_launches()
+    got = BatchedEngine([padded, padded], valid=valid).run(
+        [40, 0], spec.optimizer, stop_if_zero=spec.stop_if_zero,
+        stop_if_negative=spec.stop_if_negative)[0]
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["fl_gains" if opt == "NaiveGreedy" else "fl_gains_at"] > 0
+    _bits(got, want, f"FL n {n} padded to {n + 1}, {opt}")

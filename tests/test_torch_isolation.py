@@ -36,6 +36,10 @@ def _imported_roots(tree):
 def test_port_and_smoke_import_no_jax_and_no_repro():
     files = _port_files()
     assert len(files) > 10
+    # the mesh control plane and the training pipeline's modules are walked
+    for part in ("launch/mesh_plane.py", "configs/base.py", "configs/archs.py",
+                 "data/selection.py", "distributed/sharding.py"):
+        assert PORT / part in files, part
     bad = [
         f"{path.relative_to(ROOT)}:{line} imports {root}"
         for path in files
@@ -64,6 +68,8 @@ def test_importing_the_port_loads_no_jax_and_builds_nothing():
         "import repro_torch.launch.serve, repro_torch.launch.async_serve\n"
         "import repro_torch.launch.sessions, repro_torch.ckpt.checkpoint\n"
         "import repro_torch.core.optimizers.distributed\n"
+        "import repro_torch.launch.mesh_plane, repro_torch.configs.archs\n"
+        "import repro_torch.data.selection, repro_torch.distributed.sharding\n"
         "from repro_torch.kernels import _build, ops\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"

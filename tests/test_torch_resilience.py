@@ -1,8 +1,8 @@
 """The port's fault injection, retries, breakers and crash-safe sessions
 (``repro_torch.launch.faults`` / ``resilience`` / ``sessions``) on the CPU.
 
-Mirrors tests/test_resilience.py without its mesh cells (ROADMAP queue 1,
-item 11b):
+Mirrors tests/test_resilience.py; its mesh cells are in
+tests/test_torch_mesh_serving.py:
 
 - every submitted rid resolves to EXACTLY ONE response or one typed
   ``RequestFailed`` under every fault class, and recovered answers equal

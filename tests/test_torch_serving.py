@@ -9,8 +9,8 @@ arrays (ids and ``n_evals`` equal, gains within the family's bar).
 
 Mirrors the single-device tests of tests/test_serving.py (coalescing, the
 server, per-group queues, failure discipline, backpressure, latency and
-stats); the mesh cases wait for serving on a mesh (ROADMAP queue 1, item
-11b).  Times are driven by replacing ``coalesce.clock``, not by sleeping.
+stats); its mesh cases are in tests/test_torch_mesh_serving.py.  Times are
+driven by replacing ``coalesce.clock``, not by sleeping.
 """
 import warnings
 
@@ -187,7 +187,9 @@ def test_server_rejects_unknown_family_with_clear_error():
 
 
 def test_server_mesh_raises_naming_item_11():
-    with pytest.raises(ValueError, match="item 11b"):
+    """Serving on a mesh is ported (tests/test_torch_mesh_serving.py): a mesh
+    not built by distributed.make_mesh is refused, naming it."""
+    with pytest.raises(TypeError, match="make_mesh"):
         SelectionServer(mesh=object())
 
 
@@ -551,13 +553,21 @@ def test_solve_served_and_async_routes_equal_sequential():
     assert server.stats.requests == len(specs)
 
 
-def test_serve_cli_runs_on_cpu(capsys):
+def test_serve_cli_runs_on_cpu(capsys, tmp_path):
+    """The CLI on one device, and on a (1, 1) mesh in a world of 1 joined
+    through a file store (rank 0 serves; the world is torn down after)."""
+    import torch.distributed as dist
+
     main(["--device", "cpu", "--requests", "6", "--rounds", "2",
           "--families", "fl,gc,fb,sc,psc,dsum,dmin,flqmi,gcmi,logdet", "--metrics"])
     out = capsys.readouterr().out
     assert "round 1: 6 requests" in out and "server stats" in out and '"counters"' in out
-    with pytest.raises(ValueError, match="item 11b"):
-        main(["--device", "cpu", "--requests", "2", "--mesh", "2x2"])
+    main(["--device", "cpu", "--requests", "4", "--rounds", "1", "--mesh", "1x1",
+          "--dist-init", f"file://{tmp_path / 'store'}", "--rank", "0", "--world-size", "1",
+          "--families", "fl,gc,fb,dsum"])
+    out = capsys.readouterr().out
+    assert "round 0: 4 requests" in out and "mesh: {'rank': 0" in out
+    assert not dist.is_initialized()
 
 
 def test_served_results_lie_on_the_host():
