@@ -6,7 +6,7 @@ that path against its plain PyTorch version.
     python3 chip_smoke.py --n 8192 --naive-budget 50 --lazy-budget 200 \
         --mf-n 65536 --mf-lazy-budget 200 --reps 5   # a short check
 
-Ten paths run, each with its launch counts set to 0 just before it and
+Eleven paths run, each with its launch counts set to 0 just before it and
 read just after:
 
 - the main path, the paper's core loop: ``create_kernel`` (CUDA similarity
@@ -56,6 +56,11 @@ read just after:
   serves and the others follow its waves; then the training pipeline's
   selection stage (``SubmodularSelector`` on a qwen3-0.6b-wide pool and its
   ``selection_step`` on the mesh).
+- the training path: ``repro_torch.launch.train.run`` at qwen3-0.6b's full
+  width: a pool of examples embedded by the model being trained, a
+  FacilityLocation coreset picked by ``SubmodularSelector`` (the CUDA
+  similarity and FL-sweep kernels), AdamW steps on it, a checkpoint and a
+  resumed run.
 
 Phases, each of which raises on failure (the exit code is then non-zero):
   1 device   CUDA present; the card's name and power limit
@@ -194,6 +199,18 @@ Phases, each of which raises on failure (the exit code is then non-zero):
              LazyGreedy on the kernel route against the plain route, and
              selection_step against a single-device FL NaiveGreedy on its
              kernel
+  15 train   (y) launch.train.run at qwen3-0.6b's full width (28 layers, d
+             1,024, bf16), batch 16 x 256: a pool of 4,096 examples embedded,
+             a 1,024 coreset (FL LazyGreedy, euclidean kernel, at the kernel
+             gate), 24 AdamW steps and a checkpoint; the step-0 loss within
+             (0.2, 3.0) x log(vocab), every grad norm finite and positive;
+             the pool's S from similarity.cu within the euclidean bar of its
+             plain version and the coreset's ids the plain route's up to a
+             stated near-tie; a second run resumed from the checkpoint, its
+             losses finite; make_train_step on one fixed batch lowering the
+             loss by 0.5 in 12 steps, and its state saved and restored bit
+             for bit (bf16 params and moments, the step); walls, tokens/s and
+             peak memory beside the card's name and power limit
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Details go to chiprun_out/chip_smoke.json.
 Without a CUDA device, or without the repo's ``src/`` beside it, the script
@@ -4495,6 +4512,363 @@ def phase_mesh_served(torch, args) -> dict:
     return out
 
 
+TRAIN_ARCH = "qwen3-0.6b"  # phase 15: the reference's config, full width
+TRAIN_BATCH = 16
+TRAIN_SEQ = 256
+TRAIN_SELECT_EVERY = 64  # a coreset of 1,024 from a pool of 4,096 (KERNEL_MIN_N)
+TRAIN_POOL_FACTOR = 4
+TRAIN_STEPS = 24  # (y) the first run: one selection round, a checkpoint at its end
+TRAIN_RESUME_STEPS = 28  # the second run resumes at 24: a fresh round, 4 steps
+FIXED_STEPS = 12  # (y) make_train_step on one fixed batch
+FIXED_SCHEDULE = (1e-3, 2, 1000)  # cosine_schedule(base_lr, warmup, total)
+TRAIN_KERNELS = ("similarity", "fl_gains", "fl_gains_at")
+BF16_PEAK_FLOPS = 989e12  # H100 SXM dense bf16
+
+
+class _TrainProbe:
+    """Instruments ``repro_torch.launch.train`` from outside while ``run()``
+    runs: CUDA events around each ``embed_examples`` call, a synchronized
+    host clock around each selection, train step, checkpoint save and
+    restore (``run()`` reads each step's loss at once anyway); each round's
+    pool embeddings and chosen ids, the state a save wrote and the state a
+    restore gave are kept for the checks after the path's counts are read."""
+
+    NAMES = ("embed_examples", "SubmodularSelector", "make_train_step", "ckpt")
+
+    def __init__(self, torch, tr):
+        self.torch, self.tr = torch, tr
+        self.embed_events, self.selects, self.steps = [], [], []
+        self.saves, self.restores = [], []
+        self.saved = {}
+
+    def _timed(self, fn, *a, **kw):
+        self.torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn(*a, **kw)
+        self.torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    def __enter__(self):
+        import types
+
+        torch, tr, probe = self.torch, self.tr, self
+        self.saved = {k: getattr(tr, k) for k in self.NAMES}
+        embed, selector_cls, make_step, ckpt = (self.saved[k] for k in self.NAMES)
+
+        def embed_examples(cfg, params, batch):
+            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            out = embed(cfg, params, batch)
+            ev[1].record()
+            probe.embed_events.append(ev)
+            return out
+
+        class Selector(selector_cls):
+            def select(self, pool_emb, *a, **kw):
+                ids, wall = probe._timed(super().select, pool_emb, *a, **kw)
+                probe.selects.append({"wall_s": wall, "emb": pool_emb.clone(),
+                                      "ids": np.asarray(ids)})
+                return ids
+
+        def make_train_step(cfg, *a, **kw):
+            step = make_step(cfg, *a, **kw)
+
+            def timed(state, batch):
+                (state, metrics), wall = probe._timed(step, state, batch)
+                probe.steps.append({"wall_s": wall, "loss": float(metrics["loss"]),
+                                    "grad_norm": float(metrics["grad_norm"])})
+                return state, metrics
+
+            return timed
+
+        def save(ckpt_dir, step, tree, *a, **kw):
+            path, wall = probe._timed(ckpt.save, ckpt_dir, step, tree, *a, **kw)
+            probe.saves.append({"wall_s": wall, "step": step, "state": tree})
+            return path
+
+        def restore(ckpt_dir, like, *a, **kw):
+            (tree, meta), wall = probe._timed(ckpt.restore, ckpt_dir, like, *a, **kw)
+            probe.restores.append({"wall_s": wall, "step": meta["step"], "state": tree})
+            return tree, meta
+
+        tr.embed_examples, tr.SubmodularSelector = embed_examples, Selector
+        tr.make_train_step = make_train_step
+        tr.ckpt = types.SimpleNamespace(save=save, restore=restore,
+                                        latest_step=ckpt.latest_step)
+        return self
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            setattr(self.tr, k, v)
+
+    def embed_s(self) -> float:
+        self.torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.embed_events) / 1e3
+
+
+def _forward_flops(cfg, layer_weights: int, tokens: int, seq: int) -> dict:
+    """Matmul operations of one forward pass over ``tokens`` tokens: 2 per
+    layer weight, the attention products over every key position (4 seq hd
+    per head and token: the reference's dense attention masks, it does not
+    skip) and the head's 2 d V."""
+    attn = 4 * seq * cfg.n_heads * cfg.head_dim_ * cfg.n_layers * tokens
+    return {"layers": 2 * layer_weights * tokens + attn,
+            "head": 2 * cfg.d_model * cfg.vocab * tokens}
+
+
+def _train_run(torch, tr, label, **kw) -> dict:
+    from repro_torch.kernels import ops
+
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with _TrainProbe(torch, tr) as probe:
+        losses = tr.run(**kw)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launch_counts()
+    out = {"wall_s": wall, "losses": losses, "launches": launches, "steps": probe.steps,
+           "embed_s": probe.embed_s(), "embed_calls": len(probe.embed_events),
+           "select_s": [s["wall_s"] for s in probe.selects]}
+    if len(losses) != len(probe.steps) or not losses:
+        raise AssertionError(f"15 (y) {label}: {len(losses)} losses, {len(probe.steps)} steps")
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"15 (y) {label}: non-finite losses {losses}")
+    norms = [s["grad_norm"] for s in probe.steps]
+    if not all(np.isfinite(g) and g > 0 for g in norms):
+        raise AssertionError(f"15 (y) {label}: grad norms {norms}")
+    log(f"  15 (y) {label}: {len(losses)} steps in {wall:.3f} s; losses {losses[0]:.4f} .. "
+        f"{losses[-1]:.4f}; grad norms {min(norms):.4f} .. {max(norms):.4f}; launches "
+        f"{launches}")
+    return out, probe
+
+
+def _device_profile(torch, fn, top: int = 8) -> dict:
+    """One synchronized call of ``fn`` under ``torch.profiler``: its wall,
+    the device's busy time (the kernels' summed time; one stream), the idle
+    share, and the ops that launched the most device time.  Where the trace
+    holds no device time it says so ("not measured") rather than a share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    ops_ = [e for e in prof.key_averages() if e.device_type == DeviceType.CPU and dev_us(e) > 0]
+    busy = sum(dev_us(e) for e in ops_) / 1e3
+    out = {"wall_ms": wall * 1e3}
+    if busy <= 0:
+        out["device"] = "not measured: the trace holds no device time"
+        return out
+    ops_.sort(key=dev_us, reverse=True)
+    out.update(busy_ms=busy, idle_share=max(0.0, 1.0 - busy / (wall * 1e3)),
+               top=[{"op": e.key, "ms": dev_us(e) / 1e3, "calls": e.count} for e in ops_[:top]],
+               launches=sum(e.count for e in prof.key_averages()
+                            if e.device_type == DeviceType.CUDA))
+    return out
+
+
+def _log_profile(label: str, prof: dict) -> None:
+    if "busy_ms" not in prof:
+        log(f"  15 (y) {label}: {prof['wall_ms']:.1f} ms; {prof['device']}")
+        return
+    top = "; ".join(f"{t['op']} {t['ms']:.1f} ms x{t['calls']}" for t in prof["top"])
+    log(f"  15 (y) {label} under the profiler: wall {prof['wall_ms']:.1f} ms, device busy "
+        f"{prof['busy_ms']:.1f} ms (idle {100 * prof['idle_share']:.1f}%), "
+        f"{prof['launches']} kernels; by op: {top}")
+
+
+def _leaf_bits_equal(torch, a, b) -> bool:
+    if a.dtype != b.dtype or a.shape != b.shape or a.device != b.device:
+        return False
+    if a.dtype == torch.bfloat16:
+        a, b = a.view(torch.int16), b.view(torch.int16)
+    return bool(torch.equal(a, b))
+
+
+def phase_train(torch, args, device: dict) -> dict:
+    """Phase 15: (y) the training testbed's path at qwen3-0.6b's full width
+    through ``repro_torch.launch.train.run``: embed a pool of 4,096, pick a
+    1,024 coreset on the CUDA similarity and FL kernels, AdamW steps, a
+    checkpoint, and a resumed run whose restored state must be the saved one
+    bit for bit; then make_train_step on one fixed batch, profiled."""
+    import shutil
+    import statistics as st
+    import tempfile
+
+    import repro_torch.launch.train as tr
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import create_kernel
+    from repro_torch.data.pipeline import SyntheticTokens, embed_examples
+    from repro_torch.data.selection import SelectorConfig, SubmodularSelector
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.fl_gains import fl_gains_at_plain, fl_gains_plain
+    from repro_torch.kernels.similarity_kernel import similarity_plain
+    from repro_torch.train.optim import cosine_schedule
+    from repro_torch.train.train_step import init_train_state, make_train_step
+    from repro_torch.tree import tree_leaves
+
+    t_start = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    pool_n = TRAIN_BATCH * TRAIN_SELECT_EVERY * TRAIN_POOL_FACTOR
+    budget = TRAIN_BATCH * TRAIN_SELECT_EVERY
+    log(f"== phase 15: the training testbed, {TRAIN_ARCH} full width ({cfg.n_layers} layers, "
+        f"d {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, vocab {cfg.vocab}, "
+        f"{cfg.param_dtype}): batch {TRAIN_BATCH} x {TRAIN_SEQ}, pool {pool_n} -> coreset "
+        f"{budget}")
+    tmp = Path(tempfile.mkdtemp())
+    out = {"arch": TRAIN_ARCH, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "pool": pool_n,
+           "budget": budget}
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kw = dict(arch=TRAIN_ARCH, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                  select_every=TRAIN_SELECT_EVERY, pool_factor=TRAIN_POOL_FACTOR,
+                  ckpt_dir=str(tmp / "run"), ckpt_every=TRAIN_STEPS, reduced=False,
+                  seed=args.seed, log_every=4, device="cuda")
+        first, probe = _train_run(torch, tr, "run", steps=TRAIN_STEPS, **kw)
+        lo, hi = 0.2 * np.log(cfg.vocab), 3.0 * np.log(cfg.vocab)
+        if not lo < first["losses"][0] < hi:
+            raise AssertionError(f"15 (y) step-0 loss {first['losses'][0]} outside "
+                                 f"({lo:.3f}, {hi:.3f})")
+        log(f"  ok  15 (y) step-0 loss {first['losses'][0]:.4f} in (0.2, 3.0) x log(vocab) = "
+            f"({lo:.3f}, {hi:.3f})")
+        missing = [k for k in TRAIN_KERNELS if not first["launches"].get(k)]
+        if missing:
+            raise AssertionError(f"15 (y): kernels not launched on the training path: {missing}")
+        if [sv["step"] for sv in probe.saves] != [TRAIN_STEPS] or \
+                ckpt.latest_step(str(tmp / "run")) != TRAIN_STEPS:
+            raise AssertionError(f"15 (y): not one checkpoint, at step {TRAIN_STEPS}")
+        saved = probe.saves[0]
+        # the kernels against their plain versions on this path's inputs
+        emb, ids = probe.selects[0]["emb"], probe.selects[0]["ids"]
+        S = create_kernel(emb, metric="euclidean", use_pallas=True)
+        S_plain = similarity_plain(emb, emb, "euclidean")
+        err = check_close(f"15 (y) similarity.cu on the pool's embeddings ({pool_n} x "
+                          f"{cfg.d_model}, euclidean) vs plain", S, S_plain,
+                          *SIM_TOL["euclidean"])
+        sel = lambda kernels: SubmodularSelector(  # noqa: E731
+            cfg, SelectorConfig(budget=budget, use_pallas_kernel=kernels))
+        ref = sel(False).select(emb)
+        parting = _selector_parting(torch, f"15 (y) the coreset's {budget} ids, kernel route",
+                                    sel(True).build_function(emb),
+                                    sel(False).build_function(emb), ids, ref)
+        curmax = torch.zeros(pool_n, device="cuda")
+        idx = torch.as_tensor(ids[:8].astype(np.int64), device="cuda")
+        sim_ms = cuda_ms(torch, lambda: ops.similarity(emb, emb, "euclidean"), args.reps)
+        sim_plain_ms = cuda_ms(torch, lambda: similarity_plain(emb, emb, "euclidean"), args.reps)
+        fl_ms = cuda_ms(torch, lambda: ops.fl_gains(S, curmax), args.reps)
+        fl_plain_ms = cuda_ms(torch, lambda: fl_gains_plain(S, curmax), args.reps)
+        at_ms = cuda_ms(torch, lambda: ops.fl_gains_at(S, curmax, idx), args.reps)
+        at_plain_ms = cuda_ms(torch, lambda: fl_gains_at_plain(S, curmax, idx), args.reps)
+        n2 = pool_n * pool_n
+        out["kernels"] = {
+            "similarity": {"shape": f"({pool_n},{cfg.d_model}) both sides, euclidean",
+                           "ms": sim_ms, "plain_ms": sim_plain_ms, "max_abs_err": err,
+                           "bound_ms": bound(2.0 * n2 * cfg.d_model,
+                                             4.0 * (2 * pool_n * cfg.d_model + n2))[0]},
+            "fl_gains": {"shape": f"sim ({pool_n},{pool_n})", "ms": fl_ms,
+                         "plain_ms": fl_plain_ms,
+                         "bound_ms": bound(2.0 * n2, 4.0 * (n2 + 2 * pool_n))[0]},
+            "fl_gains_at": {"shape": f"sim ({pool_n},{pool_n}), idx (8,)", "ms": at_ms,
+                            "plain_ms": at_plain_ms,
+                            "bound_ms": bound(2.0 * 8 * pool_n,
+                                              4.0 * (8 * pool_n + pool_n + 8))[0]}}
+        log(f"  15 (y) kernel launches on the training path: {first['launches']}; on its "
+            f"shapes similarity {sim_ms:.4f} ms (plain {sim_plain_ms:.4f}), fl_gains "
+            f"{fl_ms:.4f} ms (plain {fl_plain_ms:.4f}), fl_gains_at k = 8 {at_ms:.4f} ms "
+            f"(plain {at_plain_ms:.4f})")
+        del S, S_plain, emb, curmax
+        # the resumed run: the saved state restored, a fresh selection round
+        second, probe = _train_run(torch, tr, "resumed run", steps=TRAIN_RESUME_STEPS, **kw)
+        if len(second["losses"]) != TRAIN_RESUME_STEPS - TRAIN_STEPS:
+            raise AssertionError(f"15 (y) the resumed run ran {len(second['losses'])} steps")
+        (restored,) = probe.restores
+        leaves, back = tree_leaves(saved["state"]), tree_leaves(restored["state"])
+        if restored["step"] != TRAIN_STEPS or len(leaves) != len(back) or not all(
+                _leaf_bits_equal(torch, a, b) for a, b in zip(leaves, back)):
+            raise AssertionError("15 (y) the restored state is not the saved one bit for bit")
+        ckpt_bytes = sum(p.numel() * p.element_size() for p in leaves)
+        dtypes = sorted({str(p.dtype).replace("torch.", "") for p in leaves})
+        save_s, restore_s = saved["wall_s"], restored["wall_s"]
+        log(f"  ok  15 (y) the resumed run's restored state equals the one saved at step "
+            f"{TRAIN_STEPS} bit for bit: {len(leaves)} leaves ({', '.join(dtypes)}; params, "
+            f"both moments, step), {ckpt_bytes / 2**30:.2f} GiB")
+        del saved, restored, leaves, back, probe
+        shutil.rmtree(tmp / "run")
+        # make_train_step on one fixed batch
+        state = init_train_state(cfg, args.seed, "cuda")
+        layer_weights = sum(p.numel() for p in tree_leaves(state.params["layers"]))
+        step = make_train_step(cfg, cosine_schedule(*FIXED_SCHEDULE))
+        batch = SyntheticTokens(cfg, TRAIN_SEQ, seed=args.seed, device="cuda").batch(
+            range(TRAIN_BATCH))
+        fixed = []
+        for _ in range(FIXED_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            loss = float(m["loss"])
+            fixed.append({"loss": loss, "wall_s": time.perf_counter() - t0})
+        fl = [f["loss"] for f in fixed]
+        if not (np.isfinite(fl).all() and fl[-1] < fl[0] - 0.5):
+            raise AssertionError(f"15 (y) the fixed batch's loss did not fall by 0.5: {fl}")
+        log(f"  ok  15 (y) one fixed batch, cosine_schedule{FIXED_SCHEDULE}: loss {fl[0]:.4f} "
+            f"-> {fl[-1]:.4f} over {FIXED_STEPS} steps")
+        # where a step's and an embedding call's time goes (one more step)
+        holder = {}
+        out["step_profile"] = _device_profile(
+            torch, lambda: holder.update(r=step(state, batch)))
+        state = holder.pop("r")[0]
+        with torch.inference_mode():
+            out["embed_profile"] = _device_profile(
+                torch, lambda: embed_examples(cfg, state.params, batch))
+        _log_profile("a train step", out["step_profile"])
+        _log_profile(f"an embedding call ({TRAIN_BATCH} x {TRAIN_SEQ})", out["embed_profile"])
+        peak = torch.cuda.max_memory_allocated()
+        del state, batch
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    tokens_step = TRAIN_BATCH * TRAIN_SEQ
+    pool_tokens = pool_n * TRAIN_SEQ
+    walls = [s["wall_s"] for s in first["steps"][1:]] + [f["wall_s"] for f in fixed[1:]]
+    median_step = st.median(walls)
+    embed_flops = _forward_flops(cfg, layer_weights, pool_tokens, TRAIN_SEQ)["layers"]
+    # a step: the forward, its per-layer and loss recompute, and a backward
+    # of twice the forward
+    step_flops = 4 * sum(_forward_flops(cfg, layer_weights, tokens_step, TRAIN_SEQ).values())
+    out.update(
+        run=first, resumed=second, fixed_losses=fl, fixed_schedule=list(FIXED_SCHEDULE),
+        parting=parting, step0_loss=first["losses"][0],
+        embed_s=first["embed_s"], embed_tokens_per_s=pool_tokens / first["embed_s"],
+        embed_tflops=embed_flops / first["embed_s"] / 1e12,
+        select_s=first["select_s"][0], median_step_s=median_step,
+        step_tokens_per_s=tokens_step / median_step,
+        step_tflops=step_flops / median_step / 1e12, save_s=save_s, restore_s=restore_s,
+        ckpt_bytes=ckpt_bytes, peak_bytes=peak, nvidia_smi=device["nvidia_smi"],
+        launches={k: first["launches"].get(k, 0) + second["launches"].get(k, 0)
+                  for k in set(first["launches"]) | set(second["launches"])})
+    out["seconds"] = time.perf_counter() - t_start
+    log(f"  15 (y) on {device['nvidia_smi']}: embedding {pool_n} x {TRAIN_SEQ} tokens "
+        f"{out['embed_s']:.3f} s ({out['embed_tokens_per_s']:.0f} tokens/s, "
+        f"{out['embed_tflops']:.1f} TFLOP/s); selection {out['select_s']:.3f} s; median step "
+        f"after the first {median_step:.4f} s ({out['step_tokens_per_s']:.0f} tokens/s, "
+        f"{out['step_tflops']:.1f} TFLOP/s with the per-layer recompute, of "
+        f"{BF16_PEAK_FLOPS / 1e12:.0f} bf16); checkpoint save {save_s:.3f} s, restore "
+        f"{restore_s:.3f} s ({ckpt_bytes / 2**30:.2f} GiB); peak device memory "
+        f"{peak / 2**30:.2f} GiB")
+    log(f"phase 15: {out['seconds']:.1f} s")
+    return out
+
+
 def parse_args(argv):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -4573,6 +4947,7 @@ def main(argv=None) -> int:
     remaining = phase_remaining(torch, args, main_out)
     distributed = phase_distributed(torch, args, main_out)
     mesh_served = phase_mesh_served(torch, args)
+    train = phase_train(torch, args, device)
     for rows, path in ((mf_rows, mf_out), (dense_rows, dense_out), (cover_rows, cover_out)):
         for r in rows:
             r["launches"] = r["launches_on_path"] = path["launches"][r["name"]]
@@ -4603,6 +4978,10 @@ def main(argv=None) -> int:
         r["sharded"] = {"launches": distributed["launches"].get(r["name"], 0)}
         # and on the mesh-served path (phase 14 (v), (w)'s four ranks and (x))
         r["served_mesh"] = {"launches": mesh_served["launches"].get(r["name"], 0)}
+        # and on the training path (phase 15's two runs), with the times of
+        # the path's kernels at its shapes
+        r["train"] = {"launches": train["launches"].get(r["name"], 0),
+                      **train["kernels"].get(r["name"], {})}
     missing = set(ops.LAUNCHES) ^ {r["name"] for r in kernels}
     if missing:
         raise AssertionError(f"kernels line and LAUNCHES differ: {sorted(missing)}")
@@ -4610,6 +4989,7 @@ def main(argv=None) -> int:
               "main": main_out, "matrix_free": mf_out, "dense_pairwise": dense_out,
               "coverage": cover_out, "guided": guided_out, "wave": wave_out, "served": served,
               "remaining": remaining, "distributed": distributed, "mesh_served": mesh_served,
+              "train": train,
               "kernels": kernels,
               "seconds": time.perf_counter() - t_start}
     OUT_DIR.mkdir(exist_ok=True)

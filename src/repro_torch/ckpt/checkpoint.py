@@ -1,5 +1,5 @@
-"""Atomic checkpoints of numpy payloads: the part of the JAX package's
-``ckpt/checkpoint.py`` that the serving sessions' journal rides.
+"""Atomic checkpoints (the JAX package's ``ckpt/checkpoint.py`` on one
+process): training state and the serving sessions' journal.
 
 - Atomic: a step is written to ``<dir>.tmp`` and published with
   ``os.replace``, so a crash mid-save never corrupts a saved step.
@@ -7,8 +7,15 @@
   (step, leaf names, shapes, dtypes and the caller's ``meta``).
 - ``keep_last`` prunes old steps.
 
-A tree is a leaf (anything ``np.asarray`` takes: numpy arrays, scalars,
-CPU tensors) or a dict of trees; leaves are named by their key path.
+A tree is made of dicts, NamedTuples (a ``TrainState``), tuples and lists
+(:mod:`repro_torch.tree`); its leaves are tensors on any device, numpy
+arrays or scalars, named by their key path as the JAX package names them
+(``.params/layers/attn/wq``).  numpy has no bfloat16: a bf16 tensor is
+stored as its bits (``uint16``) with ``"bfloat16"`` in the manifest.
+``restore`` gives a leaf whose counterpart in ``like`` is a tensor back as a
+tensor in its saved dtype on that counterpart's device; any other leaf
+comes back as numpy.  The sharded save and the
+elastic restore onto another mesh are ROADMAP item 12.5.
 """
 from __future__ import annotations
 
@@ -18,26 +25,34 @@ import shutil
 from typing import Any
 
 import numpy as np
+import torch
+
+from repro_torch.tree import flatten_with_names, unflatten_by_name
 
 __all__ = ["save", "restore", "latest_step"]
 
-
-def _flatten_with_names(tree, prefix: str = "") -> list[tuple[str, Any]]:
-    if isinstance(tree, dict):
-        out = []
-        for k in sorted(tree, key=str):
-            name = f"{prefix}/{k}" if prefix else str(k)
-            out.extend(_flatten_with_names(tree[k], name))
-        return out
-    return [(prefix, tree)]
+_BF16 = "bfloat16"
 
 
-def _unflatten(like, values: dict, prefix: str = ""):
-    if isinstance(like, dict):
-        return {
-            k: _unflatten(like[k], values, f"{prefix}/{k}" if prefix else str(k)) for k in like
-        }
-    return values[prefix]
+def _to_numpy(leaf) -> tuple[np.ndarray, str]:
+    """(array to store, dtype name for the manifest)."""
+    if isinstance(leaf, torch.Tensor):
+        t = leaf.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(np.uint16), _BF16
+        arr = t.numpy()
+    else:
+        arr = np.asarray(leaf)
+    return arr, str(arr.dtype)
+
+
+def _from_numpy(arr: np.ndarray, dtype: str, like):
+    if not isinstance(like, torch.Tensor):
+        return arr
+    t = torch.from_numpy(np.array(arr))  # a writable copy; keeps a 0-d shape
+    if dtype == _BF16:
+        t = t.view(torch.int16).view(torch.bfloat16)
+    return t.to(like.device)
 
 
 def save(ckpt_dir: str, step: int, tree: Any, meta: dict | None = None,
@@ -51,12 +66,12 @@ def save(ckpt_dir: str, step: int, tree: Any, meta: dict | None = None,
     os.makedirs(tmp_dir, exist_ok=True)
     arrays = {}
     manifest = {"step": step, "leaves": [], "meta": meta or {}}
-    for name, leaf in _flatten_with_names(tree):
-        arr = np.asarray(leaf)
+    for name, leaf in flatten_with_names(tree):
+        arr, dtype = _to_numpy(leaf)
         key = name.replace("/", "__")
         arrays[key] = arr
         manifest["leaves"].append(
-            {"name": name, "key": key, "shape": list(arr.shape), "dtype": str(arr.dtype)}
+            {"name": name, "key": key, "shape": list(arr.shape), "dtype": dtype}
         )
     np.savez(os.path.join(tmp_dir, "arrays.npz"), **arrays)
     with open(os.path.join(tmp_dir, "manifest.json"), "w") as f:
@@ -89,14 +104,18 @@ def latest_step(ckpt_dir: str) -> int | None:
 
 def restore(ckpt_dir: str, like: Any, step: int | None = None) -> tuple[Any, dict]:
     """Restore step ``step`` (default: the latest) into the structure of
-    ``like``; returns ``(tree, meta)`` with numpy leaves, ``meta`` holding
-    the saved meta and the step."""
+    ``like``; returns ``(tree, meta)``, ``meta`` holding the saved meta and
+    the step."""
     step = step if step is not None else latest_step(ckpt_dir)
     if step is None:
         raise FileNotFoundError(f"no checkpoint under {ckpt_dir}")
     step_dir = os.path.join(ckpt_dir, f"step_{step:010d}")
     with open(os.path.join(step_dir, "manifest.json")) as f:
         manifest = json.load(f)
+    by_name = {entry["name"]: entry for entry in manifest["leaves"]}
+    values = {}
     with np.load(os.path.join(step_dir, "arrays.npz")) as data:
-        values = {entry["name"]: data[entry["key"]] for entry in manifest["leaves"]}
-    return _unflatten(like, values), manifest["meta"] | {"step": manifest["step"]}
+        for name, leaf in flatten_with_names(like):
+            entry = by_name[name]
+            values[name] = _from_numpy(data[entry["key"]], entry["dtype"], leaf)
+    return unflatten_by_name(like, values), manifest["meta"] | {"step": manifest["step"]}

@@ -11,7 +11,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.common import as_float_tensor
+from repro_torch.common import as_float_tensor, resolve_device
 from repro_torch.core.functions.disparity import (
     DisparityMin,
     DisparityMinSum,
@@ -36,6 +36,11 @@ from repro_torch.core.info.fl import FLCG, FLCMI, FLQMI, FLVMI
 from repro_torch.core.info.gc import GCMI
 from repro_torch.core.optimizers.greedy import GreedyResult
 from repro_torch.core.sources import FeatureSource, KnnSource, knn_source
+from repro_torch.models.model import check_family
+from repro_torch.train.grad_compress import ErrorFeedbackState
+from repro_torch.train.optim import AdamWState
+from repro_torch.train.train_step import TrainState
+from repro_torch.tree import flatten_with_names, tree_map
 
 
 def facility_location_from_arrays(
@@ -355,3 +360,50 @@ def result_to_numpy(res: GreedyResult) -> tuple[np.ndarray, np.ndarray, int, flo
         int(res.n_evals),
         float(res.value),
     )
+
+
+# -- the training testbed ----------------------------------------------------
+
+
+def _array_tensor(a, device) -> torch.Tensor:
+    """A tensor of ``a`` in its own dtype; a bfloat16 array (numpy's
+    ``ml_dtypes`` kind, as ``np.asarray`` of a JAX bf16 array gives) keeps
+    its bits."""
+    a = np.array(a)  # a copy: torch.from_numpy needs a writable array
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def params_from_arrays(cfg, tree, device=None) -> dict:
+    """The port's parameters from the JAX package's (a nested dict of arrays,
+    ``np.asarray`` of each leaf): the same key paths, each leaf in its own
+    dtype on ``device`` (default: the card)."""
+    check_family(cfg)
+    dev = resolve_device(device)
+    return tree_map(lambda a: _array_tensor(a, dev), dict(tree))
+
+
+def train_state_from_arrays(cfg, state, device=None):
+    """The port's ``TrainState`` from a JAX ``TrainState`` whose leaves are
+    arrays (read by field: ``params``, ``opt.step`` / ``m`` / ``v``, ``ef``
+    None or with ``residual``)."""
+    dev = resolve_device(device)
+    params = params_from_arrays(cfg, state.params, dev)
+    opt = AdamWState(step=_array_tensor(state.opt.step, dev).to(torch.int32),
+                     m=params_from_arrays(cfg, state.opt.m, dev),
+                     v=params_from_arrays(cfg, state.opt.v, dev))
+    ef = None if state.ef is None else ErrorFeedbackState(
+        residual=params_from_arrays(cfg, state.ef.residual, dev))
+    return TrainState(params=params, opt=opt, ef=ef)
+
+
+def tree_to_arrays(tree) -> dict[str, np.ndarray]:
+    """A port tree (parameters, gradients, a ``TrainState``) as numpy by leaf
+    name, the JAX package's key paths (``layers/attn/wq``,
+    ``.opt/.m/embed``); bf16 leaves widen to fp32, which is exact."""
+    out = {}
+    for name, leaf in flatten_with_names(tree):
+        t = leaf.detach().cpu()
+        out[name] = (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    return out

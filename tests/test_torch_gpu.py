@@ -1399,3 +1399,43 @@ def test_fl_kernel_padded_to_the_data_axis_is_bit_exact_on_the_card(cuda, opt):
     torch.cuda.synchronize()
     assert ops.LAUNCHES["fl_gains" if opt == "NaiveGreedy" else "fl_gains_at"] > 0
     _bits(got, want, f"FL n {n} padded to {n + 1}, {opt}")
+
+
+def test_training_launcher_on_the_card(cuda, tmp_path, capsys):
+    """The training launcher at the reduced qwen3-0.6b on the card: a
+    selection round over a pool of 4,096 (the kernel gate) runs the CUDA
+    similarity and FL kernels, the losses are finite, the run resumes from
+    its checkpoint; a bf16 TrainState on the card comes back from its
+    checkpoint bit for bit, on the card."""
+    import dataclasses
+
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.train import run
+    from repro_torch.train.train_step import init_train_state, make_train_step
+    from repro_torch.tree import tree_leaves
+
+    d = str(tmp_path / "ck")
+    kw = dict(batch=16, seq=32, select_every=64, pool_factor=4, ckpt_dir=d, ckpt_every=3)
+    ops.reset_launches()
+    losses = run("qwen3-0.6b", steps=3, **kw)
+    torch.cuda.synchronize()
+    assert len(losses) == 3 and np.isfinite(losses).all()
+    for name in ("similarity", "fl_gains", "fl_gains_at"):
+        assert ops.LAUNCHES[name] > 0, name
+    resumed = run("qwen3-0.6b", steps=5, **kw)
+    assert len(resumed) == 2 and np.isfinite(resumed).all()
+    assert "[ckpt] resumed from step 3" in capsys.readouterr().out
+
+    cfg = dataclasses.replace(get_config("qwen3-0.6b").reduced(), param_dtype="bfloat16",
+                              compute_dtype="bfloat16")
+    state = init_train_state(cfg, seed=1)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (4, 32), device="cuda", dtype=torch.int32)}
+    state, metrics = make_train_step(cfg)(state, batch)
+    assert math.isfinite(float(metrics["loss"]))
+    ckpt.save(str(tmp_path / "bf16"), 1, state)
+    restored, _ = ckpt.restore(str(tmp_path / "bf16"), init_train_state(cfg, seed=2))
+    for a, b in zip(tree_leaves(state), tree_leaves(restored)):
+        assert a.dtype == b.dtype and b.device.type == "cuda" and a.shape == b.shape
+        assert torch.equal(a.view(torch.int16) if a.dtype == torch.bfloat16 else a,
+                           b.view(torch.int16) if b.dtype == torch.bfloat16 else b)

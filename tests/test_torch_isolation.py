@@ -37,8 +37,12 @@ def test_port_and_smoke_import_no_jax_and_no_repro():
     files = _port_files()
     assert len(files) > 10
     # the mesh control plane and the training pipeline's modules are walked
+    # and so are the training testbed's
     for part in ("launch/mesh_plane.py", "configs/base.py", "configs/archs.py",
-                 "data/selection.py", "distributed/sharding.py"):
+                 "data/selection.py", "distributed/sharding.py", "models/layers.py",
+                 "models/attention.py", "models/model.py", "data/pipeline.py",
+                 "train/optim.py", "train/grad_compress.py", "train/train_step.py",
+                 "launch/train.py", "tree.py"):
         assert PORT / part in files, part
     bad = [
         f"{path.relative_to(ROOT)}:{line} imports {root}"
@@ -70,6 +74,8 @@ def test_importing_the_port_loads_no_jax_and_builds_nothing():
         "import repro_torch.core.optimizers.distributed\n"
         "import repro_torch.launch.mesh_plane, repro_torch.configs.archs\n"
         "import repro_torch.data.selection, repro_torch.distributed.sharding\n"
+        "import repro_torch.models.model, repro_torch.data.pipeline\n"
+        "import repro_torch.train.train_step, repro_torch.launch.train\n"
         "from repro_torch.kernels import _build, ops\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
@@ -90,11 +96,23 @@ def test_entry_points_default_to_the_card():
     from repro_torch.core import FacilityLocation, create_kernel
     from repro_torch.interop import facility_location_from_arrays
 
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.launch.train import run
+    from repro_torch.models.model import init_cache, init_params
+    from repro_torch.train.train_step import init_train_state
+
     x = np.ones((4, 3), np.float32)
+    cfg = get_config("qwen3-0.6b").reduced()
     for call in (
         lambda: create_kernel(x),
         lambda: FacilityLocation.from_kernel(x),
         lambda: facility_location_from_arrays(x),
+        lambda: init_params(cfg),
+        lambda: init_train_state(cfg),
+        lambda: init_cache(cfg, 1, 8),
+        lambda: SyntheticTokens(cfg, 8).batch([0]),
+        lambda: run("qwen3-0.6b", steps=1, batch=1, seq=8),
     ):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
