@@ -6,7 +6,7 @@ that path against its plain PyTorch version.
     python3 chip_smoke.py --n 8192 --naive-budget 50 --lazy-budget 200 \
         --mf-n 65536 --mf-lazy-budget 200 --reps 5   # a short check
 
-Eleven paths run, each with its launch counts set to 0 just before it and
+Twelve paths run, each with its launch counts set to 0 just before it and
 read just after:
 
 - the main path, the paper's core loop: ``create_kernel`` (CUDA similarity
@@ -61,6 +61,10 @@ read just after:
   FacilityLocation coreset picked by ``SubmodularSelector`` (the CUDA
   similarity and FL-sweep kernels), AdamW steps on it, a checkpoint and a
   resumed run.
+- the other families' training path: the same ``run()`` at mamba2-370m's
+  full width (the Mamba2 / SSD mixer), and deepseek-v2 (MLA and MoE),
+  whisper-small (encoder-decoder) and jamba (the hybrid period) through the
+  model entry points.
 
 Phases, each of which raises on failure (the exit code is then non-zero):
   1 device   CUDA present; the card's name and power limit
@@ -149,7 +153,7 @@ Phases, each of which raises on failure (the exit code is then non-zero):
   12 remaining  on phase 4's S rebuilt, each solve on the kernel route
              (use_kernel=None) and the plain route (use_kernel=False), equal
              ids and n_evals, gains within FL_TOL: 12.1 StochasticGreedy and
-             LazierThanLazyGreedy 5,000, eps 0.01 (s = 47), seeds 0 and 1,
+             LazierThanLazyGreedy 5,000, eps 0.01 (s = 47), seed 0,
              with their values over phase 4's LazyGreedy 5,000 value; 12.2
              SieveStreaming 100, eps 0.1, seed None and 0, ThresholdGreedy
              100, buffer 64, with fl_gains_at's launches an arrival; 12.3
@@ -211,6 +215,22 @@ Phases, each of which raises on failure (the exit code is then non-zero):
              loss by 0.5 in 12 steps, and its state saved and restored bit
              for bit (bf16 params and moments, the step); walls, tokens/s and
              peak memory beside the card's name and power limit
+  16 other   (z) launch.train.run at mamba2-370m's full width and depth (48
+             layers, d 1,024, 32 SSM heads, N 128, chunk 256, bf16), as
+             (y): 12 steps, a checkpoint, a resumed run whose restored state
+             is the saved one bit for bit (zero-size d_ff = 0 leaves
+             included), the coreset the plain route's; 8 steps on one batch
+             (every gradient finite, the loss down by 0.5), a profiled step;
+             in fp32, prefill of 255 tokens + decode_step against the
+             no-cache forward of 256 (rtol / atol 2e-2); (z') deepseek-v2 at
+             its published widths, 2 layers (5.19 B parameters): bf16
+             embed_examples, prefill and 8 absorbed decodes timed, the share
+             of (token, k) slots dropped at capacity 1.0; in fp32 with the
+             capacity at the group size, 8 decodes each against a prefill of
+             the extended tokens; (z'') whisper-small full width: the
+             encoder's mean embedding, 6 steps on one batch, fp32 decode
+             against prefill; (z''') jamba reduced in bf16: decode against
+             the no-cache forward, 3 steps
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Details go to chiprun_out/chip_smoke.json.
 Without a CUDA device, or without the repo's ``src/`` beside it, the script
@@ -3336,7 +3356,7 @@ def phase_served(torch, args) -> dict:
 
 SAMPLED_BUDGET = 5000
 SAMPLED_EPS = 0.01  # s = 47 at n = 50,000
-SAMPLED_SEEDS = (0, 1)
+SAMPLED_SEEDS = (0,)  # one seed: a second repeats the same check at the script's time cost
 STREAM_BUDGET = 100
 STREAM_EPS = 0.1
 STREAM_BUFFER = 64
@@ -4616,7 +4636,7 @@ def _forward_flops(cfg, layer_weights: int, tokens: int, seq: int) -> dict:
             "head": 2 * cfg.d_model * cfg.vocab * tokens}
 
 
-def _train_run(torch, tr, label, **kw) -> dict:
+def _train_run(torch, tr, label, tag="15 (y)", **kw) -> dict:
     from repro_torch.kernels import ops
 
     torch.cuda.synchronize()
@@ -4631,13 +4651,13 @@ def _train_run(torch, tr, label, **kw) -> dict:
            "embed_s": probe.embed_s(), "embed_calls": len(probe.embed_events),
            "select_s": [s["wall_s"] for s in probe.selects]}
     if len(losses) != len(probe.steps) or not losses:
-        raise AssertionError(f"15 (y) {label}: {len(losses)} losses, {len(probe.steps)} steps")
+        raise AssertionError(f"{tag} {label}: {len(losses)} losses, {len(probe.steps)} steps")
     if not np.isfinite(losses).all():
-        raise AssertionError(f"15 (y) {label}: non-finite losses {losses}")
+        raise AssertionError(f"{tag} {label}: non-finite losses {losses}")
     norms = [s["grad_norm"] for s in probe.steps]
     if not all(np.isfinite(g) and g > 0 for g in norms):
-        raise AssertionError(f"15 (y) {label}: grad norms {norms}")
-    log(f"  15 (y) {label}: {len(losses)} steps in {wall:.3f} s; losses {losses[0]:.4f} .. "
+        raise AssertionError(f"{tag} {label}: grad norms {norms}")
+    log(f"  {tag} {label}: {len(losses)} steps in {wall:.3f} s; losses {losses[0]:.4f} .. "
         f"{losses[-1]:.4f}; grad norms {min(norms):.4f} .. {max(norms):.4f}; launches "
         f"{launches}")
     return out, probe
@@ -4675,12 +4695,12 @@ def _device_profile(torch, fn, top: int = 8) -> dict:
     return out
 
 
-def _log_profile(label: str, prof: dict) -> None:
+def _log_profile(label: str, prof: dict, tag: str = "15 (y)") -> None:
     if "busy_ms" not in prof:
-        log(f"  15 (y) {label}: {prof['wall_ms']:.1f} ms; {prof['device']}")
+        log(f"  {tag} {label}: {prof['wall_ms']:.1f} ms; {prof['device']}")
         return
     top = "; ".join(f"{t['op']} {t['ms']:.1f} ms x{t['calls']}" for t in prof["top"])
-    log(f"  15 (y) {label} under the profiler: wall {prof['wall_ms']:.1f} ms, device busy "
+    log(f"  {tag} {label} under the profiler: wall {prof['wall_ms']:.1f} ms, device busy "
         f"{prof['busy_ms']:.1f} ms (idle {100 * prof['idle_share']:.1f}%), "
         f"{prof['launches']} kernels; by op: {top}")
 
@@ -4869,6 +4889,433 @@ def phase_train(torch, args, device: dict) -> dict:
     return out
 
 
+OTHER_ARCH = "mamba2-370m"  # phase 16 (z): the ssm family, full width and depth
+OTHER_STEPS = 12  # (z) the first run: one selection round, a checkpoint at its end
+OTHER_RESUME_STEPS = 14  # the resumed run at 12: a fresh round, 2 steps
+OTHER_FIXED_STEPS = 8  # (z) make_train_step on one fixed batch
+OTHER_PAIR_B = 2  # (z)-(z''): the fp32 prefill / decode checks' batch
+OTHER_TOL = 2e-2  # tests/test_archs.py:118's rtol / atol for decode against a forward
+DEEPSEEK_LAYERS = 2  # (z') the dense layer 0 and one MoE layer at the published widths
+DEEPSEEK_DECODES = 8
+WHISPER_STEPS = 6
+JAMBA_STEPS = 3
+JAMBA_SEQ = 64
+
+
+def _finite(torch, label: str, t) -> None:
+    if not bool(torch.isfinite(t.float()).all()):
+        raise AssertionError(f"{label}: non-finite values")
+
+
+def _fp32_copy(torch, cfg, params):
+    """An fp32 config and the same weights widened to fp32 (exact)."""
+    import dataclasses
+
+    from repro_torch.tree import tree_map
+
+    return (dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32"),
+            tree_map(lambda t: t.float(), params))
+
+
+def _forward_last_logits(cfg, params, batch):
+    """The no-cache forward (the backbone, the final norm, the head) at the
+    last position: the reference's logits that a prefill + decode must
+    reproduce."""
+    from repro_torch.models import model
+
+    tokens = batch["tokens"]
+    B, L = tokens.shape
+    x = model._backbone(cfg, params, model._embed(cfg, params, tokens),
+                        model._positions(B, L, tokens.device))
+    x = model.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return model._logits(cfg, params, x[:, -1:])
+
+
+def _decode_against(torch, label, cfg, params, batch, reference, decodes=1) -> dict:
+    """``prefill`` of the batch's tokens but the last ``decodes``, then one
+    ``decode_step`` a token; each decode's logits against
+    ``reference(batch with the tokens so far)`` at its last position, within
+    OTHER_TOL.  Returns the largest difference and the decodes' walls."""
+    from repro_torch.models.model import decode_step, prefill
+
+    tokens = batch["tokens"]
+    L = tokens.shape[1]
+    first = L - decodes
+    head = {**batch, "tokens": tokens[:, :first]}
+    logits, caches = prefill(cfg, params, head, max_len=L)
+    _finite(torch, f"{label} prefill logits", logits)
+    worst = 0.0
+    for i in range(decodes):
+        pos = first + i
+        logits, caches = decode_step(cfg, params, caches, tokens[:, pos: pos + 1], pos)
+        want = reference(cfg, params, {**batch, "tokens": tokens[:, : pos + 1]})
+        worst = max(worst, check_close(f"{label} decode at {pos} vs {reference.__name__}",
+                                       logits[:, 0], want[:, 0], OTHER_TOL, OTHER_TOL,
+                                       quiet=True))
+    log(f"  ok  {label}: prefill of {first} + {decodes} decode_step(s) against "
+        f"{reference.__name__} over the extended tokens, max |diff| {worst:.3g} (rtol / atol "
+        f"{OTHER_TOL})")
+    return {"prefill_tokens": first, "decodes": decodes, "max_abs_err": worst}
+
+
+def _prefill_reference(cfg, params, batch):
+    from repro_torch.models.model import prefill
+
+    return prefill(cfg, params, batch)[0]
+
+
+def _fixed_steps(torch, label, cfg, state, batch, steps, must_fall=0.5) -> tuple:
+    """``make_train_step`` on one batch: every gradient leaf finite before the
+    first step (value_and_grad), every grad norm finite and positive (so
+    every gradient finite, each step), the loss down by ``must_fall``."""
+    from repro_torch.train.optim import cosine_schedule
+    from repro_torch.train.train_step import make_train_step, value_and_grad
+    from repro_torch.tree import flatten_with_names
+
+    _, grads = value_and_grad(cfg, state.params, batch)
+    bad = [n for n, g in flatten_with_names(grads) if not bool(torch.isfinite(g.float()).all())]
+    if bad:
+        raise AssertionError(f"{label}: non-finite gradient leaves {bad}")
+    n_leaves = len(flatten_with_names(grads))
+    del grads
+    step = make_train_step(cfg, cosine_schedule(*FIXED_SCHEDULE))
+    fixed = []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        fixed.append({"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                      "wall_s": time.perf_counter() - t0})
+    losses = [f["loss"] for f in fixed]
+    norms = [f["grad_norm"] for f in fixed]
+    if not (np.isfinite(losses).all() and all(np.isfinite(g) and g > 0 for g in norms)):
+        raise AssertionError(f"{label}: losses {losses}, grad norms {norms}")
+    if not losses[-1] < losses[0] - must_fall:
+        raise AssertionError(f"{label}: the loss did not fall by {must_fall}: {losses}")
+    log(f"  ok  {label}: {n_leaves} gradient leaves finite; {steps} steps on one batch, "
+        f"cosine_schedule{FIXED_SCHEDULE}: loss {losses[0]:.4f} -> {losses[-1]:.4f}, grad "
+        f"norms {min(norms):.4f} .. {max(norms):.4f}, all finite")
+    return state, step, fixed
+
+
+def _other_mamba(torch, args, device) -> dict:
+    """(z) mamba2-370m at full width and depth through launch.train.run,
+    as phase 15 drives qwen3-0.6b."""
+    import shutil
+    import statistics as st
+    import tempfile
+
+    import repro_torch.launch.train as tr
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import create_kernel
+    from repro_torch.data.pipeline import SyntheticTokens, embed_examples
+    from repro_torch.data.selection import SelectorConfig, SubmodularSelector
+    from repro_torch.kernels.similarity_kernel import similarity_plain
+    from repro_torch.train.train_step import init_train_state
+    from repro_torch.tree import flatten_with_names, tree_leaves
+
+    tag = "16 (z)"
+    cfg = get_config(OTHER_ARCH)
+    pool_n = TRAIN_BATCH * TRAIN_SELECT_EVERY * TRAIN_POOL_FACTOR
+    budget = TRAIN_BATCH * TRAIN_SELECT_EVERY
+    log(f"  {tag} {OTHER_ARCH} full width ({cfg.n_layers} layers, d {cfg.d_model}, d_inner "
+        f"{cfg.d_inner}, {cfg.n_ssm_heads} SSM heads of {cfg.ssm_head_dim}, N {cfg.ssm_state}, "
+        f"chunk {cfg.ssm_chunk}, vocab {cfg.vocab}, {cfg.param_dtype}): batch {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ}, pool {pool_n} -> coreset {budget}")
+    tmp = Path(tempfile.mkdtemp())
+    out = {"arch": OTHER_ARCH, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "pool": pool_n,
+           "budget": budget}
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kw = dict(arch=OTHER_ARCH, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                  select_every=TRAIN_SELECT_EVERY, pool_factor=TRAIN_POOL_FACTOR,
+                  ckpt_dir=str(tmp / "run"), ckpt_every=OTHER_STEPS, reduced=False,
+                  seed=args.seed, log_every=4, device="cuda")
+        first, probe = _train_run(torch, tr, "run", tag=tag, steps=OTHER_STEPS, **kw)
+        lo, hi = 0.2 * np.log(cfg.vocab), 3.0 * np.log(cfg.vocab)
+        if not lo < first["losses"][0] < hi:
+            raise AssertionError(f"{tag} step-0 loss {first['losses'][0]} outside "
+                                 f"({lo:.3f}, {hi:.3f})")
+        missing = [k for k in TRAIN_KERNELS if not first["launches"].get(k)]
+        if missing:
+            raise AssertionError(f"{tag}: kernels not launched on the path: {missing}")
+        if [sv["step"] for sv in probe.saves] != [OTHER_STEPS] or \
+                ckpt.latest_step(str(tmp / "run")) != OTHER_STEPS:
+            raise AssertionError(f"{tag}: not one checkpoint, at step {OTHER_STEPS}")
+        log(f"  ok  {tag} step-0 loss {first['losses'][0]:.4f} in ({lo:.3f}, {hi:.3f}); "
+            f"kernels launched {first['launches']}")
+        saved = probe.saves[0]
+        emb, ids = probe.selects[0]["emb"], probe.selects[0]["ids"]
+        S = create_kernel(emb, metric="euclidean", use_pallas=True)
+        err = check_close(f"{tag} similarity.cu on the pool's embeddings ({pool_n} x "
+                          f"{cfg.d_model}, euclidean) vs plain", S,
+                          similarity_plain(emb, emb, "euclidean"), *SIM_TOL["euclidean"])
+        sel = lambda kernels: SubmodularSelector(  # noqa: E731
+            cfg, SelectorConfig(budget=budget, use_pallas_kernel=kernels))
+        parting = _selector_parting(torch, f"{tag} the coreset's {budget} ids, kernel route",
+                                    sel(True).build_function(emb),
+                                    sel(False).build_function(emb), ids, sel(False).select(emb))
+        del S, emb
+        second, probe = _train_run(torch, tr, "resumed run", tag=tag, steps=OTHER_RESUME_STEPS,
+                                   **kw)
+        if len(second["losses"]) != OTHER_RESUME_STEPS - OTHER_STEPS:
+            raise AssertionError(f"{tag} the resumed run ran {len(second['losses'])} steps")
+        (restored,) = probe.restores
+        named = flatten_with_names(saved["state"])
+        leaves, back = [v for _, v in named], tree_leaves(restored["state"])
+        empty = [n for n, v in named if v.numel() == 0]
+        if restored["step"] != OTHER_STEPS or len(leaves) != len(back) or not all(
+                _leaf_bits_equal(torch, a, b) for a, b in zip(leaves, back)):
+            raise AssertionError(f"{tag} the restored state is not the saved one bit for bit")
+        if not empty:
+            raise AssertionError(f"{tag}: no zero-size leaf in the state (d_ff = 0's FFN)")
+        ckpt_bytes = sum(p.numel() * p.element_size() for p in leaves)
+        log(f"  ok  {tag} the resumed run's restored state equals the one saved at step "
+            f"{OTHER_STEPS} bit for bit: {len(leaves)} leaves, {len(empty)} of them zero-size "
+            f"({', '.join(empty[:3])}, ...), {ckpt_bytes / 2**30:.2f} GiB")
+        save_s, restore_s = saved["wall_s"], restored["wall_s"]
+        del saved, restored, leaves, back, named, probe
+        shutil.rmtree(tmp / "run")
+        # make_train_step on one fixed batch, then one profiled step
+        state = init_train_state(cfg, args.seed, "cuda")
+        batch = SyntheticTokens(cfg, TRAIN_SEQ, seed=args.seed, device="cuda").batch(
+            range(TRAIN_BATCH))
+        state, step, fixed = _fixed_steps(torch, f"{tag} fixed batch", cfg, state, batch,
+                                          OTHER_FIXED_STEPS)
+        holder = {}
+        out["step_profile"] = _device_profile(torch, lambda: holder.update(r=step(state, batch)))
+        state = holder.pop("r")[0]
+        _log_profile("a train step", out["step_profile"], tag)
+        peak = torch.cuda.max_memory_allocated()
+        # prefill + decode against the no-cache forward, in fp32
+        cfg32, params32 = _fp32_copy(torch, cfg, state.params)
+        del state
+        pair = {"tokens": batch["tokens"][:OTHER_PAIR_B]}
+        with torch.inference_mode():
+            out["decode"] = _decode_against(torch, f"{tag} fp32", cfg32, params32, pair,
+                                            _forward_last_logits)
+        del params32, batch
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    tokens_step = TRAIN_BATCH * TRAIN_SEQ
+    pool_tokens = pool_n * TRAIN_SEQ
+    walls = [s["wall_s"] for s in first["steps"][1:]] + [f["wall_s"] for f in fixed[1:]]
+    median_step = st.median(walls)
+    out.update(run=first, resumed=second, fixed=fixed, parting=parting,
+               similarity_err=err, step0_loss=first["losses"][0], embed_s=first["embed_s"],
+               embed_tokens_per_s=pool_tokens / first["embed_s"],
+               select_s=first["select_s"][0], median_step_s=median_step,
+               step_tokens_per_s=tokens_step / median_step, save_s=save_s,
+               restore_s=restore_s, ckpt_bytes=ckpt_bytes, peak_bytes=peak,
+               launches={k: first["launches"].get(k, 0) + second["launches"].get(k, 0)
+                         for k in set(first["launches"]) | set(second["launches"])})
+    log(f"  {tag} on {device['nvidia_smi']}: embedding {pool_n} x {TRAIN_SEQ} tokens "
+        f"{out['embed_s']:.3f} s ({out['embed_tokens_per_s']:.0f} tokens/s); selection "
+        f"{out['select_s']:.3f} s; median step after the first {median_step:.4f} s "
+        f"({out['step_tokens_per_s']:.0f} tokens/s); checkpoint save {save_s:.3f} s, restore "
+        f"{restore_s:.3f} s ({ckpt_bytes / 2**30:.2f} GiB); peak device memory "
+        f"{peak / 2**30:.2f} GiB")
+    return out
+
+
+class _DropProbe:
+    """Counts the (token, k) slots that found room in their expert's
+    capacity, by wrapping ``models.moe.dispatch_combine`` while it is on."""
+
+    def __init__(self):
+        self.kept = self.slots = 0
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.moe, self.saved = moe, moe.dispatch_combine
+
+        def counted(*a, **kw):
+            dispatch, combine, kept = self.saved(*a, **kw)
+            self.kept += int(kept.sum())
+            self.slots += kept.numel()
+            return dispatch, combine, kept
+
+        moe.dispatch_combine = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.dispatch_combine = self.saved
+
+
+def _other_deepseek(torch, args) -> dict:
+    """(z') deepseek-v2-236b at its published widths, depth cut to 2 (the
+    dense MLA layer 0 and one MoE layer), forward only: the bf16 run at the
+    published capacity factor timed, with its dropped slots; the prefill /
+    absorbed-decode consistency in fp32 with the capacity raised to the
+    group size."""
+    import dataclasses
+    import math
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import SyntheticTokens, embed_examples
+    from repro_torch.models.model import decode_step, init_params, prefill
+    from repro_torch.tree import tree_leaves
+
+    tag = "16 (z')"
+    cfg = dataclasses.replace(get_config("deepseek-v2-236b"), n_layers=DEEPSEEK_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    params, init_s, _ = _dist_timed(torch, lambda: init_params(cfg, args.seed, "cuda"))
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    log(f"  {tag} deepseek-v2-236b at its published widths, {DEEPSEEK_LAYERS} layers (d "
+        f"{cfg.d_model}, {cfg.n_heads} MLA heads, kv_lora {cfg.kv_lora_rank}, q_lora "
+        f"{cfg.q_lora_rank}, {cfg.n_experts} experts top-{cfg.top_k} + {cfg.n_shared_experts} "
+        f"shared of {cfg.d_expert_}): {n_params / 1e9:.3f} B parameters, bf16, drawn in "
+        f"{init_s:.3f} s")
+    batch = SyntheticTokens(cfg, TRAIN_SEQ, seed=args.seed, device="cuda").batch(
+        range(TRAIN_BATCH))
+    out = {"params": n_params, "init_s": init_s}
+    with torch.inference_mode():
+        emb, out["embed_s"], _ = _dist_timed(torch, lambda: embed_examples(cfg, params, batch))
+        if emb.shape != (TRAIN_BATCH, cfg.d_model):
+            raise AssertionError(f"{tag} embed_examples shape {tuple(emb.shape)}")
+        _finite(torch, f"{tag} embed_examples", emb)
+        with _DropProbe() as drops:
+            (logits, caches), out["prefill_s"], _ = _dist_timed(
+                torch, lambda: prefill(cfg, params, batch, max_len=TRAIN_SEQ + DEEPSEEK_DECODES))
+        _finite(torch, f"{tag} bf16 prefill", logits)
+        decode_s = []
+        for i in range(DEEPSEEK_DECODES):
+            nxt = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+            (logits, caches), wall, _ = _dist_timed(
+                torch, lambda: decode_step(cfg, params, caches, nxt, TRAIN_SEQ + i))
+            _finite(torch, f"{tag} bf16 decode {i}", logits)
+            decode_s.append(wall)
+    out.update(decode_s=decode_s, dropped_share=1.0 - drops.kept / drops.slots,
+               slots=drops.slots, bf16_peak_bytes=torch.cuda.max_memory_allocated())
+    del caches, logits, emb, batch
+    log(f"  {tag} bf16 on {TRAIN_BATCH} x {TRAIN_SEQ}: embed_examples {out['embed_s']:.3f} s "
+        f"({TRAIN_BATCH * TRAIN_SEQ / out['embed_s']:.0f} tokens/s); prefill "
+        f"{out['prefill_s']:.3f} s; {DEEPSEEK_DECODES} absorbed decodes, median "
+        f"{statistics.median(decode_s) * 1e3:.1f} ms; at capacity_factor "
+        f"{cfg.capacity_factor} the prefill dropped {100 * out['dropped_share']:.2f}% of its "
+        f"{drops.slots} (token, k) slots; peak {out['bf16_peak_bytes'] / 2**30:.2f} GiB")
+    # fp32, capacity raised so that cap >= the group: no slot drops, and a
+    # prefill's tokens route as a single decoded token does
+    cfg32, params32 = _fp32_copy(torch, cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg32, capacity_factor=float(math.ceil(cfg.n_experts /
+                                                                        cfg.top_k)))
+    L = TRAIN_SEQ + DEEPSEEK_DECODES
+    if int(L * cfg.top_k * cfg32.capacity_factor / cfg.n_experts) < L:
+        raise AssertionError(f"{tag}: capacity under the group size")
+    pair = SyntheticTokens(cfg, L, seed=args.seed, device="cuda").batch(range(OTHER_PAIR_B))
+    with torch.inference_mode(), _DropProbe() as drops32:
+        out["decode"] = _decode_against(
+            torch, f"{tag} fp32 (capacity_factor {cfg32.capacity_factor})", cfg32, params32,
+            pair, _prefill_reference, decodes=DEEPSEEK_DECODES)
+    if drops32.kept != drops32.slots:
+        raise AssertionError(f"{tag}: the fp32 check dropped slots")
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    del params32
+    torch.cuda.empty_cache()
+    return out
+
+
+def _other_whisper(torch, args) -> dict:
+    """(z'') whisper-small at full width and depth: the encoder's mean as the
+    selection embedding, steps on one batch, prefill / decode."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import SyntheticTokens, embed_examples
+    from repro_torch.train.train_step import init_train_state
+    from repro_torch.tree import tree_leaves
+
+    tag = "16 (z'')"
+    cfg = get_config("whisper-small")
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(cfg, args.seed, "cuda")
+    batch = SyntheticTokens(cfg, TRAIN_SEQ, seed=args.seed, device="cuda").batch(
+        range(TRAIN_BATCH))
+    log(f"  {tag} whisper-small full width ({cfg.enc_layers} + {cfg.n_layers} layers, d "
+        f"{cfg.d_model}, {cfg.enc_positions} frames, vocab {cfg.vocab}, bf16): "
+        f"{sum(t.numel() for t in tree_leaves(state.params)) / 1e6:.1f} M parameters")
+    out = {}
+    with torch.inference_mode():
+        emb, out["embed_s"], _ = _dist_timed(
+            torch, lambda: embed_examples(cfg, state.params, batch))
+    if emb.shape != (TRAIN_BATCH, cfg.d_model):
+        raise AssertionError(f"{tag} embed_examples shape {tuple(emb.shape)}")
+    _finite(torch, f"{tag} embed_examples", emb)
+    state, _, fixed = _fixed_steps(torch, f"{tag} fixed batch", cfg, state, batch,
+                                   WHISPER_STEPS)
+    out.update(fixed=fixed, median_step_s=statistics.median(f["wall_s"] for f in fixed[1:]),
+               peak_bytes=torch.cuda.max_memory_allocated())
+    cfg32, params32 = _fp32_copy(torch, cfg, state.params)
+    del state
+    pair = {k: v[:OTHER_PAIR_B] for k, v in batch.items()}
+    with torch.inference_mode():
+        out["decode"] = _decode_against(torch, f"{tag} fp32", cfg32, params32, pair,
+                                        _prefill_reference)
+    log(f"  {tag}: embed_examples (the encoder's mean) {out['embed_s']:.3f} s for "
+        f"{TRAIN_BATCH} x {cfg.enc_positions} frames; median step {out['median_step_s']:.4f} "
+        f"s; peak {out['peak_bytes'] / 2**30:.2f} GiB")
+    return out
+
+
+def _other_jamba(torch, args) -> dict:
+    """(z''') jamba-1.5-large-398b at its reduced() widths in bf16 (its
+    published width fits no card): prefill / decode against the no-cache
+    forward, then steps."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.train.optim import cosine_schedule
+    from repro_torch.train.train_step import init_train_state, make_train_step
+
+    tag = "16 (z''')"
+    cfg = dataclasses.replace(get_config("jamba-1.5-large-398b").reduced(),
+                              param_dtype="bfloat16", compute_dtype="bfloat16")
+    state = init_train_state(cfg, args.seed, "cuda")
+    batch = SyntheticTokens(cfg, JAMBA_SEQ, seed=args.seed, device="cuda").batch(
+        range(TRAIN_BATCH))
+    log(f"  {tag} jamba-1.5-large-398b reduced ({cfg.n_layers} layers: one period, attention "
+        f"at {cfg.attn_offset}, MoE every {cfg.moe_every}; d {cfg.d_model}, bf16)")
+    with torch.inference_mode():
+        out = {"decode": _decode_against(torch, f"{tag} bf16", cfg, state.params,
+                                         {"tokens": batch["tokens"][:OTHER_PAIR_B]},
+                                         _forward_last_logits)}
+    step = make_train_step(cfg, cosine_schedule(*FIXED_SCHEDULE))
+    losses = []
+    for _ in range(JAMBA_STEPS):
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        if not np.isfinite([losses[-1], float(m["grad_norm"])]).all():
+            raise AssertionError(f"{tag}: step loss {losses[-1]}, grad norm {m['grad_norm']}")
+    log(f"  ok  {tag}: {JAMBA_STEPS} steps, losses {losses[0]:.4f} .. {losses[-1]:.4f}, grad "
+        f"norms finite")
+    out["losses"] = losses
+    return out
+
+
+def phase_other(torch, args, device: dict) -> dict:
+    """Phase 16: the training testbed's other families.  (z), the slice's
+    main path, is mamba2-370m through ``launch.train.run`` (its counts set
+    to 0 before each run and read after); (z'), (z''), (z''') drive
+    deepseek-v2 (MLA + MoE), whisper-small and jamba through the model
+    entry points."""
+    t_start = time.perf_counter()
+    log("== phase 16: the training testbed's other families")
+    out = {"z": _other_mamba(torch, args, device)}
+    out["z1"] = _other_deepseek(torch, args)
+    out["z2"] = _other_whisper(torch, args)
+    out["z3"] = _other_jamba(torch, args)
+    out["launches"] = out["z"]["launches"]
+    out["seconds"] = time.perf_counter() - t_start
+    log(f"  phase 16 launches on the path (z): {out['launches']}")
+    log(f"phase 16: {out['seconds']:.1f} s")
+    return out
+
+
 def parse_args(argv):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -4948,6 +5395,7 @@ def main(argv=None) -> int:
     distributed = phase_distributed(torch, args, main_out)
     mesh_served = phase_mesh_served(torch, args)
     train = phase_train(torch, args, device)
+    other = phase_other(torch, args, device)
     for rows, path in ((mf_rows, mf_out), (dense_rows, dense_out), (cover_rows, cover_out)):
         for r in rows:
             r["launches"] = r["launches_on_path"] = path["launches"][r["name"]]
@@ -4982,6 +5430,8 @@ def main(argv=None) -> int:
         # the path's kernels at its shapes
         r["train"] = {"launches": train["launches"].get(r["name"], 0),
                       **train["kernels"].get(r["name"], {})}
+        # and on the other families' training path (phase 16 (z)'s two runs)
+        r["other_families"] = {"launches": other["launches"].get(r["name"], 0)}
     missing = set(ops.LAUNCHES) ^ {r["name"] for r in kernels}
     if missing:
         raise AssertionError(f"kernels line and LAUNCHES differ: {sorted(missing)}")
@@ -4989,7 +5439,7 @@ def main(argv=None) -> int:
               "main": main_out, "matrix_free": mf_out, "dense_pairwise": dense_out,
               "coverage": cover_out, "guided": guided_out, "wave": wave_out, "served": served,
               "remaining": remaining, "distributed": distributed, "mesh_served": mesh_served,
-              "train": train,
+              "train": train, "other_families": other,
               "kernels": kernels,
               "seconds": time.perf_counter() - t_start}
     OUT_DIR.mkdir(exist_ok=True)

@@ -74,10 +74,12 @@ class SyntheticTokens:
 
 def embed_examples(cfg: ArchConfig, params, batch) -> torch.Tensor:
     """Mean-pooled final hidden states (before the final norm) as fp32 — the
-    selection feature space."""
-    from repro_torch.models.model import _backbone, _embed, _positions, check_family
+    selection feature space; for ``audio`` the mean of the encoder's
+    output."""
+    from repro_torch.models.model import _backbone, _embed, _positions, _whisper_encode
 
-    check_family(cfg)
+    if cfg.family == "audio":
+        return _whisper_encode(cfg, params, batch["frames"]).mean(dim=1).float()
     tokens = batch["tokens"]
     B, L = tokens.shape
     x = _backbone(cfg, params, _embed(cfg, params, tokens), _positions(B, L, tokens.device))

@@ -36,7 +36,6 @@ from repro_torch.core.info.fl import FLCG, FLCMI, FLQMI, FLVMI
 from repro_torch.core.info.gc import GCMI
 from repro_torch.core.optimizers.greedy import GreedyResult
 from repro_torch.core.sources import FeatureSource, KnnSource, knn_source
-from repro_torch.models.model import check_family
 from repro_torch.train.grad_compress import ErrorFeedbackState
 from repro_torch.train.optim import AdamWState
 from repro_torch.train.train_step import TrainState
@@ -378,8 +377,8 @@ def _array_tensor(a, device) -> torch.Tensor:
 def params_from_arrays(cfg, tree, device=None) -> dict:
     """The port's parameters from the JAX package's (a nested dict of arrays,
     ``np.asarray`` of each leaf): the same key paths, each leaf in its own
-    dtype on ``device`` (default: the card)."""
-    check_family(cfg)
+    dtype on ``device`` (default: the card); zero-size leaves (an ssm
+    layer's ``d_ff = 0`` FFN) come over as they are."""
     dev = resolve_device(device)
     return tree_map(lambda a: _array_tensor(a, dev), dict(tree))
 

@@ -1,3 +1,3 @@
 """The training testbed's models (the JAX package's ``models/``): layer
-primitives, attention and the decoder-only ``dense`` and ``vlm`` families.
-The other families (MoE, Mamba, MLA, whisper) are ROADMAP item 12.2."""
+primitives, attention (GQA, MLA, cross), MoE, Mamba2 / SSD and the model
+assembly of every family: dense, moe, vlm, hybrid, ssm and audio."""

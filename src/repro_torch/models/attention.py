@@ -1,7 +1,8 @@
-"""Attention: GQA (+qk_norm, bias, RoPE / M-RoPE), dense and blockwise
-(flash-style online softmax) over the same GQA-native contractions (the JAX
-package's ``models/attention.py``; its MLA and cross attention are ROADMAP
-item 12.2).
+"""Attention (the JAX package's ``models/attention.py``): GQA (+qk_norm,
+bias, RoPE / M-RoPE), dense and blockwise (flash-style online softmax) over
+the same GQA-native contractions, MLA (DeepSeek latent attention with the
+absorbed decode against the compressed cache) and cross-attention for
+encoder-decoder models.
 
 Conventions: hidden x is (B, L, D); caches are dicts of tensors; ``cache_len``
 is the number of tokens already in the cache (a Python int or a 0-d tensor)
@@ -174,4 +175,100 @@ def gqa_attention(
     y = out.reshape(B, L, H * hd) @ params["wo"].to(dt)
     if params.get("bo") is not None:
         y = y + params["bo"].to(dt)
+    return y, new_cache
+
+
+def cross_attention(cfg: ArchConfig, params: dict, x: torch.Tensor, enc_kv: dict):
+    """Decoder cross-attention over precomputed encoder K/V (whisper)."""
+    B, L, D = x.shape
+    H, hd = cfg.n_heads, cfg.head_dim_
+    dt = x.dtype
+    q = x @ params["wq"].to(dt)
+    if params.get("bq") is not None:
+        q = q + params["bq"].to(dt)
+    q = q.reshape(B, L, H, hd)
+    k, v = enc_kv["k"], enc_kv["v"]  # (B, Lk, H, hd)
+    scores = torch.einsum("blhd,bshd->bhls", q, k) * (hd ** -0.5)
+    p = torch.softmax(scores.float(), dim=-1).to(dt)
+    out = torch.einsum("bhls,bshd->blhd", p, v).reshape(B, L, H * hd)
+    y = out @ params["wo"].to(dt)
+    if params.get("bo") is not None:
+        y = y + params["bo"].to(dt)
+    return y
+
+
+def mla_attention(
+    cfg: ArchConfig,
+    params: dict,
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    cache: dict | None = None,
+    cache_len=None,
+):
+    """DeepSeek-V2 Multi-head Latent Attention.
+
+    Prefill: uncompressed compute; the cache stores only the compressed
+    latent c_kv (kv_lora_rank) and the shared rope key (rope_head_dim).
+    Decode: the *absorbed* form: q_nope is folded through w_uk so scores are
+    taken directly against the latent cache; the attention output stays in
+    latent space and is expanded through w_uv once.
+    """
+    B, L, D = x.shape
+    H, hd, r = cfg.n_heads, cfg.head_dim_, cfg.rope_head_dim
+    dt = x.dtype
+
+    # --- projections ---
+    c_kv = rms_norm(x @ params["w_dkv"].to(dt), params["kv_norm"], cfg.norm_eps)
+    k_rope = x @ params["w_krope"].to(dt)
+    # one (B, L, 1, r) head, shared by every query head
+    k_rope = apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
+
+    if cfg.q_lora_rank:
+        c_q = rms_norm(x @ params["w_dq"].to(dt), params["q_norm_lora"], cfg.norm_eps)
+    else:
+        c_q = x
+    q_full = torch.einsum("blr,rho->blho", c_q, params["w_uq"].to(dt))
+    q_nope, q_rope = q_full[..., :hd], q_full[..., hd:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    scale = (hd + r) ** -0.5
+
+    new_cache = None
+    if cache is not None:
+        start = int(cache_len)
+        new_cache = {"c_kv": _write_cache(cache["c_kv"], c_kv, start),
+                     "k_rope": _write_cache(cache["k_rope"], k_rope, start)}
+
+    if cache is None or L > 1:
+        # uncompressed prefill (a cache, if given, is written above; as in
+        # gqa_attention this needs cache_len == 0)
+        k_nope = torch.einsum("blr,rho->blho", c_kv, params["w_uk"].to(dt))
+        v = torch.einsum("blr,rho->blho", c_kv, params["w_uv"].to(dt))
+        if L > FLASH_THRESHOLD:
+            # pack the shared rope key beside each head's nope key, so the
+            # blockwise attention sees one (hd + r) head dim
+            q_pack = torch.cat([q_nope, q_rope], dim=-1).reshape(B, L, H, 1, hd + r)
+            k_pack = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, L, H, r)], dim=-1)
+            v_pad = torch.nn.functional.pad(v, (0, r))
+            out = blockwise_attention(q_pack, k_pack, v_pad, causal=True)
+            out = out.reshape(B, L, H, hd + r)[..., :hd]
+        else:
+            s = (torch.einsum("blho,bsho->bhls", q_nope, k_nope)
+                 + torch.einsum("blhr,bsr->bhls", q_rope, k_rope)) * scale
+            s = torch.where(_causal_mask(0, L, 0, L, x.device), s, _NEG)
+            p = torch.softmax(s.float(), dim=-1).to(dt)
+            out = torch.einsum("bhls,bsho->blho", p, v)
+    else:
+        # absorbed decode: q_nope -> latent space through w_uk; attention and
+        # its output stay in the compressed latent space
+        ckv, krope = new_cache["c_kv"], new_cache["k_rope"]
+        q_lat = torch.einsum("blho,rho->blhr", q_nope, params["w_uk"].to(dt))
+        s = (torch.einsum("blhr,bsr->bhls", q_lat, ckv)
+             + torch.einsum("blhr,bsr->bhls", q_rope, krope)) * scale
+        valid = torch.arange(ckv.shape[1], device=x.device) < (start + L)
+        s = torch.where(valid, s, _NEG)
+        p = torch.softmax(s.float(), dim=-1).to(dt)
+        out_lat = torch.einsum("bhls,bsr->blhr", p, ckv)
+        out = torch.einsum("blhr,rho->blho", out_lat, params["w_uv"].to(dt))
+
+    y = torch.einsum("blho,hod->bld", out, params["wo_mla"].to(dt))
     return y, new_cache

@@ -1,14 +1,16 @@
 """Model assembly for the data-selection-for-training testbed (the JAX
-package's ``models/model.py``): the decoder-only ``dense`` and ``vlm``
-families.  ``launch/train.py`` trains them with per-round submodular coreset
-selection over their embeddings.
+package's ``models/model.py``).  ``launch/train.py`` trains these models with
+per-round submodular coreset selection over their embeddings.  Families:
+dense / moe / vlm (decoder-only transformer), hybrid (jamba period loop),
+ssm (mamba2), audio (whisper encoder-decoder).
 
 The parameter tree is the JAX package's: nested dicts of tensors with the
-same key paths, each layer stack stacked on a leading axis, so a tree moves
-across as a plain numpy map (``interop.params_from_arrays``).  The stack runs
-as a loop over the layer index with ``torch.utils.checkpoint`` around each
-layer while gradients are on (``jax.checkpoint`` in the JAX package), and the
-loss recomputes its logits in backward.
+same key paths, each layer stack stacked on a leading axis (a hybrid model's
+``pos{p}`` stacks over its periods), so a tree moves across as a plain numpy
+map (``interop.params_from_arrays``).  A stack runs as a loop over the layer
+index with ``torch.utils.checkpoint`` around each layer while gradients are
+on (``jax.checkpoint`` in the JAX package), and the loss recomputes its
+logits in backward.
 
 Public entry points:
   init_params(cfg, seed, device)
@@ -17,8 +19,10 @@ Public entry points:
   decode_step(cfg, params, cache, tokens, cache_len) -> (logits, cache)
   init_cache(cfg, batch_size, max_len, device)
 
-The ``moe``, ``hybrid``, ``ssm`` and ``audio`` families and MLA attention
-are ROADMAP item 12.2: their configs raise ``NotImplementedError``.
+The ssm and hybrid families' ``prefill`` runs the chunked scan over its
+tokens and leaves the scan's final state in the cache (``mamba_block``), so
+a prefill equals the no-cache forward; the JAX package's handles the first
+token only (ROADMAP queue 3).
 """
 from __future__ import annotations
 
@@ -29,21 +33,11 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common import resolve_device
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.attention import gqa_attention
-from repro_torch.models.layers import rms_norm, swiglu
+from repro_torch.models.attention import cross_attention, gqa_attention, mla_attention
+from repro_torch.models.layers import gelu_mlp, layer_norm, rms_norm, sinusoidal_positions, swiglu
+from repro_torch.models.mamba import mamba_block
+from repro_torch.models.moe import moe_ffn
 from repro_torch.tree import tree_map
-
-FAMILIES = ("dense", "vlm")
-
-
-def check_family(cfg: ArchConfig) -> None:
-    """Raise for a config this slice of the port does not run yet."""
-    if cfg.family not in FAMILIES or cfg.n_experts or cfg.mla:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family{' with MLA' if cfg.mla else ''} is ROADMAP "
-            f"item 12.2 (MoE, Mamba, MLA, whisper, hybrid); the port runs {FAMILIES} so far"
-        )
-
 
 # ---------------------------------------------------------------------------
 # parameter init
@@ -75,6 +69,23 @@ class _Init:
 
 def _attn_params(cfg: ArchConfig, ini: _Init) -> dict:
     D, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    if cfg.mla:
+        r_kv, r_q, r_r = cfg.kv_lora_rank, cfg.q_lora_rank, cfg.rope_head_dim
+        p = {
+            "w_dkv": ini.mat(D, r_kv),
+            "kv_norm": ini.ones(r_kv),
+            "w_krope": ini.mat(D, r_r),
+            "w_uk": ini.mat(r_kv, H, hd),
+            "w_uv": ini.mat(r_kv, H, hd),
+            "wo_mla": ini.mat(H, hd, D),
+        }
+        if r_q:
+            p["w_dq"] = ini.mat(D, r_q)
+            p["q_norm_lora"] = ini.ones(r_q)
+            p["w_uq"] = ini.mat(r_q, H, hd + r_r)
+        else:
+            p["w_uq"] = ini.mat(D, H, hd + r_r)
+        return p
     p = {
         "wq": ini.mat(D, H * hd),
         "wk": ini.mat(D, KV * hd),
@@ -88,15 +99,77 @@ def _attn_params(cfg: ArchConfig, ini: _Init) -> dict:
     return p
 
 
-def _ffn_params(cfg: ArchConfig, ini: _Init) -> dict:
+def _ffn_params(cfg: ArchConfig, ini: _Init, gelu: bool = False) -> dict:
     D, F = cfg.d_model, cfg.d_ff
+    if gelu:
+        return {"w_in": ini.mat(D, F), "b_in": ini.zeros(F), "w_out": ini.mat(F, D),
+                "b_out": ini.zeros(D)}
     return {"w_gate": ini.mat(D, F), "w_up": ini.mat(D, F), "w_down": ini.mat(F, D)}
 
 
-def _decoder_layer_params(cfg: ArchConfig, ini: _Init) -> dict:
+def _moe_params(cfg: ArchConfig, ini: _Init) -> dict:
+    D, E, F = cfg.d_model, cfg.n_experts, cfg.d_expert_
+    p = {"router": ini.mat(D, E), "w_gate": ini.mat(E, D, F), "w_up": ini.mat(E, D, F),
+         "w_down": ini.mat(E, F, D)}
+    if cfg.n_shared_experts:
+        Fs = cfg.n_shared_experts * F
+        p.update(shared_gate=ini.mat(D, Fs), shared_up=ini.mat(D, Fs),
+                 shared_down=ini.mat(Fs, D))
+    return p
+
+
+def _mamba_params(cfg: ArchConfig, ini: _Init) -> dict:
+    D, di, N, H, W = (cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads,
+                      cfg.ssm_conv_width)
+    return {
+        "in_proj": ini.mat(D, 2 * di + 2 * N + H),
+        "conv_w": ini.mat(W, di + 2 * N, scale=0.1),
+        "dt_bias": ini.zeros(H),
+        "A_log": ini.zeros(H),
+        "D": ini.ones(H),
+        "norm": ini.ones(di),
+        "out_proj": ini.mat(di, D),
+    }
+
+
+def _decoder_layer_params(cfg: ArchConfig, ini: _Init, moe: bool = False,
+                          mamba: bool = False) -> dict:
+    """A pre-norm block's parameters.  An ssm layer keeps an FFN of width
+    ``d_ff`` (0 for mamba2-370m: zero-size matrices, as in the JAX
+    package's tree)."""
     D = cfg.d_model
-    return {"ln1": ini.ones(D), "attn": _attn_params(cfg, ini), "ln2": ini.ones(D),
-            "ffn": _ffn_params(cfg, ini)}
+    p: dict[str, Any] = {"ln1": ini.ones(D)}
+    if mamba:
+        p["mixer"] = _mamba_params(cfg, ini)
+    else:
+        p["attn"] = _attn_params(cfg, ini)
+    p["ln2"] = ini.ones(D)
+    if moe:
+        p["moe"] = _moe_params(cfg, ini)
+    else:
+        p["ffn"] = _ffn_params(cfg, ini, gelu=cfg.family == "audio")
+    return p
+
+
+def _whisper_enc_layer_params(cfg: ArchConfig, ini: _Init) -> dict:
+    D = cfg.d_model
+    return {"ln1": ini.ones(D), "b1": ini.zeros(D), "attn": _attn_params(cfg, ini),
+            "ln2": ini.ones(D), "b2": ini.zeros(D), "ffn": _ffn_params(cfg, ini, gelu=True)}
+
+
+def _whisper_dec_layer_params(cfg: ArchConfig, ini: _Init) -> dict:
+    D = cfg.d_model
+    return {
+        "ln1": ini.ones(D),
+        "b1": ini.zeros(D),
+        "attn": _attn_params(cfg, ini),
+        "ln_x": ini.ones(D),
+        "bx": ini.zeros(D),
+        "xattn": _attn_params(cfg, ini),
+        "ln2": ini.ones(D),
+        "b2": ini.zeros(D),
+        "ffn": _ffn_params(cfg, ini, gelu=True),
+    }
 
 
 def _stack(trees: list):
@@ -113,18 +186,58 @@ def _unstack(stacked) -> list:
     return list(torch.unbind(stacked, 0))
 
 
+def _n_pre(cfg: ArchConfig) -> int:
+    """Leading dense layers of an MoE decoder (``layers_pre``)."""
+    return cfg.first_dense_layers if cfg.n_experts else 0
+
+
+def _n_periods(cfg: ArchConfig) -> int:
+    return cfg.n_layers // cfg.attn_every
+
+
 def init_params(cfg: ArchConfig, seed: int = 0, device=None) -> dict:
     """Parameters drawn from ``seed`` on ``device`` (default: the card)."""
-    check_family(cfg)
     ini = _Init(seed, _dtype(cfg.param_dtype), resolve_device(device))
     D, V = cfg.d_model, cfg.vocab
     params: dict[str, Any] = {"embed": ini.mat(V, D)}
     if not cfg.tie_embeddings:
         params["lm_head"] = ini.mat(D, V)
     params["final_norm"] = ini.ones(D)
+
+    if cfg.family == "audio":
+        # whisper: encoder self-attention stack + decoder (self + cross) stack
+        params["enc_layers"] = _stack([_whisper_enc_layer_params(cfg, ini)
+                                       for _ in range(cfg.enc_layers)])
+        params["enc_norm"] = ini.ones(D)
+        params["enc_norm_b"] = ini.zeros(D)
+        params["dec_layers"] = _stack([_whisper_dec_layer_params(cfg, ini)
+                                       for _ in range(cfg.n_layers)])
+        params["final_norm_b"] = ini.zeros(D)
+        return params
+
+    if cfg.family == "hybrid":
+        period = cfg.attn_every
+        for pos in range(period):
+            params[f"pos{pos}"] = _stack([
+                _decoder_layer_params(cfg, ini, moe=cfg.is_moe_layer(per * period + pos),
+                                      mamba=not cfg.is_attn_layer(per * period + pos))
+                for per in range(_n_periods(cfg))])
+        return params
+
+    if cfg.family == "ssm":
+        params["layers"] = _stack([_decoder_layer_params(cfg, ini, mamba=True)
+                                   for _ in range(cfg.n_layers)])
+        return params
+
     if cfg.family == "vlm":
         params["patch_proj"] = ini.mat(D, D)
-    params["layers"] = _stack([_decoder_layer_params(cfg, ini) for _ in range(cfg.n_layers)])
+
+    # dense / moe / vlm decoder-only stacks
+    n_pre = _n_pre(cfg)
+    if n_pre:
+        params["layers_pre"] = _stack([_decoder_layer_params(cfg, ini) for _ in range(n_pre)])
+    params["layers"] = _stack([_decoder_layer_params(cfg, ini, moe=cfg.is_moe_layer(l))
+                               for l in range(n_pre, cfg.n_layers)])
     return params
 
 
@@ -134,40 +247,75 @@ def init_params(cfg: ArchConfig, seed: int = 0, device=None) -> dict:
 
 
 def _apply_ffn(cfg: ArchConfig, lp: dict, h: torch.Tensor):
-    return swiglu(h, lp["ffn"]["w_gate"], lp["ffn"]["w_up"], lp["ffn"]["w_down"])
+    if "moe" in lp:
+        return moe_ffn(cfg, lp["moe"], h)
+    f = lp["ffn"]
+    if cfg.family == "audio":
+        return gelu_mlp(h, f["w_in"], f["b_in"], f["w_out"], f["b_out"])
+    return swiglu(h, f["w_gate"], f["w_up"], f["w_down"])
 
 
-def _norm(cfg: ArchConfig, x, scale):
+def _norm(cfg: ArchConfig, x, scale, bias=None):
+    if cfg.family == "audio":
+        return layer_norm(x, scale, bias, cfg.norm_eps)
     return rms_norm(x, scale, cfg.norm_eps)
 
 
 def _decoder_layer(cfg: ArchConfig, lp: dict, x: torch.Tensor, positions: torch.Tensor,
                    cache: dict | None, cache_len):
-    """Pre-norm block: attention + FFN.  Returns (x, new_cache)."""
-    h = _norm(cfg, x, lp["ln1"])
-    out, new_cache = gqa_attention(cfg, lp["attn"], h, positions, cache, cache_len)
+    """Pre-norm block: mixer (attention | mamba | MLA) + FFN / MoE.  Returns
+    (x, new_cache)."""
+    h = _norm(cfg, x, lp["ln1"], lp.get("b1"))
+    if "mixer" in lp:
+        out, new_cache = mamba_block(cfg, lp["mixer"], h, cache)
+    elif cfg.mla:
+        out, new_cache = mla_attention(cfg, lp["attn"], h, positions, cache, cache_len)
+    else:
+        out, new_cache = gqa_attention(cfg, lp["attn"], h, positions, cache, cache_len)
     x = x + out
-    h = _norm(cfg, x, lp["ln2"])
+    h = _norm(cfg, x, lp["ln2"], lp.get("b2"))
     x = x + _apply_ffn(cfg, lp, h)
     return x, new_cache
 
 
+def _run_layer(layer, remat: bool, *args):
+    """``layer(*args)``, recomputed in backward when ``remat`` and gradients
+    are on."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(layer, *args, use_reentrant=False)
+    return layer(*args)
+
+
 def _scan_stack(cfg, stacked, x, positions, caches, cache_len, remat=True):
     """Run a stacked layer group layer by layer.  caches: a stacked tree or
-    None.  Each layer is recomputed in backward (``remat``) when gradients
-    are on."""
-    remat = remat and torch.is_grad_enabled()
+    None."""
     new_caches = []
     layer_caches = _unstack(caches) if caches is not None else None
     for i, lp in enumerate(_unstack(stacked)):
         c = None if layer_caches is None else layer_caches[i]
-        if remat:
-            x, new_c = checkpoint(_decoder_layer, cfg, lp, x, positions, c, cache_len,
-                                  use_reentrant=False)
-        else:
-            x, new_c = _decoder_layer(cfg, lp, x, positions, c, cache_len)
+        x, new_c = _run_layer(_decoder_layer, remat, cfg, lp, x, positions, c, cache_len)
         new_caches.append(new_c)
     return x, (_stack(new_caches) if caches is not None else None)
+
+
+def _period_stack(cfg, params, x, positions, caches, cache_len, remat=True):
+    """The hybrid family's layers, period by period: position p of period k
+    is layer ``k * attn_every + p``, its parameters (and cache) row k of
+    ``pos{p}``."""
+    period = cfg.attn_every
+    per_params = [_unstack(params[f"pos{p}"]) for p in range(period)]
+    per_caches = None if caches is None else [_unstack(caches[f"pos{p}"])
+                                              for p in range(period)]
+    new = [[] for _ in range(period)]
+    for k in range(_n_periods(cfg)):
+        for p in range(period):
+            c = None if per_caches is None else per_caches[p][k]
+            x, new_c = _run_layer(_decoder_layer, remat, cfg, per_params[p][k], x, positions,
+                                  c, cache_len)
+            new[p].append(new_c)
+    if caches is None:
+        return x, None
+    return x, {f"pos{p}": _stack(new[p]) for p in range(period)}
 
 
 # ---------------------------------------------------------------------------
@@ -227,8 +375,69 @@ def _positions(B: int, L: int, device) -> torch.Tensor:
 
 def _backbone(cfg: ArchConfig, params, x, positions):
     """Token-embedded input -> final hidden states (no cache)."""
+    if cfg.family == "hybrid":
+        return _period_stack(cfg, params, x, positions, None, None)[0]
+    if "layers_pre" in params:
+        x, _ = _scan_stack(cfg, params["layers_pre"], x, positions, None, None)
     x, _ = _scan_stack(cfg, params["layers"], x, positions, None, None)
     return x
+
+
+def _whisper_enc_layer(cfg: ArchConfig, lp: dict, h, positions):
+    a = layer_norm(h, lp["ln1"], lp["b1"], cfg.norm_eps)
+    out, _ = gqa_attention(cfg, lp["attn"], a, positions, causal=False)
+    h = h + out
+    f = layer_norm(h, lp["ln2"], lp["b2"], cfg.norm_eps)
+    return h + gelu_mlp(f, lp["ffn"]["w_in"], lp["ffn"]["b_in"], lp["ffn"]["w_out"],
+                        lp["ffn"]["b_out"])
+
+
+def _whisper_encode(cfg: ArchConfig, params, frames):
+    """frames (B, T, D) stub embeddings -> encoder output (non-causal)."""
+    B, T, D = frames.shape
+    x = frames.to(_dtype(cfg.compute_dtype))
+    x = x + sinusoidal_positions(torch.arange(T, device=x.device), D, x.dtype)[None]
+    positions = _positions(B, T, x.device)
+    for lp in _unstack(params["enc_layers"]):
+        x = _run_layer(_whisper_enc_layer, True, cfg, lp, x, positions)
+    return layer_norm(x, params["enc_norm"], params["enc_norm_b"], cfg.norm_eps)
+
+
+def _whisper_dec_layer(cfg: ArchConfig, lp: dict, h, positions, enc_out, cache, cache_len):
+    B = h.shape[0]
+    H, hd = cfg.n_heads, cfg.head_dim_
+    a = layer_norm(h, lp["ln1"], lp["b1"], cfg.norm_eps)
+    out, new_c = gqa_attention(cfg, lp["attn"], a, positions, cache, cache_len)
+    h = h + out
+    xa = layer_norm(h, lp["ln_x"], lp["bx"], cfg.norm_eps)
+    # the cross-attention's K / V from enc_out, in every layer: V takes bv,
+    # K no bias
+    ek = (enc_out @ lp["xattn"]["wk"].to(h.dtype)).reshape(B, -1, H, hd)
+    ev = (enc_out @ lp["xattn"]["wv"].to(h.dtype) + lp["xattn"]["bv"].to(h.dtype)).reshape(
+        B, -1, H, hd)
+    h = h + cross_attention(cfg, lp["xattn"], xa, {"k": ek, "v": ev})
+    f = layer_norm(h, lp["ln2"], lp["b2"], cfg.norm_eps)
+    h = h + gelu_mlp(f, lp["ffn"]["w_in"], lp["ffn"]["b_in"], lp["ffn"]["w_out"],
+                     lp["ffn"]["b_out"])
+    return h, new_c
+
+
+def _whisper_decoder(cfg, params, x, positions, enc_out, caches, cache_len):
+    """Decoder stack; the cross-attention's K / V recomputed from enc_out in
+    each layer."""
+    layer_caches = _unstack(caches) if caches is not None else None
+    new_caches = []
+    for i, lp in enumerate(_unstack(params["dec_layers"])):
+        c = None if layer_caches is None else layer_caches[i]
+        x, new_c = _run_layer(_whisper_dec_layer, True, cfg, lp, x, positions, enc_out, c,
+                              cache_len)
+        new_caches.append(new_c)
+    return x, (_stack(new_caches) if caches is not None else None)
+
+
+def _whisper_inputs(cfg: ArchConfig, params, tokens, positions):
+    x = _embed(cfg, params, tokens)
+    return x + sinusoidal_positions(positions, cfg.d_model, x.dtype)
 
 
 def _embed_inputs(cfg: ArchConfig, params, batch):
@@ -242,15 +451,20 @@ def _embed_inputs(cfg: ArchConfig, params, batch):
 
 
 def train_forward(cfg: ArchConfig, params, batch) -> tuple[torch.Tensor, dict]:
-    """batch: tokens (B, L) [+ patches (B, Np, D) for vlm].  Returns (mean
-    xent loss, metrics)."""
-    check_family(cfg)
+    """batch: tokens (B, L) [+ frames (B, T, D) for audio, patches
+    (B, Np, D) for vlm].  Returns (mean xent loss, metrics)."""
     tokens = batch["tokens"]
     B, L = tokens.shape
     positions = _positions(B, L, tokens.device)
     targets = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])], dim=1)
-    x = _backbone(cfg, params, _embed_inputs(cfg, params, batch), positions)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    if cfg.family == "audio":
+        enc_out = _whisper_encode(cfg, params, batch["frames"])
+        x = _whisper_inputs(cfg, params, tokens, positions)
+        x, _ = _whisper_decoder(cfg, params, x, positions, enc_out, None, None)
+        x = layer_norm(x, params["final_norm"], params["final_norm_b"], cfg.norm_eps)
+    else:
+        x = _backbone(cfg, params, _embed_inputs(cfg, params, batch), positions)
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     loss = chunked_xent(cfg, x, _head_matrix(cfg, params), targets)
     return loss, {"loss": loss}
 
@@ -260,47 +474,95 @@ def train_forward(cfg: ArchConfig, params, batch) -> tuple[torch.Tensor, dict]:
 # ---------------------------------------------------------------------------
 
 
-def _layer_cache_shape(cfg: ArchConfig, B: int, max_len: int) -> dict:
-    """Shapes and dtype of one attention layer's cache."""
+def _layer_cache_shape(cfg: ArchConfig, layer: int, B: int, max_len: int) -> dict:
+    """{name: (shape, dtype)} of layer ``layer``'s cache."""
+    dt = _dtype(cfg.compute_dtype)
+    if cfg.family in ("ssm", "hybrid") and not cfg.is_attn_layer(layer):
+        di, N, H, P, W = (cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads, cfg.ssm_head_dim,
+                          cfg.ssm_conv_width)
+        return {"conv": ((B, W - 1, di + 2 * N), dt), "ssm": ((B, H, P, N), torch.float32)}
+    if cfg.mla:
+        return {"c_kv": ((B, max_len, cfg.kv_lora_rank), dt),
+                "k_rope": ((B, max_len, cfg.rope_head_dim), dt)}
     shape = (B, max_len, cfg.n_kv_heads, cfg.head_dim_)
-    return {"k": shape, "v": shape}
+    return {"k": (shape, dt), "v": (shape, dt)}
 
 
 def init_cache(cfg: ArchConfig, B: int, max_len: int, device=None) -> dict:
-    """Zero caches stacked like the layer stack, on ``device`` (default: the
+    """Zero caches stacked like the layer stacks, on ``device`` (default: the
     card)."""
-    check_family(cfg)
-    dev, dt = resolve_device(device), _dtype(cfg.compute_dtype)
-    shapes = _layer_cache_shape(cfg, B, max_len)
-    return {"layers": {k: torch.zeros((cfg.n_layers,) + s, dtype=dt, device=dev)
-                       for k, s in shapes.items()}}
+    dev = resolve_device(device)
+
+    def stacked(layers) -> dict:
+        shapes = [_layer_cache_shape(cfg, l, B, max_len) for l in layers]
+        return {k: torch.zeros((len(shapes),) + s, dtype=dt, device=dev)
+                for k, (s, dt) in shapes[0].items()}
+
+    if cfg.family == "audio":
+        return {"dec": stacked(range(cfg.n_layers)),
+                "enc_out": torch.zeros((B, cfg.enc_positions, cfg.d_model),
+                                       dtype=_dtype(cfg.compute_dtype), device=dev)}
+    if cfg.family == "hybrid":
+        period = cfg.attn_every
+        return {f"pos{p}": stacked([k * period + p for k in range(_n_periods(cfg))])
+                for p in range(period)}
+    caches = {}
+    n_pre = _n_pre(cfg)
+    if n_pre:
+        caches["pre"] = stacked(range(n_pre))
+    caches["layers"] = stacked(range(n_pre, cfg.n_layers))
+    return caches
 
 
 def _logits(cfg: ArchConfig, params, x):
     return (x @ _head_matrix(cfg, params).to(x.dtype)).float()
 
 
+def _cached_stacks(cfg: ArchConfig, params, x, positions, caches, cache_len):
+    """The decoder-only families' stacks over their caches; returns (x,
+    new_caches)."""
+    if cfg.family == "hybrid":
+        return _period_stack(cfg, params, x, positions, caches, cache_len)
+    new_caches = {}
+    if "pre" in caches:
+        x, new_caches["pre"] = _scan_stack(cfg, params["layers_pre"], x, positions,
+                                           caches["pre"], cache_len)
+    x, new_caches["layers"] = _scan_stack(cfg, params["layers"], x, positions,
+                                          caches["layers"], cache_len)
+    return x, new_caches
+
+
 def decode_step(cfg: ArchConfig, params, caches, tokens, cache_len):
     """One decode step: tokens (B, 1) at position cache_len.  Returns
     (logits (B, 1, V), new_caches)."""
-    check_family(cfg)
     B = tokens.shape[0]
     positions = torch.full((B, 1), int(cache_len), dtype=torch.int32, device=tokens.device)
-    x = _embed(cfg, params, tokens)
-    x, layers = _scan_stack(cfg, params["layers"], x, positions, caches["layers"], cache_len)
+    if cfg.family == "audio":
+        x = _whisper_inputs(cfg, params, tokens, positions)
+        x, dec = _whisper_decoder(cfg, params, x, positions, caches["enc_out"], caches["dec"],
+                                  cache_len)
+        x = layer_norm(x, params["final_norm"], params["final_norm_b"], cfg.norm_eps)
+        return _logits(cfg, params, x), {"dec": dec, "enc_out": caches["enc_out"]}
+    x, new_caches = _cached_stacks(cfg, params, _embed(cfg, params, tokens), positions, caches,
+                                   cache_len)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return _logits(cfg, params, x), {"layers": layers}
+    return _logits(cfg, params, x), new_caches
 
 
 def prefill(cfg: ArchConfig, params, batch, max_len: int | None = None):
     """Processes batch['tokens'] (B, L), returns (last-token logits, caches
     filled up to L)."""
-    check_family(cfg)
     tokens = batch["tokens"]
     B, L = tokens.shape
     caches = init_cache(cfg, B, max_len or L, tokens.device)
     positions = _positions(B, L, tokens.device)
-    x = _embed_inputs(cfg, params, batch)
-    x, layers = _scan_stack(cfg, params["layers"], x, positions, caches["layers"], 0)
+    if cfg.family == "audio":
+        enc_out = _whisper_encode(cfg, params, batch["frames"])
+        x = _whisper_inputs(cfg, params, tokens, positions)
+        x, dec = _whisper_decoder(cfg, params, x, positions, enc_out, caches["dec"], 0)
+        x = layer_norm(x, params["final_norm"], params["final_norm_b"], cfg.norm_eps)
+        return _logits(cfg, params, x[:, -1:]), {"dec": dec, "enc_out": enc_out}
+    x, new_caches = _cached_stacks(cfg, params, _embed_inputs(cfg, params, batch), positions,
+                                   caches, 0)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return _logits(cfg, params, x[:, -1:]), {"layers": layers}
+    return _logits(cfg, params, x[:, -1:]), new_caches

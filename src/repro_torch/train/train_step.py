@@ -37,12 +37,15 @@ def init_train_state(cfg: ArchConfig, seed: int = 0, device=None, moment_dtype=N
 
 
 def value_and_grad(cfg: ArchConfig, params, batch):
-    """(loss, grads): grads in the parameters' dtypes and tree."""
+    """(loss, grads): grads in the parameters' dtypes and tree.  A leaf the
+    loss does not reach (whisper's cross-attention ``bk``) gets a zero
+    gradient, as ``jax.grad`` gives it."""
     leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
     with torch.enable_grad():
         loss, _ = train_forward(cfg, tree_unflatten(params, leaves), batch)
-        grads = torch.autograd.grad(loss, leaves)
-    return loss.detach(), tree_unflatten(params, list(grads))
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+    return loss.detach(), tree_unflatten(params, grads)
 
 
 def make_train_step(cfg: ArchConfig, lr_schedule: Callable | None = None, grad_accum: int = 1,

@@ -1439,3 +1439,52 @@ def test_training_launcher_on_the_card(cuda, tmp_path, capsys):
         assert a.dtype == b.dtype and b.device.type == "cuda" and a.shape == b.shape
         assert torch.equal(a.view(torch.int16) if a.dtype == torch.bfloat16 else a,
                            b.view(torch.int16) if b.dtype == torch.bfloat16 else b)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-370m", "deepseek-v2-236b", "whisper-small",
+                                  "jamba-1.5-large-398b"])
+def test_other_families_on_the_card(cuda, arch, tmp_path):
+    """The moe (MLA), ssm, audio and hybrid families reduced, on the card:
+    prefill of 40 tokens and a decode_step equal to a prefill of the
+    extended tokens in fp32 (test_archs.py's 2e-2), one bf16 train step with
+    finite loss and every gradient finite; mamba2 also through
+    launch.train.run over a pool of 4,096 (the kernel gate: the CUDA
+    similarity and FL sweeps), with a checkpoint and a resumed run."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.launch.train import run
+    from repro_torch.models.model import decode_step, prefill
+    from repro_torch.train.train_step import init_train_state, make_train_step, value_and_grad
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config(arch).reduced()
+    state = init_train_state(cfg, seed=1)
+    batch = SyntheticTokens(cfg, 41, seed=2).batch(range(2))
+    head = {**batch, "tokens": batch["tokens"][:, :40]}
+    logits, caches = prefill(cfg, state.params, head, max_len=41)
+    logits, _ = decode_step(cfg, state.params, caches, batch["tokens"][:, 40:], 40)
+    ref, _ = prefill(cfg, state.params, batch)
+    assert logits.is_cuda and torch.isfinite(logits).all()
+    torch.testing.assert_close(logits[:, 0], ref[:, 0], rtol=2e-2, atol=2e-2)
+
+    bf = dataclasses.replace(cfg, param_dtype="bfloat16", compute_dtype="bfloat16")
+    state = init_train_state(bf, seed=1)
+    train_batch = SyntheticTokens(bf, 32, seed=3).batch(range(4))
+    _, grads = value_and_grad(bf, state.params, train_batch)
+    assert all(torch.isfinite(g.float()).all() for g in tree_leaves(grads))
+    state, metrics = make_train_step(bf)(state, train_batch)
+    assert math.isfinite(float(metrics["loss"])) and math.isfinite(float(metrics["grad_norm"]))
+
+    if arch == "mamba2-370m":
+        kw = dict(batch=16, seq=32, select_every=64, pool_factor=4,
+                  ckpt_dir=str(tmp_path / "ck"), ckpt_every=2)
+        ops.reset_launches()
+        losses = run(arch, steps=2, **kw)
+        torch.cuda.synchronize()
+        assert len(losses) == 2 and np.isfinite(losses).all()
+        for name in ("similarity", "fl_gains", "fl_gains_at"):
+            assert ops.LAUNCHES[name] > 0, name
+        resumed = run(arch, steps=3, **kw)
+        assert len(resumed) == 1 and np.isfinite(resumed).all()

@@ -40,7 +40,8 @@ def test_port_and_smoke_import_no_jax_and_no_repro():
     # and so are the training testbed's
     for part in ("launch/mesh_plane.py", "configs/base.py", "configs/archs.py",
                  "data/selection.py", "distributed/sharding.py", "models/layers.py",
-                 "models/attention.py", "models/model.py", "data/pipeline.py",
+                 "models/attention.py", "models/model.py", "models/moe.py",
+                 "models/mamba.py", "data/pipeline.py",
                  "train/optim.py", "train/grad_compress.py", "train/train_step.py",
                  "launch/train.py", "tree.py"):
         assert PORT / part in files, part
@@ -75,6 +76,7 @@ def test_importing_the_port_loads_no_jax_and_builds_nothing():
         "import repro_torch.launch.mesh_plane, repro_torch.configs.archs\n"
         "import repro_torch.data.selection, repro_torch.distributed.sharding\n"
         "import repro_torch.models.model, repro_torch.data.pipeline\n"
+        "import repro_torch.models.moe, repro_torch.models.mamba\n"
         "import repro_torch.train.train_step, repro_torch.launch.train\n"
         "from repro_torch.kernels import _build, ops\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
@@ -94,7 +96,7 @@ def test_entry_points_default_to_the_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device exists")
     from repro_torch.core import FacilityLocation, create_kernel
-    from repro_torch.interop import facility_location_from_arrays
+    from repro_torch.interop import facility_location_from_arrays, params_from_arrays
 
     from repro_torch.configs.base import get_config
     from repro_torch.data.pipeline import SyntheticTokens
@@ -104,7 +106,7 @@ def test_entry_points_default_to_the_card():
 
     x = np.ones((4, 3), np.float32)
     cfg = get_config("qwen3-0.6b").reduced()
-    for call in (
+    calls = [
         lambda: create_kernel(x),
         lambda: FacilityLocation.from_kernel(x),
         lambda: facility_location_from_arrays(x),
@@ -113,7 +115,14 @@ def test_entry_points_default_to_the_card():
         lambda: init_cache(cfg, 1, 8),
         lambda: SyntheticTokens(cfg, 8).batch([0]),
         lambda: run("qwen3-0.6b", steps=1, batch=1, seq=8),
-    ):
+    ]
+    # the moe, ssm, hybrid and audio families (models/moe.py, models/mamba.py)
+    for arch in ("deepseek-v2-236b", "mamba2-370m", "jamba-1.5-large-398b", "whisper-small"):
+        other = get_config(arch).reduced()
+        calls += [lambda c=other: init_params(c), lambda c=other: init_cache(c, 1, 8),
+                  lambda c=other: params_from_arrays(c, {"embed": x}),
+                  lambda a=arch: run(a, steps=1, batch=1, seq=8)]
+    for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
     assert create_kernel(x, device="cpu").shape == (4, 4)
