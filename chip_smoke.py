@@ -6,7 +6,7 @@ that path against its plain PyTorch version.
     python3 chip_smoke.py --n 8192 --naive-budget 50 --lazy-budget 200 \
         --mf-n 65536 --mf-lazy-budget 200 --reps 5   # a short check
 
-Twelve paths run, each with its launch counts set to 0 just before it and
+Thirteen paths run, each with its launch counts set to 0 just before it and
 read just after:
 
 - the main path, the paper's core loop: ``create_kernel`` (CUDA similarity
@@ -65,6 +65,10 @@ read just after:
   full width (the Mamba2 / SSD mixer), and deepseek-v2 (MLA and MoE),
   whisper-small (encoder-decoder) and jamba (the hybrid period) through the
   model entry points.
+- training on a mesh and the dry run: ``make_train_step`` on DTensors placed
+  by ``distributed/sharding.py``'s rules under ``activation_sharding``, the
+  sharded checkpoint's elastic restore, and ``launch/dryrun.py``'s count of
+  a step on a fake process group (it launches none of the kernels).
 
 Phases, each of which raises on failure (the exit code is then non-zero):
   1 device   CUDA present; the card's name and power limit
@@ -119,22 +123,23 @@ Phases, each of which raises on failure (the exit code is then non-zero):
              logdet_mi on S with 100 query and 100 private items
   10 wave    (l) FacilityLocation waves of --wave-b members at n = --wave-n
              and a quarter of them at 2x (cosine S of mixtures from the seed
-             + member index, budgets 50..200), NaiveGreedy and LazyGreedy,
-             through solve(specs, mode="batched"), in turns with the B
-             sequential solves: every member bit-equal to its sequential
-             solve, one fl sweep launch a step / level over all members, the
+             + member index, budgets 50..125), NaiveGreedy and LazyGreedy,
+             through solve(specs, mode="batched"), in turns W S S W with the
+             B sequential solves: every member of every run bit-equal to its
+             first sequential solve, one fl sweep launch a step / level over all members, the
              wave kernels against B single launches; (m) a zero-padded wave
              (n_i from --wave-n to 2x) through BatchedEngine(valid=...),
              bit-equal to the unpadded sequential solves; (n) GraphCut,
              DisparitySum / Min, FeatureBased, SetCover, PSC, FLMF and GCMF
-             in waves of 4, bit-equal; (o) knn_from_features on phase 4's
-             features (top-k rows checked), FacilityLocationMF.from_knn
-             against a dense FL over its to_dense() and run twice with equal
-             bits, random neighbours over --mf-n items, GraphCutMF.from_knn
-  11 served  (p) SERVE_REQUESTS 128 requests (the JAX package's serve CLI
+             in waves of 4 (NaiveGreedy 50, LazyGreedy 125), bit-equal; (o)
+             knn_from_features on phase 4's features (top-k rows checked),
+             FacilityLocationMF.from_knn against a dense FL over its
+             to_dense() and run twice with equal bits, random neighbours over
+             --mf-n items, GraphCutMF.from_knn
+  11 served  (p) SERVE_REQUESTS 96 requests (the JAX package's serve CLI
              families fl, gc, fb, sc, psc, dsum, dmin, flqmi, gcmi, logdet,
              and FLMF / GCMF over a cosine FeatureSource; mixtures from
-             --seed + SERVE_SEED + i at d, n from SERVE_N, budgets 50..200,
+             --seed + SERVE_SEED + i at d, n from SERVE_N, budgets 50..125,
              half NaiveGreedy, half LazyGreedy, use_kernel=None) through
              SelectionServer(max_wave=SERVE_MAX_WAVE), a warm-up and a
              steady round: every answer bit-equal to its sequential solve on
@@ -153,7 +158,7 @@ Phases, each of which raises on failure (the exit code is then non-zero):
   12 remaining  on phase 4's S rebuilt, each solve on the kernel route
              (use_kernel=None) and the plain route (use_kernel=False), equal
              ids and n_evals, gains within FL_TOL: 12.1 StochasticGreedy and
-             LazierThanLazyGreedy 5,000, eps 0.01 (s = 47), seed 0,
+             LazierThanLazyGreedy 1,000, eps 0.01 (s = 231), seed 0,
              with their values over phase 4's LazyGreedy 5,000 value; 12.2
              SieveStreaming 100, eps 0.1, seed None and 0, ThresholdGreedy
              100, buffer 64, with fl_gains_at's launches an arrival; 12.3
@@ -179,13 +184,13 @@ Phases, each of which raises on failure (the exit code is then non-zero):
              collectives counted; (u) four ranks of this script
              (--rank-2x2) on the card over gloo, a 2x2 ("batch", "data")
              mesh: the 13 families with a shard rule at n = 4,096, B = 4,
-             NaiveGreedy and LazyGreedy 50 / 25, every member bit-equal to
+             NaiveGreedy and LazyGreedy 30 / 15, every member bit-equal to
              rank 0's sequential solve and the batch the same on every
              rank; on ("data", "model") distributed_fl_greedy at phase 4's
              n (each rank's block cut from S built on one rank at a time)
              against (t)'s ids, the stochastic and FLQMI partition greedies
              at n = 8,192 against plain references; each rank's peak memory
-  14 mesh    (v) on 13 (t)'s world of 1: 48 requests of the 13 families with
+  14 mesh    (v) on 13 (t)'s world of 1: 32 requests of the 13 families with
              a shard rule (n 3,072..8,192, budgets 50..150, half
              LazyGreedy) through SelectionServer(mesh=), the first 8 through
              AsyncSelectionServer(mesh=), an FB session, every answer
@@ -206,18 +211,18 @@ Phases, each of which raises on failure (the exit code is then non-zero):
   15 train   (y) launch.train.run at qwen3-0.6b's full width (28 layers, d
              1,024, bf16), batch 16 x 256: a pool of 4,096 examples embedded,
              a 1,024 coreset (FL LazyGreedy, euclidean kernel, at the kernel
-             gate), 24 AdamW steps and a checkpoint; the step-0 loss within
+             gate), 8 AdamW steps and a checkpoint; the step-0 loss within
              (0.2, 3.0) x log(vocab), every grad norm finite and positive;
              the pool's S from similarity.cu within the euclidean bar of its
              plain version and the coreset's ids the plain route's up to a
              stated near-tie; a second run resumed from the checkpoint, its
              losses finite; make_train_step on one fixed batch lowering the
-             loss by 0.5 in 12 steps, and its state saved and restored bit
+             loss by 0.5 in 8 steps, and its state saved and restored bit
              for bit (bf16 params and moments, the step); walls, tokens/s and
              peak memory beside the card's name and power limit
   16 other   (z) launch.train.run at mamba2-370m's full width and depth (48
              layers, d 1,024, 32 SSM heads, N 128, chunk 256, bf16), as
-             (y): 12 steps, a checkpoint, a resumed run whose restored state
+             (y): 8 steps, a checkpoint, a resumed run whose restored state
              is the saved one bit for bit (zero-size d_ff = 0 leaves
              included), the coreset the plain route's; 8 steps on one batch
              (every gradient finite, the loss down by 0.5), a profiled step;
@@ -231,6 +236,29 @@ Phases, each of which raises on failure (the exit code is then non-zero):
              encoder's mean embedding, 6 steps on one batch, fp32 decode
              against prefill; (z''') jamba reduced in bf16: decode against
              the no-cache forward, 3 steps
+  17 mesh training  (aa) qwen3-0.6b at phase 15's width, depth and batch:
+             three make_train_step steps unsharded, then on DTensors placed
+             by param_shardings on an NCCL (1, 1) mesh under
+             activation_sharding, fsdp and dp, every loss and leaf bit-equal;
+             the dry run of the cell on a fake (1, 1) mesh: its argument
+             bytes the real local bytes exactly, its flops over the median
+             step as TFLOP/s, its peak against max_memory_allocated within
+             0.5-2x; (bb) four ranks of this script (--rank-shard): on one
+             card over gloo tools/gloo_cuda_probe.py's functional all-gather
+             of CUDA tensors first; on four cards (one NCCL rank each), or
+             where the probe comes back, two steps of qwen3-0.6b at 4 layers
+             in fp32 on a 2x2 ("data", "model") mesh under fsdp and under dp
+             against the unsharded steps (tests/test_torch_sharded_steps.py's
+             bars), each rank's collectives equal to the dry run's on a fake
+             (2, 2) mesh, and deepseek-v2's MoE layer at its published widths
+             at tp_size 2 against whole tensors, any error failing the
+             phase; only where the probe does not come back are those
+             printed NOT RUN with the probe's error; always the initial fsdp
+             state saved
+             sharded and restored onto (4, 1), (1, 4) and a world of 1,
+             each block bit-equal, checked without a collective; (cc)
+             launch/dryrun.py's qwen3-0.6b train_4k on 256 fake ranks, its
+             record printed
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Details go to chiprun_out/chip_smoke.json.
 Without a CUDA device, or without the repo's ``src/`` beside it, the script
@@ -328,15 +356,15 @@ FL_ROWS_PAST_LIMIT = 65_535 * 128 + 1
 HOST_CALLS, HOST_BATCHES = 200, 5
 CLUSTERS, KMEANS_ITERS = 100, 25  # phase 9 (j): the mixture's component count
 GUIDED = 100  # phase 9 (k): |Q| = |P|
-GUIDED_BUDGET = 250  # phase 9 (k): the FL, GC and COM measures' NaiveGreedy budget
+GUIDED_BUDGET = 150  # phase 9 (k): the FL, GC and COM measures' NaiveGreedy budget
 LOGDET_BUDGET = 100  # phase 9 (k): well under the cosine S's rank d + 1
 # phase 10 (l), (m): the members' budgets, spread evenly over this range, and
 # LazyGreedy's screen width
-WAVE_BUDGETS = (50, 200)
+WAVE_BUDGETS = (50, 125)
 WAVE_SCREEN_K = 8
 # phase 10 (n): members per family, and the NaiveGreedy / LazyGreedy budgets
 FAMILY_B = 4
-FAMILY_BUDGETS = (50, 200)
+FAMILY_BUDGETS = (50, 125)
 # phase 10 (o): neighbours per row and knn_from_features' row batch on phase
 # 4's features; the million-point shape's random neighbours (the JAX
 # package's tests/test_matrix_free.py:285-296); NaiveGreedy / LazyGreedy
@@ -351,7 +379,7 @@ GC_KNN_BUDGET = 100
 # the FLMF session's final n, its seed rows and uneven deltas (as given at
 # 8,192 rows, scaled for another SESSION_N), its LazyGreedy budget; the
 # kernel fault's n and the breaker's cooldown
-SERVE_REQUESTS = 128
+SERVE_REQUESTS = 96
 SERVE_N = (3072, 4096, 6144, 8192)
 SERVE_MAX_WAVE = 64
 SERVE_KINDS = ("fl", "gc", "fb", "sc", "psc", "dsum", "dmin", "flqmi", "gcmi", "logdet",
@@ -362,7 +390,7 @@ KERNEL_FAMILIES = ("FacilityLocation", "GraphCut", "FeatureBased", "SetCover",
 SERVED_KERNELS = ("similarity", "fl_gains", "fl_gains_at", "flmf_gains", "flmf_gains_at",
                   "gc_gains", "gc_gains_at", "gcmf_gains", "gcmf_gains_at", "fb_gains",
                   "fb_gains_at", "sc_gains", "psc_gains", "dsum_gains", "dmin_gains")
-SERVE_BUDGETS = (50, 200)
+SERVE_BUDGETS = (50, 125)
 SERVE_SEED = 7000
 SERVE_QUERIES = 16
 SERVE_MAX_PENDING, SERVE_FLUSH_INTERVAL = 2, 0.05
@@ -3354,8 +3382,8 @@ def phase_served(torch, args) -> dict:
 # Phase 12: the remaining optimizers
 # ---------------------------------------------------------------------------
 
-SAMPLED_BUDGET = 5000
-SAMPLED_EPS = 0.01  # s = 47 at n = 50,000
+SAMPLED_BUDGET = 1000
+SAMPLED_EPS = 0.01  # s = 231 at n = 50,000 and budget 1,000
 SAMPLED_SEEDS = (0,)  # one seed: a second repeats the same check at the script's time cost
 STREAM_BUDGET = 100
 STREAM_EPS = 0.1
@@ -3568,7 +3596,7 @@ def phase_remaining(torch, args, main: dict | None) -> dict:
                 f, SAMPLED_BUDGET, opt, seed=seed, epsilon=SAMPLED_EPS)), kern, plain)
             r["vs_lazy_value"] = None if lazy_value is None else r["value"] / lazy_value
             out[f"{opt}_seed{seed}"] = r
-    log(f"  12.1 values over phase 4's LazyGreedy {SAMPLED_BUDGET} value: "
+    log(f"  12.1 values over phase 4's LazyGreedy {args.lazy_budget} value: "
         f"{ {k: v['vs_lazy_value'] for k, v in out.items()} }")
 
     # 12.2 the streaming ladders
@@ -3647,7 +3675,7 @@ DIST_KINDS = ("fl", "gc", "fb", "sc", "psc", "dsum", "dmin", "gcmi", "logdet", "
               "flcg", "flcmi")
 DIST_N = 4096  # (u): every family's n, at the kernel gate
 DIST_B = 4
-DIST_BUDGETS = (50, 25)  # (u) and (t)'s FB / SC / PSC waves: members alternate
+DIST_BUDGETS = (30, 15)  # (u) and (t)'s FB / SC / PSC waves: members alternate
 DIST_FL_N = 8192  # (t): the FL waves
 DIST_FL_BUDGETS = (200, 120)
 DIST_PART_N = 8192  # (u): the stochastic and FLQMI partition greedies
@@ -4121,7 +4149,7 @@ def phase_distributed(torch, args, main: dict | None) -> dict:
 # ---------------------------------------------------------------------------
 
 MESH_SEED = 14000
-MESH_REQUESTS = 48  # (v): requests over the 13 families with a shard rule
+MESH_REQUESTS = 32  # (v): requests over the 13 families with a shard rule
 MESH_N = SERVE_N  # (v): n in {3,072, 4,096, 6,144, 8,192}
 MESH_BUDGETS = (50, 150)  # cut from 200 to keep phase 14 near 90 s
 MESH_ASYNC = 8  # (v): the first requests again, through AsyncSelectionServer
@@ -4537,9 +4565,9 @@ TRAIN_BATCH = 16
 TRAIN_SEQ = 256
 TRAIN_SELECT_EVERY = 64  # a coreset of 1,024 from a pool of 4,096 (KERNEL_MIN_N)
 TRAIN_POOL_FACTOR = 4
-TRAIN_STEPS = 24  # (y) the first run: one selection round, a checkpoint at its end
-TRAIN_RESUME_STEPS = 28  # the second run resumes at 24: a fresh round, 4 steps
-FIXED_STEPS = 12  # (y) make_train_step on one fixed batch
+TRAIN_STEPS = 8  # (y) the first run: one selection round, a checkpoint at its end
+TRAIN_RESUME_STEPS = 12  # the second run resumes at 8: a fresh round, 4 steps
+FIXED_STEPS = 8  # (y) make_train_step on one fixed batch
 FIXED_SCHEDULE = (1e-3, 2, 1000)  # cosine_schedule(base_lr, warmup, total)
 TRAIN_KERNELS = ("similarity", "fl_gains", "fl_gains_at")
 BF16_PEAK_FLOPS = 989e12  # H100 SXM dense bf16
@@ -4890,8 +4918,8 @@ def phase_train(torch, args, device: dict) -> dict:
 
 
 OTHER_ARCH = "mamba2-370m"  # phase 16 (z): the ssm family, full width and depth
-OTHER_STEPS = 12  # (z) the first run: one selection round, a checkpoint at its end
-OTHER_RESUME_STEPS = 14  # the resumed run at 12: a fresh round, 2 steps
+OTHER_STEPS = 8  # (z) the first run: one selection round, a checkpoint at its end
+OTHER_RESUME_STEPS = 10  # the resumed run at 8: a fresh round, 2 steps
 OTHER_FIXED_STEPS = 8  # (z) make_train_step on one fixed batch
 OTHER_PAIR_B = 2  # (z)-(z''): the fp32 prefill / decode checks' batch
 OTHER_TOL = 2e-2  # tests/test_archs.py:118's rtol / atol for decode against a forward
@@ -5316,6 +5344,575 @@ def phase_other(torch, args, device: dict) -> dict:
     return out
 
 
+SHARD_ARCH = TRAIN_ARCH  # phase 17 (aa): phase 15's config and batch
+SHARD_STEPS = 3  # (aa) train steps of the unsharded run and of each policy
+SHARD_POLICIES = ("fsdp", "dp")
+SHARD_PEAK_RATIO = (0.5, 2.0)  # (aa) the dry run's peak over the measured one
+SHARD_2X2_LAYERS = 4  # (bb) qwen3-0.6b's width, depth cut to 4, in fp32
+SHARD_2X2_BATCH = 8
+SHARD_2X2_SEQ = 128
+SHARD_2X2_STEPS = 2
+SHARD_2X2_POLICIES = ("fsdp", "dp")
+# tests/test_torch_sharded_steps.py's LOSS_RTOL, LEAF_RTOL / LEAF_ATOL and MOE_ATOL
+SHARD_LOSS_RTOL = 1e-5
+SHARD_LEAF_RTOL, SHARD_LEAF_ATOL = 1e-4, 1e-7
+SHARD_MOE_ATOL = 1e-5
+SHARD_MOE_ARCH = "deepseek-v2-236b"  # (bb) its MoE layer at the published widths, fp32
+SHARD_MOE_BATCH = 2
+SHARD_MOE_SEQ = 1536  # 3 groups of 512; 4 at tp_size 2
+SHARD_PG_TIMEOUT_S = 120
+SHARD_JOIN_TIMEOUT_S = 420
+SHARD_SEED = 17000
+DRYRUN_CELL = ("qwen3-0.6b", "train_4k", "single")  # (cc)
+
+
+def _placed(tree, mesh, policy: str, batch: bool = False):
+    from repro_torch.distributed.sharding import (
+        batch_specs, distribute, param_shardings, shardings_of,
+    )
+
+    if batch:
+        return distribute(tree, shardings_of(tree, batch_specs(tree, mesh, policy=policy), mesh))
+    return distribute(tree, param_shardings(tree, mesh, policy))
+
+
+def _shard_world_of_one(torch, args) -> dict:
+    """(aa) qwen3-0.6b at phase 15's width, depth and batch: the unsharded
+    steps, then the same steps on DTensors on an NCCL (1, 1) mesh under each
+    policy, bit for bit; the dry run of the cell on a fake (1, 1) mesh."""
+    import datetime
+    import statistics as st
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.distributed.act_sharding import activation_sharding
+    from repro_torch.launch.dryrun import fake_world, local_bytes, trace_cell
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.specs import ShapeCell
+    from repro_torch.train.train_step import init_train_state, make_train_step
+    from repro_torch.tree import flatten_with_names
+
+    cfg = get_config(SHARD_ARCH)
+    cell = ShapeCell("phase15", "train", TRAIN_SEQ, TRAIN_BATCH)
+    dry = {}
+    with fake_world(1):
+        fmesh = make_test_mesh((1, 1))
+        for policy in SHARD_POLICIES:
+            dry[policy] = trace_cell(cfg, cell, fmesh, policy)
+            log(f"  17 (aa) dry run of {SHARD_ARCH} {TRAIN_BATCH} x {TRAIN_SEQ} on a fake (1, 1) "
+                f"mesh, {policy}: {dry[policy]['flops_per_device']:.4e} flops, arguments "
+                f"{dry[policy]['memory']['argument_size_in_bytes']} B, temp "
+                f"{dry[policy]['memory']['temp_size_in_bytes']} B, traced in "
+                f"{dry[policy]['trace_s']} s")
+    batches = [SyntheticTokens(cfg, TRAIN_SEQ, seed=args.seed + SHARD_SEED + s,
+                               device="cuda").batch(range(TRAIN_BATCH))
+               for s in range(SHARD_STEPS)]
+    step = make_train_step(cfg)
+    state = init_train_state(cfg, args.seed, "cuda")
+    args_bytes = local_bytes((state, batches[0]))
+    want_losses, walls = [], []
+    for i, b in enumerate(batches):
+        torch.cuda.synchronize()
+        if i == 0:
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        want_losses.append(m["loss"])
+        if i == 0:
+            # the step's own peak: what it allocated above everything alive
+            # before it, plus its arguments
+            peak = torch.cuda.max_memory_allocated() - before + args_bytes
+    want = dict(flatten_with_names(state))
+    del state
+    out = {"unsharded_walls_s": walls, "peak_bytes": peak, "args_bytes": args_bytes,
+           "losses": [float(x) for x in want_losses]}
+    store = Path(tempfile.mkdtemp()) / "store"
+    timeout = datetime.timedelta(seconds=SHARD_PG_TIMEOUT_S)
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0, world_size=1,
+                            timeout=timeout)
+    try:
+        mesh = make_test_mesh((1, 1), timeout=timeout)
+        for policy in SHARD_POLICIES:
+            state = _placed(init_train_state(cfg, args.seed, "cuda"), mesh, policy)
+            placed = [_placed(b, mesh, policy, batch=True) for b in batches]
+            real = local_bytes((state, placed[0]))
+            if real != dry[policy]["memory"]["argument_size_in_bytes"]:
+                raise AssertionError(f"17 (aa) {policy}: the dry run's argument bytes "
+                                     f"{dry[policy]['memory']['argument_size_in_bytes']} are "
+                                     f"not the real local bytes {real}")
+            sharded_walls = []
+            for b, want_loss in zip(placed, want_losses):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with activation_sharding(mesh, policy=policy):
+                    state, m = step(state, b)
+                torch.cuda.synchronize()
+                sharded_walls.append(time.perf_counter() - t0)
+                if not torch.equal(m["loss"].full_tensor(), want_loss):
+                    raise AssertionError(f"17 (aa) {policy}: loss {float(m['loss'].full_tensor())}"
+                                         f" is not the unsharded {float(want_loss)}")
+            leaves = flatten_with_names(state)
+            bad = [n for n, leaf in leaves if not _leaf_bits_equal(torch, leaf.full_tensor(),
+                                                                   want[n])]
+            if bad:
+                raise AssertionError(f"17 (aa) {policy}: leaves not bit-equal: {bad[:5]}")
+            log(f"  ok  17 (aa) {policy} on an NCCL (1, 1) mesh: {SHARD_STEPS} steps' losses and "
+                f"all {len(leaves)} leaves bit-equal to the unsharded steps; the dry run's "
+                f"argument bytes {real} exact; walls {[round(w, 4) for w in sharded_walls]} s "
+                f"(unsharded {[round(w, 4) for w in walls]})")
+            out[policy] = {"walls_s": sharded_walls, "args_bytes": real}
+            del state, placed
+    finally:
+        dist.destroy_process_group()
+    median = st.median(walls)
+    flops = dry["fsdp"]["flops_per_device"]
+    predicted = dry["fsdp"]["memory"]["argument_size_in_bytes"] + \
+        dry["fsdp"]["memory"]["temp_size_in_bytes"]
+    ratio = predicted / peak
+    out.update(dry=dry, median_step_s=median, tflops=flops / median / 1e12,
+               predicted_peak_bytes=predicted, peak_ratio=ratio)
+    log(f"  17 (aa) the dry run's {flops:.4e} flops over the unsharded median step {median:.4f} s:"
+        f" {out['tflops']:.1f} TFLOP/s of {BF16_PEAK_FLOPS / 1e12:.0f} bf16")
+    if not SHARD_PEAK_RATIO[0] <= ratio <= SHARD_PEAK_RATIO[1]:
+        raise AssertionError(f"17 (aa) the dry run's peak {predicted} B over the measured "
+                             f"{peak} B is {ratio:.3f}, outside {SHARD_PEAK_RATIO}")
+    log(f"  ok  17 (aa) the dry run's peak (arguments + temp) {predicted / 2**30:.2f} GiB against "
+        f"the step's measured {peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated): ratio "
+        f"{ratio:.3f} in {SHARD_PEAK_RATIO}")
+    return out
+
+
+def _shard_cfg4():
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+
+    return dataclasses.replace(get_config(SHARD_ARCH), n_layers=SHARD_2X2_LAYERS,
+                               param_dtype="float32", compute_dtype="float32")
+
+
+_MOE_NAMES = {"router": 1, "w_gate": 2, "w_up": 3, "w_down": 4, "shared_gate": 5,
+              "shared_up": 6, "shared_down": 7}
+
+
+def _moe_weight(torch, name: str, shape, rows, seed: int):
+    """Rows ``rows`` of MoE matrix ``name`` (an expert each, or for a dense
+    matrix the whole of it at ``rows`` None), 0.02 N(0, 1) in fp32, each
+    expert from its own seed on the card: a rank draws only its experts."""
+    gen = torch.Generator(device="cuda")
+    if rows is None:
+        gen.manual_seed(seed * 100 + _MOE_NAMES[name])
+        return torch.randn(shape, generator=gen, device="cuda").mul_(0.02)
+    out = torch.empty((len(rows),) + tuple(shape), device="cuda")
+    for i, e in enumerate(rows):
+        gen.manual_seed((seed * 100 + _MOE_NAMES[name]) * 1000 + e)
+        torch.randn(shape, generator=gen, device="cuda", out=out[i])
+    return out.mul_(0.02)
+
+
+def _moe_2x2(torch, args, mesh, rank: int) -> dict:
+    """(bb) deepseek-v2's MoE layer at its published widths (160 experts of
+    5,120 x 1,536, 2 shared, top 6) in fp32 on the 2x2 mesh, where
+    tp_size() is 2; rank 0 also runs it on whole tensors in the same
+    context (the same group count)."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.distributed.act_sharding import (
+        activation_sharding, splits_activations, tp_size,
+    )
+    from repro_torch.distributed.sharding import local_box, param_specs, to_placements
+    from repro_torch.models.moe import moe_ffn
+
+    cfg = get_config(SHARD_MOE_ARCH)
+    D, E, F = cfg.d_model, cfg.n_experts, cfg.d_expert_
+    Fs = cfg.n_shared_experts * F
+    shapes = {"router": (D, E), "w_gate": (E, D, F), "w_up": (E, D, F), "w_down": (E, F, D),
+              "shared_gate": (D, Fs), "shared_up": (D, Fs), "shared_down": (Fs, D)}
+    specs = param_specs({"moe": {k: torch.empty(s, device="meta") for k, s in shapes.items()}},
+                        mesh, "fsdp")["moe"]
+    seed = args.seed + SHARD_SEED + 20
+    placed = {}
+    for k, s in shapes.items():
+        pl = to_placements(specs[k], mesh)
+        shape, off = local_box(s, mesh, pl)
+        if len(s) == 3:  # this rank's experts, then its slice of them
+            block = _moe_weight(torch, k, s[1:], range(off[0], off[0] + shape[0]), seed)
+            off, shape = (0,) + off[1:], (block.shape[0],) + shape[1:]
+        else:
+            block = _moe_weight(torch, k, s, None, seed)
+        local = block[tuple(slice(o, o + n) for o, n in zip(off, shape))].contiguous()
+        del block
+        placed[k] = DTensor.from_local(local, mesh, pl, run_check=False, shape=torch.Size(s),
+                                       stride=torch.empty(s, device="meta").stride())
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((SHARD_MOE_BATCH, SHARD_MOE_SEQ, D), generator=gen, device="cuda")
+    xd = _placed({"x": x}, mesh, "fsdp", batch=True)["x"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with activation_sharding(mesh, policy="fsdp"):
+        ts, split = tp_size(), splits_activations()
+        y = moe_ffn(cfg, placed, xd).full_tensor()
+    torch.cuda.synchronize()
+    out = {"tp_size": ts, "tp_activations": split, "sharded_s": time.perf_counter() - t0}
+    del placed
+    torch.cuda.empty_cache()
+    if rank == 0:
+        whole = {k: _moe_weight(torch, k, s[1:], range(E), seed) if len(s) == 3 else
+                 _moe_weight(torch, k, s, None, seed) for k, s in shapes.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with activation_sharding(mesh, policy="fsdp"):
+            y0 = moe_ffn(cfg, whole, x)
+        torch.cuda.synchronize()
+        out.update(whole_s=time.perf_counter() - t0, err=float((y - y0).abs().max()),
+                   scale=float(y0.abs().max()))
+        del whole, y0
+    return out
+
+
+def _shard_steps(torch, args, mesh, policy: str, rank: int) -> dict:
+    """Two steps of qwen3-0.6b at 4 layers on DTensors placed by ``policy``
+    against this rank's own unsharded steps, each step's collectives
+    counted."""
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.distributed.act_sharding import activation_sharding
+    from repro_torch.launch.dryrun import CostCounter
+    from repro_torch.train.train_step import init_train_state, make_train_step
+    from repro_torch.tree import flatten_with_names
+
+    cfg = _shard_cfg4()
+    batches = [SyntheticTokens(cfg, SHARD_2X2_SEQ, seed=args.seed + SHARD_SEED + 10 + s,
+                               device="cuda").batch(range(SHARD_2X2_BATCH))
+               for s in range(SHARD_2X2_STEPS)]
+    step = make_train_step(cfg)
+    ref, ref_losses = init_train_state(cfg, args.seed, "cuda"), []
+    for b in batches:
+        ref, m = step(ref, b)
+        ref_losses.append(float(m["loss"]))
+    ref = dict(flatten_with_names(ref))
+    state = _placed(init_train_state(cfg, args.seed, "cuda"), mesh, policy)
+    out = {"failures": [], "losses": [], "collectives": [], "walls_s": [],
+           "ref_losses": ref_losses}
+    for b in batches:
+        b = _placed(b, mesh, policy, batch=True)
+        counter = CostCounter(memory=False)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with activation_sharding(mesh, policy=policy), counter:
+            state, m = step(state, b)
+        out["losses"].append(float(m["loss"].full_tensor()))
+        torch.cuda.synchronize()
+        out["walls_s"].append(time.perf_counter() - t0)
+        out["collectives"].append(counter.collectives())
+    for s, (got, want) in enumerate(zip(out["losses"], ref_losses)):
+        if abs(got - want) > SHARD_LOSS_RTOL * abs(want):
+            out["failures"].append(f"rank {rank} {policy} step {s}: loss {got} against {want}")
+    out["worst_leaf"] = 0.0
+    for n, leaf in flatten_with_names(state):
+        whole, want = leaf.full_tensor(), ref[n]
+        if not want.numel():
+            continue
+        err = float((whole.double() - want.double()).abs().max())
+        tol = SHARD_LEAF_ATOL + SHARD_LEAF_RTOL * float(want.abs().max())
+        out["worst_leaf"] = max(out["worst_leaf"], err / tol)
+        if err > tol:
+            out["failures"].append(f"rank {rank} {policy} {n}: {err:.3e} past {tol:.3e}")
+    return out
+
+
+def _shard_full(torch, args, meshes: dict, tmp: Path, rank: int) -> dict:
+    """(bb)'s whole job on one rank: the steps under each policy, the
+    checkpoint, the MoE layer; an error ends the rank, and so the phase."""
+    out = {"policies": {p: _shard_steps(torch, args, meshes["2x2"], p, rank)
+                        for p in SHARD_2X2_POLICIES}}
+    out["failures"] = [f for r in out["policies"].values() for f in r.get("failures", [])]
+    ck = _shard_ckpt_only(torch, args, meshes, tmp, rank)
+    out["failures"] += ck.pop("failures")
+    out.update(ck)
+    torch.cuda.empty_cache()
+    out["moe"] = _moe_2x2(torch, args, meshes["2x2"], rank)
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    return out
+
+
+def _shard_ckpt_only(torch, args, meshes: dict, tmp: Path, rank: int) -> dict:
+    """(bb)'s checkpoint without a collective: the initial state placed by
+    fsdp on the 2x2 mesh, saved sharded and restored onto (4, 1) and (1, 4);
+    every restored local block bit-equal to the same box of the whole state
+    this rank draws itself."""
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.distributed.sharding import local_box, param_shardings
+    from repro_torch.train.train_step import init_train_state
+    from repro_torch.tree import flatten_with_names, leaves_like
+
+    out = {"failures": [], "restored": {}}
+    cfg = _shard_cfg4()
+    whole = init_train_state(cfg, args.seed, "cuda")
+    state = _placed(whole, meshes["2x2"], "fsdp")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ckpt.save(str(tmp / "ck"), 1, state)
+    out["save_s"] = time.perf_counter() - t0
+    ref = dict(flatten_with_names(whole))
+    for name in ("4x1", "1x4"):
+        want = param_shardings(state, meshes[name], "fsdp")
+        t0 = time.perf_counter()
+        got, meta = ckpt.restore(str(tmp / "ck"), state, shardings=want)
+        wall = time.perf_counter() - t0
+        leaves = flatten_with_names(got)
+        placed = all(t.device_mesh is m and tuple(t.placements) == tuple(p)
+                     for (_, t), (m, p) in zip(leaves, leaves_like(state, want)))
+        equal = True
+        for n, t in leaves:
+            shape, off = local_box(t.shape, t.device_mesh, t.placements)
+            box = ref[n][tuple(slice(o, o + k) for o, k in zip(off, shape))]
+            equal &= _leaf_bits_equal(torch, t.to_local(), box.contiguous())
+        if not (placed and equal and meta["step"] == 1):
+            out["failures"].append(f"rank {rank} restore onto {name}: placed {placed}, "
+                                   f"bit-equal {equal}")
+        out["restored"][name] = {"placed": placed, "equal": equal, "restore_s": wall}
+        del got, leaves
+    return out
+
+
+def _rank_shard(args) -> int:
+    """One rank of (bb)'s 2x2 world over ``--backend-shard`` (gloo on one
+    card, NCCL on four), running the job ``--job-shard``: ``full``
+    (:func:`_shard_full`) or ``ckpt`` (:func:`_shard_ckpt_only`); its
+    results go to DIR/rank{r}.json."""
+    import datetime
+    import logging
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    logging.getLogger("torch.distributed.tensor").setLevel(logging.ERROR)
+    from repro_torch.launch.mesh import make_test_mesh
+
+    rank, tmp, job = args.rank_shard, Path(args.dir_shard), args.job_shard
+    timeout = datetime.timedelta(seconds=SHARD_PG_TIMEOUT_S)
+    dist.init_process_group(args.backend_shard, init_method=f"file://{tmp / 'store'}", rank=rank,
+                            world_size=4, timeout=timeout)
+    try:
+        out = {"rank": rank, "failures": []}
+        meshes = {name: make_test_mesh(shape, timeout=timeout)
+                  for name, shape in (("2x2", (2, 2)), ("4x1", (4, 1)), ("1x4", (1, 4)))}
+        run = _shard_full if job == "full" else _shard_ckpt_only
+        out.update(run(torch, args, meshes, tmp, rank))
+        (tmp / f"rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _spawn_shard(args, job: str, timeout_s: float,
+                 backend: str = "gloo") -> tuple[Path, list, list]:
+    """Four ranks of this script on ``job`` over ``backend``, joined here:
+    (dir, exit codes, each rank's results or None)."""
+    import tempfile
+
+    tmp = Path(tempfile.mkdtemp())
+    argv = [sys.executable, str(ROOT / "chip_smoke.py"), "--seed", str(args.seed),
+            "--dir-shard", str(tmp), "--job-shard", job, "--backend-shard", backend]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(argv + ["--rank-shard", str(r)], stdout=open(tmp / f"rank{r}.out", "w"),
+                              stderr=subprocess.STDOUT) for r in range(4)]
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, timeout_s - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+    finally:
+        for p in procs:
+            p.wait()
+    codes = [p.returncode for p in procs]
+    ranks = [json.loads((tmp / f"rank{r}.json").read_text()) if not codes[r] else None
+             for r in range(4)]
+    return tmp, codes, ranks
+
+
+def _gloo_probe() -> dict:
+    """tools/gloo_cuda_probe.py's ``funcol_all_gather`` case: a functional
+    all-gather of CUDA tensors by four gloo ranks on this card, each case in
+    a world of its own; its JSON line (exit codes, rank 0's result)."""
+    done = subprocess.run([sys.executable, str(ROOT / "tools" / "gloo_cuda_probe.py"),
+                           "funcol_all_gather"], capture_output=True, text=True, timeout=300)
+    lines = [json.loads(l) for l in done.stdout.splitlines() if l.startswith("{")]
+    case = [l for l in lines if l.get("case") == "funcol_all_gather"]
+    if done.returncode or not case:
+        raise AssertionError(f"17 (bb) the gloo probe: exit {done.returncode}\n"
+                             f"{done.stdout[-2000:]}\n{done.stderr[-2000:]}")
+    return case[0]
+
+
+def _shard_2x2(torch, args) -> dict:
+    """(bb) Four ranks: on four cards, one each over NCCL, the whole job; on
+    one card, over gloo, the probe first: where a functional all-gather of
+    CUDA tensors over gloo does not come back, every DTensor step needs one,
+    so the steps, their collectives and the MoE layer are printed as not run
+    with the probe's result, and the checkpoint runs without a collective.
+    Where it comes back, the whole job runs and any error fails the phase."""
+    t0 = time.perf_counter()
+    if torch.cuda.device_count() >= 4:
+        out = _shard_2x2_full(torch, args, "nccl")
+        out["seconds"] = time.perf_counter() - t0
+        return out
+    probe = _gloo_probe()
+    if not any(probe["exit_codes"]) and "ok" in (probe["rank0"] or {}):
+        out = _shard_2x2_full(torch, args, "gloo")
+        out["seconds"] = time.perf_counter() - t0
+        return out
+    error = (f"a functional all-gather (torch.distributed._functional_collectives."
+             f"all_gather_tensor) of CUDA tensors over gloo, tools/gloo_cuda_probe.py's "
+             f"funcol_all_gather, did not come back (torch {torch.__version__}): {probe}")
+    for what in ("two steps under fsdp and under dp against the unsharded steps",
+                 "the steps' collectives against the dry run on a fake (2, 2) mesh",
+                 f"{SHARD_MOE_ARCH}'s MoE layer at tp_size 2"):
+        log(f"  NOT RUN 17 (bb) {what}: {error}")
+    out = _shard_2x2_ckpt(torch, args)
+    out.update(seconds=time.perf_counter() - t0, not_run=error, probe=probe)
+    return out
+
+
+def _shard_2x2_ckpt(torch, args) -> dict:
+    """(bb) without a collective: the elastic checkpoint."""
+    tmp, codes, ranks = _spawn_shard(args, "ckpt", SHARD_JOIN_TIMEOUT_S)
+    if any(codes):
+        raise AssertionError(f"17 (bb) the checkpoint world's exit codes {codes}:\n"
+                             f"{(tmp / 'rank0.out').read_text()[-3000:]}")
+    failures = [f for r in ranks for f in r["failures"]]
+    if failures:
+        raise AssertionError("17 (bb): " + "\n".join(failures))
+    for r in ranks:
+        for name, got in r["restored"].items():
+            log(f"  ok  17 (bb) rank {r['rank']}: the fsdp state saved on 2x2 restored onto "
+                f"{name} with the asked placements, every local block bit-equal to its box of "
+                f"the whole state, in {got['restore_s']:.3f} s")
+    return {"ranks": ranks, **_world1_restore(torch, args, tmp)}
+
+
+def _world1_restore(torch, args, tmp: Path) -> dict:
+    """The 2x2 save restored onto a world of 1, held to the initial state,
+    drawn here again."""
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.train.train_step import init_train_state
+    from repro_torch.tree import tree_leaves
+
+    t0 = time.perf_counter()
+    got, meta = ckpt.restore(str(tmp / "ck"), init_train_state(_shard_cfg4(), args.seed + 1,
+                                                                "cuda"))
+    restore_s = time.perf_counter() - t0
+    want = tree_leaves(init_train_state(_shard_cfg4(), args.seed, "cuda"))
+    equal = all(_leaf_bits_equal(torch, a, b) for a, b in zip(tree_leaves(got), want))
+    if meta["step"] != 1 or not equal:
+        raise AssertionError("17 (bb) the 2x2 save restored onto a world of 1 is not the saved "
+                             "state bit for bit")
+    n_files = len(list((tmp / "ck" / "step_0000000001").glob("shard_*.npz")))
+    log(f"  ok  17 (bb) the 2x2 save ({n_files} shard files) restored onto a world of 1 in "
+        f"{restore_s:.3f} s, every leaf the saved one bit for bit")
+    return {"world1_restore_s": restore_s, "shard_files": n_files}
+
+
+def _shard_2x2_full(torch, args, backend: str) -> dict:
+    """(bb) in full: under each policy the sharded steps against the
+    unsharded and each rank's collectives against the dry run on a fake
+    (2, 2) mesh, the elastic checkpoint, the MoE layer; a rank's error
+    fails the phase."""
+    from repro_torch.launch.dryrun import fake_world, trace_cell
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.specs import ShapeCell
+
+    tmp, codes, ranks = _spawn_shard(args, "full", SHARD_JOIN_TIMEOUT_S, backend)
+    if any(codes):
+        bad = [f"rank {r} exit {c}:\n{(tmp / f'rank{r}.out').read_text()[-3000:]}"
+               for r, c in enumerate(codes) if c]
+        raise AssertionError("17 (bb): " + "\n".join(bad))
+    failures = [f for r in ranks for f in r["failures"]]
+    if failures:
+        raise AssertionError("17 (bb): " + "\n".join(failures))
+    cfg, out = _shard_cfg4(), {"ranks": ranks, "backend": backend, "dry": {}}
+    cell = ShapeCell("bb", "train", SHARD_2X2_SEQ, SHARD_2X2_BATCH)
+    for policy in SHARD_2X2_POLICIES:
+        got = [r["policies"][policy] for r in ranks]
+        log(f"  ok  17 (bb) {SHARD_ARCH} at {SHARD_2X2_LAYERS} layers, fp32, {SHARD_2X2_BATCH} x "
+            f"{SHARD_2X2_SEQ}, {policy} on a 2x2 {backend} mesh: {SHARD_2X2_STEPS} steps' losses "
+            f"{got[0]['losses']} within rtol {SHARD_LOSS_RTOL} of the unsharded "
+            f"{got[0]['ref_losses']} on every rank, every leaf within {SHARD_LEAF_ATOL} + "
+            f"{SHARD_LEAF_RTOL} x its scale (worst {max(g['worst_leaf'] for g in got):.3f} of "
+            f"it); walls {[[round(w, 3) for w in g['walls_s']] for g in got]} s")
+        with fake_world(4):
+            dry = out["dry"][policy] = trace_cell(cfg, cell, make_test_mesh((2, 2)), policy)
+        for r, g in enumerate(got):
+            for s, coll in enumerate(g["collectives"]):
+                if coll != dry["collectives"]:
+                    raise AssertionError(f"17 (bb) {policy} rank {r} step {s}: collectives "
+                                         f"{coll} are not the dry run's {dry['collectives']}")
+        log(f"  ok  17 (bb) {policy}: every rank's collectives, every step, equal the dry "
+            f"run's on a fake (2, 2) mesh: counts {dry['collectives']['counts']}, bytes "
+            f"{dry['collectives']['total']}")
+    for r in ranks:
+        for name, got in r["restored"].items():
+            log(f"  ok  17 (bb) rank {r['rank']}: the fsdp state saved on 2x2 restored onto "
+                f"{name} with the asked placements, every local block bit-equal to its box of "
+                f"the whole state, in {got['restore_s']:.3f} s")
+    out.update(_world1_restore(torch, args, tmp))
+    moe = [r["moe"] for r in ranks]
+    out["moe"] = moe[0]
+    tol = SHARD_MOE_ATOL * max(1.0, moe[0]["scale"])
+    if any(m["tp_size"] != 2 for m in moe) or moe[0]["err"] > tol:
+        raise AssertionError(f"17 (bb) MoE: {moe}, bar {tol:.3e}")
+    log(f"  ok  17 (bb) {SHARD_MOE_ARCH}'s MoE layer at its published widths, fp32, "
+        f"{SHARD_MOE_BATCH} x {SHARD_MOE_SEQ}, on the 2x2 mesh (tp_size 2, activations "
+        f"{'split' if moe[0]['tp_activations'] else 'not split'} over the model axis): within "
+        f"{moe[0]['err']:.3e} of the whole tensors at the same group count (bar {tol:.3e}); "
+        f"{moe[0]['sharded_s']:.3f} s sharded, {moe[0]['whole_s']:.3f} s whole")
+    return out
+
+
+def _shard_dryrun(torch) -> dict:
+    """(cc) The dry run's production cell: 256 fake ranks."""
+    from repro_torch.launch import dryrun
+
+    t0 = time.perf_counter()
+    rec = dryrun.run_cell(*DRYRUN_CELL, str(OUT_DIR / "dryrun"))
+    if rec["n_devices"] != 256 or rec["policy"] != "dp" or not rec["flops_per_device"] > 0:
+        raise AssertionError(f"17 (cc) the record: {rec}")
+    log(f"  ok  17 (cc) dry run {' '.join(DRYRUN_CELL)} on 256 fake ranks: traced in "
+        f"{rec['trace_s']} s, the cell {time.perf_counter() - t0:.1f} s")
+    return rec
+
+
+def phase_sharded_training(torch, args) -> dict:
+    """Phase 17: training on a mesh and the dry run.  (aa) a world of 1 on
+    NCCL: DTensor steps bit-equal to the unsharded ones and the dry run's
+    exact arguments and its peak; (bb) four gloo ranks on the card: sharded
+    steps against unsharded, collectives against the dry run, the elastic
+    checkpoint, the MoE layer at a model axis of 2; (cc) the dry run at
+    production scale."""
+    import logging
+
+    t_start = time.perf_counter()
+    log("== phase 17: training on a mesh and the dry run")
+    logging.getLogger("torch.distributed.tensor").setLevel(logging.ERROR)
+    out = {"aa": _shard_world_of_one(torch, args)}
+    out["bb"] = _shard_2x2(torch, args)
+    out["cc"] = _shard_dryrun(torch)
+    out["seconds"] = time.perf_counter() - t_start
+    log(f"phase 17: {out['seconds']:.1f} s")
+    return out
+
+
 def parse_args(argv):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -5338,6 +5935,11 @@ def parse_args(argv):
     # phase 14 (w) likewise
     p.add_argument("--rank-mesh", type=int, default=None, help=argparse.SUPPRESS)
     p.add_argument("--dir-mesh", default=None, help=argparse.SUPPRESS)
+    # phase 17 (bb) likewise
+    p.add_argument("--rank-shard", type=int, default=None, help=argparse.SUPPRESS)
+    p.add_argument("--dir-shard", default=None, help=argparse.SUPPRESS)
+    p.add_argument("--job-shard", default="full", help=argparse.SUPPRESS)
+    p.add_argument("--backend-shard", default="gloo", help=argparse.SUPPRESS)
     return p.parse_args(argv)
 
 
@@ -5355,6 +5957,8 @@ def main(argv=None) -> int:
         return _rank_2x2(args)
     if args.rank_mesh is not None:
         return _rank_mesh(args)
+    if args.rank_shard is not None:
+        return _rank_shard(args)
     sys.path.insert(0, str(ROOT / "src"))
     # the plain versions run in full fp32 on the card: no TF32 anywhere
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5396,6 +6000,7 @@ def main(argv=None) -> int:
     mesh_served = phase_mesh_served(torch, args)
     train = phase_train(torch, args, device)
     other = phase_other(torch, args, device)
+    sharded_training = phase_sharded_training(torch, args)
     for rows, path in ((mf_rows, mf_out), (dense_rows, dense_out), (cover_rows, cover_out)):
         for r in rows:
             r["launches"] = r["launches_on_path"] = path["launches"][r["name"]]
@@ -5439,7 +6044,7 @@ def main(argv=None) -> int:
               "main": main_out, "matrix_free": mf_out, "dense_pairwise": dense_out,
               "coverage": cover_out, "guided": guided_out, "wave": wave_out, "served": served,
               "remaining": remaining, "distributed": distributed, "mesh_served": mesh_served,
-              "train": train, "other_families": other,
+              "train": train, "other_families": other, "sharded_training": sharded_training,
               "kernels": kernels,
               "seconds": time.perf_counter() - t_start}
     OUT_DIR.mkdir(exist_ok=True)

@@ -1,2 +1,3 @@
-"""Training-mesh helpers; :func:`repro_torch.distributed.sharding.data_axes`
-names a mesh's data axes."""
+"""Training on a mesh: the per-architecture sharding rules
+(:mod:`~repro_torch.distributed.sharding`) and the activation-sharding
+context the model code reads (:mod:`~repro_torch.distributed.act_sharding`)."""

@@ -9,15 +9,19 @@ is the number of tokens already in the cache (a Python int or a 0-d tensor)
 for decode.  Scores are taken in the activations' dtype and the softmax in
 fp32, cast back, as in the JAX package.
 
-The JAX package's activation-sharding constraints (``constrain`` /
-``tp_size``, no-ops outside a mesh) are left out with the mesh context
-(ROADMAP item 12.5).
+Inside an activation-sharding context (``distributed/act_sharding.py``)
+the GQA activations take the JAX package's TP placement and MLA's query
+heads carry the model axis; outside one, ``constrain`` changes nothing.
 """
 from __future__ import annotations
 
+import math
+
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.act_sharding import constrain, tp_size, whole_tokens
 from repro_torch.models.layers import apply_mrope, apply_rope, rms_norm
 
 _NEG = -1e30
@@ -102,6 +106,20 @@ def blockwise_attention(q, k, v, causal: bool):
     return torch.cat(outs, dim=1)
 
 
+def _viewable(y: torch.Tensor, dim: int, parts: int) -> torch.Tensor:
+    """``y`` ready for its dim ``dim`` to be viewed as ``parts`` leading
+    groups: a DTensor split over that dim into a number of shards that does
+    not divide ``parts`` (8 KV heads on a model axis of 16) is gathered over
+    it first, as GSPMD replicates them; anything else as it is."""
+    if not isinstance(y, DTensor):
+        return y
+    split = Shard(dim)
+    shards = math.prod(y.device_mesh.size(d) for d, p in enumerate(y.placements) if p == split)
+    if parts % shards == 0:
+        return y
+    return y.redistribute(y.device_mesh, [Replicate() if p == split else p for p in y.placements])
+
+
 def _maybe_qk_norm(cfg: ArchConfig, params, q, k):
     if cfg.qk_norm:
         q = rms_norm(q, params["q_norm"], cfg.norm_eps)
@@ -128,6 +146,7 @@ def gqa_attention(
     causal: bool = True,
 ):
     """Returns (out (B, L, D), new_cache or None)."""
+    x = whole_tokens(x)
     B, L, D = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     G = H // KV
@@ -137,14 +156,32 @@ def gqa_attention(
         y = x @ w.to(dt)
         if b is not None:
             y = y + b.to(dt)
-        return y.reshape(B, L, heads, hd)
+        return _viewable(y, 2, heads).reshape(B, L, heads, hd)
 
     q = proj(params["wq"], params.get("bq"), H)
     k = proj(params["wk"], params.get("bk"), KV)
     v = proj(params["wv"], params.get("bv"), KV)
     q, k = _maybe_qk_norm(cfg, params, q, k)
     q, k = _rope_q_k(cfg, q, k, positions)
-    q = q.reshape(B, L, KV, G, hd)
+    q = _viewable(q, 2, KV).reshape(B, L, KV, G, hd)
+    # the TP placement of the attention activations, in preference order:
+    #   1. the KV-head dim (head TP; KV caches shard too)
+    #   2. the query-group dim (GQA: Q heads shard, K / V replicate over TP)
+    #   3. the sequence dim (when the head counts do not divide the axis:
+    #      scores shard over Lq, K / V replicate)
+    ts = tp_size()
+    if KV % ts == 0:
+        q = constrain(q, ("dp", None, "tp", None, None))
+        k = constrain(k, ("dp", None, "tp", None))
+        v = constrain(v, ("dp", None, "tp", None))
+    elif G % ts == 0:
+        q = constrain(q, ("dp", None, None, "tp", None))
+        k = constrain(k, ("dp", None, None, None))
+        v = constrain(v, ("dp", None, None, None))
+    elif L % ts == 0 and L > 1:
+        q = constrain(q, ("dp", "tp", None, None, None))
+        k = constrain(k, ("dp", None, None, None))
+        v = constrain(v, ("dp", None, None, None))
 
     if cache is not None:
         start = int(cache_len)
@@ -172,7 +209,8 @@ def gqa_attention(
             out = dense_attention(q, k, v, causal)
         new_cache = None
 
-    y = out.reshape(B, L, H * hd) @ params["wo"].to(dt)
+    # (its gradient comes back as a placement the heads' view can take)
+    y = whole_tokens(out.reshape(B, L, H * hd)) @ params["wo"].to(dt)
     if params.get("bo") is not None:
         y = y + params["bo"].to(dt)
     return y, new_cache
@@ -213,6 +251,7 @@ def mla_attention(
     taken directly against the latent cache; the attention output stays in
     latent space and is expanded through w_uv once.
     """
+    x = whole_tokens(x)
     B, L, D = x.shape
     H, hd, r = cfg.n_heads, cfg.head_dim_, cfg.rope_head_dim
     dt = x.dtype
@@ -228,6 +267,7 @@ def mla_attention(
     else:
         c_q = x
     q_full = torch.einsum("blr,rho->blho", c_q, params["w_uq"].to(dt))
+    q_full = constrain(q_full, ("dp", None, "tp", None))  # H carries TP
     q_nope, q_rope = q_full[..., :hd], q_full[..., hd:]
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
     scale = (hd + r) ** -0.5

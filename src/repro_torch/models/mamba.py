@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.act_sharding import constrain, whole_tokens
 from repro_torch.models.layers import rms_norm
 
 
@@ -114,6 +115,7 @@ def mamba_block(cfg: ArchConfig, params: dict, x: torch.Tensor, state: dict | No
     """Full Mamba2 mixer.  x (B, L, D).  ``state`` enables streaming:
     {"conv": (B, W-1, conv_ch), "ssm": (B, H, P, N)}; with L > 1 the
     chunked scan runs from it, with L == 1 the recurrent update."""
+    x = whole_tokens(x)
     B, L, D = x.shape
     di, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads, cfg.ssm_head_dim
     dt_ = x.dtype
@@ -127,6 +129,7 @@ def mamba_block(cfg: ArchConfig, params: dict, x: torch.Tensor, state: dict | No
     dt = _softplus(dt.float() + params["dt_bias"].float())
     A = -torch.exp(params["A_log"].float())  # (H,)
     xh = xs.reshape(B, L, H, P)
+    xh = constrain(xh, ("dp", None, "tp", None))  # SSM heads carry TP
 
     if state is None or L > 1:
         y, S = ssd_chunked(xh.float(), dt, A, Bm.float(), Cm.float(), cfg.ssm_chunk,

@@ -13,11 +13,11 @@ on (``jax.checkpoint`` in the JAX package), and the loss recomputes its
 logits in backward.
 
 Public entry points:
-  init_params(cfg, seed, device)
+  init_params(cfg, seed, device | abstract=True)
   train_forward(cfg, params, batch) -> (loss, metrics)
   prefill(cfg, params, batch)       -> (logits_last, cache)
   decode_step(cfg, params, cache, tokens, cache_len) -> (logits, cache)
-  init_cache(cfg, batch_size, max_len, device)
+  init_cache(cfg, batch_size, max_len, device | abstract=True)
 
 The ssm and hybrid families' ``prefill`` runs the chunked scan over its
 tokens and leaves the scan's final state in the cache (``mamba_block``), so
@@ -29,10 +29,13 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common import resolve_device
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.act_sharding import constrain, pin, whole_tokens
 from repro_torch.models.attention import cross_attention, gqa_attention, mla_attention
 from repro_torch.models.layers import gelu_mlp, layer_norm, rms_norm, sinusoidal_positions, swiglu
 from repro_torch.models.mamba import mamba_block
@@ -50,21 +53,39 @@ def _dtype(name: str) -> torch.dtype:
 
 class _Init:
     """Draws from one ``torch.Generator``: N(0, 1) in fp32, scaled, then cast
-    to the parameter dtype, as the JAX package's ``_Init.mat`` does."""
+    to the parameter dtype, as the JAX package's ``_Init.mat`` does.  An
+    abstract ``_Init`` draws nothing and makes no generator: every leaf is
+    an empty tensor (on the meta device, or fake under a ``FakeTensorMode``)."""
 
-    def __init__(self, seed: int, dtype: torch.dtype, device: torch.device):
-        self.gen = torch.Generator(device=device).manual_seed(seed)
+    def __init__(self, seed: int, dtype: torch.dtype, device: torch.device,
+                 abstract: bool = False):
+        self.gen = None if abstract else torch.Generator(device=device).manual_seed(seed)
         self.dtype, self.device = dtype, device
 
+    def _empty(self, shape):
+        return torch.empty(shape, dtype=self.dtype, device=self.device)
+
     def mat(self, *shape, scale=0.02):
+        if self.gen is None:
+            return self._empty(shape)
         x = torch.randn(shape, generator=self.gen, dtype=torch.float32, device=self.device)
         return (x * scale).to(self.dtype)
 
     def zeros(self, *shape):
+        if self.gen is None:
+            return self._empty(shape)
         return torch.zeros(shape, dtype=self.dtype, device=self.device)
 
     def ones(self, *shape):
+        if self.gen is None:
+            return self._empty(shape)
         return torch.ones(shape, dtype=self.dtype, device=self.device)
+
+
+def _abstract_device(device) -> torch.device:
+    """An abstract tree's device: ``device`` when given (a fake tensor's
+    device under a ``FakeTensorMode``), else the meta device."""
+    return torch.device("meta" if device is None else device)
 
 
 def _attn_params(cfg: ArchConfig, ini: _Init) -> dict:
@@ -195,9 +216,12 @@ def _n_periods(cfg: ArchConfig) -> int:
     return cfg.n_layers // cfg.attn_every
 
 
-def init_params(cfg: ArchConfig, seed: int = 0, device=None) -> dict:
-    """Parameters drawn from ``seed`` on ``device`` (default: the card)."""
-    ini = _Init(seed, _dtype(cfg.param_dtype), resolve_device(device))
+def init_params(cfg: ArchConfig, seed: int = 0, device=None, abstract: bool = False) -> dict:
+    """Parameters drawn from ``seed`` on ``device`` (default: the card).
+    ``abstract``: the same tree of empty tensors, drawn from nothing, on the
+    meta device by default (``jax.eval_shape``'s counterpart)."""
+    dev = _abstract_device(device) if abstract else resolve_device(device)
+    ini = _Init(seed, _dtype(cfg.param_dtype), dev, abstract)
     D, V = cfg.d_model, cfg.vocab
     params: dict[str, Any] = {"embed": ini.mat(V, D)}
     if not cfg.tie_embeddings:
@@ -247,6 +271,7 @@ def init_params(cfg: ArchConfig, seed: int = 0, device=None) -> dict:
 
 
 def _apply_ffn(cfg: ArchConfig, lp: dict, h: torch.Tensor):
+    h = whole_tokens(h)
     if "moe" in lp:
         return moe_ffn(cfg, lp["moe"], h)
     f = lp["ffn"]
@@ -265,6 +290,10 @@ def _decoder_layer(cfg: ArchConfig, lp: dict, x: torch.Tensor, positions: torch.
                    cache: dict | None, cache_len):
     """Pre-norm block: mixer (attention | mamba | MLA) + FFN / MoE.  Returns
     (x, new_cache)."""
+    # the layer-boundary residual: the batch over the data axes and the
+    # sequence over the model axis (Megatron-SP); norms and the FFN are
+    # token-pointwise, so the sequence shard flows through
+    x = constrain(x, ("dp", "tp", None))
     h = _norm(cfg, x, lp["ln1"], lp.get("b1"))
     if "mixer" in lp:
         out, new_cache = mamba_block(cfg, lp["mixer"], h, cache)
@@ -273,6 +302,7 @@ def _decoder_layer(cfg: ArchConfig, lp: dict, x: torch.Tensor, positions: torch.
     else:
         out, new_cache = gqa_attention(cfg, lp["attn"], h, positions, cache, cache_len)
     x = x + out
+    x = constrain(x, ("dp", "tp", None))
     h = _norm(cfg, x, lp["ln2"], lp.get("b2"))
     x = x + _apply_ffn(cfg, lp, h)
     return x, new_cache
@@ -324,7 +354,16 @@ def _period_stack(cfg, params, x, positions, caches, cache_len, remat=True):
 
 
 def _embed(cfg: ArchConfig, params, tokens):
-    return params["embed"][tokens].to(_dtype(cfg.compute_dtype))
+    # F.embedding, not indexing: on a mesh its backward leaves a replicated
+    # table's gradient as a partial sum, where indexing's gathers every
+    # rank's activations.  A table split over the vocabulary is gathered
+    # over it first: DTensor cannot reduce the masked partial lookup of
+    # sharded tokens
+    table = params["embed"]
+    if isinstance(table, DTensor) and Shard(0) in table.placements:
+        table = table.redistribute(
+            table.device_mesh, [Replicate() if p == Shard(0) else p for p in table.placements])
+    return F.embedding(tokens, table).to(_dtype(cfg.compute_dtype))
 
 
 def _head_matrix(cfg: ArchConfig, params):
@@ -337,9 +376,17 @@ def _xent_piece(h, head, t):
     logits = (h @ head.to(h.dtype)).float()
     lse = torch.logsumexp(logits, dim=-1)
     # the label logit: the JAX package's one-hot contraction adds only zeros
-    # to it, so a gather gives the same value
-    ll = torch.gather(logits, -1, t.long()[..., None])[..., 0]
-    return (lse - ll).sum()
+    # to it, so a gather gives the same value.  On a mesh the contraction
+    # stays: a DTensor gather's backward fills a zero gradient of the whole
+    # (B, L, V) logits on every rank
+    if not isinstance(logits, DTensor):
+        ll = torch.gather(logits, -1, t.long()[..., None])[..., 0]
+        return (lse - ll).sum()
+    vocab = torch.arange(logits.shape[-1], device=logits.device)
+    per_token = lse - torch.where(vocab == t[..., None], logits, 0.0).sum(-1)
+    # the loss's replicated gradient comes back split here, before it is
+    # broadcast over the vocabulary
+    return pin(per_token).sum()
 
 
 def chunked_xent(cfg: ArchConfig, hidden: torch.Tensor, head: torch.Tensor,
@@ -347,6 +394,7 @@ def chunked_xent(cfg: ArchConfig, hidden: torch.Tensor, head: torch.Tensor,
     """Mean cross-entropy.  Each piece recomputes its (B, L, V) logits in
     backward and never keeps them; ``chunk`` splits the sequence into
     pieces of that length."""
+    hidden = whole_tokens(hidden)
     B, L, D = hidden.shape
 
     def piece(h, t):
@@ -488,20 +536,22 @@ def _layer_cache_shape(cfg: ArchConfig, layer: int, B: int, max_len: int) -> dic
     return {"k": (shape, dt), "v": (shape, dt)}
 
 
-def init_cache(cfg: ArchConfig, B: int, max_len: int, device=None) -> dict:
+def init_cache(cfg: ArchConfig, B: int, max_len: int, device=None,
+               abstract: bool = False) -> dict:
     """Zero caches stacked like the layer stacks, on ``device`` (default: the
-    card)."""
-    dev = resolve_device(device)
+    card); ``abstract`` as for :func:`init_params`."""
+    dev = _abstract_device(device) if abstract else resolve_device(device)
+    make = torch.empty if abstract else torch.zeros
 
     def stacked(layers) -> dict:
         shapes = [_layer_cache_shape(cfg, l, B, max_len) for l in layers]
-        return {k: torch.zeros((len(shapes),) + s, dtype=dt, device=dev)
+        return {k: make((len(shapes),) + s, dtype=dt, device=dev)
                 for k, (s, dt) in shapes[0].items()}
 
     if cfg.family == "audio":
         return {"dec": stacked(range(cfg.n_layers)),
-                "enc_out": torch.zeros((B, cfg.enc_positions, cfg.d_model),
-                                       dtype=_dtype(cfg.compute_dtype), device=dev)}
+                "enc_out": make((B, cfg.enc_positions, cfg.d_model),
+                                dtype=_dtype(cfg.compute_dtype), device=dev)}
     if cfg.family == "hybrid":
         period = cfg.attn_every
         return {f"pos{p}": stacked([k * period + p for k in range(_n_periods(cfg))])
@@ -515,7 +565,7 @@ def init_cache(cfg: ArchConfig, B: int, max_len: int, device=None) -> dict:
 
 
 def _logits(cfg: ArchConfig, params, x):
-    return (x @ _head_matrix(cfg, params).to(x.dtype)).float()
+    return (whole_tokens(x) @ _head_matrix(cfg, params).to(x.dtype)).float()
 
 
 def _cached_stacks(cfg: ArchConfig, params, x, positions, caches, cache_len):
@@ -549,12 +599,15 @@ def decode_step(cfg: ArchConfig, params, caches, tokens, cache_len):
     return _logits(cfg, params, x), new_caches
 
 
-def prefill(cfg: ArchConfig, params, batch, max_len: int | None = None):
+def prefill(cfg: ArchConfig, params, batch, max_len: int | None = None, caches=None):
     """Processes batch['tokens'] (B, L), returns (last-token logits, caches
-    filled up to L)."""
+    filled up to L).  ``caches``: the zero caches to fill, by default
+    :func:`init_cache`'s for ``max_len`` on the tokens' device (a caller on
+    a mesh passes them placed)."""
     tokens = batch["tokens"]
     B, L = tokens.shape
-    caches = init_cache(cfg, B, max_len or L, tokens.device)
+    if caches is None:
+        caches = init_cache(cfg, B, max_len or L, tokens.device)
     positions = _positions(B, L, tokens.device)
     if cfg.family == "audio":
         enc_out = _whisper_encode(cfg, params, batch["frames"])

@@ -11,10 +11,13 @@ plus dense shared experts.
   package, so the same pairs drop.
 - The router runs in fp32; dispatch / combine are built in fp32 and cast
   to the activations' dtype.
+- The group count is rounded up to a multiple of the model axis' size
+  (``tp_size()``, 1 outside a mesh), so the group dim carries the ``"tp"``
+  sharding; that changes g, the capacity and so which pairs drop, as in
+  the JAX package.
 
-Outside a mesh the JAX package's group count is ``ceil(L / min(g, L))``
-(its model-axis size is 1); its activation-sharding constraints are left
-out with the mesh context (ROADMAP item 12.5).
+The group layout is (B, nL, g, D): the batch dim keeps its ``"dp"``
+sharding and the group dim its ``"tp"`` sharding through every einsum.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.act_sharding import constrain, dense, tp_size
 from repro_torch.models.layers import swiglu
 
 
@@ -31,6 +35,12 @@ def top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     no order among ties)."""
     vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
     return vals[..., :k], idx[..., :k]
+
+
+def _einsum(eq: str, *operands):
+    """``torch.einsum`` whose DTensor operands and result keep global
+    strides that describe their local blocks (``act_sharding.dense``)."""
+    return dense(torch.einsum(eq, *(dense(x) for x in operands)))
 
 
 def dispatch_combine(gate_vals: torch.Tensor, gate_idx: torch.Tensor, n_experts: int, cap: int):
@@ -55,8 +65,10 @@ def moe_ffn(cfg: ArchConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
     B, L, D = x.shape
     E, K = cfg.n_experts, cfg.top_k
     dt = x.dtype
+    ts = max(tp_size(), 1)
     g_target = min(cfg.moe_group_size, L)
     nL = -(-L // g_target)  # ceil
+    nL = -(-nL // ts) * ts  # round up to a multiple of ts
     g = -(-L // nL)
     pad = nL * g - L
     if pad:
@@ -64,17 +76,25 @@ def moe_ffn(cfg: ArchConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
     cap = max(1, int(g * K * cfg.capacity_factor / E))
 
     xt = x.reshape(B, nL, g, D)
-    router_logits = torch.einsum("bngd,de->bnge", xt.float(), params["router"].float())
+    xt = constrain(xt, ("dp", "tp", None, None))
+    router_logits = _einsum("bngd,de->bnge", xt.float(), params["router"].float())
+    # the routing tensors keep the tokens' sharding
+    router_logits = constrain(router_logits, ("dp", "tp", None, None))
     probs = torch.softmax(router_logits, dim=-1)  # (B, nL, g, E)
     gate_vals, gate_idx = top_k(probs, K)  # (B, nL, g, K)
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True), min=1e-9)
     dispatch, combine, _ = dispatch_combine(gate_vals, gate_idx, E, cap)
 
-    expert_in = torch.einsum("bngec,bngd->bnecd", dispatch.to(dt), xt)
-    h = F.silu(torch.einsum("bnecd,edf->bnecf", expert_in, params["w_gate"].to(dt))) * \
-        torch.einsum("bnecd,edf->bnecf", expert_in, params["w_up"].to(dt))
-    expert_out = torch.einsum("bnecf,efd->bnecd", h, params["w_down"].to(dt))
-    y = torch.einsum("bngec,bnecd->bngd", combine.to(dt), expert_out)
+    # group (blocks over tp) -> expert (E over tp): the MoE all-to-all, between
+    # these two constraints
+    expert_in = _einsum("bngec,bngd->bnecd", dispatch.to(dt), xt)
+    expert_in = constrain(expert_in, ("dp", None, "tp", None, None))
+    h = F.silu(_einsum("bnecd,edf->bnecf", expert_in, params["w_gate"].to(dt))) * \
+        _einsum("bnecd,edf->bnecf", expert_in, params["w_up"].to(dt))
+    expert_out = _einsum("bnecf,efd->bnecd", h, params["w_down"].to(dt))
+    expert_out = constrain(expert_out, ("dp", None, "tp", None, None))
+    y = _einsum("bngec,bnecd->bngd", combine.to(dt), expert_out)
+    y = constrain(y, ("dp", "tp", None, None))
 
     y = y.reshape(B, L + pad, D)
     if cfg.n_shared_experts:

@@ -72,6 +72,22 @@ def unflatten_by_name(like, values: dict, prefix: str = ""):
     return None
 
 
+def leaves_like(like, other) -> list:
+    """The entries of ``other`` (a tree of ``like``'s structure whose leaves
+    may themselves be tuples, such as sharding specs) at ``like``'s leaves,
+    in :func:`flatten_with_names`' order."""
+    kids = _children(like)
+    if kids is None:
+        return [other]
+    if isinstance(like, dict):
+        subs = [other[k] for k in sorted(like, key=str)]
+    elif _is_namedtuple(like):
+        subs = [getattr(other, f) for f in like._fields]
+    else:
+        subs = list(other) if like is not None else []
+    return [x for (_, child), sub in zip(kids, subs) for x in leaves_like(child, sub)]
+
+
 def tree_unflatten(like, leaves: list):
     """A tree of ``like``'s structure with ``leaves`` in its leaf order."""
     names = [name for name, _ in flatten_with_names(like)]

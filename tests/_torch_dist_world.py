@@ -20,6 +20,10 @@ A job is a dict:
   control group's timeout, async, a session) and ``solve(mode="served" |
   "async", mesh=)`` on every rank, the other ranks follow;
 - ``selection``: ``SubmodularSelector.selection_step`` on one mesh;
+- ``training``: train steps on DTensors placed by ``param_shardings``,
+  each step's collectives counted, the state saved sharded and restored
+  onto other meshes, and a MoE layer at a model axis of 2
+  (:func:`training`);
 - ``die_rank``: that rank exits before its first collective;
 - ``serve_dies``: after the cases, a second mesh server whose follower
   ``rank`` exits; every other rank records how it ended (``dies{r}.pt``).
@@ -264,6 +268,78 @@ def serve_dies(dj: dict, rank: int, d: Path) -> None:
     torch.save(out, d / f"dies{rank}.pt")
 
 
+def _full(tree) -> dict:
+    """A tree of DTensors as whole tensors by leaf name (a collective)."""
+    from repro_torch.tree import flatten_with_names
+
+    return {n: t.full_tensor() if hasattr(t, "full_tensor") else t
+            for n, t in flatten_with_names(tree)}
+
+
+def training(tj: dict, meshes: dict) -> dict:
+    """The sharded-training job.  Each case: ``steps`` train steps of
+    ``cfg`` from ``seed`` on DTensors placed by ``param_shardings`` under
+    ``policy``, inside ``activation_sharding``; its losses, every step's
+    collectives as ``CostCounter`` counts them, and the final state whole.
+    With ``ckpt``: the state saved sharded under ``ckpt`` (step 1) and
+    restored onto each mesh named in ``restore_on``, whole-tensor equal and
+    with the asked placements.  ``moe``: ``moe_ffn`` of a MoE layer on
+    DTensors and on whole tensors inside the same context (the group count
+    rounded to the same ``tp_size()``), and ``tp_size()`` there."""
+    from repro_torch.ckpt import checkpoint
+    from repro_torch.distributed.act_sharding import activation_sharding, tp_size
+    from repro_torch.distributed.sharding import (
+        batch_specs, distribute, param_shardings, shardings_of,
+    )
+    from repro_torch.launch.dryrun import CostCounter
+    from repro_torch.train.train_step import init_train_state, make_train_step
+    from repro_torch.tree import flatten_with_names, leaves_like
+
+    out = {}
+    for name, case in tj.get("cases", {}).items():
+        mesh, cfg, policy = meshes[case["mesh"]], case["cfg"], case["policy"]
+        state = init_train_state(cfg, seed=case["seed"], device="cpu")
+        state = distribute(state, param_shardings(state, mesh, policy))
+        step = make_train_step(cfg)
+        losses, colls = [], []
+        for batch in case["batches"]:
+            batch = distribute(batch, shardings_of(batch, batch_specs(batch, mesh, policy=policy),
+                                                   mesh))
+            counter = CostCounter(memory=False)
+            with activation_sharding(mesh, policy=policy), counter:
+                state, metrics = step(state, batch)
+            losses.append(metrics["loss"].full_tensor())
+            colls.append(counter.collectives())
+        res = {"losses": losses, "collectives": colls, "state": _full(state)}
+        if case.get("ckpt"):
+            checkpoint.save(case["ckpt"], 1, state)
+            res["restored"] = {}
+            for other in case["restore_on"]:
+                want = param_shardings(state, meshes[other], policy)
+                got, meta = checkpoint.restore(case["ckpt"], state, shardings=want)
+                placed = all(t.device_mesh is m and tuple(t.placements) == tuple(p)
+                             for t, (m, p) in zip((l for _, l in flatten_with_names(got)),
+                                                  leaves_like(state, want)))
+                whole = _full(got)
+                res["restored"][other] = {
+                    "placed": placed, "step": meta["step"],
+                    "equal": all(torch.equal(whole[n], res["state"][n]) for n in whole)}
+        out[name] = res
+    if "moe" in tj:
+        from repro_torch.models.moe import moe_ffn
+
+        mj = tj["moe"]
+        mesh, cfg = meshes[mj["mesh"]], mj["cfg"]
+        params = {"moe": {k: torch.as_tensor(v) for k, v in mj["params"].items()}}
+        x = torch.as_tensor(mj["x"])
+        placed = distribute(params, param_shardings(params, mesh, "fsdp"))["moe"]
+        xd = distribute({"x": x}, shardings_of({"x": x}, batch_specs({"x": x}, mesh), mesh))["x"]
+        with activation_sharding(mesh, policy="fsdp"):
+            out["moe"] = {"tp_size": tp_size(), "sharded": moe_ffn(cfg, placed, xd).full_tensor(),
+                          "whole": moe_ffn(cfg, params["moe"], x)}
+    return out
+
+
 def _run(d: Path, rank: int, world: int) -> None:
     import torch.distributed as dist
 
@@ -288,6 +364,8 @@ def _run(d: Path, rank: int, world: int) -> None:
             out["serving"] = serving(job["serving"], meshes[job["serving"]["mesh"]])
         if "selection" in job:
             out["selection"] = selection(job["selection"], meshes[job["selection"]["mesh"]])
+        if "training" in job:
+            out["training"] = training(job["training"], meshes)
         torch.save(out, d / f"result{rank}.pt")
         if "serve_dies" in job:
             serve_dies(job["serve_dies"], rank, d)

@@ -1488,3 +1488,50 @@ def test_other_families_on_the_card(cuda, arch, tmp_path):
             assert ops.LAUNCHES[name] > 0, name
         resumed = run(arch, steps=3, **kw)
         assert len(resumed) == 1 and np.isfinite(resumed).all()
+
+
+@pytest.mark.parametrize("policy", ["fsdp", "dp"])
+def test_nccl_world_of_one_sharded_steps_equal_the_unsharded_steps(cuda, tmp_path, policy):
+    """Chip-smoke phase 17 (aa) at a reduced depth: qwen3-0.6b at its full
+    width with 2 layers, three train steps on DTensors placed by
+    ``param_shardings`` on an NCCL (1, 1) mesh under ``activation_sharding``
+    equal the unsharded steps bit for bit: every loss and every leaf."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.distributed.act_sharding import activation_sharding
+    from repro_torch.distributed.sharding import (
+        batch_specs, distribute, param_shardings, shardings_of,
+    )
+    from repro_torch.train.train_step import init_train_state, make_train_step
+    from repro_torch.tree import flatten_with_names
+
+    cfg = dataclasses.replace(get_config("qwen3-0.6b"), n_layers=2)
+    batches = [SyntheticTokens(cfg, 128, seed=s).batch(range(4)) for s in range(3)]
+    step = make_train_step(cfg)
+    want = init_train_state(cfg, seed=0)
+    want_losses = []
+    for b in batches:
+        want, m = step(want, b)
+        want_losses.append(m["loss"])
+    from repro_torch.launch.mesh import make_test_mesh
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'store'}", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_test_mesh((1, 1))
+        state = init_train_state(cfg, seed=0)
+        state = distribute(state, param_shardings(state, mesh, policy))
+        for b, want_loss in zip(batches, want_losses):
+            b = distribute(b, shardings_of(b, batch_specs(b, mesh, policy=policy), mesh))
+            with activation_sharding(mesh, policy=policy):
+                state, m = step(state, b)
+            assert torch.equal(m["loss"].full_tensor(), want_loss)
+        ref = dict(flatten_with_names(want))
+        for name, leaf in flatten_with_names(state):
+            assert torch.equal(leaf.full_tensor(), ref[name]), name
+    finally:
+        dist.destroy_process_group()
