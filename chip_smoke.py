@@ -6,7 +6,7 @@ that path against its plain PyTorch version.
     python3 chip_smoke.py --n 8192 --naive-budget 50 --lazy-budget 200 \
         --mf-n 65536 --mf-lazy-budget 200 --reps 5   # a short check
 
-Thirteen paths run, each with its launch counts set to 0 just before it and
+Fourteen paths run, each with its launch counts set to 0 just before it and
 read just after:
 
 - the main path, the paper's core loop: ``create_kernel`` (CUDA similarity
@@ -68,7 +68,12 @@ read just after:
 - training on a mesh and the dry run: ``make_train_step`` on DTensors placed
   by ``distributed/sharding.py``'s rules under ``activation_sharding``, the
   sharded checkpoint's elastic restore, and ``launch/dryrun.py``'s count of
-  a step on a fake process group (it launches none of the kernels).
+  a step on a fake process group (it launches none of the kernels), the
+  selection cells among them.
+- the selection cells' path: ``launch/dryrun.py``'s ``build_selection_step``
+  (the distributed FL greedy, dense or stochastic, on an fp32 or bf16 kernel)
+  run for real on one rank's full-width share (CUDA FL sweeps, full and
+  gathered, through the registered ``torch.ops.repro_torch`` operators).
 
 Phases, each of which raises on failure (the exit code is then non-zero):
   1 device   CUDA present; the card's name and power limit
@@ -85,8 +90,9 @@ Phases, each of which raises on failure (the exit code is then non-zero):
              sweep, flmf and sc on rows that are not 16-byte aligned,
              bit-equal to the same call on aligned rows; fl_gains and
              fl_gains_at past the 8,388,480 rows the first design took,
-             with int32 and int64 ids), and the mask compaction against
-             torch.nonzero at n = 2^20
+             with int32 and int64 ids; on a bf16 S, single and in waves,
+             bit-equal to the fp32 kernel on the widened S), and the mask
+             compaction against torch.nonzero at n = 2^20
   4 main     the main path at full size, its launch counts (fl_gains_at's
              also by width k), and the same solves on the plain path,
              compared step by step
@@ -94,7 +100,8 @@ Phases, each of which raises on failure (the exit code is then non-zero):
              with CUDA events at its path's shapes (fl_gains_at and
              fb_gains_at at every width phases 4 and 8 (f) launched, with
              the engine's int64 ids, and the host's cost of one call at
-             k = 8 beside its event time; the sweeps over the selected columns
+             k = 8 beside its event time; both on S rounded to bf16, bit-equal
+             to the fp32 kernel on the widened S; the sweeps over the selected columns
              beside their selected-columns library call and sector floor,
              dmin, gc and dsum bit-equal to their plain versions)
   6 mf       the matrix-free path: (a) FacilityLocationMF on phase 4's
@@ -123,7 +130,7 @@ Phases, each of which raises on failure (the exit code is then non-zero):
              logdet_mi on S with 100 query and 100 private items
   10 wave    (l) FacilityLocation waves of --wave-b members at n = --wave-n
              and a quarter of them at 2x (cosine S of mixtures from the seed
-             + member index, budgets 50..125), NaiveGreedy and LazyGreedy,
+             + member index, budgets 50..100), NaiveGreedy and LazyGreedy,
              through solve(specs, mode="batched"), in turns W S S W with the
              B sequential solves: every member of every run bit-equal to its
              first sequential solve, one fl sweep launch a step / level over all members, the
@@ -131,15 +138,15 @@ Phases, each of which raises on failure (the exit code is then non-zero):
              (n_i from --wave-n to 2x) through BatchedEngine(valid=...),
              bit-equal to the unpadded sequential solves; (n) GraphCut,
              DisparitySum / Min, FeatureBased, SetCover, PSC, FLMF and GCMF
-             in waves of 4 (NaiveGreedy 50, LazyGreedy 125), bit-equal; (o)
+             in waves of 4 (NaiveGreedy 50, LazyGreedy 100), bit-equal; (o)
              knn_from_features on phase 4's features (top-k rows checked),
              FacilityLocationMF.from_knn against a dense FL over its
              to_dense() and run twice with equal bits, random neighbours over
              --mf-n items, GraphCutMF.from_knn
-  11 served  (p) SERVE_REQUESTS 96 requests (the JAX package's serve CLI
+  11 served  (p) SERVE_REQUESTS 72 requests (the JAX package's serve CLI
              families fl, gc, fb, sc, psc, dsum, dmin, flqmi, gcmi, logdet,
              and FLMF / GCMF over a cosine FeatureSource; mixtures from
-             --seed + SERVE_SEED + i at d, n from SERVE_N, budgets 50..125,
+             --seed + SERVE_SEED + i at d, n from SERVE_N, budgets 50..100,
              half NaiveGreedy, half LazyGreedy, use_kernel=None) through
              SelectionServer(max_wave=SERVE_MAX_WAVE), a warm-up and a
              steady round: every answer bit-equal to its sequential solve on
@@ -163,9 +170,9 @@ Phases, each of which raises on failure (the exit code is then non-zero):
              SieveStreaming 100, eps 0.1, seed None and 0, ThresholdGreedy
              100, buffer 64, with fl_gains_at's launches an arrival; 12.3
              knapsack_greedy, matroid_greedy (labels: the mixture component
-             mod 10, caps 10) and cover_greedy, max_steps 500, and the
+             mod 10, caps 10) and cover_greedy, max_steps 300, and the
              Sieve under that matroid; 12.4 host_lazy_greedy 500, whose ids
-             must be phase 4's NaiveGreedy ids; 12.5 32 SieveStreaming /
+             must be phase 4's NaiveGreedy ids; 12.5 24 SieveStreaming /
              ThresholdGreedy requests over FL and FeatureBased at n in
              SERVE_N through SelectionServer, each bit-equal to its
              sequential solve, and a FeatureBased session of 10 deltas
@@ -177,7 +184,7 @@ Phases, each of which raises on failure (the exit code is then non-zero):
              --naive-budget on phase 4's S (rebuilt), its ids phase 4's
              NaiveGreedy ids up to the first near-tie, called twice (the
              first call sets up the communicators); FL waves B = 4 at n =
-             8,192 (NaiveGreedy and LazyGreedy 200 / 120) and FB / SC / PSC
+             8,192 (NaiveGreedy and LazyGreedy 150 / 90) and FB / SC / PSC
              waves (50 / 25) through solve(specs, mesh=mesh), each run twice
              beside mode="batched" and the sequential solves, every member
              bit-equal, the FL waves' launches the batched wave's, the
@@ -190,8 +197,8 @@ Phases, each of which raises on failure (the exit code is then non-zero):
              n (each rank's block cut from S built on one rank at a time)
              against (t)'s ids, the stochastic and FLQMI partition greedies
              at n = 8,192 against plain references; each rank's peak memory
-  14 mesh    (v) on 13 (t)'s world of 1: 32 requests of the 13 families with
-             a shard rule (n 3,072..8,192, budgets 50..150, half
+  14 mesh    (v) on 13 (t)'s world of 1: 26 requests of the 13 families with
+             a shard rule (n 3,072..8,192, budgets 50..125, half
              LazyGreedy) through SelectionServer(mesh=), the first 8 through
              AsyncSelectionServer(mesh=), an FB session, every answer
              bit-equal to its sequential solve and no fallback; one wave
@@ -258,7 +265,19 @@ Phases, each of which raises on failure (the exit code is then non-zero):
              sharded and restored onto (4, 1), (1, 4) and a world of 1,
              each block bit-equal, checked without a collective; (cc)
              launch/dryrun.py's qwen3-0.6b train_4k on 256 fake ranks, its
-             record printed
+             record printed, and the selection cells (select_1m, _stoch,
+             _bf16, _stoch_bf16 on 256 fake ranks, select_1m on 512), their
+             argument bytes, 2,048 all-reduces and bytes and the FL
+             sweeps' kernel bytes exact; (dd) on
+             an NCCL world of 1, one rank's full-width share of each
+             selection cell (a 1,024 x 65,536 block of ops.similarity over
+             a mixture at d = 1,024, fp32 and bf16, budget 512): walls,
+             512 sweep launches a run, the peak against the dry run's
+             arguments + temp within 0.5-2x, each bf16 run bit-equal to
+             the fp32 run on the widened block; fl_gains and fl_gains_at
+             (k = 1,024, int64 ids) on those blocks within FL_TOL of their
+             plain versions at two states, and select_1m's ids equal to
+             the plain path's NaiveGreedy up to a near-tie
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Details go to chiprun_out/chip_smoke.json.
 Without a CUDA device, or without the repo's ``src/`` beside it, the script
@@ -356,22 +375,22 @@ FL_ROWS_PAST_LIMIT = 65_535 * 128 + 1
 HOST_CALLS, HOST_BATCHES = 200, 5
 CLUSTERS, KMEANS_ITERS = 100, 25  # phase 9 (j): the mixture's component count
 GUIDED = 100  # phase 9 (k): |Q| = |P|
-GUIDED_BUDGET = 150  # phase 9 (k): the FL, GC and COM measures' NaiveGreedy budget
+GUIDED_BUDGET = 100  # phase 9 (k): the FL, GC and COM measures' NaiveGreedy budget
 LOGDET_BUDGET = 100  # phase 9 (k): well under the cosine S's rank d + 1
 # phase 10 (l), (m): the members' budgets, spread evenly over this range, and
 # LazyGreedy's screen width
-WAVE_BUDGETS = (50, 125)
+WAVE_BUDGETS = (50, 100)
 WAVE_SCREEN_K = 8
 # phase 10 (n): members per family, and the NaiveGreedy / LazyGreedy budgets
 FAMILY_B = 4
-FAMILY_BUDGETS = (50, 125)
+FAMILY_BUDGETS = (50, 100)
 # phase 10 (o): neighbours per row and knn_from_features' row batch on phase
 # 4's features; the million-point shape's random neighbours (the JAX
 # package's tests/test_matrix_free.py:285-296); NaiveGreedy / LazyGreedy
 # budgets of each, and GraphCutMF's NaiveGreedy budget
 KNN_K, KNN_BATCH = 10, 2048
 KNN_MILLION_K = 8
-KNN_BUDGETS = ((500, 2500), (100, 1000))
+KNN_BUDGETS = ((500, 1500), (100, 1000))
 GC_KNN_BUDGET = 100
 # phase 11: the served workload's families (the JAX package's serve CLI ten,
 # src/repro/launch/serve.py:971-1025, and FLMF / GCMF over a FeatureSource),
@@ -379,7 +398,7 @@ GC_KNN_BUDGET = 100
 # the FLMF session's final n, its seed rows and uneven deltas (as given at
 # 8,192 rows, scaled for another SESSION_N), its LazyGreedy budget; the
 # kernel fault's n and the breaker's cooldown
-SERVE_REQUESTS = 96
+SERVE_REQUESTS = 72  # three rounds of the 12 families, each NaiveGreedy and LazyGreedy
 SERVE_N = (3072, 4096, 6144, 8192)
 SERVE_MAX_WAVE = 64
 SERVE_KINDS = ("fl", "gc", "fb", "sc", "psc", "dsum", "dmin", "flqmi", "gcmi", "logdet",
@@ -390,7 +409,7 @@ KERNEL_FAMILIES = ("FacilityLocation", "GraphCut", "FeatureBased", "SetCover",
 SERVED_KERNELS = ("similarity", "fl_gains", "fl_gains_at", "flmf_gains", "flmf_gains_at",
                   "gc_gains", "gc_gains_at", "gcmf_gains", "gcmf_gains_at", "fb_gains",
                   "fb_gains_at", "sc_gains", "psc_gains", "dsum_gains", "dmin_gains")
-SERVE_BUDGETS = (50, 125)
+SERVE_BUDGETS = (50, 100)
 SERVE_SEED = 7000
 SERVE_QUERIES = 16
 SERVE_MAX_PENDING, SERVE_FLUSH_INTERVAL = 2, 0.05
@@ -650,6 +669,47 @@ def phase_kernels(torch, seed: int) -> None:
             check_close(f"fl_gains_at ({u},{n}) k={k} (bit-equal to fl_gains, int32 = int64 ids, "
                         "pads NEG_INF)", got, fl_gains_at_plain(sim, cm, idx), *FL_TOL)
         del sim
+    _bf16_fl_kernels(torch, gen)
+
+
+def _bits_equal(torch, what: str, got, want) -> None:
+    if got.shape != want.shape or not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+        raise AssertionError(f"{what}: not bit-equal")
+
+
+def _bf16_fl_kernels(torch, gen) -> None:
+    """A bf16 S (the TPU kernel takes either type): every sweep, single and
+    as a wave of 3, int32 and int64 ids, on both sides of the crossover,
+    bit-equal to the fp32 kernel on the widened S and close to its plain
+    version, the gathered sweep bit-equal to the full one."""
+    from repro_torch.common import NEG_INF
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.fl_gains import fl_gains_at_plain, fl_gains_plain
+
+    for u, n in [(1000, 777), (333, 5000), (129, 1)]:
+        for lead in ((), (3,)):
+            sim = torch.rand(lead + (u, n), generator=gen, device="cuda").bfloat16()
+            wide = sim.float()
+            cm = 0.8 * torch.rand(lead + (u,), generator=gen, device="cuda")
+            what = f"fl_gains bf16 {tuple(sim.shape)}"
+            full = ops.fl_gains(sim, cm)
+            _bits_equal(torch, f"{what} vs fp32 on the widened S", full, ops.fl_gains(wide, cm))
+            check_close(what, full, fl_gains_plain(sim, cm), *FL_TOL, quiet=True)
+            for b in range(lead[0] if lead else 0):
+                _bits_equal(torch, f"{what} member {b}", full[b], ops.fl_gains(sim[b], cm[b]))
+            for k in (1, 8, 100, 777):
+                idx = torch.randint(-1, n, lead + (k,), generator=gen, device="cuda")
+                got = ops.fl_gains_at(sim, cm, idx)
+                _bits_equal(torch, f"{what} at k={k} vs fp32", got, ops.fl_gains_at(wide, cm, idx))
+                _bits_equal(torch, f"{what} at k={k} int32", got,
+                            ops.fl_gains_at(sim, cm, idx.to(torch.int32)))
+                want = torch.where(idx < 0, NEG_INF, full.gather(-1, idx.clamp(min=0)))
+                _bits_equal(torch, f"{what} at k={k} vs the full sweep", got, want)
+                check_close(f"{what} at k={k}", got, fl_gains_at_plain(sim, cm, idx), *FL_TOL,
+                            quiet=True)
+    log("  ok  fl_gains / fl_gains_at on a bf16 S, single and waves of 3, k in (1, 8, 100, 777):"
+        " bit-equal to the fp32 kernel on the widened S and to the full sweep, int32 = int64 "
+        "ids, within FL_TOL of the plain versions")
 
 
 def _check_subset(what: str, torch, got, full, idx) -> None:
@@ -952,6 +1012,58 @@ def phase_main(torch, args) -> dict:
     return out, fn, runs["NaiveGreedy"][0]
 
 
+def _bf16_fl_times(torch, sim, cm, gen, reps: int) -> tuple[dict, dict]:
+    """Rows 2 and 3 on phase 4's S rounded to bf16 (u = n): the full sweep
+    and the gathered one at k = 8, each against its plain version, bit-equal
+    to the fp32 kernel on the widened S, single and as a wave of two members
+    over the one S (member stride 0), timed beside their byte bound (S read
+    at 2 bytes an element)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.fl_gains import fl_gains_at_plain, fl_gains_plain
+
+    n = sim.shape[1]
+    sim16 = sim.bfloat16()
+    wide = sim16.float()
+    wave, wcm = sim16.expand(2, -1, -1), cm.expand(2, -1)
+    full = ops.fl_gains(sim16, cm)
+    _bits_equal(torch, "fl_gains bf16 at u = n vs fp32 on the widened S", full,
+                ops.fl_gains(wide, cm))
+    err = check_close(f"fl_gains bf16 ({n},{n}) vs fl_gains_plain", full,
+                      fl_gains_plain(sim16, cm), *FL_TOL)
+    _bits_equal(torch, "fl_gains bf16 wave of 2", ops.fl_gains(wave, wcm), full.expand(2, -1))
+    b_ms, b_by = bound(3.0 * n * n, 2.0 * n * n + 4.0 * 2 * n)
+    full_row = {"shape": f"sim ({n},{n}) bf16, curmax ({n},) -> ({n},)", "max_abs_err": err,
+                "ms": cuda_ms(torch, lambda: ops.fl_gains(sim16, cm), reps),
+                "plain_ms": cuda_ms(torch, lambda: fl_gains_plain(sim16, cm),
+                                    max(2, reps // 10), warmup=1),
+                "wave2_ms": cuda_ms(torch, lambda: ops.fl_gains(wave, wcm), max(2, reps // 5)),
+                "bound_ms": b_ms, "bound_by": b_by, "bit_equal_to_fp32_on_widened": True}
+    sets = [torch.randperm(n, generator=gen, device="cuda")[:8] for _ in range(64)]
+    got = ops.fl_gains_at(sim16, cm, sets[0])
+    _bits_equal(torch, "fl_gains_at bf16 k=8 vs fp32 on the widened S", got,
+                ops.fl_gains_at(wide, cm, sets[0]))
+    _bits_equal(torch, "fl_gains_at bf16 k=8 vs the full sweep", got, full[sets[0]])
+    err = check_close(f"fl_gains_at bf16 ({n},{n}) k=8 vs fl_gains_at_plain", got,
+                      fl_gains_at_plain(sim16, cm, sets[0]), *FL_TOL)
+    wsets = [s.expand(2, -1) for s in sets]
+    _bits_equal(torch, "fl_gains_at bf16 wave of 2", ops.fl_gains_at(wave, wcm, wsets[0]),
+                got.expand(2, -1))
+    it, wit = itertools.cycle(sets), itertools.cycle(wsets)
+    b_ms, b_by = bound(3.0 * n * 8, 2.0 * n * 8 + 4.0 * n + 12.0 * 8)
+    at_row = {"shape": f"sim ({n},{n}) bf16, curmax ({n},), idx (8,) int64 -> (8,)",
+              "max_abs_err": err, "ms": cuda_ms(torch, lambda: ops.fl_gains_at(sim16, cm, next(it)),
+                                                reps),
+              "plain_ms": cuda_ms(torch, lambda: fl_gains_at_plain(sim16, cm, next(it)),
+                                  max(2, reps // 10), warmup=1),
+              "wave2_ms": cuda_ms(torch, lambda: ops.fl_gains_at(wave, wcm, next(wit)), reps),
+              "bound_ms": b_ms, "bound_by": b_by, "bit_equal_to_fp32_on_widened": True}
+    for name, r in (("fl_gains", full_row), ("fl_gains_at k=8", at_row)):
+        log(f"  {name} bf16 {n}x{n}: kernel {r['ms']:.4f} ms (a wave of 2 over the one S "
+            f"{r['wave2_ms']:.4f}), plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.5f} ms "
+            f"({r['bound_by']}); bit-equal to the fp32 kernel on the widened S")
+    return full_row, at_row
+
+
 def phase_times(torch, args, fn, naive_res, main: dict) -> list[dict]:
     from repro_torch.core import FacilityLocation, FLState
     from repro_torch.kernels import ops
@@ -1074,6 +1186,7 @@ def phase_times(torch, args, fn, naive_res, main: dict) -> list[dict]:
         "bound_by": at[8]["bound_by"], "library_ms": None, "ms_int32": at[8]["ms_int32"],
         "host_us": at[8]["host_us"], "k512": at[512], "by_width": by_width,
     })
+    rows[-2]["bf16"], rows[-1]["bf16"] = _bf16_fl_times(torch, sim, cm, gen, reps)
 
     # the KERNEL_MIN_N gate: kernel vs the torch backend's sweep at n = 4096
     g_n = 4096
@@ -3388,12 +3501,12 @@ SAMPLED_SEEDS = (0,)  # one seed: a second repeats the same check at the script'
 STREAM_BUDGET = 100
 STREAM_EPS = 0.1
 STREAM_BUFFER = 64
-CONSTRAINED_STEPS = 500
+CONSTRAINED_STEPS = 300
 MATROID_PARTS, MATROID_CAP = 10, 10
 KNAPSACK_BUDGET = 60.0
 COVER_PREFIX = 100  # cover_greedy's target: 0.999 f(phase 4's first 100 picks)
 HOST_LAZY_BUDGET = 500
-STREAM_REQUESTS = 32
+STREAM_REQUESTS = 24
 STREAM_SERVE_BUDGETS = (20, 100)
 STREAM_SESSION_N = 8192
 STREAM_SESSION_DELTAS = 10
@@ -3677,7 +3790,7 @@ DIST_N = 4096  # (u): every family's n, at the kernel gate
 DIST_B = 4
 DIST_BUDGETS = (30, 15)  # (u) and (t)'s FB / SC / PSC waves: members alternate
 DIST_FL_N = 8192  # (t): the FL waves
-DIST_FL_BUDGETS = (200, 120)
+DIST_FL_BUDGETS = (150, 90)
 DIST_PART_N = 8192  # (u): the stochastic and FLQMI partition greedies
 DIST_PART_BUDGET = 100
 DIST_SAMPLE = 1024
@@ -4149,9 +4262,9 @@ def phase_distributed(torch, args, main: dict | None) -> dict:
 # ---------------------------------------------------------------------------
 
 MESH_SEED = 14000
-MESH_REQUESTS = 32  # (v): requests over the 13 families with a shard rule
+MESH_REQUESTS = 26  # (v): each of the 13 families with a shard rule, NaiveGreedy and LazyGreedy
 MESH_N = SERVE_N  # (v): n in {3,072, 4,096, 6,144, 8,192}
-MESH_BUDGETS = (50, 150)  # cut from 200 to keep phase 14 near 90 s
+MESH_BUDGETS = (50, 125)
 MESH_ASYNC = 8  # (v): the first requests again, through AsyncSelectionServer
 MESH_SESSION_N, MESH_SESSION_DELTAS = 3072, (1000, 37, 2048)  # (v): an FB session
 MESH_2X2_REQUESTS = 32  # (w)
@@ -5364,6 +5477,14 @@ SHARD_PG_TIMEOUT_S = 120
 SHARD_JOIN_TIMEOUT_S = 420
 SHARD_SEED = 17000
 DRYRUN_CELL = ("qwen3-0.6b", "train_4k", "single")  # (cc)
+# (cc) the selection cells: every variant on 256 fake ranks, select_1m on 512
+SELECT_CELLS = (("select_1m", "single"), ("select_1m_stoch", "single"),
+                ("select_1m_bf16", "single"), ("select_1m_stoch_bf16", "single"),
+                ("select_1m", "multi"))
+SELECT_STEPS = 512  # launch/dryrun.py's build_selection_step budget
+SELECT_ROWS_LOC = (1 << 14) // 16  # its rows over "model"
+SELECT_SAMPLE = 1024  # its stochastic variants' columns a shard and step
+SELECT_POOL_D = 1024  # (dd) the mixture's width (the JAX package's embeddings)
 
 
 def _placed(tree, mesh, policy: str, batch: bool = False):
@@ -5880,8 +6001,26 @@ def _shard_2x2_full(torch, args, backend: str) -> dict:
     return out
 
 
-def _shard_dryrun(torch) -> dict:
-    """(cc) The dry run's production cell: 256 fake ranks."""
+def _selection_counts(shape: str, mesh_kind: str) -> dict:
+    """A selection cell's exact local counts: the block's argument bytes,
+    the 4 all-reduces a step (the gains' psum over "model", the winner's
+    fp32 pmax and int64 pmin, its column's psum) with their bytes, and the
+    FL sweeps' bytes by their kernel's formula (u·n·elt + 4u + 4n, or for
+    the gathered k columns u·k·elt + 4u + k·(4 + 8))."""
+    v_loc = (1 << 20) // (32 if mesh_kind == "multi" else 16)
+    u, elt, stoch = SELECT_ROWS_LOC, 2 if "bf16" in shape else 4, "stoch" in shape
+    gains = SELECT_SAMPLE if stoch else v_loc
+    sweep = (u * SELECT_SAMPLE * elt + 4 * u + 12 * SELECT_SAMPLE if stoch
+             else u * v_loc * elt + 4 * u + 4 * v_loc)
+    return {"args": u * v_loc * elt, "all_reduces": 4 * SELECT_STEPS,
+            "all_reduce_bytes": SELECT_STEPS * (4 * gains + 4 + 8 + 4 * u),
+            "kernel_bytes": {"fl_gains_at" if stoch else "fl_gains": SELECT_STEPS * sweep}}
+
+
+def _shard_dryrun(torch) -> tuple[dict, dict]:
+    """(cc) The dry run's production cells: qwen3-0.6b train_4k on 256 fake
+    ranks, the four selection cells there and select_1m on 512, their
+    argument bytes and all-reduces exact."""
     from repro_torch.launch import dryrun
 
     t0 = time.perf_counter()
@@ -5890,7 +6029,184 @@ def _shard_dryrun(torch) -> dict:
         raise AssertionError(f"17 (cc) the record: {rec}")
     log(f"  ok  17 (cc) dry run {' '.join(DRYRUN_CELL)} on 256 fake ranks: traced in "
         f"{rec['trace_s']} s, the cell {time.perf_counter() - t0:.1f} s")
-    return rec
+    cells = {}
+    for shape, mesh_kind in SELECT_CELLS:
+        t0 = time.perf_counter()
+        r = dryrun.run_cell("selection", shape, mesh_kind, str(OUT_DIR / "dryrun"))
+        want, coll = _selection_counts(shape, mesh_kind), r["collectives"]
+        got = {"args": r["memory"]["argument_size_in_bytes"],
+               "all_reduces": coll["counts"]["all-reduce"], "all_reduce_bytes": coll["all-reduce"],
+               "kernel_bytes": r["kernel_bytes"]}
+        if got != want or coll["total"] != coll["all-reduce"] or r["flops_per_device"] != 0:
+            raise AssertionError(f"17 (cc) selection {shape} {mesh_kind}: {got} != {want} "
+                                 f"(collectives {coll})")
+        cells[f"{shape}__{mesh_kind}"] = r
+        log(f"  ok  17 (cc) selection {shape} on {r['n_devices']} fake ranks: arguments "
+            f"{got['args']} B, {got['all_reduces']} all-reduces of {got['all_reduce_bytes']} B, "
+            f"FL sweeps {got['kernel_bytes']} B, exact; {r['bytes_per_device']:.6e} bytes a "
+            f"device, temp "
+            f"{r['memory']['temp_size_in_bytes']} B; traced in {r['trace_s']} s, the cell "
+            f"{time.perf_counter() - t0:.1f} s")
+    return rec, cells
+
+
+def _selection_kernels(torch, args, blocks: dict, ids, gains) -> dict:
+    """(dd) Rows 2 and 3 at the cells' shapes, on the runs' own card
+    tensors: fl_gains on the fp32 and the bf16 block at the first step's
+    curmax (0) and at the dense run's after half its picks, fl_gains_at at
+    a stochastic step's k = 1,024 int64 ids, each within FL_TOL of its plain
+    version, the gathered sweep bit-equal to the full one and each bf16
+    sweep bit-equal to the fp32 kernel on the widened block; then the dense
+    run's ids against the plain path's NaiveGreedy on the fp32 block, equal
+    up to a near-tie, the gains within FL_TOL that far."""
+    from repro_torch.core import FacilityLocation, SelectionSpec, solve
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.fl_gains import fl_gains_at_plain, fl_gains_plain
+
+    u, pool = blocks["fp32"].shape
+    gen = torch.Generator(device="cuda").manual_seed(args.seed + 1)
+    idx = torch.randperm(pool, generator=gen, device="cuda")[:SELECT_SAMPLE]
+    half = ids[: SELECT_STEPS // 2].to("cuda")
+    errs = {}
+    for name in ("fp32", "bf16"):
+        sim = blocks[name]
+        wide = blocks["widened" if name == "bf16" else "fp32"]
+        for state, cm in (("of the first step", torch.zeros(u, device="cuda")),
+                          (f"after {len(half)} picks", wide[:, half].amax(dim=1).contiguous())):
+            what = f"17 (dd) {name} block ({u} x {pool}), curmax {state}"
+            full = ops.fl_gains(sim, cm)
+            errs[f"fl_gains {name} {state}"] = check_close(
+                f"{what}: fl_gains vs fl_gains_plain", full, fl_gains_plain(sim, cm), *FL_TOL)
+            at = ops.fl_gains_at(sim, cm, idx)
+            errs[f"fl_gains_at {name} {state}"] = check_close(
+                f"{what}: fl_gains_at k={SELECT_SAMPLE} int64 vs fl_gains_at_plain", at,
+                fl_gains_at_plain(sim, cm, idx), *FL_TOL)
+            _bits_equal(torch, f"{what}: fl_gains_at vs the full sweep", at, full[idx])
+            if name == "bf16":
+                _bits_equal(torch, f"{what}: fl_gains vs fp32 on the widened block", full,
+                            ops.fl_gains(wide, cm))
+                _bits_equal(torch, f"{what}: fl_gains_at vs fp32 on the widened block", at,
+                            ops.fl_gains_at(wide, cm, idx))
+    log("  ok  17 (dd) each bf16 sweep bit-equal to the fp32 kernel on the widened block, each "
+        "gathered sweep to the full one")
+    S = blocks["fp32"]
+    before = dict(ops.LAUNCHES)
+    t0 = time.perf_counter()
+    ref = solve(SelectionSpec(FacilityLocation.from_kernel(S, use_kernel=False), SELECT_STEPS,
+                              "NaiveGreedy", stopIfZeroGain=True, stopIfNegativeGain=False))
+    plain_s = time.perf_counter() - t0
+    if dict(ops.LAUNCHES) != before:
+        raise AssertionError("17 (dd) the plain path's NaiveGreedy launched a kernel")
+    ref_ids = ref.order.cpu()
+    parting = _selector_parting(
+        torch, f"17 (dd) select_1m's ids on the fp32 block vs the plain path's NaiveGreedy "
+        f"{SELECT_STEPS}", FacilityLocation.from_kernel(S, use_kernel=True),
+        FacilityLocation.from_kernel(S, use_kernel=False), ids.tolist(), ref_ids.tolist())
+    t = parting["agreeing_steps"]
+    check_close(f"17 (dd) select_1m's gains over its first {t} picks vs the plain path's",
+                gains[:t], ref.gains[:t].cpu(), *FL_TOL)
+    parting["plain_s"] = plain_s
+    return {"max_abs_err": errs, "plain_greedy": parting}
+
+
+def _selection_world_of_one(torch, args, cells: dict) -> dict:
+    """(dd) One rank's full-width share of each selection cell on an NCCL
+    world of 1: a (1,024 x 65,536) block of ops.similarity (cosine) over a
+    mixture at d = 1,024, fp32 and its bf16 rounding, through
+    build_selection_step's step at budget 512; walls, launches, the peak
+    against the 256-rank dry run's arguments + temp; each bf16 run's ids
+    and gains bit-equal to the fp32 step on the widened block; the kernels
+    at these shapes and the dense run's ids against the plain versions
+    (:func:`_selection_kernels`)."""
+    import datetime
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.core.optimizers import _threefry
+    from repro_torch.core.optimizers.distributed import _axis, psum
+    from repro_torch.kernels import ops
+    from repro_torch.launch.dryrun import SELECTION_SHAPES, build_selection_step
+    from repro_torch.launch.mesh import make_test_mesh
+
+    u, pool = SELECT_ROWS_LOC, (1 << 20) // 16
+    x = gaussian_mixture_cuda(torch, args.seed + SHARD_SEED + 1, pool, SELECT_POOL_D)
+    rows = x[torch.randperm(pool, generator=torch.Generator(device="cuda").manual_seed(
+        args.seed), device="cuda")[:u]].contiguous()
+    S = ops.similarity(rows, x, "cosine")
+    del x, rows
+    blocks = {"fp32": S, "bf16": S.bfloat16()}
+    blocks["widened"] = blocks["bf16"].float()
+    store = Path(tempfile.mkdtemp()) / "store"
+    timeout = datetime.timedelta(seconds=SHARD_PG_TIMEOUT_S)
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0, world_size=1,
+                            timeout=timeout)
+    out, runs = {}, {}
+    try:
+        mesh = make_test_mesh((1, 1), ("data", "model"), timeout=timeout)
+        for axes in (("model",), ("data",)):  # each group's communicator, before the walls
+            psum(torch.zeros(1, device="cuda"), _axis(mesh, axes))
+        plan = [(shape, SELECTION_SHAPES[shape], "bf16" if "bf16" in shape else "fp32")
+                for shape, mesh_kind in SELECT_CELLS if mesh_kind == "single"]
+        plan += [(None, "dense", "widened"), (None, "stochastic", "widened")]
+        for shape, variant, block in plan:
+            fn, _, _ = build_selection_step(mesh, pool=pool, variant=variant)
+            sim = blocks[block]
+            key = (_threefry.prng_key(args.seed),) if "stochastic" in variant else ()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            order, gains = fn(sim, *key)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() - before + sim.nbytes
+            launches = {k: ops.LAUNCHES[k] for k in ("fl_gains", "fl_gains_at")}
+            runs[(variant, block)] = (order.cpu(), gains.cpu())
+            ids = order.cpu()
+            if not (bool((ids >= 0).all()) and len(set(ids.tolist())) == SELECT_STEPS
+                    and bool(gains.isfinite().all())):
+                raise AssertionError(f"17 (dd) {variant} on {block}: ids {ids[:8].tolist()}.., "
+                                     f"gains finite {bool(gains.isfinite().all())}")
+            sweep = "fl_gains_at" if "stochastic" in variant else "fl_gains"
+            if launches != {k: SELECT_STEPS if k == sweep else 0 for k in launches}:
+                raise AssertionError(f"17 (dd) {variant}: launches {launches}")
+            run = {"variant": variant, "block": block, "wall_s": wall, "launches": launches,
+                   "peak_bytes": peak, "step_ms": 1e3 * wall / SELECT_STEPS}
+            if shape is not None:
+                dry = cells[f"{shape}__single"]["memory"]
+                if sim.nbytes != dry["argument_size_in_bytes"]:
+                    raise AssertionError(f"17 (dd) {shape}: the block's {sim.nbytes} B are not "
+                                         f"the dry run's arguments {dry}")
+                predicted = dry["argument_size_in_bytes"] + dry["temp_size_in_bytes"]
+                run.update(predicted_peak_bytes=predicted, peak_ratio=predicted / peak)
+                if not SHARD_PEAK_RATIO[0] <= predicted / peak <= SHARD_PEAK_RATIO[1]:
+                    raise AssertionError(f"17 (dd) {shape}: the dry run's peak {predicted} B "
+                                         f"over the measured {peak} B is outside "
+                                         f"{SHARD_PEAK_RATIO}")
+            out[shape or f"{variant}_widened"] = run
+            log(f"  ok  17 (dd) {shape or variant} on the {block} block ({u} x {pool}), NCCL "
+                f"world of 1: {wall:.3f} s ({run['step_ms']:.3f} ms a step), launches "
+                f"{launches}, peak {peak} B"
+                + (f", the dry run's arguments + temp {run['predicted_peak_bytes']} B (ratio "
+                   f"{run['peak_ratio']:.3f})" if shape is not None else ""))
+    finally:
+        dist.destroy_process_group()
+    for bf16, fp32 in (("bf16", "dense"), ("stochastic_bf16", "stochastic")):
+        got, want = runs[(bf16, "bf16")], runs[(fp32, "widened")]
+        if not (torch.equal(got[0], want[0])
+                and torch.equal(got[1].view(torch.int32), want[1].view(torch.int32))):
+            raise AssertionError(f"17 (dd) the {bf16} run is not the {fp32} run on the widened "
+                                 "block")
+    log("  ok  17 (dd) each bf16 run's ids and gains bit-equal to the fp32 step on the widened "
+        "block")
+    out["plain"] = _selection_kernels(torch, args, blocks, *runs[("dense", "fp32")])
+    launches = collections.Counter()  # the four cells' runs: the path's
+    for shape in SELECTION_SHAPES:
+        launches.update(out[shape]["launches"])
+    out["launches"] = dict(launches)
+    return out
 
 
 def phase_sharded_training(torch, args) -> dict:
@@ -5907,7 +6223,8 @@ def phase_sharded_training(torch, args) -> dict:
     logging.getLogger("torch.distributed.tensor").setLevel(logging.ERROR)
     out = {"aa": _shard_world_of_one(torch, args)}
     out["bb"] = _shard_2x2(torch, args)
-    out["cc"] = _shard_dryrun(torch)
+    out["cc"], out["cc_selection"] = _shard_dryrun(torch)
+    out["dd"] = _selection_world_of_one(torch, args, out["cc_selection"])
     out["seconds"] = time.perf_counter() - t_start
     log(f"phase 17: {out['seconds']:.1f} s")
     return out
@@ -6037,6 +6354,8 @@ def main(argv=None) -> int:
                       **train["kernels"].get(r["name"], {})}
         # and on the other families' training path (phase 16 (z)'s two runs)
         r["other_families"] = {"launches": other["launches"].get(r["name"], 0)}
+        # and on the selection cells' path (phase 17 (dd): one rank's share of each)
+        r["selection_cells"] = {"launches": sharded_training["dd"]["launches"].get(r["name"], 0)}
     missing = set(ops.LAUNCHES) ^ {r["name"] for r in kernels}
     if missing:
         raise AssertionError(f"kernels line and LAUNCHES differ: {sorted(missing)}")

@@ -63,13 +63,8 @@ def fold_in(key: tuple[int, int], data) -> tuple:
     if isinstance(data, torch.Tensor):
         k0 = torch.full_like(data, key[0])
         return threefry2x32(k0, torch.full_like(data, key[1]), torch.zeros_like(data), data)
-    k0, k1 = threefry2x32(
-        torch.tensor(key[0], dtype=torch.int64),
-        torch.tensor(key[1], dtype=torch.int64),
-        torch.tensor(0, dtype=torch.int64),
-        torch.tensor(int(data) & _MASK, dtype=torch.int64),
-    )
-    return (int(k0), int(k1))
+    # on Python ints: the same 32-bit words, no tensor op
+    return threefry2x32(int(key[0]), int(key[1]), 0, int(data) & _MASK)
 
 
 def bits_to_uniform(bits: torch.Tensor) -> torch.Tensor:
@@ -96,11 +91,16 @@ def uniform(key: tuple[int, int], n: int, device) -> torch.Tensor:
     return bits_to_uniform(random_bits(key, n, device))
 
 
-def step_bits(key: tuple[int, int], steps: range, n: int, device) -> torch.Tensor:
+def step_bits(key: tuple[int, int], steps: range, n: int, device,
+              fold: int | None = None) -> torch.Tensor:
     """(len(steps), n) int64: row t holds the draws of
-    ``uniform(fold_in(key, steps[t]), (n,))``, all rows in one pass."""
+    ``uniform(fold_in(key, steps[t]), (n,))``, all rows in one pass; with
+    ``fold``, of ``uniform(fold_in(fold_in(key, steps[t]), fold), (n,))``
+    (a shard's draws in the partition greedy)."""
     s = torch.tensor(list(steps), dtype=torch.int64, device=device)
     k0, k1 = fold_in(key, s)
+    if fold is not None:
+        k0, k1 = threefry2x32(k0, k1, torch.zeros_like(k0), torch.full_like(k0, fold & _MASK))
     e = torch.arange(n, dtype=torch.int64, device=device)
     b0, b1 = threefry2x32(k0[:, None], k1[:, None], torch.zeros_like(e), e)
     return b0 ^ b1

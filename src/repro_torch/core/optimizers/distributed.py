@@ -62,7 +62,6 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.common import NEG_INF, resolve_device
-from repro_torch.core.optimizers import _threefry
 from repro_torch.core.optimizers.backends import (
     full_sweep_wave,
     kernel_enabled,
@@ -70,10 +69,10 @@ from repro_torch.core.optimizers.backends import (
 )
 from repro_torch.core.optimizers.greedy import (
     GreedyResult,
-    _draw_keys,
     _sample_unselected,
     _screen_levels,
     _should_stop,
+    _step_keys,
     _where_state,
     member_values,
 )
@@ -270,10 +269,11 @@ def _all_gather_cols(x: torch.Tensor, ax: _Axis) -> torch.Tensor:
 
 def _local_block(t, mesh, dim_axes: Sequence[tuple], device) -> torch.Tensor:
     """This rank's contiguous block of the global tensor ``t``, dimension d
-    sharded over the mesh axes ``dim_axes[d]`` (empty: replicated).  A
-    ``DTensor`` already sharded so on ``mesh`` gives its local tensor, so a
-    caller can hand each rank its block without building the whole tensor
-    on every rank."""
+    sharded over the mesh axes ``dim_axes[d]`` (empty: replicated), on
+    ``device``: bf16 stays bf16, any other type becomes fp32.  A ``DTensor``
+    already sharded so on ``mesh`` gives its local tensor, so a caller can
+    hand each rank its block without building the whole tensor on every
+    rank; a meta DTensor's block stays on the meta device (the dry run's)."""
     from torch.distributed.tensor import DTensor, Replicate, Shard
 
     if isinstance(t, DTensor):
@@ -286,7 +286,10 @@ def _local_block(t, mesh, dim_axes: Sequence[tuple], device) -> torch.Tensor:
                                  f"got axes {axes} of mesh {names}")
             for m in dims:
                 want[m] = Shard(d)
-        if t.device_mesh != mesh or tuple(t.placements) != tuple(want):
+        # a mesh dimension of one rank splits nothing: Shard and Replicate agree
+        same = all(p == w or mesh.size(m) == 1
+                   for m, (p, w) in enumerate(zip(t.placements, want)))
+        if t.device_mesh != mesh or not same:
             raise ValueError(f"DTensor placements {tuple(t.placements)} on its mesh; this "
                              f"call shards as {tuple(want)} on the given mesh")
         block = t.to_local()
@@ -295,16 +298,19 @@ def _local_block(t, mesh, dim_axes: Sequence[tuple], device) -> torch.Tensor:
             if t.shape[d] % size or block.shape[d] != t.shape[d] // size:
                 raise ValueError(f"dimension {d} of {tuple(t.shape)} does not split evenly "
                                  f"over mesh axes {axes} ({size} shards)")
-        return block.to(device).contiguous()
-    t = t if isinstance(t, torch.Tensor) else torch.tensor(t)
-    for d, axes in enumerate(dim_axes):
-        ax = _axis(mesh, axes)
-        if t.shape[d] % ax.size:
-            raise ValueError(f"dimension {d} of {tuple(t.shape)} is not a multiple of mesh "
-                             f"axes {axes} size {ax.size}")
-        per = t.shape[d] // ax.size
-        t = t.narrow(d, ax.index * per, per)
-    return t.to(device=device, dtype=torch.float32).contiguous()
+        if block.is_meta:
+            device = block.device
+    else:
+        block = t if isinstance(t, torch.Tensor) else torch.tensor(t)
+        for d, axes in enumerate(dim_axes):
+            ax = _axis(mesh, axes)
+            if block.shape[d] % ax.size:
+                raise ValueError(f"dimension {d} of {tuple(block.shape)} is not a multiple of "
+                                 f"mesh axes {axes} size {ax.size}")
+            per = block.shape[d] // ax.size
+            block = block.narrow(d, ax.index * per, per)
+    dtype = torch.bfloat16 if block.dtype == torch.bfloat16 else torch.float32
+    return block.to(device=device, dtype=dtype).contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -335,7 +341,8 @@ def _partition_greedy(block, budget: int, row: _Axis, col: _Axis, sweep: Callabl
     U_loc, V_loc = block.shape
     dev = block.device
     col_off = col.index * V_loc
-    curmax = torch.zeros((U_loc,), dtype=block.dtype, device=dev)
+    # fp32 over a bf16 block too: each value is a widened element of the block
+    curmax = torch.zeros((U_loc,), dtype=torch.float32, device=dev)
     selected = torch.zeros((V_loc,), dtype=torch.bool, device=dev)
     order = torch.full((budget,), -1, dtype=torch.int32, device=dev)
     gains = torch.zeros((budget,), dtype=torch.float32, device=dev)
@@ -350,7 +357,7 @@ def _partition_greedy(block, budget: int, row: _Axis, col: _Axis, sweep: Callabl
         stop = done | (gbest <= 0.0) if stop_if_zero else done
         take = ~stop
         is_mine, wl = _mine(winner, col_off, V_loc)
-        column = psum(torch.where(is_mine, block.index_select(1, wl)[:, 0], 0.0), col)
+        column = psum(torch.where(is_mine, block.index_select(1, wl)[:, 0].float(), 0.0), col)
         curmax = torch.where(take, torch.maximum(curmax, column), curmax)
         selected.scatter_(0, wl, selected.gather(0, wl) | (take & is_mine))
         order[i : i + 1] = torch.where(take, winner.to(torch.int32), -1)
@@ -363,9 +370,10 @@ def distributed_fl_greedy(sim, budget: int, mesh, row_axes: Sequence[str] | None
                           col_axes: Sequence[str] = ("data",), stop_if_zero: bool = True):
     """Facility-Location greedy over a 2-D sharded similarity kernel.
 
-    ``sim`` is the global (U, V) kernel (or a ``DTensor`` so sharded);
-    rows shard over ``row_axes`` (replicated when None), columns over
-    ``col_axes``.  Each step sweeps the rank's block through ``ops.fl_gains``
+    ``sim`` is the global (U, V) kernel (or a ``DTensor`` so sharded), fp32
+    or bf16 (a bf16 block stays bf16 and the sweep widens it; curmax and
+    every collective are fp32); rows shard over ``row_axes`` (replicated
+    when None), columns over ``col_axes``.  Each step sweeps the rank's block through ``ops.fl_gains``
     (the CUDA kernel on the card, its plain version on the CPU), sums the
     row blocks with a ``psum`` and elects the winner.  Returns (order,
     gains): (budget,) global ids and gains, the same on every rank."""
@@ -398,11 +406,11 @@ def distributed_stochastic_fl_greedy(sim, budget: int, mesh, key, sample_per_sha
     V_loc = block.shape[1]
     s = min(sample_per_shard, V_loc)
     rev_iota = 0xFFFFFFFF - torch.arange(V_loc, dtype=torch.int64, device=block.device)
+    # the draws do not depend on the picks: a block of steps' at a time
+    steps = _step_keys(key, V_loc, budget, rev_iota, fold=col.index)
 
     def sample(i, selected):
-        subkey = _threefry.fold_in(_threefry.fold_in(key, i), col.index)
-        keys = _draw_keys(_threefry.random_bits(subkey, V_loc, block.device) >> 9, rev_iota)
-        return _sample_unselected(keys, selected, rev_iota, s)
+        return _sample_unselected(next(steps), selected, rev_iota, s)
 
     return _partition_greedy(block, budget, row, col,
                              lambda cm, cand: ops.fl_gains_at(block, cm, cand), sample, False)

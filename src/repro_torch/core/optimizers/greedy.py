@@ -329,13 +329,14 @@ def _sample_unselected(keys: torch.Tensor, selected: torch.Tensor, rev_iota: tor
     return torch.topk(torch.where(selected, rev_iota, keys), size).indices
 
 
-def _step_keys(key, n: int, budget: int, rev_iota: torch.Tensor):
+def _step_keys(key, n: int, budget: int, rev_iota: torch.Tensor, fold: int | None = None):
     """The :func:`_draw_keys` of every step's uniforms ``uniform(fold_in(
-    key, i), (n,))``, yielded step by step, drawn a block of steps at a
-    time."""
+    key, i), (n,))`` (with ``fold``, ``fold_in(fold_in(key, i), fold)``'s),
+    yielded step by step, drawn a block of steps at a time."""
     block = _threefry.block_steps(n)
     for lo in range(0, budget, block):
-        bits = _threefry.step_bits(key, range(lo, min(budget, lo + block)), n, rev_iota.device)
+        bits = _threefry.step_bits(key, range(lo, min(budget, lo + block)), n, rev_iota.device,
+                                   fold)
         yield from _draw_keys(bits >> 9, rev_iota)
 
 

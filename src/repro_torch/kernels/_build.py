@@ -66,7 +66,7 @@ _SIGNATURES = {
     ),
     "fl_gains_wave_launch": (
         [_P, _I64, _I64, _I64, _I64, _I64, _P, _I64, _P, _C_INT, _I64, _I64, _I64, _C_INT,
-         _C_INT, _C_INT, _P, _P, _P, _P],
+         _C_INT, _C_INT, _P, _P, _P, _P, _C_INT],
         ctypes.c_int,
     ),
     "flmf_gains_launch": (

@@ -2,11 +2,13 @@
 (``repro_torch.kernels.ops``), host cost included, on this checkout and on
 other checkouts' ``src/`` directories, in turns on one card:
 
-    python src/repro_torch/kernels/compare_wrappers.py [--crossover] [--layouts] [OTHER_SRC ...]
+    python src/repro_torch/kernels/compare_wrappers.py [--crossover] [--layouts] \
+        [--turns T] [--fl-only] [OTHER_SRC ...]
 
 Each tree runs in a process of its own (its own package and kernel build),
-in the order this, B, C, C, B, this, so a drift of clock or power falls on
-all alike.  A process, with ``--seed`` 0 as ``chip_smoke.py``:
+in the order this, B, C, C, B, this, ``--turns`` times over, so a drift of
+clock or power falls on all alike.  A process, with ``--seed`` 0 as
+``chip_smoke.py``:
 
 - builds phase 4's dense path (n = 50,000, d = 512, cosine S from the
   Gaussian mixture) and runs its LazyGreedy 5,000 on the CUDA backend,
@@ -22,6 +24,8 @@ all alike.  A process, with ``--seed`` 0 as ``chip_smoke.py``:
   the card, sqrt) and runs its LazyGreedy 1,000 the same way, counting and
   timing ``fb_gains_at`` by width, and times ``fb_gains`` (sqrt, log,
   inverse) at the state of its first 100 picks;
+- with ``--fl-only``, keeps the FL LazyGreedy, the full sweep's time and
+  the host cost, and leaves out the times by width and FB;
 - with ``--crossover`` (this tree only), times ``fl_gains_at`` with the
   crossover forced off and on (``fl_gains.sweeps_every_column``) at widths
   around it, both bit-equal;
@@ -32,7 +36,8 @@ all alike.  A process, with ``--seed`` 0 as ``chip_smoke.py``:
 Every gathered output is held bit-equal to the full sweep; across trees the
 LazyGreedy ids, gains, ``n_evals`` and f(A) must be equal, and so must the
 outputs at fixed index sets.  Prints one JSON line per process, then a
-summary line of medians; exits non-zero on any difference.  Run it on the
+summary line of each number's median and its (min, max) spread by tree;
+exits non-zero on any difference.  Run it on the
 card; all numbers are the card's (``nvidia-smi`` name and power limit in
 the record).  The timing helpers, the mixtures and the width counter are
 ``chip_smoke.py``'s, imported from this checkout's root.
@@ -134,7 +139,7 @@ def _layouts(torch, gen, S, cm, full) -> dict:
     return out
 
 
-def measure(seed: int, crossover: bool, layouts: bool) -> dict:
+def measure(seed: int, crossover: bool, layouts: bool, fl_only: bool = False) -> dict:
     import torch
 
     from repro_torch.core import FacilityLocation, FeatureBased, create_kernel
@@ -157,8 +162,9 @@ def measure(seed: int, crossover: bool, layouts: bool) -> dict:
     full = ops.fl_gains(S, cm)
     fl = {"lazy": {k: v for k, v in lazy.items() if k != "picks"},
           "fl_gains_ms": cuda_ms(torch, lambda: ops.fl_gains(S, cm), 2 * REPS)}
-    fl["by_width"] = _by_width(torch, gen, lazy["widths"], N,
-                               lambda s: ops.fl_gains_at(S, cm, s), full)
+    if not fl_only:
+        fl["by_width"] = _by_width(torch, gen, lazy["widths"], N,
+                                   lambda s: ops.fl_gains_at(S, cm, s), full)
     fixed = _sets(torch, torch.Generator(device="cuda").manual_seed(seed + 2), N, 512, 1,
                   torch.int64)[0]
     fl["out_at_fixed"] = _digest(ops.fl_gains_at(S, cm, fixed))
@@ -206,6 +212,8 @@ def measure(seed: int, crossover: bool, layouts: bool) -> dict:
         fl["layouts"] = _layouts(torch, gen, S, cm, full)
     rec["fl"] = fl
     del S, fn, full, cm
+    if fl_only:
+        return rec
 
     # ---- FB: phase 8 (f)'s FeatureBased and LazyGreedy
     feats = torch.relu(gaussian_mixture_cuda(torch, seed, FB_N, D))
@@ -250,15 +258,19 @@ def main(argv=None) -> int:
                    help="this tree: time fl_gains_at with the crossover forced off and on")
     p.add_argument("--layouts", action="store_true",
                    help="this tree: time fl_gains_at at several cluster counts")
+    p.add_argument("--turns", type=int, default=1,
+                   help="times over the order this, B, .., B, this")
+    p.add_argument("--fl-only", action="store_true",
+                   help="the FL LazyGreedy, full sweep and host cost only")
     p.add_argument("--measure", type=Path, help=argparse.SUPPRESS)  # one tree, in this process
     args = p.parse_args(argv)
     if args.measure is not None:
-        print(json.dumps(measure(args.seed, args.crossover, args.layouts)),
+        print(json.dumps(measure(args.seed, args.crossover, args.layouts, args.fl_only)),
               flush=True)
         return 0
 
     trees = [THIS_SRC] + [s.resolve() for s in args.other_src]
-    order = trees + list(reversed(trees)) if len(trees) > 1 else trees
+    order = args.turns * (trees + list(reversed(trees)) if len(trees) > 1 else trees)
     gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     runs = collections.defaultdict(list)
@@ -272,6 +284,8 @@ def main(argv=None) -> int:
         for flag in ("crossover", "layouts"):
             if getattr(args, flag) and src == THIS_SRC:
                 cmd.append("--" + flag)
+        if args.fl_only:
+            cmd.append("--fl-only")
         proc = subprocess.run(cmd, capture_output=True, text=True)
         sys.stderr.write(proc.stderr[-4000:])
         if proc.returncode != 0:
@@ -287,18 +301,19 @@ def main(argv=None) -> int:
             "fb.out_at_fixed", "fb.out_full")
     flat = {src: [_flatten(r) for r in recs] for src, recs in runs.items()}
     for key in same:
-        values = {json.dumps(f[key]) for recs in flat.values() for f in recs}
+        values = {json.dumps(f.get(key)) for recs in flat.values() for f in recs}
         if len(values) != 1:
             ok = False
             print(f"compare_wrappers: {key} differs across runs: {sorted(values)}", file=sys.stderr)
-    summary = {"card": gpu, "order": [str(s) for s in order], "same": ok, "median": {}}
+    summary = {"card": gpu, "order": [str(s) for s in order], "same": ok, "median": {},
+               "spread": {}}
     for src, recs in flat.items():
-        med = {}
+        med, spread = {}, {}
         for key in recs[0]:
             vals = [r.get(key) for r in recs]
             if all(isinstance(v, (int, float)) and not isinstance(v, bool) for v in vals):
-                med[key] = statistics.median(vals)
-        summary["median"][src] = med
+                med[key], spread[key] = statistics.median(vals), (min(vals), max(vals))
+        summary["median"][src], summary["spread"][src] = med, spread
     print(json.dumps(summary))
     return 0 if ok else 1
 

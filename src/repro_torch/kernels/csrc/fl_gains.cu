@@ -53,6 +53,11 @@
 // or int64 (the LazyGreedy engine's sort hands int64 over).  Every element
 // offset is 64-bit: S at 50,000 x 50,000 holds 2.5e9 elements.
 //
+// Element type: S is fp32 or bf16 (SimT), as the TPU kernel takes either and
+// widens each element to fp32 as it loads it; curmax, the sums and the
+// output are fp32.  Widening is exact and the order above does not change,
+// so a bf16 sweep equals the fp32 sweep of the widened S bit for bit.
+//
 // Waves: B members of one shape (the batched engine's stacked S, member b at
 // sim + b * member_stride, its curmax, ids and output rows likewise) ride one
 // launch, the JAX package's vmap of the Pallas sweep.  The full sweep takes
@@ -83,10 +88,11 @@ constexpr int BATCH = 16;            // rows of a chunk loaded before they are a
 constexpr int MAX_GRID_Y = 65535;    // CUDA's grid.y limit: the full sweep loops past it
 
 // The chunk sum of column col over rows r0 .. r0 + len - 1, in row order.
-__device__ __forceinline__ float chunk_sum(const float* __restrict__ sim, int64_t ld,
+template <typename SimT>
+__device__ __forceinline__ float chunk_sum(const SimT* __restrict__ sim, int64_t ld,
                                            const float* __restrict__ curmax, int64_t col,
                                            int64_t r0, int64_t len) {
-  const float* p = sim + r0 * ld + col;
+  const SimT* p = sim + r0 * ld + col;
   const float* m = curmax + r0;
   float acc = 0.0f;
   int64_t r = 0;
@@ -94,13 +100,13 @@ __device__ __forceinline__ float chunk_sum(const float* __restrict__ sim, int64_
     float v[BATCH], c[BATCH];
 #pragma unroll
     for (int i = 0; i < BATCH; ++i) {
-      v[i] = __ldg(p + (r + i) * ld);
+      v[i] = tile::load_f32(p + (r + i) * ld);
       c[i] = __ldg(m + r + i);
     }
 #pragma unroll
     for (int i = 0; i < BATCH; ++i) acc += fmaxf(v[i] - c[i], 0.0f);
   }
-  for (; r < len; ++r) acc += fmaxf(__ldg(p + r * ld) - __ldg(m + r), 0.0f);
+  for (; r < len; ++r) acc += fmaxf(tile::load_f32(p + r * ld) - __ldg(m + r), 0.0f);
   return acc;
 }
 
@@ -113,9 +119,9 @@ struct Wave {
 // out[j] for the k gathered columns clip(idx[j]).  Grid: ceil(k / G)
 // clusters of CLUSTER blocks along x, the members along y; block: G columns
 // x L slots, G * L <= blockDim.x <= MAX_THREADS.
-template <typename IdxT, bool WAVE>
+template <typename SimT, typename IdxT, bool WAVE>
 __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(MAX_THREADS)
-    fl_gather_kernel(const float* __restrict__ sim, int64_t ld, int64_t u, int64_t n,
+    fl_gather_kernel(const SimT* __restrict__ sim, int64_t ld, int64_t u, int64_t n,
                      const float* __restrict__ curmax, const IdxT* __restrict__ idx, int64_t k,
                      int64_t rows_per_chunk, int G, int L, Wave wave, float* __restrict__ out) {
   __shared__ float part[MAX_THREADS];  // part[s * G + g]: column g's chunk w0 + s * CLUSTER + rank
@@ -168,8 +174,8 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(MAX_THREADS)
 
 // Pass 1 of the full sweep: partial[b, c, j] = member b's column j's sum over
 // chunk c (the members on grid.z).
-template <bool WAVE>
-__global__ void fl_partial_kernel(const float* __restrict__ sim, int64_t ld, int64_t u,
+template <typename SimT, bool WAVE>
+__global__ void fl_partial_kernel(const SimT* __restrict__ sim, int64_t ld, int64_t u,
                                   int64_t n, const float* __restrict__ curmax,
                                   int64_t rows_per_chunk, int64_t nchunks, Wave wave,
                                   float* __restrict__ partial) {
@@ -184,10 +190,11 @@ __global__ void fl_partial_kernel(const float* __restrict__ sim, int64_t ld, int
        c += (int64_t)gridDim.y * blockDim.y) {
     const int64_t r0 = c * rows_per_chunk;
     const int64_t r1 = (r0 + rows_per_chunk < u) ? r0 + rows_per_chunk : u;
-    const float* p = sim + r0 * ld + j;
+    const SimT* p = sim + r0 * ld + j;
     float acc = 0.0f;
 #pragma unroll 8
-    for (int64_t r = r0; r < r1; ++r, p += ld) acc += fmaxf(__ldg(p) - __ldg(curmax + r), 0.0f);
+    for (int64_t r = r0; r < r1; ++r, p += ld)
+      acc += fmaxf(tile::load_f32(p) - __ldg(curmax + r), 0.0f);
     partial[c * n + j] = acc;
   }
 }
@@ -207,7 +214,8 @@ __global__ void wave_sum_partials_kernel(const float* __restrict__ partial, int6
 
 // The full sweep of `members` members into out (members, n), with partial
 // (members, ceil(u / rows_per_chunk), n) scratch.
-int launch_full(const float* sim, int64_t ld, int64_t u, int64_t n, int64_t members,
+template <typename SimT>
+int launch_full(const SimT* sim, int64_t ld, int64_t u, int64_t n, int64_t members,
                 const float* curmax, Wave wave, int64_t rows_per_chunk, float* partial,
                 float* out, cudaStream_t s) {
   const int64_t nchunks = (u + rows_per_chunk - 1) / rows_per_chunk;
@@ -220,11 +228,13 @@ int launch_full(const float* sim, int64_t ld, int64_t u, int64_t n, int64_t memb
   const dim3 grid((unsigned)((n + bx - 1) / bx), (unsigned)(rows < MAX_GRID_Y ? rows : MAX_GRID_Y),
                   (unsigned)members);
   if (members > 1)
-    fl_partial_kernel<true><<<grid, dim3(bx, by), 0, s>>>(sim, ld, u, n, curmax, rows_per_chunk,
-                                                          nchunks, wave, partial);
+    fl_partial_kernel<SimT, true><<<grid, dim3(bx, by), 0, s>>>(sim, ld, u, n, curmax,
+                                                                rows_per_chunk, nchunks, wave,
+                                                                partial);
   else
-    fl_partial_kernel<false><<<grid, dim3(bx, by), 0, s>>>(sim, ld, u, n, curmax, rows_per_chunk,
-                                                           nchunks, wave, partial);
+    fl_partial_kernel<SimT, false><<<grid, dim3(bx, by), 0, s>>>(sim, ld, u, n, curmax,
+                                                                 rows_per_chunk, nchunks, wave,
+                                                                 partial);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   if (members > 1)
@@ -251,8 +261,8 @@ __global__ void gather_kernel(const float* __restrict__ full, int64_t n,
   if (j < k) out[j] = idx[j] < 0 ? tile::kNegInf : full[tile::gathered(idx, j, n)];
 }
 
-template <typename IdxT>
-int launch_at(const float* sim, int64_t ld, int64_t u, int64_t n, int64_t members,
+template <typename SimT, typename IdxT>
+int launch_at(const SimT* sim, int64_t ld, int64_t u, int64_t n, int64_t members,
               const float* curmax, Wave wave, const IdxT* idx, int64_t k, int64_t rows_per_chunk,
               int group, int slots, int threads, float* partial, float* full, float* out,
               cudaStream_t s) {
@@ -275,32 +285,20 @@ int launch_at(const float* sim, int64_t ld, int64_t u, int64_t n, int64_t member
   if (blocks > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
   const dim3 grid((unsigned)blocks, (unsigned)members);
   if (members > 1)
-    fl_gather_kernel<IdxT, true><<<grid, threads, 0, s>>>(sim, ld, u, n, curmax, idx, k,
-                                                          rows_per_chunk, group, slots, wave, out);
+    fl_gather_kernel<SimT, IdxT, true><<<grid, threads, 0, s>>>(
+        sim, ld, u, n, curmax, idx, k, rows_per_chunk, group, slots, wave, out);
   else
-    fl_gather_kernel<IdxT, false><<<grid, threads, 0, s>>>(sim, ld, u, n, curmax, idx, k,
-                                                           rows_per_chunk, group, slots, wave, out);
+    fl_gather_kernel<SimT, IdxT, false><<<grid, threads, 0, s>>>(
+        sim, ld, u, n, curmax, idx, k, rows_per_chunk, group, slots, wave, out);
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// A wave of `members` sweeps: member b's S (u, n) fp32 with row stride ld
-// at sim + b * sim_stride, its curmax (u,) at curmax + b * curmax_stride,
-// its output row (k,) at out + b * k.  idx null: the full sweep (k == n),
-// with partial (members, ceil(u / rows_per_chunk), n) scratch.  idx with
-// idx_bytes 4 (int32) or 8 (int64), member b's k ids at idx + b * idx_stride:
-// the gathered sweep; with full null, one launch laid out as group (G)
-// columns x slots (L) in blocks of threads (kernels/fl_gains.py::
-// sweep_layout); with full (members, n) and partial scratch, the crossover:
-// the full sweep into full, then out gathered from it.  out and the scratch
-// are allocated by the caller.  Returns cudaGetLastError().
-extern "C" int fl_gains_wave_launch(const float* sim, int64_t sim_stride, int64_t ld, int64_t u,
-                                    int64_t n, int64_t members, const float* curmax,
-                                    int64_t curmax_stride, const void* idx, int idx_bytes,
-                                    int64_t idx_stride, int64_t k, int64_t rows_per_chunk,
-                                    int group, int slots, int threads, float* partial, float* full,
-                                    float* out, void* stream) {
+// The wave entry below for S of element type SimT.
+template <typename SimT>
+int wave_launch(const SimT* sim, int64_t sim_stride, int64_t ld, int64_t u, int64_t n,
+                int64_t members, const float* curmax, int64_t curmax_stride, const void* idx,
+                int idx_bytes, int64_t idx_stride, int64_t k, int64_t rows_per_chunk, int group,
+                int slots, int threads, float* partial, float* full, float* out, void* stream) {
   if (k <= 0 || u <= 0 || n <= 0 || rows_per_chunk <= 0 || members <= 0 || members > MAX_GRID_Y)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -319,7 +317,37 @@ extern "C" int fl_gains_wave_launch(const float* sim, int64_t sim_stride, int64_
   return (int)cudaErrorInvalidValue;
 }
 
-// One sweep (the wave entry with one member): sim (u, n) fp32 with row
+}  // namespace
+
+// A wave of `members` sweeps: member b's S (u, n) with row stride ld at
+// sim + b * sim_stride (elements of sim_bytes: 4, fp32, or 2, bf16), its
+// curmax (u,) at curmax + b * curmax_stride, its output row (k,) at
+// out + b * k.  idx null: the full sweep (k == n), with partial (members,
+// ceil(u / rows_per_chunk), n) scratch.  idx with idx_bytes 4 (int32) or 8
+// (int64), member b's k ids at idx + b * idx_stride: the gathered sweep;
+// with full null, one launch laid out as group (G) columns x slots (L) in
+// blocks of threads (kernels/fl_gains.py::sweep_layout); with full
+// (members, n) and partial scratch, the crossover: the full sweep into
+// full, then out gathered from it.  out and the scratch are allocated by
+// the caller.  Returns cudaGetLastError().
+extern "C" int fl_gains_wave_launch(const void* sim, int64_t sim_stride, int64_t ld, int64_t u,
+                                    int64_t n, int64_t members, const float* curmax,
+                                    int64_t curmax_stride, const void* idx, int idx_bytes,
+                                    int64_t idx_stride, int64_t k, int64_t rows_per_chunk,
+                                    int group, int slots, int threads, float* partial, float* full,
+                                    float* out, void* stream, int sim_bytes) {
+  if (sim_bytes == 4)
+    return wave_launch(static_cast<const float*>(sim), sim_stride, ld, u, n, members, curmax,
+                       curmax_stride, idx, idx_bytes, idx_stride, k, rows_per_chunk, group, slots,
+                       threads, partial, full, out, stream);
+  if (sim_bytes == 2)
+    return wave_launch(static_cast<const tile::bf16_t*>(sim), sim_stride, ld, u, n, members,
+                       curmax, curmax_stride, idx, idx_bytes, idx_stride, k, rows_per_chunk, group,
+                       slots, threads, partial, full, out, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// One fp32 sweep (the wave entry with one member): sim (u, n) fp32 with row
 // stride ld, curmax (u,), idx (k,) or null, out (k,); partial (ceil(u /
 // rows_per_chunk), n) and full (n,) as above.
 extern "C" int fl_gains_launch(const float* sim, int64_t ld, int64_t u, int64_t n,
@@ -327,7 +355,7 @@ extern "C" int fl_gains_launch(const float* sim, int64_t ld, int64_t u, int64_t 
                                int64_t rows_per_chunk, int group, int slots, int threads,
                                float* partial, float* full, float* out, void* stream) {
   return fl_gains_wave_launch(sim, 0, ld, u, n, 1, curmax, 0, idx, idx_bytes, 0, k,
-                              rows_per_chunk, group, slots, threads, partial, full, out, stream);
+                              rows_per_chunk, group, slots, threads, partial, full, out, stream, 4);
 }
 
 // Message for a code returned by the launch functions above.

@@ -20,6 +20,10 @@ The first makes the crossover exact: a gathered sweep of k >=
 :data:`FULL_SWEEP_RATIO` * n columns sweeps every column and gathers the k
 slots from that (:func:`sweeps_every_column`).
 
+S is fp32 or bf16, as the TPU kernel takes either: each element is widened
+to fp32 as it is read (exact), and curmax, the sums and the gains are fp32,
+so a bf16 sweep equals the fp32 sweep of ``sim.float()`` bit for bit.
+
 Waves: every function here also takes B members of one shape at once, sim
 (B, u, n) (each member's (u, n) contiguous, any stride between members, as
 the batched engine stacks them), curmax (B, u) and idx (B, k), and returns
@@ -58,20 +62,21 @@ FULL_SWEEP_RATIO = 0.05
 
 
 def _column_sums(cols: torch.Tensor, curmax: torch.Tensor) -> torch.Tensor:
-    """(u, k) columns -> (k,) sums of relu(cols - curmax) in the kernel's order."""
+    """(u, k) fp32 or bf16 columns -> (k,) fp32 sums of relu(cols - curmax)
+    in the kernel's order, each row of a chunk widened as it is added."""
     u, k = cols.shape
     r_len = ROWS_PER_CHUNK
     n_full, tail = divmod(u, r_len)
-    part = cols.new_zeros((n_full + (tail > 0), k))
+    part = curmax.new_zeros((n_full + (tail > 0), k))
     body = cols[: n_full * r_len].reshape(n_full, r_len, k)
     cm_body = curmax[: n_full * r_len].reshape(n_full, r_len, 1)
     for r in range(r_len):
         if n_full:
-            part[:n_full] += torch.clamp(body[:, r] - cm_body[:, r], min=0.0)
+            part[:n_full] += torch.clamp(body[:, r].float() - cm_body[:, r], min=0.0)
         if r < tail:
             i = n_full * r_len + r
-            part[n_full] += torch.clamp(cols[i] - curmax[i], min=0.0)
-    out = cols.new_zeros((k,))
+            part[n_full] += torch.clamp(cols[i].float() - curmax[i], min=0.0)
+    out = curmax.new_zeros((k,))
     for c in range(part.shape[0]):
         out += part[c]
     return out
@@ -153,7 +158,11 @@ def _launch(sim: torch.Tensor, curmax: torch.Tensor, idx: torch.Tensor | None) -
         rc = lib.fl_gains_wave_launch(
             sim.data_ptr(), sim.stride(0), sim.stride(1), u, n, members, curmax.data_ptr(),
             curmax.stride(0), *ids, 0 if idx is None else idx.stride(0), k, *tail,
+            sim.element_size(),
         )
+    elif sim.dtype != torch.float32:  # a bf16 sweep: the wave entry with one member
+        rc = lib.fl_gains_wave_launch(sim.data_ptr(), 0, sim.stride(0), u, n, 1, curmax.data_ptr(),
+                                      0, *ids, 0, k, *tail, sim.element_size())
     else:
         rc = lib.fl_gains_launch(sim.data_ptr(), sim.stride(0), u, n, curmax.data_ptr(), *ids, k,
                                  *tail)

@@ -5,8 +5,17 @@ first use, see ``_build.py``) or raises; it never falls back.  On a CPU
 tensor it runs the kernel's plain PyTorch version (the dense FL, GC,
 disparity and coverage sweeps add in the kernel's order; the matrix-free
 and fused ones agree with theirs to a tolerance).  Each wrapper checks device, dtype
-(fp32; the fused sweep also takes bf16 features), shape and contiguity and raises on
-anything its kernel does not take.
+(fp32; the FL sweeps also take a bf16 S, the fused sweep bf16 features), shape and
+contiguity and raises on anything its kernel does not take.
+
+``fl_gains`` and ``fl_gains_at`` go through registered operators,
+``torch.ops.repro_torch.fl_gains`` / ``fl_gains_at``, on every device: the
+operator's CUDA implementation launches the kernel, its CPU implementation
+runs the plain version, and its fake (meta) implementation gives the
+output's shape and dtype, so the dry run traces the distributed greedies on
+meta tensors and counts each sweep as one operation whose bytes are
+:data:`OP_BYTES`'s (what the kernel reads and writes).  The other wrappers
+call their kernels directly; no path hands them a meta tensor.
 
 ``LAUNCHES`` counts kernel launches per wrapper (one per call that reached
 the card), so a run can prove that its path went through the kernels.
@@ -16,6 +25,8 @@ the card), so a run can prove that its path went through the kernels.
 once.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -37,6 +48,7 @@ from repro_torch.kernels.fl_gains import (
     fl_gains_at_plain,
     fl_gains_cuda,
     fl_gains_plain,
+    sweeps_every_column,
 )
 from repro_torch.kernels.flmf_gains import (
     flmf_gains_at_cuda,
@@ -98,19 +110,28 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-def _check_f32(name: str, t, ndim: int) -> None:
+F32 = (torch.float32,)
+FL_DTYPES = (torch.float32, torch.bfloat16)  # the FL sweeps' S
+
+
+def _check_dtype(name: str, t, dtypes: tuple) -> None:
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name} must be a torch.Tensor, got {type(t).__name__}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if t.dtype not in dtypes:
+        names = " or ".join(str(d).removeprefix("torch.") for d in dtypes)
+        raise TypeError(f"{name} must be {names}, got {t.dtype}")
+
+
+def _check_f32(name: str, t, ndim: int, dtypes: tuple = F32) -> None:
+    _check_dtype(name, t, dtypes)
     if t.dim() != ndim:
         raise ValueError(f"{name} must be {ndim}-D, got shape {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
 
 
-def _on_card(*named: tuple[str, torch.Tensor]) -> bool:
-    """True for CUDA inputs, False for CPU inputs; raises on a mix or on
+def _device(*named: tuple[str, torch.Tensor], kinds=("cpu", "cuda")) -> str:
+    """The inputs' one device type, one of ``kinds``; raises on a mix or on
     any other device."""
     devices = {t.device for _, t in named}
     if len(devices) != 1:
@@ -119,9 +140,15 @@ def _on_card(*named: tuple[str, torch.Tensor]) -> bool:
             + ", ".join(f"{n}={t.device}" for n, t in named)
         )
     (dev,) = devices
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"no kernel for device {dev}; use a CUDA or CPU tensor")
-    return dev.type == "cuda"
+    if dev.type not in kinds:
+        raise ValueError(f"no kernel for device {dev}; use a tensor on one of {kinds}")
+    return dev.type
+
+
+def _on_card(*named: tuple[str, torch.Tensor]) -> bool:
+    """True for CUDA inputs, False for CPU inputs; raises on a mix or on
+    any other device."""
+    return _device(*named) == "cuda"
 
 
 def _check_metric(metric: str) -> None:
@@ -173,57 +200,103 @@ def similarity(x, y, metric: str = "dot", rbf_sigma: float | None = None) -> tor
     return out
 
 
-def _check_members(name: str, t, ndim: int) -> None:
-    """``t`` an fp32 wave of B >= 1 members of ``ndim`` dimensions, each
-    member contiguous; the stride between members is free."""
-    if not isinstance(t, torch.Tensor):
-        raise TypeError(f"{name} must be a torch.Tensor, got {type(t).__name__}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32, got {t.dtype}")
+def _check_members(name: str, t, ndim: int, dtypes: tuple = F32) -> None:
+    """``t`` a wave of B >= 1 members of ``ndim`` dimensions, each member
+    contiguous; the stride between members is free."""
+    _check_dtype(name, t, dtypes)
     if t.dim() != ndim + 1:
         raise ValueError(f"{name} must be {ndim + 1}-D for a wave, got shape {tuple(t.shape)}")
     if t.shape[0] < 1 or not t[0].is_contiguous() or t.stride(0) < 0:
         raise ValueError(f"{name} must hold at least one member, each contiguous")
 
 
-def _check_fl(sim, curmax) -> bool:
+def _check_fl(sim, curmax) -> None:
     if isinstance(sim, torch.Tensor) and sim.dim() == 3:
-        _check_members("sim", sim, 2)
+        _check_members("sim", sim, 2, FL_DTYPES)
         _check_members("curmax", curmax, 1)
     else:
-        _check_f32("sim", sim, 2)
+        _check_f32("sim", sim, 2, FL_DTYPES)
         _check_f32("curmax", curmax, 1)
     if curmax.shape != sim.shape[:-1]:
         raise ValueError(f"curmax {tuple(curmax.shape)} does not match sim {tuple(sim.shape)}")
-    return _on_card(("sim", sim), ("curmax", curmax))
+    _device(("sim", sim), ("curmax", curmax), kinds=("cpu", "cuda", "meta"))
 
 
 def fl_gains(sim, curmax) -> torch.Tensor:
-    """sim (u, n), curmax (u,) -> gains (n,): sum_i max(sim_ij - curmax_i, 0).
-    A wave: sim (B, u, n), curmax (B, u) -> (B, n), each row bit-equal to
+    """sim (u, n) fp32 or bf16, curmax (u,) fp32 -> gains (n,) fp32:
+    sum_i max(sim_ij - curmax_i, 0), a bf16 S widened as it is read.  A
+    wave: sim (B, u, n), curmax (B, u) -> (B, n), each row bit-equal to
     that member's own call."""
-    if not _check_fl(sim, curmax):
-        return fl_gains_plain(sim, curmax)
-    out = fl_gains_cuda(sim, curmax)
-    LAUNCHES["fl_gains"] += 1
-    return out
+    _check_fl(sim, curmax)
+    return torch.ops.repro_torch.fl_gains(sim, curmax)
 
 
 def fl_gains_at(sim, curmax, idx) -> torch.Tensor:
     """Gathered sweep: idx (k,) integer -> gains (k,); idx < 0 -> NEG_INF,
     bit-identical to :func:`fl_gains` at the same indices.  A wave: sim
     (B, u, n), curmax (B, u), idx (B, k) -> (B, k)."""
-    on_card = _check_fl(sim, curmax)
+    _check_fl(sim, curmax)
     _check_idx(idx, sim, sim.dim() - 1)
     if idx.shape[:-1] != sim.shape[:-2]:
         raise ValueError(f"idx {tuple(idx.shape)} does not match sim {tuple(sim.shape)}")
-    if not on_card:
-        return fl_gains_at_plain(sim, curmax, idx)
-    if idx.stride(-1) != 1:
-        idx = idx.contiguous()
-    out = fl_gains_at_cuda(sim, curmax, idx)
+    return torch.ops.repro_torch.fl_gains_at(sim, curmax, idx)
+
+
+def _fl_gains_card(sim, curmax):
+    out = fl_gains_cuda(sim, curmax)
+    LAUNCHES["fl_gains"] += 1
+    return out
+
+
+def _fl_gains_at_card(sim, curmax, idx):
+    out = fl_gains_at_cuda(sim, curmax, idx if idx.stride(-1) == 1 else idx.contiguous())
     LAUNCHES["fl_gains_at"] += 1
     return out
+
+
+def _fl_sweep_bytes(sim, curmax) -> int:
+    """The full sweep's kernel: S read once, curmax read, the gains written
+    (u·n·elt + 4u + 4n a member)."""
+    members = math.prod(sim.shape[:-2])
+    return sim.numel() * sim.element_size() + curmax.nbytes + 4 * members * sim.shape[-1]
+
+
+def _fl_gather_bytes(sim, curmax, idx) -> int:
+    """The gathered sweep's kernel: the k gathered columns of S, curmax,
+    the ids read and the gains written (u·k·elt + 4u + k·(4 + idx elt) a
+    member), as element bytes: the card moves about one 32-byte sector a
+    gathered element; past the crossover (``fl_gains.sweeps_every_column``)
+    the full sweep's bytes instead of the columns'."""
+    u, n, k = sim.shape[-2], sim.shape[-1], idx.shape[-1]
+    ids = idx.numel() * (4 + idx.element_size())
+    if sweeps_every_column(k, n):
+        return _fl_sweep_bytes(sim, curmax) + ids
+    return curmax.numel() * k * sim.element_size() + curmax.nbytes + ids
+
+
+# What each registered operator's kernel reads and writes, by operator name:
+# launch/dryrun.py's CostCounter charges these bytes, and no flops (the dry
+# run counts products only)
+OP_BYTES = {"fl_gains": _fl_sweep_bytes, "fl_gains_at": _fl_gather_bytes}
+
+
+def _register(lib: torch.library.Library) -> None:
+    lib.define("fl_gains(Tensor sim, Tensor curmax) -> Tensor")
+    lib.define("fl_gains_at(Tensor sim, Tensor curmax, Tensor idx) -> Tensor")
+    lib.impl("fl_gains", _fl_gains_card, "CUDA")
+    lib.impl("fl_gains", fl_gains_plain, "CPU")
+    lib.impl("fl_gains_at", _fl_gains_at_card, "CUDA")
+    lib.impl("fl_gains_at", fl_gains_at_plain, "CPU")
+    torch.library.register_fake(
+        "repro_torch::fl_gains",
+        lambda sim, curmax: curmax.new_empty(sim.shape[:-2] + sim.shape[-1:]), lib=lib)
+    torch.library.register_fake(
+        "repro_torch::fl_gains_at", lambda sim, curmax, idx: curmax.new_empty(idx.shape), lib=lib)
+
+
+# once per process: a second "DEF" of the namespace raises
+_LIB = torch.library.Library("repro_torch", "DEF")
+_register(_LIB)
 
 
 def _check_flmf(x, y, xx, yy, curmax, metric) -> bool:

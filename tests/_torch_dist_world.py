@@ -20,6 +20,8 @@ A job is a dict:
   control group's timeout, async, a session) and ``solve(mode="served" |
   "async", mesh=)`` on every rank, the other ranks follow;
 - ``selection``: ``SubmodularSelector.selection_step`` on one mesh;
+- ``dryrun_step``: the dry run's selection step (``launch/dryrun.py``'s
+  ``build_selection_step``) on one mesh, over the job's kernel;
 - ``training``: train steps on DTensors placed by ``param_shardings``,
   each step's collectives counted, the state saved sharded and restored
   onto other meshes, and a MoE layer at a model axis of 2
@@ -237,6 +239,22 @@ def selection(sj: dict, mesh) -> dict:
     return out
 
 
+def dryrun_step(dj: dict, mesh) -> tuple:
+    """The dry run's selection step of ``dj["variant"]`` over ``dj["S"]``
+    (cast to bf16 for the bf16 variants) on every rank, as numpy (order,
+    gains)."""
+    from repro_torch.core.optimizers import _threefry
+    from repro_torch.launch.dryrun import build_selection_step
+
+    S = torch.tensor(dj["S"])
+    fn, _, _ = build_selection_step(mesh, pool=S.shape[1], budget=dj["budget"],
+                                    variant=dj["variant"])
+    sim = S.bfloat16() if "bf16" in dj["variant"] else S
+    args = (_threefry.prng_key(dj["seed"]),) if "stochastic" in dj["variant"] else ()
+    order, gains = fn(sim, *args)
+    return order.numpy(), gains.numpy()
+
+
 def serve_dies(dj: dict, rank: int, d: Path) -> None:
     """A mesh server on a mesh of its own (short timeouts) whose follower
     ``dj["rank"]`` exits: rank 0's wave and every other follower must end
@@ -364,6 +382,9 @@ def _run(d: Path, rank: int, world: int) -> None:
             out["serving"] = serving(job["serving"], meshes[job["serving"]["mesh"]])
         if "selection" in job:
             out["selection"] = selection(job["selection"], meshes[job["selection"]["mesh"]])
+        if "dryrun_step" in job:
+            out["dryrun_step"] = dryrun_step(job["dryrun_step"],
+                                             meshes[job["dryrun_step"]["mesh"]])
         if "training" in job:
             out["training"] = training(job["training"], meshes)
         torch.save(out, d / f"result{rank}.pt")

@@ -16,7 +16,17 @@
   outputs by their local bytes; every cell kind (train, prefill, decode,
   a batch of 1) of each family's reduced config traces, and a train step with fewer
   KV heads than the model axis has ranks (kimi-k2's 8 on 16) under fsdp.
-- ``--arch selection`` is refused with ROADMAP's entry.
+- The selection cells (the paper's distributed FL greedy, budget 512, over a
+  (16,384 x 2^20) kernel placed rows over "model", columns over the data
+  axes): each of the four variants on the fake (16, 16) world, through
+  ``run_cell`` or the CLI, and ``select_1m`` on the (2, 16, 16) world, with
+  the argument bytes (the 1,024 x 65,536 block, or 1,024 x 32,768; 4 or 2
+  bytes an element), the 2,048 all-reduces (4 a step: the gains' psum over
+  "model", the winner's pmax and its int64 pmin, its column's psum) and
+  their bytes, exactly, and the FL sweeps' bytes by their kernels' formula;
+  ``--all`` and ``--arch selection``'s cells.
+- The FL operators on meta tensors under ``CostCounter``: one operation a
+  call, its kernel's bytes.
 """
 import json
 import os
@@ -114,9 +124,131 @@ def test_every_cell_kind_traces_on_a_fake_2x2_mesh(arch):
             assert rec["memory"]["temp_size_in_bytes"] > 0, (arch, cell.kind)
 
 
-def test_selection_cells_are_refused_with_the_roadmap_entry():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dryrun.run_cell("selection", "select_1m", "single")
+# -- the selection cells ------------------------------------------------------
+
+STEPS = 512  # build_selection_step's budget
+U_LOC = (1 << 14) // 16  # the rows over "model"
+# a step's all-reduces: the gains' psum over "model" (v_loc or 1,024 sampled
+# fp32 gains), the winner's gain (pmax, fp32) and id (pmin, int64), its column
+# (psum, u_loc fp32)
+def _allreduce_bytes(v_loc: int, stochastic: bool) -> int:
+    return STEPS * (4 * (1024 if stochastic else v_loc) + 4 + 8 + 4 * U_LOC)
+
+
+def _sweep_bytes(v_loc: int, elt: int, stochastic: bool) -> int:
+    """A step's FL sweep, by its kernel's formula: u·n·elt + 4u + 4n, or for
+    the 1,024 gathered columns u·k·elt + 4u + k·(4 + 8)."""
+    if stochastic:
+        return U_LOC * 1024 * elt + 4 * U_LOC + 1024 * (4 + 8)
+    return U_LOC * v_loc * elt + 4 * U_LOC + 4 * v_loc
+
+
+SELECTION_KEYS = {"arch", "shape", "mesh", "mesh_shape", "n_devices", "policy", "memory",
+                  "collectives", "trace_s", "bytes_per_device", "flops_per_device",
+                  "kernel_bytes"}
+
+
+def _hold_selection_record(rec, shape, mesh_kind):
+    stochastic, elt = "stoch" in shape, 2 if "bf16" in shape else 4
+    v_loc = (1 << 20) // (32 if mesh_kind == "multi" else 16)
+    assert set(rec) == SELECTION_KEYS
+    assert (rec["arch"], rec["shape"], rec["mesh"]) == ("selection", shape, mesh_kind)
+    assert rec["n_devices"] == (512 if mesh_kind == "multi" else 256)
+    assert rec["policy"] == "fsdp" and rec["flops_per_device"] == 0.0
+    assert rec["memory"]["argument_size_in_bytes"] == U_LOC * v_loc * elt
+    assert rec["memory"]["output_size_in_bytes"] == STEPS * (4 + 4)  # int32 ids, fp32 gains
+    coll = rec["collectives"]
+    assert coll["counts"] == {k: (4 * STEPS if k == "all-reduce" else 0)
+                              for k in dryrun.COLLECTIVES}
+    assert coll["all-reduce"] == coll["total"] == _allreduce_bytes(v_loc, stochastic)
+    op = "fl_gains_at" if stochastic else "fl_gains"
+    assert rec["kernel_bytes"] == {op: STEPS * _sweep_bytes(v_loc, elt, stochastic)}
+    assert rec["bytes_per_device"] > rec["kernel_bytes"][op]
+
+
+@pytest.mark.parametrize("shape", ["select_1m", "select_1m_stoch", "select_1m_stoch_bf16"])
+def test_selection_cell_on_the_single_pod_world(shape):
+    rec = dryrun.run_cell("selection", shape, "single", device="cpu")
+    _hold_selection_record(rec, shape, "single")
+
+
+def test_select_1m_on_the_multi_pod_world():
+    """The columns split 32 ways over ("pod", "data"): half the block."""
+    rec = dryrun.run_cell("selection", "select_1m", "multi", device="cpu")
+    assert rec["mesh_shape"] == [2, 16, 16]
+    assert rec["memory"]["argument_size_in_bytes"] == 134_217_728
+    _hold_selection_record(rec, "select_1m", "multi")
+
+
+def test_cli_writes_the_bf16_selection_record(tmp_path):
+    dryrun.main(["--arch", "selection", "--shape", "select_1m_bf16", "--device", "cpu",
+                 "--out", str(tmp_path)])
+    rec = json.load(open(tmp_path / "selection__select_1m_bf16__single.json"))
+    _hold_selection_record(rec, "select_1m_bf16", "single")
+    assert rec["memory"]["argument_size_in_bytes"] == 134_217_728
+
+
+def test_all_and_arch_selection_cells():
+    every = dryrun.cells_of(True, None, None)
+    assert every[-1] == ("selection", "select_1m")
+    assert [c for c in every if c[0] == "selection"] == [("selection", "select_1m")]
+    assert dryrun.cells_of(False, "selection", None) == [("selection", "select_1m")]
+    for shape in dryrun.SELECTION_SHAPES:
+        assert dryrun.cells_of(False, "selection", shape) == [("selection", shape)]
+    with pytest.raises(ValueError, match="select_1m_stoch"):
+        dryrun.run_cell("selection", "select_2m", "single", device="cpu")
+    # a dense step's FL bytes over a stochastic one's: the ~64x of the JAX
+    # package's docstring (src/repro/core/optimizers/distributed.py:156-160)
+    assert _sweep_bytes(65536, 4, False) == 268_701_696
+    assert _sweep_bytes(65536, 4, True) == 4_210_688
+    assert 63.8 < 268_701_696 / 4_210_688 < 63.9
+
+
+def test_selection_step_traces_on_a_mesh_of_one_rank():
+    """On a (1, 1) mesh the kernel's placements replicate (a dimension of one
+    rank splits nothing) and the step takes its block whole: the counts at
+    a small pool and budget."""
+    with dryrun.fake_world(1):
+        mesh = make_test_mesh((1, 1), ("data", "model"), device="cpu")
+        rec = dryrun.trace_selection(mesh, "stochastic_bf16", pool=4096, budget=8)
+    assert rec["memory"]["argument_size_in_bytes"] == (1 << 14) * 4096 * 2
+    assert rec["collectives"]["counts"]["all-reduce"] == 4 * 8
+    assert rec["collectives"]["all-reduce"] == 8 * (4 * 1024 + 4 + 8 + 4 * (1 << 14))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fl_operators_on_meta_tensors_count_once_with_their_kernel_bytes(dtype):
+    """Each call is one operation of ``torch.ops.repro_torch``, its output
+    the right shape, its bytes its kernel's (a wave's for every member; past
+    the crossover the full sweep's)."""
+    from repro_torch.kernels import ops
+
+    elt = torch.empty((), dtype=dtype).element_size()
+    u, n, B = 300, 2000, 3
+    sim, cm = torch.empty((u, n), dtype=dtype, device="meta"), torch.empty(u, device="meta")
+    ids32 = torch.empty(7, dtype=torch.int32, device="meta")
+    wide = torch.empty(100, dtype=torch.int64, device="meta")  # k = 0.05 n: the crossover
+    waves = torch.empty((B, u, n), dtype=dtype, device="meta")
+    wcm, wids = torch.empty((B, u), device="meta"), torch.empty((B, 7), dtype=torch.int64,
+                                                                 device="meta")
+    cases = [
+        (lambda: ops.fl_gains(sim, cm), "fl_gains", (n,), u * n * elt + 4 * u + 4 * n),
+        (lambda: ops.fl_gains_at(sim, cm, ids32), "fl_gains_at", (7,),
+         u * 7 * elt + 4 * u + 7 * (4 + 4)),
+        (lambda: ops.fl_gains_at(sim, cm, wide), "fl_gains_at", (100,),
+         u * n * elt + 4 * u + 4 * n + 100 * (4 + 8)),
+        (lambda: ops.fl_gains(waves, wcm), "fl_gains", (B, n), B * (u * n * elt + 4 * u + 4 * n)),
+        (lambda: ops.fl_gains_at(waves, wcm, wids), "fl_gains_at", (B, 7),
+         B * (u * 7 * elt + 4 * u + 7 * (4 + 8))),
+    ]
+    for call, name, shape, nbytes in cases:
+        counter = dryrun.CostCounter()
+        with counter:
+            out = call()
+        assert out.device.type == "meta" and out.dtype == torch.float32
+        assert tuple(out.shape) == shape
+        assert counter.kernel_bytes == {name: nbytes} and counter.bytes == nbytes
+        assert counter.flops == 0 and counter.collectives()["total"] == 0
 
 
 def test_fewer_kv_heads_than_the_model_axis_trace_under_fsdp():

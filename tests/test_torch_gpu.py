@@ -174,6 +174,58 @@ def test_fl_gains_kernels_match_plain(cuda, shape):
     assert ops.LAUNCHES["fl_gains_at"] == before["fl_gains_at"] + 4
 
 
+@pytest.mark.parametrize("members", [None, 3])
+@pytest.mark.parametrize("shape", [(4096, 4096), (1000, 777), (333, 5000), (129, 1)])
+def test_fl_bf16_kernels_are_the_fp32_kernels_on_the_widened_s(cuda, shape, members):
+    """A bf16 S is widened as it is read: the full and gathered kernels,
+    single and as a wave, equal the fp32 kernels on ``S.float()`` and the
+    plain versions bit for bit, with int32 and int64 ids."""
+    u, n = shape
+    lead = () if members is None else (members,)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    sim = torch.rand(lead + (u, n), generator=g, device=cuda).bfloat16()
+    cm = 0.8 * torch.rand(lead + (u,), generator=g, device=cuda)
+    full = ops.fl_gains(sim, cm)
+    assert torch.equal(full, ops.fl_gains(sim.float(), cm))
+    assert torch.equal(full, fl_gains_plain(sim, cm))
+    for k in (1, 8, 100, 777):
+        idx = torch.randint(-1, n, lead + (k,), generator=g, device=cuda)
+        got = ops.fl_gains_at(sim, cm, idx)
+        assert torch.equal(got, ops.fl_gains_at(sim.float(), cm, idx))
+        assert torch.equal(got, ops.fl_gains_at(sim, cm, idx.to(torch.int32)))
+        assert torch.equal(got, fl_gains_at_plain(sim, cm, idx))
+
+
+def test_fl_wrappers_go_through_the_registered_operators(cuda):
+    """ops.fl_gains / fl_gains_at call torch.ops.repro_torch.*: on the card
+    the operator's CUDA implementation launches the kernel (and counts it),
+    on meta tensors its fake one gives the shapes and launches nothing."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Seen(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.names = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.names.append(func._schema.name)
+            return func(*args, **(kwargs or {}))
+
+    sim, cm = torch.rand((300, 200), device=cuda), torch.rand(300, device=cuda)
+    idx = torch.tensor([0, 5, -1], device=cuda)
+    before = dict(ops.LAUNCHES)
+    with Seen() as seen:
+        full, part = ops.fl_gains(sim, cm), ops.fl_gains_at(sim, cm, idx)
+    assert seen.names == ["repro_torch::fl_gains", "repro_torch::fl_gains_at"]
+    assert torch.equal(full, fl_gains_plain(sim, cm))
+    assert torch.equal(part, fl_gains_at_plain(sim, cm, idx))
+    assert ops.LAUNCHES["fl_gains"] == before["fl_gains"] + 1
+    assert ops.LAUNCHES["fl_gains_at"] == before["fl_gains_at"] + 1
+    meta = ops.fl_gains(sim.to("meta").bfloat16(), cm.to("meta"))
+    assert meta.shape == (200,) and meta.dtype == torch.float32
+    assert ops.LAUNCHES["fl_gains"] == before["fl_gains"] + 1
+
+
 # the gathered FL sweep's widths: both sides of the crossover at n =
 # FL_AT_N, every column and past it; u below one chunk, ragged, and past
 # the first design's 8,388,480-row limit (with n = 8)

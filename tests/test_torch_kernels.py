@@ -161,6 +161,83 @@ def test_fl_gains_at_takes_int32_and_int64_ids(idx):
     assert torch.equal(got32, got64)
 
 
+# -- a bf16 S: widened as it is read, summed in fp32 in the fp32 order ---------
+
+
+@pytest.mark.parametrize("members", [None, 3])
+@pytest.mark.parametrize("u,n", [(1, 5), (127, 40), (300, 257)])
+def test_fl_bf16_sweeps_equal_the_fp32_sweep_of_the_widened_values(u, n, members):
+    """A bf16 S sweeps to the bits of the fp32 sweep of ``S.float()``, single
+    and as a wave; its gathered sweep (int32 and int64 ids, both sides of
+    the crossover) equals its full sweep at the same index."""
+    rng = np.random.default_rng(u * n + (members or 0))
+    lead = () if members is None else (members,)
+    sim = _t(rng.uniform(0, 1, size=lead + (u, n)).astype(np.float32)).bfloat16()
+    cm = _t(rng.uniform(0, 0.8, size=lead + (u,)).astype(np.float32))
+    full = ops.fl_gains(sim, cm)
+    assert full.dtype == torch.float32
+    assert torch.equal(full, ops.fl_gains(sim.float(), cm))
+    for k in (1, max(1, int(FULL_SWEEP_RATIO * n) - 1), n):
+        idx = torch.as_tensor(rng.integers(-1, n, size=lead + (k,)))
+        for dtype in (torch.int32, torch.int64):
+            got = ops.fl_gains_at(sim, cm, idx.to(dtype))
+            assert torch.equal(got, ops.fl_gains_at(sim.float(), cm, idx))
+            want = torch.where(idx < 0, NEG_INF, full.gather(-1, idx.clamp(min=0)))
+            assert torch.equal(got, want), (k, dtype)
+
+
+@pytest.mark.parametrize("shape", FL_SHAPES[1:3])
+def test_fl_bf16_sweeps_match_jax(shape):
+    """The TPU kernel's own bf16 contract: a bf16 S widened in the body."""
+    import jax.numpy as jnp
+
+    u, n = shape
+    rng = np.random.default_rng(u + n)
+    sim = rng.uniform(0, 1, size=(u, n)).astype(np.float32)
+    cm = rng.uniform(0, 0.8, size=(u,)).astype(np.float32)
+    s16 = _t(sim).bfloat16()
+    j16 = jnp.asarray(sim, dtype=jnp.bfloat16)
+    np.testing.assert_array_equal(np.asarray(j16.astype(jnp.float32)), s16.float().numpy())
+    np.testing.assert_allclose(ops.fl_gains(s16, _t(cm)).numpy(),
+                               np.asarray(jops.fl_gains(j16, cm)), **FL_TOL)
+    idx = np.array([0, n - 1, -1, n // 2], np.int32)
+    np.testing.assert_allclose(ops.fl_gains_at(s16, _t(cm), _t(idx)).numpy(),
+                               np.asarray(jops.fl_gains_at(j16, cm, idx)), **FL_TOL)
+
+
+def test_bf16_launches_pass_the_element_size(monkeypatch):
+    """A bf16 sweep goes to the wave entry (with one member when single)
+    with its element size, 2; an fp32 single sweep keeps its own entry (a
+    stand-in library records the calls; no kernel runs here)."""
+    calls = []
+
+    class Lib:
+        def fl_gains_launch(self, *args):
+            calls.append(("single", args))
+            return 0
+
+        def fl_gains_wave_launch(self, *args):
+            calls.append(("wave", args))
+            return 0
+
+    monkeypatch.setattr(_build, "load", lambda: Lib())
+    monkeypatch.setattr(_build, "raw_stream", lambda t: 0)
+    sim, cm = torch.zeros((130, 100)), torch.zeros(130)
+    ids = torch.tensor([0, 5, -1])
+    for s, c, idx, entry, size in ((sim, cm, None, "single", None),
+                                   (sim.bfloat16(), cm, None, "wave", 2),
+                                   (sim.bfloat16(), cm, ids, "wave", 2),
+                                   (sim[None], cm[None], None, "wave", 4),
+                                   (sim[None].bfloat16(), cm[None], ids[None], "wave", 2)):
+        fl_gains._launch(s, c, idx)
+        got, args = calls[-1]
+        assert got == entry
+        if entry == "wave":
+            # the stride between members, the row stride, u, n, the members, the size
+            assert args[2:6] == (100, 130, 100, 1) and args[-1] == size
+            assert args[1] == (0 if s.dim() == 2 else s.stride(0))
+
+
 @pytest.mark.parametrize("n", [1, 7, 18, 100, 4096, 50_000, 1 << 20])
 def test_crossover_rule_at_its_edges(n):
     """A pure function of (k, n): from ceil(FULL_SWEEP_RATIO * n) columns
@@ -344,8 +421,15 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         ops.similarity(torch.rand(3, 4), torch.rand(3, 5))
     with pytest.raises(TypeError, match="idx"):
         ops.fl_gains_at(s, cm, torch.tensor([0.0, 1.0]))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ops.fl_gains(s.half(), cm)
+    with pytest.raises(TypeError, match="curmax must be float32"):
+        ops.fl_gains(s.bfloat16(), cm.bfloat16())
     with pytest.raises(ValueError, match="device"):
-        ops.fl_gains(s.to("meta"), cm.to("meta"))
+        ops.fl_gains(s.to("meta"), cm)
+    # the other wrappers take no meta tensor: only the FL sweeps are operators
+    with pytest.raises(ValueError, match="device"):
+        ops.similarity(s.to("meta"), s.to("meta"))
 
 
 def test_cpu_calls_are_not_kernel_launches():
