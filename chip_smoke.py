@@ -124,13 +124,14 @@ Phases, each of which raises on failure (the exit code is then non-zero):
              NaiveGreedy over --mf-n unit relu(mixture) rows, bit-equal to
              flmf_gains, in fp32 and bf16, and against its plain version;
              (j) kmeans on phase 4's features, dense clustered FL on phase
-             4's S (rebuilt) against its plain path, and the matrix-free
+             4's S (rebuilt), NaiveGreedy 250 / LazyGreedy 2,500, against
+             its plain path, and the matrix-free
              clustered FL against the dense one; (k) FLQMI / FLVMI / FLCG /
              FLCMI, gccg (against its plain path), GCMI, COM, LogDet and
-             logdet_mi on S with 100 query and 100 private items
+             logdet_mi on S with 100 query and 100 private items, budget 50
   10 wave    (l) FacilityLocation waves of --wave-b members at n = --wave-n
              and a quarter of them at 2x (cosine S of mixtures from the seed
-             + member index, budgets 50..100), NaiveGreedy and LazyGreedy,
+             + member index, budgets 50..75), NaiveGreedy and LazyGreedy,
              through solve(specs, mode="batched"), in turns W S S W with the
              B sequential solves: every member of every run bit-equal to its
              first sequential solve, one fl sweep launch a step / level over all members, the
@@ -138,12 +139,12 @@ Phases, each of which raises on failure (the exit code is then non-zero):
              (n_i from --wave-n to 2x) through BatchedEngine(valid=...),
              bit-equal to the unpadded sequential solves; (n) GraphCut,
              DisparitySum / Min, FeatureBased, SetCover, PSC, FLMF and GCMF
-             in waves of 4 (NaiveGreedy 50, LazyGreedy 100), bit-equal; (o)
+             in waves of 4 (NaiveGreedy 50, LazyGreedy 75), bit-equal; (o)
              knn_from_features on phase 4's features (top-k rows checked),
              FacilityLocationMF.from_knn against a dense FL over its
              to_dense() and run twice with equal bits, random neighbours over
              --mf-n items, GraphCutMF.from_knn
-  11 served  (p) SERVE_REQUESTS 72 requests (the JAX package's serve CLI
+  11 served  (p) SERVE_REQUESTS 48 requests (the JAX package's serve CLI
              families fl, gc, fb, sc, psc, dsum, dmin, flqmi, gcmi, logdet,
              and FLMF / GCMF over a cosine FeatureSource; mixtures from
              --seed + SERVE_SEED + i at d, n from SERVE_N, budgets 50..100,
@@ -171,11 +172,11 @@ Phases, each of which raises on failure (the exit code is then non-zero):
              100, buffer 64, with fl_gains_at's launches an arrival; 12.3
              knapsack_greedy, matroid_greedy (labels: the mixture component
              mod 10, caps 10) and cover_greedy, max_steps 300, and the
-             Sieve under that matroid; 12.4 host_lazy_greedy 500, whose ids
+             Sieve under that matroid; 12.4 host_lazy_greedy 300, whose ids
              must be phase 4's NaiveGreedy ids; 12.5 24 SieveStreaming /
              ThresholdGreedy requests over FL and FeatureBased at n in
              SERVE_N through SelectionServer, each bit-equal to its
-             sequential solve, and a FeatureBased session of 10 deltas
+             sequential solve, and a FeatureBased session of 5 deltas
              bit-equal to the direct solve; after the path's counts are
              read, fl_gains_at on a member-stride-0 wave of S against its
              plain version; 12.6 the threefry draws and the ladders' exp /
@@ -185,20 +186,20 @@ Phases, each of which raises on failure (the exit code is then non-zero):
              NaiveGreedy ids up to the first near-tie, called twice (the
              first call sets up the communicators); FL waves B = 4 at n =
              8,192 (NaiveGreedy and LazyGreedy 150 / 90) and FB / SC / PSC
-             waves (50 / 25) through solve(specs, mesh=mesh), each run twice
+             waves (20 / 10) through solve(specs, mesh=mesh), each run twice
              beside mode="batched" and the sequential solves, every member
              bit-equal, the FL waves' launches the batched wave's, the
              collectives counted; (u) four ranks of this script
              (--rank-2x2) on the card over gloo, a 2x2 ("batch", "data")
              mesh: the 13 families with a shard rule at n = 4,096, B = 4,
-             NaiveGreedy and LazyGreedy 30 / 15, every member bit-equal to
+             NaiveGreedy and LazyGreedy 20 / 10, every member bit-equal to
              rank 0's sequential solve and the batch the same on every
-             rank; on ("data", "model") distributed_fl_greedy at phase 4's
-             n (each rank's block cut from S built on one rank at a time)
-             against (t)'s ids, the stochastic and FLQMI partition greedies
+             rank; on ("data", "model") distributed_fl_greedy 250 at phase
+             4's n (each rank's block cut from S built on one rank at a
+             time) against (t)'s first ids, the stochastic and FLQMI partition greedies
              at n = 8,192 against plain references; each rank's peak memory
   14 mesh    (v) on 13 (t)'s world of 1: 26 requests of the 13 families with
-             a shard rule (n 3,072..8,192, budgets 50..125, half
+             a shard rule (n 3,072..8,192, budgets 50..100, half
              LazyGreedy) through SelectionServer(mesh=), the first 8 through
              AsyncSelectionServer(mesh=), an FB session, every answer
              bit-equal to its sequential solve and no fallback; one wave
@@ -244,26 +245,28 @@ Phases, each of which raises on failure (the exit code is then non-zero):
              against prefill; (z''') jamba reduced in bf16: decode against
              the no-cache forward, 3 steps
   17 mesh training  (aa) qwen3-0.6b at phase 15's width, depth and batch:
-             three make_train_step steps unsharded, then on DTensors placed
+             two make_train_step steps unsharded, then on DTensors placed
              by param_shardings on an NCCL (1, 1) mesh under
              activation_sharding, fsdp and dp, every loss and leaf bit-equal;
              the dry run of the cell on a fake (1, 1) mesh: its argument
              bytes the real local bytes exactly, its flops over the median
              step as TFLOP/s, its peak against max_memory_allocated within
-             0.5-2x; (bb) four ranks of this script (--rank-shard): on one
-             card over gloo tools/gloo_cuda_probe.py's functional all-gather
-             of CUDA tensors first; on four cards (one NCCL rank each), or
-             where the probe comes back, two steps of qwen3-0.6b at 4 layers
-             in fp32 on a 2x2 ("data", "model") mesh under fsdp and under dp
-             against the unsharded steps (tests/test_torch_sharded_steps.py's
-             bars), each rank's collectives equal to the dry run's on a fake
-             (2, 2) mesh, and deepseek-v2's MoE layer at its published widths
-             at tp_size 2 against whole tensors, any error failing the
-             phase; only where the probe does not come back are those
-             printed NOT RUN with the probe's error; always the initial fsdp
-             state saved
-             sharded and restored onto (4, 1), (1, 4) and a world of 1,
-             each block bit-equal, checked without a collective; (cc)
+             0.5-2x; (bb) four ranks of this script (--rank-shard), one
+             NCCL rank a card on four cards, four gloo ranks on one card
+             (tools/gloo_cuda_probe.py's unrepaired functional all-gather of
+             CUDA tensors, run beside (aa), printed first; make_mesh
+             installs the port's repair), the ranks running beside (cc):
+             two steps of qwen3-0.6b at 2 layers in fp32 on a 2x2
+             ("data", "model") mesh under fsdp (activations split over
+             "model": Megatron-SP, head TP) and under dp (not split) against
+             the unsharded steps (tests/test_torch_sharded_steps.py's bars),
+             each rank's collectives equal to the dry run's on a fake (2, 2)
+             mesh, each rank's first step's peak against the dry run's
+             within 0.5-2x, deepseek-v2's MoE layer at its published widths
+             at tp_size 2, groups and experts split, against whole tensors;
+             the initial fsdp state saved sharded and restored onto (4, 1),
+             (1, 4) and a world of 1, each block bit-equal; any rank's error
+             fails the phase; (cc)
              launch/dryrun.py's qwen3-0.6b train_4k on 256 fake ranks, its
              record printed, and the selection cells (select_1m, _stoch,
              _bf16, _stoch_bf16 on 256 fake ranks, select_1m on 512), their
@@ -375,22 +378,24 @@ FL_ROWS_PAST_LIMIT = 65_535 * 128 + 1
 HOST_CALLS, HOST_BATCHES = 200, 5
 CLUSTERS, KMEANS_ITERS = 100, 25  # phase 9 (j): the mixture's component count
 GUIDED = 100  # phase 9 (k): |Q| = |P|
-GUIDED_BUDGET = 100  # phase 9 (k): the FL, GC and COM measures' NaiveGreedy budget
+GUIDED_BUDGET = 50  # phase 9 (k): the FL, GC and COM measures' NaiveGreedy budget
+CLUSTERED_MF_BUDGET = 50  # phase 9 (j): the matrix-free clustered FL
+CLUSTERED_BUDGETS = (250, 2500)  # phase 9 (j): the dense clustered FL's Naive / LazyGreedy
 LOGDET_BUDGET = 100  # phase 9 (k): well under the cosine S's rank d + 1
 # phase 10 (l), (m): the members' budgets, spread evenly over this range, and
 # LazyGreedy's screen width
-WAVE_BUDGETS = (50, 100)
+WAVE_BUDGETS = (50, 75)
 WAVE_SCREEN_K = 8
 # phase 10 (n): members per family, and the NaiveGreedy / LazyGreedy budgets
 FAMILY_B = 4
-FAMILY_BUDGETS = (50, 100)
+FAMILY_BUDGETS = (50, 75)
 # phase 10 (o): neighbours per row and knn_from_features' row batch on phase
 # 4's features; the million-point shape's random neighbours (the JAX
 # package's tests/test_matrix_free.py:285-296); NaiveGreedy / LazyGreedy
 # budgets of each, and GraphCutMF's NaiveGreedy budget
 KNN_K, KNN_BATCH = 10, 2048
 KNN_MILLION_K = 8
-KNN_BUDGETS = ((500, 1500), (100, 1000))
+KNN_BUDGETS = ((500, 1000), (100, 1000))
 GC_KNN_BUDGET = 100
 # phase 11: the served workload's families (the JAX package's serve CLI ten,
 # src/repro/launch/serve.py:971-1025, and FLMF / GCMF over a FeatureSource),
@@ -398,7 +403,7 @@ GC_KNN_BUDGET = 100
 # the FLMF session's final n, its seed rows and uneven deltas (as given at
 # 8,192 rows, scaled for another SESSION_N), its LazyGreedy budget; the
 # kernel fault's n and the breaker's cooldown
-SERVE_REQUESTS = 72  # three rounds of the 12 families, each NaiveGreedy and LazyGreedy
+SERVE_REQUESTS = 48  # two rounds of the 12 families, each NaiveGreedy and LazyGreedy
 SERVE_N = (3072, 4096, 6144, 8192)
 SERVE_MAX_WAVE = 64
 SERVE_KINDS = ("fl", "gc", "fb", "sc", "psc", "dsum", "dmin", "flqmi", "gcmi", "logdet",
@@ -2475,8 +2480,8 @@ def phase_clustered(torch, args, S) -> dict:
 
     n, d = args.n, args.d
     log(f"== phase 9 (j): clustered mode, n={n}, d={d}: kmeans k={CLUSTERS}, dense clustered FL "
-        f"NaiveGreedy {args.naive_budget} / LazyGreedy {args.lazy_budget}, matrix-free clustered "
-        f"FL NaiveGreedy {MF_NAIVE_BUDGET}")
+        f"NaiveGreedy {CLUSTERED_BUDGETS[0]} / LazyGreedy {CLUSTERED_BUDGETS[1]}, matrix-free "
+        f"clustered FL NaiveGreedy {CLUSTERED_MF_BUDGET}")
     x = torch.as_tensor(gaussian_mixture(args.seed, n, d), device="cuda")
     out = {}
     torch.cuda.synchronize()
@@ -2506,7 +2511,7 @@ def phase_clustered(torch, args, S) -> dict:
     if backend_name(fn) != "cuda-fl":
         raise AssertionError(f"(j) clustered FL backend {backend_name(fn)!r}, expected 'cuda-fl'")
     fn_plain = dataclasses.replace(fn, use_kernel=False)
-    for opt, budget in (("NaiveGreedy", args.naive_budget), ("LazyGreedy", args.lazy_budget)):
+    for opt, budget in zip(("NaiveGreedy", "LazyGreedy"), CLUSTERED_BUDGETS):
         out[opt], kern, _ = _solve_pair(torch, f"(j) clustered FL {opt} {budget}", fn, fn_plain,
                                         budget, opt, 100)
         if opt == "NaiveGreedy":
@@ -2527,15 +2532,15 @@ def phase_clustered(torch, args, S) -> dict:
 
     # the matrix-free clustered mixture (torch path), against the dense one
     mf = clustered_matrix_free(FacilityLocationMF.from_features, x, labels, metric="cosine")
-    res, wall, peak = _timed_solve(torch, SelectionSpec(mf, MF_NAIVE_BUDGET, "NaiveGreedy"))
+    res, wall, peak = _timed_solve(torch, SelectionSpec(mf, CLUSTERED_MF_BUDGET, "NaiveGreedy"))
     if not bool(res.gains.isfinite().all()):
         raise AssertionError("(j) clustered FLMF: non-finite gains")
     info = _vs_reference("(j) clustered FLMF NaiveGreedy vs the dense clustered NaiveGreedy", res,
-                         naive.order[:MF_NAIVE_BUDGET].tolist(),
-                         naive.gains[:MF_NAIVE_BUDGET].tolist(),
+                         naive.order[:CLUSTERED_MF_BUDGET].tolist(),
+                         naive.gains[:CLUSTERED_MF_BUDGET].tolist(),
                          out["NaiveGreedy"]["first_near_tie"])
     out["matrix_free"] = {**info, "backend": backend_name(mf), "wall_s": wall, "peak_bytes": peak}
-    log(f"  (j) clustered FLMF NaiveGreedy {MF_NAIVE_BUDGET} ({backend_name(mf)} path): wall "
+    log(f"  (j) clustered FLMF NaiveGreedy {CLUSTERED_MF_BUDGET} ({backend_name(mf)} path): wall "
         f"{wall:.3f} s, peak {peak / 2**20:.1f} MiB")
     out["peak_bytes"] = max(out["build_peak_bytes"], out["NaiveGreedy"]["peak_bytes"],
                             out["LazyGreedy"]["peak_bytes"])
@@ -2607,13 +2612,13 @@ def phase_guided(torch, args, S) -> dict:
 
     # identities of the JAX tests, on the card
     empty = torch.zeros((n, 1), device="cuda")
-    _, cmi = _run(torch, f"(k) FLCMI with an empty P NaiveGreedy {MF_NAIVE_BUDGET}",
-                  FLCMI.build(S, S_vq, empty), MF_NAIVE_BUDGET, stopIfZeroGain=False)
-    if not (torch.equal(cmi.order, vmi.order[:MF_NAIVE_BUDGET])
-            and torch.equal(cmi.gains, vmi.gains[:MF_NAIVE_BUDGET])):
+    _, cmi = _run(torch, f"(k) FLCMI with an empty P NaiveGreedy {GUIDED_BUDGET}",
+                  FLCMI.build(S, S_vq, empty), GUIDED_BUDGET, stopIfZeroGain=False)
+    if not (torch.equal(cmi.order, vmi.order[:GUIDED_BUDGET])
+            and torch.equal(cmi.gains, vmi.gains[:GUIDED_BUDGET])):
         raise AssertionError("(k) FLCMI with an empty P: not FLVMI's ids and gains")
     log(f"  ok  (k) FLCMI with an empty P: FLVMI's ids and gains, bit for bit, over "
-        f"{MF_NAIVE_BUDGET} steps (tests/test_info.py:274)")
+        f"{GUIDED_BUDGET} steps (tests/test_info.py:274)")
     state, mask = qmi_fn.init_state(), torch.zeros((n,), dtype=torch.bool, device="cuda")
     worst = 0.0
     for j in qmi.order[:5].tolist():
@@ -3505,11 +3510,11 @@ CONSTRAINED_STEPS = 300
 MATROID_PARTS, MATROID_CAP = 10, 10
 KNAPSACK_BUDGET = 60.0
 COVER_PREFIX = 100  # cover_greedy's target: 0.999 f(phase 4's first 100 picks)
-HOST_LAZY_BUDGET = 500
+HOST_LAZY_BUDGET = 300
 STREAM_REQUESTS = 24
 STREAM_SERVE_BUDGETS = (20, 100)
 STREAM_SESSION_N = 8192
-STREAM_SESSION_DELTAS = 10
+STREAM_SESSION_DELTAS = 5
 DRAW_CASES = ((0, 0, 1), (1, 7, 1000), (12345, 3, 4096), (2**31 - 1, 4999, 50_000))
 STRIDE0_MEMBERS, STRIDE0_K = 8, 1024
 
@@ -3788,7 +3793,8 @@ DIST_KINDS = ("fl", "gc", "fb", "sc", "psc", "dsum", "dmin", "gcmi", "logdet", "
               "flcg", "flcmi")
 DIST_N = 4096  # (u): every family's n, at the kernel gate
 DIST_B = 4
-DIST_BUDGETS = (30, 15)  # (u) and (t)'s FB / SC / PSC waves: members alternate
+DIST_BUDGETS = (20, 10)  # (u) and (t)'s FB / SC / PSC waves: members alternate
+DIST_2X2_FL_BUDGET = 250  # (u): the 2x2 distributed_fl_greedy, against (t)'s first picks
 DIST_FL_N = 8192  # (t): the FL waves
 DIST_FL_BUDGETS = (150, 90)
 DIST_PART_N = 8192  # (u): the stochastic and FLQMI partition greedies
@@ -4071,7 +4077,7 @@ def _partition_2x2(torch, args, mesh, rank: int) -> dict:
         dist.barrier()
     sim = DTensor.from_local(block, mesh, [Shard(1), Shard(0)])
     (order, gains), wall, launches = _dist_timed(torch, lambda: distributed_fl_greedy(
-        sim, args.naive_budget, mesh, row_axes=("model",), col_axes=("data",)))
+        sim, DIST_2X2_FL_BUDGET, mesh, row_axes=("model",), col_axes=("data",)))
     totals.update(launches)
     out["fl"] = {"ids": order.cpu().tolist(), "gains": gains.cpu().tolist(), "wall_s": wall,
                  "launches": launches}
@@ -4205,7 +4211,7 @@ def _dist_2x2(torch, args, t_out: dict) -> dict:
             raise AssertionError(f"13 (u) {name} partition greedy: the ranks' ids differ")
     t_fl = t_out["fl_partition"]
     out["fl_partition"] = _agree_to_near_tie(
-        f"13 (u) distributed_fl_greedy {args.naive_budget} on 2x2 (rows over model) vs (t)",
+        f"13 (u) distributed_fl_greedy {DIST_2X2_FL_BUDGET} on 2x2 (rows over model) vs (t)",
         part[0]["fl"]["ids"], part[0]["fl"]["gains"], t_fl["ids"], t_fl["gains"])
     for name in ("stochastic", "flqmi"):
         ids, gains = part[0][name]["ref"]
@@ -4264,7 +4270,7 @@ def phase_distributed(torch, args, main: dict | None) -> dict:
 MESH_SEED = 14000
 MESH_REQUESTS = 26  # (v): each of the 13 families with a shard rule, NaiveGreedy and LazyGreedy
 MESH_N = SERVE_N  # (v): n in {3,072, 4,096, 6,144, 8,192}
-MESH_BUDGETS = (50, 125)
+MESH_BUDGETS = (50, 100)
 MESH_ASYNC = 8  # (v): the first requests again, through AsyncSelectionServer
 MESH_SESSION_N, MESH_SESSION_DELTAS = 3072, (1000, 37, 2048)  # (v): an FB session
 MESH_2X2_REQUESTS = 32  # (w)
@@ -5458,11 +5464,11 @@ def phase_other(torch, args, device: dict) -> dict:
 
 
 SHARD_ARCH = TRAIN_ARCH  # phase 17 (aa): phase 15's config and batch
-SHARD_STEPS = 3  # (aa) train steps of the unsharded run and of each policy
+SHARD_STEPS = 2  # (aa) train steps of the unsharded run and of each policy
 SHARD_POLICIES = ("fsdp", "dp")
 SHARD_PEAK_RATIO = (0.5, 2.0)  # (aa) the dry run's peak over the measured one
-SHARD_2X2_LAYERS = 4  # (bb) qwen3-0.6b's width, depth cut to 4, in fp32
-SHARD_2X2_BATCH = 8
+SHARD_2X2_LAYERS = 2  # (bb) qwen3-0.6b's width, depth cut to 2, in fp32
+SHARD_2X2_BATCH = 4
 SHARD_2X2_SEQ = 128
 SHARD_2X2_STEPS = 2
 SHARD_2X2_POLICIES = ("fsdp", "dp")
@@ -5591,14 +5597,15 @@ def _shard_world_of_one(torch, args) -> dict:
             del state, placed
     finally:
         dist.destroy_process_group()
-    median = st.median(walls)
+    median = st.median(walls[1:])  # the first step's wall holds its set-up
     flops = dry["fsdp"]["flops_per_device"]
     predicted = dry["fsdp"]["memory"]["argument_size_in_bytes"] + \
         dry["fsdp"]["memory"]["temp_size_in_bytes"]
     ratio = predicted / peak
     out.update(dry=dry, median_step_s=median, tflops=flops / median / 1e12,
                predicted_peak_bytes=predicted, peak_ratio=ratio)
-    log(f"  17 (aa) the dry run's {flops:.4e} flops over the unsharded median step {median:.4f} s:"
+    log(f"  17 (aa) the dry run's {flops:.4e} flops over the unsharded median step after the "
+        f"first {median:.4f} s:"
         f" {out['tflops']:.1f} TFLOP/s of {BF16_PEAK_FLOPS / 1e12:.0f} bf16")
     if not SHARD_PEAK_RATIO[0] <= ratio <= SHARD_PEAK_RATIO[1]:
         raise AssertionError(f"17 (aa) the dry run's peak {predicted} B over the measured "
@@ -5609,7 +5616,7 @@ def _shard_world_of_one(torch, args) -> dict:
     return out
 
 
-def _shard_cfg4():
+def _shard_cfg():
     import dataclasses
 
     from repro_torch.configs.base import get_config
@@ -5699,16 +5706,19 @@ def _moe_2x2(torch, args, mesh, rank: int) -> dict:
 
 
 def _shard_steps(torch, args, mesh, policy: str, rank: int) -> dict:
-    """Two steps of qwen3-0.6b at 4 layers on DTensors placed by ``policy``
-    against this rank's own unsharded steps, each step's collectives
-    counted."""
+    """Two steps of qwen3-0.6b at ``SHARD_2X2_LAYERS`` layers on DTensors
+    placed by ``policy`` against this rank's own unsharded steps, each
+    step's collectives counted; whether activations were split over the
+    model axis, and the first step's own peak (what it allocated above
+    everything alive before it, plus its arguments, as in (aa))."""
     from repro_torch.data.pipeline import SyntheticTokens
-    from repro_torch.distributed.act_sharding import activation_sharding
-    from repro_torch.launch.dryrun import CostCounter
+    from repro_torch.distributed.act_sharding import activation_sharding, splits_activations
+    from repro_torch.distributed.sharding import local_box
+    from repro_torch.launch.dryrun import CostCounter, local_bytes
     from repro_torch.train.train_step import init_train_state, make_train_step
     from repro_torch.tree import flatten_with_names
 
-    cfg = _shard_cfg4()
+    cfg = _shard_cfg()
     batches = [SyntheticTokens(cfg, SHARD_2X2_SEQ, seed=args.seed + SHARD_SEED + 10 + s,
                                device="cuda").batch(range(SHARD_2X2_BATCH))
                for s in range(SHARD_2X2_STEPS)]
@@ -5721,26 +5731,36 @@ def _shard_steps(torch, args, mesh, policy: str, rank: int) -> dict:
     state = _placed(init_train_state(cfg, args.seed, "cuda"), mesh, policy)
     out = {"failures": [], "losses": [], "collectives": [], "walls_s": [],
            "ref_losses": ref_losses}
-    for b in batches:
+    for i, b in enumerate(batches):
         b = _placed(b, mesh, policy, batch=True)
         counter = CostCounter(memory=False)
         torch.cuda.synchronize()
+        if i == 0:
+            torch.cuda.reset_peak_memory_stats()
+            before, args_bytes = torch.cuda.memory_allocated(), local_bytes((state, b))
         t0 = time.perf_counter()
         with activation_sharding(mesh, policy=policy), counter:
+            out["tp_activations"] = splits_activations()
             state, m = step(state, b)
-        out["losses"].append(float(m["loss"].full_tensor()))
         torch.cuda.synchronize()
+        if i == 0:
+            out["peak_bytes"] = torch.cuda.max_memory_allocated() - before + args_bytes
+        out["losses"].append(float(m["loss"].full_tensor()))
         out["walls_s"].append(time.perf_counter() - t0)
         out["collectives"].append(counter.collectives())
     for s, (got, want) in enumerate(zip(out["losses"], ref_losses)):
         if abs(got - want) > SHARD_LOSS_RTOL * abs(want):
             out["failures"].append(f"rank {rank} {policy} step {s}: loss {got} against {want}")
+    # each rank holds its own block to the same box of the unsharded leaf
+    # (the blocks cover every leaf), with no collective
     out["worst_leaf"] = 0.0
     for n, leaf in flatten_with_names(state):
-        whole, want = leaf.full_tensor(), ref[n]
-        if not want.numel():
+        want = ref[n]
+        shape, off = local_box(leaf.shape, leaf.device_mesh, leaf.placements)
+        box = want[tuple(slice(o, o + k) for o, k in zip(off, shape))]
+        if not box.numel():
             continue
-        err = float((whole.double() - want.double()).abs().max())
+        err = float((leaf.to_local().double() - box.double()).abs().max())
         tol = SHARD_LEAF_ATOL + SHARD_LEAF_RTOL * float(want.abs().max())
         out["worst_leaf"] = max(out["worst_leaf"], err / tol)
         if err > tol:
@@ -5751,30 +5771,36 @@ def _shard_steps(torch, args, mesh, policy: str, rank: int) -> dict:
 def _shard_full(torch, args, meshes: dict, tmp: Path, rank: int) -> dict:
     """(bb)'s whole job on one rank: the steps under each policy, the
     checkpoint, the MoE layer; an error ends the rank, and so the phase."""
-    out = {"policies": {p: _shard_steps(torch, args, meshes["2x2"], p, rank)
-                        for p in SHARD_2X2_POLICIES}}
+    walls, t0 = {}, time.perf_counter()
+    out = {"policies": {}, "walls_s": walls}
+    for p in SHARD_2X2_POLICIES:
+        out["policies"][p] = _shard_steps(torch, args, meshes["2x2"], p, rank)
+        walls[p], t0 = time.perf_counter() - t0, time.perf_counter()
     out["failures"] = [f for r in out["policies"].values() for f in r.get("failures", [])]
-    ck = _shard_ckpt_only(torch, args, meshes, tmp, rank)
+    ck = _shard_ckpt(torch, args, meshes, tmp, rank)
+    walls["ckpt"], t0 = time.perf_counter() - t0, time.perf_counter()
     out["failures"] += ck.pop("failures")
     out.update(ck)
     torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     out["moe"] = _moe_2x2(torch, args, meshes["2x2"], rank)
-    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["moe"]["peak_bytes"] = torch.cuda.max_memory_allocated()
+    walls["moe"] = time.perf_counter() - t0
     return out
 
 
-def _shard_ckpt_only(torch, args, meshes: dict, tmp: Path, rank: int) -> dict:
-    """(bb)'s checkpoint without a collective: the initial state placed by
-    fsdp on the 2x2 mesh, saved sharded and restored onto (4, 1) and (1, 4);
-    every restored local block bit-equal to the same box of the whole state
-    this rank draws itself."""
+def _shard_ckpt(torch, args, meshes: dict, tmp: Path, rank: int) -> dict:
+    """(bb)'s checkpoint, checked without a collective: the initial state
+    placed by fsdp on the 2x2 mesh, saved sharded and restored onto (4, 1)
+    and (1, 4); every restored local block bit-equal to the same box of the
+    whole state this rank draws itself."""
     from repro_torch.ckpt import checkpoint as ckpt
     from repro_torch.distributed.sharding import local_box, param_shardings
     from repro_torch.train.train_step import init_train_state
     from repro_torch.tree import flatten_with_names, leaves_like
 
     out = {"failures": [], "restored": {}}
-    cfg = _shard_cfg4()
+    cfg = _shard_cfg()
     whole = init_train_state(cfg, args.seed, "cuda")
     state = _placed(whole, meshes["2x2"], "fsdp")
     torch.cuda.synchronize()
@@ -5805,9 +5831,8 @@ def _shard_ckpt_only(torch, args, meshes: dict, tmp: Path, rank: int) -> dict:
 
 def _rank_shard(args) -> int:
     """One rank of (bb)'s 2x2 world over ``--backend-shard`` (gloo on one
-    card, NCCL on four), running the job ``--job-shard``: ``full``
-    (:func:`_shard_full`) or ``ckpt`` (:func:`_shard_ckpt_only`); its
-    results go to DIR/rank{r}.json."""
+    card, NCCL on four), running :func:`_shard_full`; its results go to
+    DIR/rank{r}.json."""
     import datetime
     import logging
 
@@ -5820,7 +5845,7 @@ def _rank_shard(args) -> int:
     logging.getLogger("torch.distributed.tensor").setLevel(logging.ERROR)
     from repro_torch.launch.mesh import make_test_mesh
 
-    rank, tmp, job = args.rank_shard, Path(args.dir_shard), args.job_shard
+    rank, tmp = args.rank_shard, Path(args.dir_shard)
     timeout = datetime.timedelta(seconds=SHARD_PG_TIMEOUT_S)
     dist.init_process_group(args.backend_shard, init_method=f"file://{tmp / 'store'}", rank=rank,
                             world_size=4, timeout=timeout)
@@ -5828,99 +5853,69 @@ def _rank_shard(args) -> int:
         out = {"rank": rank, "failures": []}
         meshes = {name: make_test_mesh(shape, timeout=timeout)
                   for name, shape in (("2x2", (2, 2)), ("4x1", (4, 1)), ("1x4", (1, 4)))}
-        run = _shard_full if job == "full" else _shard_ckpt_only
-        out.update(run(torch, args, meshes, tmp, rank))
+        out.update(_shard_full(torch, args, meshes, tmp, rank))
         (tmp / f"rank{rank}.json").write_text(json.dumps(out))
     finally:
         dist.destroy_process_group()
     return 0
 
 
-def _spawn_shard(args, job: str, timeout_s: float,
-                 backend: str = "gloo") -> tuple[Path, list, list]:
-    """Four ranks of this script on ``job`` over ``backend``, joined here:
-    (dir, exit codes, each rank's results or None)."""
+def _start_shard(args, backend: str) -> dict:
+    """Four ranks of this script over ``backend``, started: their dir,
+    processes and start time, for :func:`_join_shard`."""
     import tempfile
 
     tmp = Path(tempfile.mkdtemp())
     argv = [sys.executable, str(ROOT / "chip_smoke.py"), "--seed", str(args.seed),
-            "--dir-shard", str(tmp), "--job-shard", job, "--backend-shard", backend]
-    t0 = time.perf_counter()
+            "--dir-shard", str(tmp), "--backend-shard", backend]
     procs = [subprocess.Popen(argv + ["--rank-shard", str(r)], stdout=open(tmp / f"rank{r}.out", "w"),
                               stderr=subprocess.STDOUT) for r in range(4)]
+    return {"tmp": tmp, "procs": procs, "t0": time.perf_counter(), "backend": backend}
+
+
+def _join_shard(world: dict, timeout_s: float) -> tuple[Path, list, list]:
+    """The ranks of :func:`_start_shard` joined, killed at ``timeout_s`` from
+    their start: (dir, exit codes, each rank's results or None)."""
+    tmp, procs = world["tmp"], world["procs"]
     try:
         for p in procs:
-            p.wait(timeout=max(1.0, timeout_s - (time.perf_counter() - t0)))
+            p.wait(timeout=max(1.0, timeout_s - (time.perf_counter() - world["t0"])))
     except subprocess.TimeoutExpired:
-        for p in procs:
-            p.kill()
+        pass
     finally:
-        for p in procs:
-            p.wait()
+        _stop(procs)
     codes = [p.returncode for p in procs]
     ranks = [json.loads((tmp / f"rank{r}.json").read_text()) if not codes[r] else None
              for r in range(4)]
     return tmp, codes, ranks
 
 
-def _gloo_probe() -> dict:
-    """tools/gloo_cuda_probe.py's ``funcol_all_gather`` case: a functional
-    all-gather of CUDA tensors by four gloo ranks on this card, each case in
-    a world of its own; its JSON line (exit codes, rank 0's result)."""
-    done = subprocess.run([sys.executable, str(ROOT / "tools" / "gloo_cuda_probe.py"),
-                           "funcol_all_gather"], capture_output=True, text=True, timeout=300)
-    lines = [json.loads(l) for l in done.stdout.splitlines() if l.startswith("{")]
+def _stop(procs) -> None:
+    """Every process of ``procs`` ended: killed where still running."""
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+        p.wait()
+
+
+def _gloo_probe_start():
+    """tools/gloo_cuda_probe.py's ``funcol_all_gather`` case started: a
+    functional all-gather of CUDA tensors by four gloo ranks on this card,
+    in a world of its own."""
+    return subprocess.Popen([sys.executable, str(ROOT / "tools" / "gloo_cuda_probe.py"),
+                             "funcol_all_gather"], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def _gloo_probe_result(proc) -> dict:
+    """The probe's JSON line (exit codes, rank 0's result or where it died)."""
+    stdout, stderr = proc.communicate(timeout=300)
+    lines = [json.loads(l) for l in stdout.splitlines() if l.startswith("{")]
     case = [l for l in lines if l.get("case") == "funcol_all_gather"]
-    if done.returncode or not case:
-        raise AssertionError(f"17 (bb) the gloo probe: exit {done.returncode}\n"
-                             f"{done.stdout[-2000:]}\n{done.stderr[-2000:]}")
+    if proc.returncode or not case:
+        raise AssertionError(f"17 (bb) the gloo probe: exit {proc.returncode}\n"
+                             f"{stdout[-2000:]}\n{stderr[-2000:]}")
     return case[0]
-
-
-def _shard_2x2(torch, args) -> dict:
-    """(bb) Four ranks: on four cards, one each over NCCL, the whole job; on
-    one card, over gloo, the probe first: where a functional all-gather of
-    CUDA tensors over gloo does not come back, every DTensor step needs one,
-    so the steps, their collectives and the MoE layer are printed as not run
-    with the probe's result, and the checkpoint runs without a collective.
-    Where it comes back, the whole job runs and any error fails the phase."""
-    t0 = time.perf_counter()
-    if torch.cuda.device_count() >= 4:
-        out = _shard_2x2_full(torch, args, "nccl")
-        out["seconds"] = time.perf_counter() - t0
-        return out
-    probe = _gloo_probe()
-    if not any(probe["exit_codes"]) and "ok" in (probe["rank0"] or {}):
-        out = _shard_2x2_full(torch, args, "gloo")
-        out["seconds"] = time.perf_counter() - t0
-        return out
-    error = (f"a functional all-gather (torch.distributed._functional_collectives."
-             f"all_gather_tensor) of CUDA tensors over gloo, tools/gloo_cuda_probe.py's "
-             f"funcol_all_gather, did not come back (torch {torch.__version__}): {probe}")
-    for what in ("two steps under fsdp and under dp against the unsharded steps",
-                 "the steps' collectives against the dry run on a fake (2, 2) mesh",
-                 f"{SHARD_MOE_ARCH}'s MoE layer at tp_size 2"):
-        log(f"  NOT RUN 17 (bb) {what}: {error}")
-    out = _shard_2x2_ckpt(torch, args)
-    out.update(seconds=time.perf_counter() - t0, not_run=error, probe=probe)
-    return out
-
-
-def _shard_2x2_ckpt(torch, args) -> dict:
-    """(bb) without a collective: the elastic checkpoint."""
-    tmp, codes, ranks = _spawn_shard(args, "ckpt", SHARD_JOIN_TIMEOUT_S)
-    if any(codes):
-        raise AssertionError(f"17 (bb) the checkpoint world's exit codes {codes}:\n"
-                             f"{(tmp / 'rank0.out').read_text()[-3000:]}")
-    failures = [f for r in ranks for f in r["failures"]]
-    if failures:
-        raise AssertionError("17 (bb): " + "\n".join(failures))
-    for r in ranks:
-        for name, got in r["restored"].items():
-            log(f"  ok  17 (bb) rank {r['rank']}: the fsdp state saved on 2x2 restored onto "
-                f"{name} with the asked placements, every local block bit-equal to its box of "
-                f"the whole state, in {got['restore_s']:.3f} s")
-    return {"ranks": ranks, **_world1_restore(torch, args, tmp)}
 
 
 def _world1_restore(torch, args, tmp: Path) -> dict:
@@ -5931,10 +5926,10 @@ def _world1_restore(torch, args, tmp: Path) -> dict:
     from repro_torch.tree import tree_leaves
 
     t0 = time.perf_counter()
-    got, meta = ckpt.restore(str(tmp / "ck"), init_train_state(_shard_cfg4(), args.seed + 1,
+    got, meta = ckpt.restore(str(tmp / "ck"), init_train_state(_shard_cfg(), args.seed + 1,
                                                                 "cuda"))
     restore_s = time.perf_counter() - t0
-    want = tree_leaves(init_train_state(_shard_cfg4(), args.seed, "cuda"))
+    want = tree_leaves(init_train_state(_shard_cfg(), args.seed, "cuda"))
     equal = all(_leaf_bits_equal(torch, a, b) for a, b in zip(tree_leaves(got), want))
     if meta["step"] != 1 or not equal:
         raise AssertionError("17 (bb) the 2x2 save restored onto a world of 1 is not the saved "
@@ -5945,16 +5940,28 @@ def _world1_restore(torch, args, tmp: Path) -> dict:
     return {"world1_restore_s": restore_s, "shard_files": n_files}
 
 
-def _shard_2x2_full(torch, args, backend: str) -> dict:
-    """(bb) in full: under each policy the sharded steps against the
-    unsharded and each rank's collectives against the dry run on a fake
-    (2, 2) mesh, the elastic checkpoint, the MoE layer; a rank's error
-    fails the phase."""
+def _shard_dry() -> dict:
+    """(bb)'s cell traced by the dry run on a fake (2, 2) mesh, by policy."""
     from repro_torch.launch.dryrun import fake_world, trace_cell
     from repro_torch.launch.mesh import make_test_mesh
     from repro_torch.launch.specs import ShapeCell
 
-    tmp, codes, ranks = _spawn_shard(args, "full", SHARD_JOIN_TIMEOUT_S, backend)
+    cell = ShapeCell("bb", "train", SHARD_2X2_SEQ, SHARD_2X2_BATCH)
+    out = {}
+    for policy in SHARD_2X2_POLICIES:
+        with fake_world(4):
+            out[policy] = trace_cell(_shard_cfg(), cell, make_test_mesh((2, 2)), policy)
+    return out
+
+
+def _shard_2x2_full(torch, args, world: dict, drys: dict) -> dict:
+    """(bb) in full, the ranks of :func:`_start_shard` joined: under each
+    policy the sharded steps against the unsharded and each rank's
+    collectives and peak against the dry run on a fake (2, 2) mesh
+    (``drys``, :func:`_shard_dry`), the elastic checkpoint, the MoE layer;
+    a rank's error fails the phase."""
+    backend = world["backend"]
+    tmp, codes, ranks = _join_shard(world, SHARD_JOIN_TIMEOUT_S)
     if any(codes):
         bad = [f"rank {r} exit {c}:\n{(tmp / f'rank{r}.out').read_text()[-3000:]}"
                for r, c in enumerate(codes) if c]
@@ -5962,42 +5969,62 @@ def _shard_2x2_full(torch, args, backend: str) -> dict:
     failures = [f for r in ranks for f in r["failures"]]
     if failures:
         raise AssertionError("17 (bb): " + "\n".join(failures))
-    cfg, out = _shard_cfg4(), {"ranks": ranks, "backend": backend, "dry": {}}
-    cell = ShapeCell("bb", "train", SHARD_2X2_SEQ, SHARD_2X2_BATCH)
+    out = {"ranks": ranks, "backend": backend, "dry": drys}
     for policy in SHARD_2X2_POLICIES:
+        dry = drys[policy]
         got = [r["policies"][policy] for r in ranks]
         log(f"  ok  17 (bb) {SHARD_ARCH} at {SHARD_2X2_LAYERS} layers, fp32, {SHARD_2X2_BATCH} x "
             f"{SHARD_2X2_SEQ}, {policy} on a 2x2 {backend} mesh: {SHARD_2X2_STEPS} steps' losses "
             f"{got[0]['losses']} within rtol {SHARD_LOSS_RTOL} of the unsharded "
-            f"{got[0]['ref_losses']} on every rank, every leaf within {SHARD_LEAF_ATOL} + "
-            f"{SHARD_LEAF_RTOL} x its scale (worst {max(g['worst_leaf'] for g in got):.3f} of "
-            f"it); walls {[[round(w, 3) for w in g['walls_s']] for g in got]} s")
-        with fake_world(4):
-            dry = out["dry"][policy] = trace_cell(cfg, cell, make_test_mesh((2, 2)), policy)
+            f"{got[0]['ref_losses']} on every rank, each rank's block of every leaf within "
+            f"{SHARD_LEAF_ATOL} + {SHARD_LEAF_RTOL} x the leaf's scale (worst "
+            f"{max(g['worst_leaf'] for g in got):.3f} of it); walls "
+            f"{[[round(w, 3) for w in g['walls_s']] for g in got]} s")
+        split = [g["tp_activations"] for g in got]
+        if split != [policy != "dp"] * 4 or dry["tp_activations"] != (policy != "dp"):
+            raise AssertionError(f"17 (bb) {policy}: activations split over the model axis on "
+                                 f"the ranks {split}, in the dry run {dry['tp_activations']}")
         for r, g in enumerate(got):
             for s, coll in enumerate(g["collectives"]):
                 if coll != dry["collectives"]:
                     raise AssertionError(f"17 (bb) {policy} rank {r} step {s}: collectives "
                                          f"{coll} are not the dry run's {dry['collectives']}")
-        log(f"  ok  17 (bb) {policy}: every rank's collectives, every step, equal the dry "
-            f"run's on a fake (2, 2) mesh: counts {dry['collectives']['counts']}, bytes "
-            f"{dry['collectives']['total']}")
+        log(f"  ok  17 (bb) {policy}: activations {'split' if split[0] else 'not split'} over "
+            f"the model axis on every rank and in the dry run; every rank's collectives, every "
+            f"step, equal the dry run's on a fake (2, 2) mesh: counts "
+            f"{dry['collectives']['counts']}, bytes {dry['collectives']['total']}")
+        predicted = (dry["memory"]["argument_size_in_bytes"]
+                     + dry["memory"]["temp_size_in_bytes"])
+        ratios = [predicted / g["peak_bytes"] for g in got]
+        if not all(SHARD_PEAK_RATIO[0] <= x <= SHARD_PEAK_RATIO[1] for x in ratios):
+            raise AssertionError(f"17 (bb) {policy}: the dry run's peak {predicted} B over each "
+                                 f"rank's first step's {[g['peak_bytes'] for g in got]} B is "
+                                 f"{ratios}, outside {SHARD_PEAK_RATIO}")
+        log(f"  ok  17 (bb) {policy}: the dry run's peak (arguments + temp) {predicted} B against "
+            f"each rank's first step's {[g['peak_bytes'] for g in got]} B "
+            f"(torch.cuda.max_memory_allocated): ratios {[round(x, 3) for x in ratios]} in "
+            f"{SHARD_PEAK_RATIO}")
     for r in ranks:
         for name, got in r["restored"].items():
             log(f"  ok  17 (bb) rank {r['rank']}: the fsdp state saved on 2x2 restored onto "
                 f"{name} with the asked placements, every local block bit-equal to its box of "
                 f"the whole state, in {got['restore_s']:.3f} s")
     out.update(_world1_restore(torch, args, tmp))
+    log(f"  17 (bb) each rank's walls (s): " + "; ".join(
+        f"rank {r['rank']} " + ", ".join(f"{k} {v:.1f}" for k, v in r["walls_s"].items())
+        for r in ranks))
     moe = [r["moe"] for r in ranks]
     out["moe"] = moe[0]
     tol = SHARD_MOE_ATOL * max(1.0, moe[0]["scale"])
-    if any(m["tp_size"] != 2 for m in moe) or moe[0]["err"] > tol:
+    if (any(m["tp_size"] != 2 or not m["tp_activations"] for m in moe)
+            or moe[0]["err"] > tol):
         raise AssertionError(f"17 (bb) MoE: {moe}, bar {tol:.3e}")
     log(f"  ok  17 (bb) {SHARD_MOE_ARCH}'s MoE layer at its published widths, fp32, "
-        f"{SHARD_MOE_BATCH} x {SHARD_MOE_SEQ}, on the 2x2 mesh (tp_size 2, activations "
-        f"{'split' if moe[0]['tp_activations'] else 'not split'} over the model axis): within "
+        f"{SHARD_MOE_BATCH} x {SHARD_MOE_SEQ}, on the 2x2 mesh (tp_size 2, activations split "
+        f"over the model axis on every rank: groups, then experts): within "
         f"{moe[0]['err']:.3e} of the whole tensors at the same group count (bar {tol:.3e}); "
-        f"{moe[0]['sharded_s']:.3f} s sharded, {moe[0]['whole_s']:.3f} s whole")
+        f"{moe[0]['sharded_s']:.3f} s sharded, {moe[0]['whole_s']:.3f} s whole; each rank's "
+        f"peak {[round(m['peak_bytes'] / 2**30, 2) for m in moe]} GiB")
     return out
 
 
@@ -6212,18 +6239,39 @@ def _selection_world_of_one(torch, args, cells: dict) -> dict:
 def phase_sharded_training(torch, args) -> dict:
     """Phase 17: training on a mesh and the dry run.  (aa) a world of 1 on
     NCCL: DTensor steps bit-equal to the unsharded ones and the dry run's
-    exact arguments and its peak; (bb) four gloo ranks on the card: sharded
-    steps against unsharded, collectives against the dry run, the elastic
+    exact arguments and its peak; (bb) four ranks: sharded steps against
+    unsharded, collectives and peaks against the dry run, the elastic
     checkpoint, the MoE layer at a model axis of 2; (cc) the dry run at
-    production scale."""
+    production scale; (dd) one rank's share of each selection cell."""
     import logging
 
     t_start = time.perf_counter()
     log("== phase 17: training on a mesh and the dry run")
     logging.getLogger("torch.distributed.tensor").setLevel(logging.ERROR)
-    out = {"aa": _shard_world_of_one(torch, args)}
-    out["bb"] = _shard_2x2(torch, args)
-    out["cc"], out["cc_selection"] = _shard_dryrun(torch)
+    # (bb): four ranks, one NCCL rank a card on four cards, else four gloo
+    # ranks on this one, after the probe's unrepaired functional all-gather
+    # (printed; make_mesh installs the port's repair).  The probe's
+    # processes run beside (aa), (bb)'s ranks beside (cc) on the host
+    backend = "nccl" if torch.cuda.device_count() >= 4 else "gloo"
+    probe = _gloo_probe_start() if backend == "gloo" else None
+    world = None
+    try:
+        out = {"aa": _shard_world_of_one(torch, args)}
+        torch.cuda.empty_cache()  # (bb)'s four ranks share the card
+        if probe is not None:
+            # the fault that make_mesh's gather_without_work answers: once
+            # this case exits 0 on every rank, the repair goes with it
+            out["probe"] = _gloo_probe_result(probe)
+            log(f"  17 (bb) the unrepaired functional all-gather of CUDA tensors over gloo "
+                f"(tools/gloo_cuda_probe.py funcol_all_gather, torch {torch.__version__}): "
+                f"{json.dumps(out['probe'])}")
+        world = _start_shard(args, backend)
+        drys = _shard_dry()
+        out["cc"], out["cc_selection"] = _shard_dryrun(torch)
+        out["bb"] = _shard_2x2_full(torch, args, world, drys)
+        out["bb"]["seconds"] = time.perf_counter() - world["t0"]
+    finally:
+        _stop(([probe] if probe is not None else []) + (world["procs"] if world else []))
     out["dd"] = _selection_world_of_one(torch, args, out["cc_selection"])
     out["seconds"] = time.perf_counter() - t_start
     log(f"phase 17: {out['seconds']:.1f} s")
@@ -6255,7 +6303,6 @@ def parse_args(argv):
     # phase 17 (bb) likewise
     p.add_argument("--rank-shard", type=int, default=None, help=argparse.SUPPRESS)
     p.add_argument("--dir-shard", default=None, help=argparse.SUPPRESS)
-    p.add_argument("--job-shard", default="full", help=argparse.SUPPRESS)
     p.add_argument("--backend-shard", default="gloo", help=argparse.SUPPRESS)
     return p.parse_args(argv)
 

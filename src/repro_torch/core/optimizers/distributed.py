@@ -31,6 +31,19 @@ order.  NCCL runs them on the card; ``gloo`` (several ranks on one card)
 takes card tensors for each of them as they are.  A failed collective
 raises; nothing here falls back to one device.
 
+**Gloo on the card.**  DTensor gathers a split dim (Shard -> Replicate)
+through the functional collectives' ``all_gather_into_tensor``, whose
+work torch 2.11's gloo dies on (SIGSEGV in ``wait_tensor``, on CUDA
+tensors only; ``tools/gloo_cuda_probe.py`` shows which collectives come
+back).  :func:`make_mesh` over gloo on the card installs
+:func:`gather_without_work` as that operator's CUDA kernel: the same
+gather through ``dist.all_gather_into_tensor``, which comes back, bit for
+bit its result, with no work left for ``wait_tensor`` to wait on.
+It stays only while that fault does: when the probe's unrepaired
+``funcol_all_gather`` case, which ``chip_smoke.py`` phase 17 (bb) prints
+before its gloo ranks start, exits 0 on the card's torch, the repair, its
+install here and the probe's ``repaired_*`` cases go together.
+
 **The bit contract.**  Rows and features are never split in the engine,
 so each candidate's gain is the float reduction it is on one device
 (provided the family's sweep sums a candidate in an order of its own: the
@@ -79,6 +92,8 @@ from repro_torch.core.optimizers.greedy import (
 
 __all__ = [
     "make_mesh",
+    "gather_without_work",
+    "install_gather_without_work",
     "distributed_fl_greedy",
     "distributed_stochastic_fl_greedy",
     "distributed_flqmi_greedy",
@@ -123,6 +138,42 @@ def _rank_device(device) -> torch.device:
     return torch.device("cuda", local % torch.cuda.device_count())
 
 
+def gather_without_work(inp: torch.Tensor, group_size: int, group_name: str) -> torch.Tensor:
+    """``_c10d_functional.all_gather_into_tensor`` through
+    ``dist.all_gather_into_tensor``: ``group_size`` blocks of ``inp`` along
+    dim 0, in group-rank order, gathered before it returns; no work is
+    registered, so ``wait_tensor`` returns the result as it is."""
+    from torch.distributed.distributed_c10d import _resolve_process_group
+
+    inp = inp.contiguous()
+    out = inp.new_empty((group_size * inp.shape[0],) + tuple(inp.shape[1:]))
+    dist.all_gather_into_tensor(out, inp, group=_resolve_process_group(group_name))
+    return out
+
+
+# device type -> the library that holds the kernel; kept for the process
+_GATHER_LIBS: dict[str, Any] = {}
+
+
+def install_gather_without_work(device_type: str = "cuda") -> None:
+    """Make :func:`gather_without_work` the functional all-gather's kernel
+    for tensors on ``device_type`` in this process (once; later calls do
+    nothing).  :func:`make_mesh` installs it for gloo on the card, against
+    torch 2.11's gloo dying (SIGSEGV) in ``wait_tensor`` after that
+    operator's own kernel.
+
+    It replaces torch's kernel of ``_c10d_functional.all_gather_into_tensor``
+    for the rest of the process and for every group there, an NCCL one
+    too: each functional all-gather on such tensors is then a
+    ``dist.all_gather_into_tensor`` that has gathered when it returns.
+    Remove it when ``tools/gloo_cuda_probe.py funcol_all_gather`` (printed
+    by ``chip_smoke.py`` phase 17 (bb)) comes back on the card's torch."""
+    if device_type not in _GATHER_LIBS:
+        lib = torch.library.Library("_c10d_functional", "IMPL")
+        lib.impl("all_gather_into_tensor", gather_without_work, device_type.upper())
+        _GATHER_LIBS[device_type] = lib
+
+
 def make_mesh(shape: Sequence[int], names: Sequence[str], device=None,
               timeout: datetime.timedelta = DEFAULT_TIMEOUT):
     """A ``DeviceMesh`` of ``shape`` with dimensions ``names`` over the
@@ -135,7 +186,8 @@ def make_mesh(shape: Sequence[int], names: Sequence[str], device=None,
     over the ``gloo`` backend; NCCL takes one rank per card).  One process
     group is built here for every tuple of dimensions, each with
     ``timeout``: a rank that dies or diverges makes the others raise within
-    it rather than hang."""
+    it rather than hang.  Over gloo on the card it installs
+    :func:`install_gather_without_work` (DTensor's gathers)."""
     from torch.distributed.device_mesh import init_device_mesh
 
     if not dist.is_initialized():
@@ -154,6 +206,8 @@ def make_mesh(shape: Sequence[int], names: Sequence[str], device=None,
     dev = _rank_device(device)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
+        if dist.get_backend() == "gloo":
+            install_gather_without_work("cuda")
     mesh = init_device_mesh(dev.type, shape, mesh_dim_names=names)
     layout, me = mesh.mesh, dist.get_rank()
     groups = {}

@@ -11,6 +11,14 @@ counterpart).
 Roles: ``"dp"`` -> the data axes (``"pod"``, ``"data"``), ``"tp"`` ->
 ``"model"``, ``None`` -> replicated.
 
+A product over activations split over two mesh axes (the batch over the
+data axes, heads, groups or experts over the model axis) runs on each
+rank's local blocks (:func:`local_blocks`), and a view that would fold a
+split dim behind another gathers it first (:func:`mergeable`,
+:func:`whole_tokens`): DTensor never folds a split dim that is not its
+group's first, which torch 2.11's refuses to do.  The layout so does not
+depend on the installed torch.
+
 Inside an enabled context a plain tensor that meets a DTensor (positions,
 RoPE tables, masks) is taken as replicated on the DTensor's mesh
 (``implicit_replication``).
@@ -27,39 +35,11 @@ from repro_torch.distributed.sharding import TP, axis_size, data_axes, to_placem
 _CTX: dict | None = None
 
 
-def folds_split_dims(mesh) -> bool:
-    """Whether this torch's DTensor folds a dim split over the model axis
-    into the dim before it (the view a product makes of (B, L, D) or an
-    einsum of its batch dims): torch 2.13 does, with a strided shard;
-    torch 2.11 refuses.  Probed on a meta DTensor; True where nothing can
-    be split over the model axis (it holds one rank, or ``mesh`` only names
-    axes and sizes, as a test's stand-in does)."""
-    from torch.distributed.device_mesh import DeviceMesh
-    from torch.distributed.tensor import DTensor, Replicate, Shard
-
-    if (not isinstance(mesh, DeviceMesh) or TP not in mesh.mesh_dim_names
-            or axis_size(mesh, TP) < 2):
-        return True
-    model = mesh.mesh_dim_names.index(TP)
-    placements = [Shard(1) if d == model else Replicate() for d in range(mesh.ndim)]
-    n = mesh.size(model)
-    x = DTensor.from_local(torch.empty(2, 1, 1, device="meta"), mesh, placements,
-                           run_check=False, shape=(2, n, 1), stride=(n, 1, 1))
-    try:
-        x.view(2 * n, 1)
-    except RuntimeError:
-        return False
-    return True
-
-
 @contextlib.contextmanager
 def activation_sharding(mesh, enable: bool = True, policy: str = "fsdp"):
-    """The role table for ``mesh`` under ``policy``.  Where this torch's
-    DTensor cannot fold a split dim (:func:`folds_split_dims`), no
-    activation is split over the model axis: the ``"tp"`` role is off, as
-    under ``dp``, while the parameters keep their ``fsdp`` placements and
-    :func:`tp_size` still gives the model axis' size, so the function
-    computed (the MoE group count) does not depend on the installed torch."""
+    """The role table for ``mesh`` under ``policy``, the JAX package's:
+    ``"tp"`` names the model axis under every policy but ``dp``, which
+    puts every axis on the batch and turns the TP roles off."""
     from torch.distributed.tensor.experimental import implicit_replication
 
     global _CTX
@@ -71,10 +51,9 @@ def activation_sharding(mesh, enable: bool = True, policy: str = "fsdp"):
         {
             # pure-DP policy: the batch carries every axis; no TP roles
             "dp": all_axes if policy == "dp" else (dp if len(dp) > 1 else (dp[0] if dp else None)),
-            "tp": tp if tp and folds_split_dims(mesh) else None,
+            "tp": tp,
             "dptp": all_axes,
             "mesh": mesh,
-            "tp_axis": tp,  # what tp_size() reads, whether or not "tp" splits
         }
         if enable
         else None
@@ -89,14 +68,31 @@ def activation_sharding(mesh, enable: bool = True, policy: str = "fsdp"):
 def tp_size() -> int:
     """The model axis' size in the active context (1 outside one, or when
     the ``dp`` policy turned the TP roles off)."""
-    return 1 if _CTX is None else axis_size(_CTX["mesh"], _CTX["tp_axis"])
+    return 1 if _CTX is None else axis_size(_CTX["mesh"], _CTX["tp"])
 
 
 def splits_activations() -> bool:
     """Whether the active context splits activations over the model axis
-    (the ``"tp"`` role is on): False outside one, under ``dp``, and where
-    :func:`folds_split_dims` fails."""
+    (the ``"tp"`` role is on): False outside one and under ``dp``."""
     return _CTX is not None and _CTX["tp"] is not None
+
+
+def _spec(roles: Sequence[str | None], shape, entries: dict | None = None) -> tuple:
+    """The spec entry of each role in the active context; an axis that does
+    not divide its dim is dropped.  With ``entries``, a role takes the entry
+    held there, and the first dim to carry it sets it."""
+    mesh, spec = _CTX["mesh"], []
+    for r, dim in zip(roles, shape):
+        if entries is not None and r in entries:
+            spec.append(entries[r])
+            continue
+        entry = _CTX.get(r) if r else None
+        if entry is not None and dim % axis_size(mesh, entry):
+            entry = None
+        if entries is not None and r:
+            entries[r] = entry
+        spec.append(entry)
+    return tuple(spec)
 
 
 def constrain(x: torch.Tensor, roles: Sequence[str | None]) -> torch.Tensor:
@@ -107,30 +103,83 @@ def constrain(x: torch.Tensor, roles: Sequence[str | None]) -> torch.Tensor:
     if _CTX is None or not isinstance(x, DTensor):
         return x
     mesh = _CTX["mesh"]
-    spec = []
-    for r, dim in zip(roles, x.shape):
-        entry = _CTX.get(r) if r else None
-        if entry is not None and dim % axis_size(mesh, entry):
-            entry = None
-        spec.append(entry)
-    return dense(x.redistribute(mesh, to_placements(tuple(spec), mesh)))
+    return dense(x.redistribute(mesh, to_placements(_spec(roles, x.shape), mesh)))
 
 
-def whole_tokens(x: torch.Tensor) -> torch.Tensor:
-    """``x`` (B, ..., D) ready for a product over its last dim, which folds
-    every dim before it into one: a DTensor split over a dim other than the
-    batch and the last (the residual's sequence under Megatron-SP) is
-    all-gathered over it, as Megatron-SP gathers before a column-parallel
-    product (torch 2.11's DTensor cannot fold a split dim that is not its
-    group's first).  Its gradient comes back in ``x``'s placements (as for
-    :func:`pin`).  A plain tensor as it is."""
+def local_blocks(fn, in_roles: Sequence, out_roles: Sequence):
+    """``fn`` run on each rank's local blocks, through torch's ``local_map``
+    with placements named by roles: the returned function places each
+    tensor argument by its roles (``in_roles``, one per argument, as
+    :func:`constrain` takes them; a plain tensor with roles is taken as
+    replicated first, None passes the argument as it is), calls ``fn`` on
+    the local tensors and wraps its result, a tensor or a tuple of them, in
+    the placements ``out_roles`` names (one roles tuple, or a tuple of
+    them) with roles the arguments carry.  A role takes the axes that the
+    first argument dim carrying it got, so a role that an argument's dim
+    did not divide is off for every tensor of the call.
+
+    ``fn``'s work must be independent across every split dim: no region
+    holds a collective, and no view inside it meets a DTensor, so DTensor
+    never folds a split dim there (torch 2.11's refuses to fold one that is
+    not its group's first).  The gradient comes back through the same
+    placements; an argument replicated over a mesh dim that an output is
+    split over gets its gradient as a partial sum there
+    (``in_grad_placements``).  Outside a context, or without a DTensor
+    argument, ``fn`` is called directly."""
+
+    def run(*args):
+        from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+        from torch.distributed.tensor.experimental import local_map
+
+        if _CTX is None or not any(isinstance(a, DTensor) for a in args):
+            return fn(*args)
+        mesh, entries = _CTX["mesh"], {}
+        places = [None if r is None or a is None else
+                  to_placements(_spec(r, a.shape, entries), mesh)
+                  for r, a in zip(in_roles, args)]
+        several = isinstance(out_roles[0], (tuple, list))
+        outs = [to_placements(_spec(r, (0,) * len(r), entries), mesh)
+                for r in (out_roles if several else (out_roles,))]
+        split = {m for pl in outs for m, p in enumerate(pl) if isinstance(p, Shard)}
+        grads = [None if pl is None else
+                 tuple(Partial() if m in split and isinstance(p, Replicate) else p
+                       for m, p in enumerate(pl))
+                 for pl in places]
+        args = [DTensor.from_local(a, mesh, [Replicate()] * mesh.ndim, run_check=False)
+                if pl is not None and not isinstance(a, DTensor) else a
+                for a, pl in zip(args, places)]
+        # one output's placements go as a list: a tuple names one per output
+        return local_map(fn, out_placements=tuple(outs) if several else list(outs[0]),
+                         in_placements=tuple(places), in_grad_placements=tuple(grads),
+                         device_mesh=mesh, redistribute_inputs=True)(*args)
+
+    return run
+
+
+def mergeable(x: torch.Tensor, first: int, last: int) -> torch.Tensor:
+    """``x`` ready for its dims ``first`` .. ``last`` to be folded into one
+    (a view or a product over them): a DTensor split over one of them
+    after the first is all-gathered over it, as DTensor cannot fold a split
+    dim that is not its group's first (torch 2.11 refuses; a later torch
+    makes a strided shard that a product then gathers).  Its gradient comes
+    back in ``x``'s placements.  A plain tensor as it is."""
     from torch.distributed.tensor import DTensor, Replicate, Shard
 
     if not isinstance(x, DTensor):
         return x
-    inner = [isinstance(p, Shard) and 0 < p.dim < x.ndim - 1 for p in x.placements]
+    inner = [isinstance(p, Shard) and first % x.ndim < p.dim <= last % x.ndim
+             for p in x.placements]
     return x.redistribute(x.device_mesh, [Replicate() if i else p
                                           for i, p in zip(inner, x.placements)])
+
+
+def whole_tokens(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (B, ..., D) ready for a product over its last dim, which folds
+    every dim before it into one (:func:`mergeable`): a split over a dim
+    other than the batch and the last (the residual's sequence under
+    Megatron-SP) is all-gathered, as Megatron-SP gathers before a
+    column-parallel product.  A plain tensor as it is."""
+    return mergeable(x, 0, -2)
 
 
 def pin(x: torch.Tensor) -> torch.Tensor:

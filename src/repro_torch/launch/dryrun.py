@@ -54,10 +54,9 @@ conventions:
   included: the port makes a new state rather than donating the old one).
 
 The record also says, as ``tp_activations``, whether activations were split
-over the model axis: False under ``dp``, and under ``fsdp`` where this
-torch's DTensor cannot fold a split dim (``act_sharding.folds_split_dims``;
-the parameters keep their placements and the MoE group count its rounding,
-so the function is the same and only the layout, and so the counts, differ).
+over the model axis (``act_sharding.splits_activations``): under ``fsdp`` on
+a model axis of more than one rank, not under ``dp``, on every torch (the
+products over split dims run on each rank's blocks, ``local_blocks``).
 
 The JAX package's unrolled depth probes and its HLO parser have no job here:
 the port's layer stacks are Python loops, so the counts see every layer.

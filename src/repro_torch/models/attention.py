@@ -21,7 +21,9 @@ import torch
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.distributed.act_sharding import constrain, tp_size, whole_tokens
+from repro_torch.distributed.act_sharding import (
+    constrain, local_blocks, mergeable, tp_size, whole_tokens,
+)
 from repro_torch.models.layers import apply_mrope, apply_rope, rms_norm
 
 _NEG = -1e30
@@ -54,30 +56,40 @@ def _gqa_out(p, v):
     return torch.einsum("bkgqs,bskh->bqkgh", p, v)
 
 
-def _causal_mask(q_start: int, lq: int, k_start: int, lk: int, device) -> torch.Tensor:
-    qpos = torch.arange(lq, device=device) + q_start
-    kpos = torch.arange(lk, device=device) + k_start
+def _causal_mask(qpos: torch.Tensor, k_start: int, lk: int) -> torch.Tensor:
+    """Whether query ``qpos[i]`` sees key ``k_start + j``: (len(qpos), lk)."""
+    kpos = torch.arange(lk, device=qpos.device) + k_start
     return qpos[:, None] >= kpos[None, :]
 
 
-def dense_attention(q, k, v, causal: bool, q_offset: int = 0):
-    """Materializes the score matrix — used for short sequences / decode."""
+def _qpos(lq: int, q_offset: int, qpos, device) -> torch.Tensor:
+    """The queries' positions: ``qpos`` where given (a block of a split
+    sequence), else ``q_offset`` + 0 .. lq - 1."""
+    return torch.arange(lq, device=device) + q_offset if qpos is None else qpos
+
+
+def dense_attention(q, k, v, causal: bool, q_offset: int = 0, qpos=None):
+    """Materializes the score matrix — used for short sequences / decode.
+    ``qpos`` (Lq,) gives the queries' positions for the causal mask in
+    place of ``q_offset``."""
     B, Lq, KV, G, hd = q.shape
     Lk = k.shape[1]
     scores = _gqa_scores(q, k) * (hd ** -0.5)
     if causal:
-        mask = _causal_mask(q_offset, Lq, 0, Lk, q.device)
+        mask = _causal_mask(_qpos(Lq, q_offset, qpos, q.device), 0, Lk)
         scores = torch.where(mask, scores, _NEG)
     p = torch.softmax(scores.float(), dim=-1).to(q.dtype)
     return _gqa_out(p, v)
 
 
-def blockwise_attention(q, k, v, causal: bool):
+def blockwise_attention(q, k, v, causal: bool, qpos=None):
     """Flash-style attention: a loop over query blocks, an inner loop over KV
     blocks with an online softmax.  Never materializes more than a
     (B, KV, G, Q_BLOCK, KV_BLOCK) score tile.  Like the JAX package's, it
-    visits every KV block, the ones above a causal diagonal too."""
+    visits every KV block, the ones above a causal diagonal too.  ``qpos``
+    (L,) gives the queries' positions (default 0 .. L - 1)."""
     B, L, KV, G, hd = q.shape
+    qpos = _qpos(L, 0, qpos, q.device)
     Lk = k.shape[1]
     qb, kb = min(Q_BLOCK, L), min(KV_BLOCK, Lk)
     if L % qb or Lk % kb:
@@ -93,7 +105,7 @@ def blockwise_attention(q, k, v, causal: bool):
             k_blk, v_blk = k[:, k_start: k_start + kb], v[:, k_start: k_start + kb]
             s = _gqa_scores(q_blk, k_blk).float() * scale
             if causal:
-                s = torch.where(_causal_mask(q_start, qb, k_start, kb, q.device), s, _NEG)
+                s = torch.where(_causal_mask(qpos[q_start: q_start + qb], k_start, kb), s, _NEG)
             m_new = torch.maximum(m, s.amax(-1))
             alpha = torch.exp(m - m_new)
             p = torch.exp(s - m_new[..., None])
@@ -129,11 +141,37 @@ def _maybe_qk_norm(cfg: ArchConfig, params, q, k):
 
 def _write_cache(cache: torch.Tensor, new: torch.Tensor, start: int) -> torch.Tensor:
     """``jax.lax.dynamic_update_slice_in_dim`` along the sequence: a new
-    tensor, ``start`` clamped so that ``new`` fits."""
+    tensor, ``start`` clamped so that ``new`` fits.  A DTensor cache is
+    written block by block (:func:`_write_blocks`)."""
     start = max(0, min(start, cache.shape[1] - new.shape[1]))
+    if isinstance(cache, DTensor):
+        return _write_blocks(cache, new, start)
     out = cache.clone()
     out[:, start: start + new.shape[1]] = new
     return out
+
+
+def _write_blocks(cache, new, start: int):
+    """:func:`_write_cache` on each rank's block of a DTensor cache: ``new``
+    taken in the cache's placements with its sequence whole, and the part
+    of it that falls in this rank's positions written there.  (An assignment
+    into a slice of a DTensor split along the sliced dim writes into a
+    redistributed copy, and the cache keeps its zeros.)"""
+    from repro_torch.distributed.sharding import local_box
+
+    mesh, pl = cache.device_mesh, cache.placements
+    if not isinstance(new, DTensor):
+        new = DTensor.from_local(new, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    seq_whole = [Replicate() if isinstance(p, Shard) and p.dim == 1 else p for p in pl]
+    new = new.redistribute(mesh, seq_whole).to_local()
+    shape, off = local_box(cache.shape, mesh, pl)
+    lo = off[1]
+    a, b = max(start, lo), min(start + new.shape[1], lo + shape[1])
+    out = cache.to_local().clone()
+    if a < b:
+        out[:, a - lo: b - lo] = new[:, a - start: b - start]
+    return DTensor.from_local(out, mesh, pl, run_check=False, shape=cache.shape,
+                              stride=cache.stride())
 
 
 def gqa_attention(
@@ -170,18 +208,25 @@ def gqa_attention(
     #   3. the sequence dim (when the head counts do not divide the axis:
     #      scores shard over Lq, K / V replicate)
     ts = tp_size()
+    kv_roles = ("dp", None, None, None)
     if KV % ts == 0:
-        q = constrain(q, ("dp", None, "tp", None, None))
-        k = constrain(k, ("dp", None, "tp", None))
-        v = constrain(v, ("dp", None, "tp", None))
+        q_roles, kv_roles = ("dp", None, "tp", None, None), ("dp", None, "tp", None)
     elif G % ts == 0:
-        q = constrain(q, ("dp", None, None, "tp", None))
-        k = constrain(k, ("dp", None, None, None))
-        v = constrain(v, ("dp", None, None, None))
+        q_roles = ("dp", None, None, "tp", None)
     elif L % ts == 0 and L > 1:
-        q = constrain(q, ("dp", "tp", None, None, None))
-        k = constrain(k, ("dp", None, None, None))
-        v = constrain(v, ("dp", None, None, None))
+        q_roles = ("dp", "tp", None, None, None)
+    else:
+        q_roles = ("dp", None, None, None, None)
+    if q_roles != ("dp", None, None, None, None):
+        q, k, v = constrain(q, q_roles), constrain(k, kv_roles), constrain(v, kv_roles)
+    # the products run on each rank's blocks (no view of a DTensor folds a
+    # split dim); the queries' positions follow a split sequence
+    # (prefill with a cache is causal)
+    causal = causal or cache is not None
+    attend = blockwise_attention if L > FLASH_THRESHOLD else dense_attention
+    region = local_blocks(lambda q, k, v, qpos: attend(q, k, v, causal, qpos=qpos),
+                          (q_roles, kv_roles, kv_roles, (q_roles[1],)), q_roles)
+    qpos = torch.arange(L, device=x.device)
 
     if cache is not None:
         start = int(cache_len)
@@ -191,48 +236,56 @@ def gqa_attention(
         if L > 1:
             # prefill-with-cache: attention over the freshly written prefix
             # (requires cache_len == 0, which is how prefill() calls us)
-            if L > FLASH_THRESHOLD:
-                out = blockwise_attention(q, k, v, causal=True)
-            else:
-                out = dense_attention(q, k, v, causal=True)
+            out = region(q, k, v, qpos)
         else:
             # decode: one query attends over the whole (masked) cache
             valid = torch.arange(k_cache.shape[1], device=x.device) < (start + L)
-            scores = _gqa_scores(q, k_cache) * (hd ** -0.5)
-            scores = torch.where(valid, scores, _NEG)
-            p = torch.softmax(scores.float(), dim=-1).to(dt)
-            out = _gqa_out(p, v_cache)
+            out = local_blocks(_decode_attention, (q_roles, kv_roles, kv_roles, (None,)),
+                               q_roles)(q, k_cache, v_cache, valid)
     else:
-        if L > FLASH_THRESHOLD:
-            out = blockwise_attention(q, k, v, causal)
-        else:
-            out = dense_attention(q, k, v, causal)
+        out = region(q, k, v, qpos)
         new_cache = None
 
-    # (its gradient comes back as a placement the heads' view can take)
-    y = whole_tokens(out.reshape(B, L, H * hd)) @ params["wo"].to(dt)
+    # the heads' merge gathers a split query-group dim; (its gradient comes
+    # back as a placement the heads' view can take)
+    out = mergeable(out, 2, 4).reshape(B, L, H * hd)
+    y = whole_tokens(out) @ params["wo"].to(dt)
     if params.get("bo") is not None:
         y = y + params["bo"].to(dt)
     return y, new_cache
 
 
+def _decode_attention(q, k_cache, v_cache, valid):
+    """One query (B, 1, KV, G, hd) over the cache's ``valid`` positions."""
+    scores = _gqa_scores(q, k_cache) * (q.shape[-1] ** -0.5)
+    scores = torch.where(valid, scores, _NEG)
+    p = torch.softmax(scores.float(), dim=-1).to(q.dtype)
+    return _gqa_out(p, v_cache)
+
+
 def cross_attention(cfg: ArchConfig, params: dict, x: torch.Tensor, enc_kv: dict):
     """Decoder cross-attention over precomputed encoder K/V (whisper)."""
+    x = whole_tokens(x)
     B, L, D = x.shape
     H, hd = cfg.n_heads, cfg.head_dim_
     dt = x.dtype
     q = x @ params["wq"].to(dt)
     if params.get("bq") is not None:
         q = q + params["bq"].to(dt)
-    q = q.reshape(B, L, H, hd)
-    k, v = enc_kv["k"], enc_kv["v"]  # (B, Lk, H, hd)
-    scores = torch.einsum("blhd,bshd->bhls", q, k) * (hd ** -0.5)
-    p = torch.softmax(scores.float(), dim=-1).to(dt)
-    out = torch.einsum("bhls,bshd->blhd", p, v).reshape(B, L, H * hd)
-    y = out @ params["wo"].to(dt)
+    q = _viewable(q, 2, H).reshape(B, L, H, hd)
+    heads = ("dp", None, "tp", None)  # (B, L or Lk, H, hd): each rank's heads
+    out = local_blocks(_cross_attend, (heads, heads, heads), heads)(q, enc_kv["k"], enc_kv["v"])
+    y = whole_tokens(mergeable(out, 2, 3).reshape(B, L, H * hd)) @ params["wo"].to(dt)
     if params.get("bo") is not None:
         y = y + params["bo"].to(dt)
     return y
+
+
+def _cross_attend(q, k, v):
+    """q (B, L, H, hd) over the encoder's k, v (B, Lk, H, hd), no mask."""
+    scores = torch.einsum("blhd,bshd->bhls", q, k) * (q.shape[-1] ** -0.5)
+    p = torch.softmax(scores.float(), dim=-1).to(q.dtype)
+    return torch.einsum("bhls,bshd->blhd", p, v)
 
 
 def mla_attention(
@@ -270,7 +323,6 @@ def mla_attention(
     q_full = constrain(q_full, ("dp", None, "tp", None))  # H carries TP
     q_nope, q_rope = q_full[..., :hd], q_full[..., hd:]
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
-    scale = (hd + r) ** -0.5
 
     new_cache = None
     if cache is not None:
@@ -278,37 +330,58 @@ def mla_attention(
         new_cache = {"c_kv": _write_cache(cache["c_kv"], c_kv, start),
                      "k_rope": _write_cache(cache["k_rope"], k_rope, start)}
 
+    # the heads' products run on each rank's blocks of heads
+    heads, shared = ("dp", None, "tp", None), ("dp", None, None)
+    w_roles = (None, "tp", None)
     if cache is None or L > 1:
         # uncompressed prefill (a cache, if given, is written above; as in
         # gqa_attention this needs cache_len == 0)
-        k_nope = torch.einsum("blr,rho->blho", c_kv, params["w_uk"].to(dt))
-        v = torch.einsum("blr,rho->blho", c_kv, params["w_uv"].to(dt))
-        if L > FLASH_THRESHOLD:
-            # pack the shared rope key beside each head's nope key, so the
-            # blockwise attention sees one (hd + r) head dim
-            q_pack = torch.cat([q_nope, q_rope], dim=-1).reshape(B, L, H, 1, hd + r)
-            k_pack = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, L, H, r)], dim=-1)
-            v_pad = torch.nn.functional.pad(v, (0, r))
-            out = blockwise_attention(q_pack, k_pack, v_pad, causal=True)
-            out = out.reshape(B, L, H, hd + r)[..., :hd]
-        else:
-            s = (torch.einsum("blho,bsho->bhls", q_nope, k_nope)
-                 + torch.einsum("blhr,bsr->bhls", q_rope, k_rope)) * scale
-            s = torch.where(_causal_mask(0, L, 0, L, x.device), s, _NEG)
-            p = torch.softmax(s.float(), dim=-1).to(dt)
-            out = torch.einsum("bhls,bsho->blho", p, v)
+        out = local_blocks(_mla_prefill, (heads, heads, shared, shared, w_roles, w_roles),
+                           heads)(q_nope, q_rope, c_kv, k_rope, params["w_uk"].to(dt),
+                                  params["w_uv"].to(dt))
     else:
-        # absorbed decode: q_nope -> latent space through w_uk; attention and
-        # its output stay in the compressed latent space
         ckv, krope = new_cache["c_kv"], new_cache["k_rope"]
-        q_lat = torch.einsum("blho,rho->blhr", q_nope, params["w_uk"].to(dt))
-        s = (torch.einsum("blhr,bsr->bhls", q_lat, ckv)
-             + torch.einsum("blhr,bsr->bhls", q_rope, krope)) * scale
         valid = torch.arange(ckv.shape[1], device=x.device) < (start + L)
-        s = torch.where(valid, s, _NEG)
-        p = torch.softmax(s.float(), dim=-1).to(dt)
-        out_lat = torch.einsum("bhls,bsr->blhr", p, ckv)
-        out = torch.einsum("blhr,rho->blho", out_lat, params["w_uv"].to(dt))
+        out = local_blocks(_mla_decode, (heads, heads, shared, shared, w_roles, w_roles, (None,)),
+                           heads)(q_nope, q_rope, ckv, krope, params["w_uk"].to(dt),
+                                  params["w_uv"].to(dt), valid)
 
     y = torch.einsum("blho,hod->bld", out, params["wo_mla"].to(dt))
     return y, new_cache
+
+
+def _mla_prefill(q_nope, q_rope, c_kv, k_rope, w_uk, w_uv):
+    """MLA's uncompressed causal attention: q_nope (B, L, H, hd), q_rope
+    (B, L, H, r), the latent c_kv (B, L, kv_lora_rank) and the shared rope
+    key (B, L, r) -> (B, L, H, hd)."""
+    B, L, H, hd = q_nope.shape
+    r = q_rope.shape[-1]
+    k_nope = torch.einsum("blr,rho->blho", c_kv, w_uk)
+    v = torch.einsum("blr,rho->blho", c_kv, w_uv)
+    if L > FLASH_THRESHOLD:
+        # pack the shared rope key beside each head's nope key, so the
+        # blockwise attention sees one (hd + r) head dim
+        q_pack = torch.cat([q_nope, q_rope], dim=-1).reshape(B, L, H, 1, hd + r)
+        k_pack = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, L, H, r)], dim=-1)
+        v_pad = torch.nn.functional.pad(v, (0, r))
+        out = blockwise_attention(q_pack, k_pack, v_pad, causal=True)
+        return out.reshape(B, L, H, hd + r)[..., :hd]
+    s = (torch.einsum("blho,bsho->bhls", q_nope, k_nope)
+         + torch.einsum("blhr,bsr->bhls", q_rope, k_rope)) * (hd + r) ** -0.5
+    s = torch.where(_causal_mask(torch.arange(L, device=s.device), 0, L), s, _NEG)
+    p = torch.softmax(s.float(), dim=-1).to(q_nope.dtype)
+    return torch.einsum("bhls,bsho->blho", p, v)
+
+
+def _mla_decode(q_nope, q_rope, ckv, krope, w_uk, w_uv, valid):
+    """MLA's absorbed decode: q_nope -> latent space through w_uk; attention
+    over the cache's ``valid`` positions and its output stay in the
+    compressed latent space, expanded through w_uv once."""
+    hd, r = q_nope.shape[-1], q_rope.shape[-1]
+    q_lat = torch.einsum("blho,rho->blhr", q_nope, w_uk)
+    s = (torch.einsum("blhr,bsr->bhls", q_lat, ckv)
+         + torch.einsum("blhr,bsr->bhls", q_rope, krope)) * (hd + r) ** -0.5
+    s = torch.where(valid, s, _NEG)
+    p = torch.softmax(s.float(), dim=-1).to(q_nope.dtype)
+    out_lat = torch.einsum("bhls,bsr->blhr", p, ckv)
+    return torch.einsum("blhr,rho->blho", out_lat, w_uv)

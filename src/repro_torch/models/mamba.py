@@ -25,7 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.distributed.act_sharding import constrain, whole_tokens
+from repro_torch.distributed.act_sharding import constrain, local_blocks, whole_tokens
 from repro_torch.models.layers import rms_norm
 
 
@@ -111,6 +111,15 @@ def ssd_chunked(x, dt, A, Bm, Cm, chunk: int, state: torch.Tensor | None = None)
     return y[:, :L], S
 
 
+def _ssd_step(x, dt, A, Bm, Cm, S):
+    """The recurrent update of one token: x (B, 1, H, P), dt (B, 1, H),
+    Bm / Cm (B, 1, N), S (B, H, P, N) -> y (B, 1, H, P) and the new S."""
+    dA = torch.exp(dt[:, 0] * A)  # (B, H)
+    inc = torch.einsum("bh,bm,bhp->bhpm", dt[:, 0], Bm[:, 0], x[:, 0])
+    S = S * dA[:, :, None, None] + inc
+    return torch.einsum("bm,bhpm->bhp", Cm[:, 0], S)[:, None], S
+
+
 def mamba_block(cfg: ArchConfig, params: dict, x: torch.Tensor, state: dict | None = None):
     """Full Mamba2 mixer.  x (B, L, D).  ``state`` enables streaming:
     {"conv": (B, W-1, conv_ch), "ssm": (B, H, P, N)}; with L > 1 the
@@ -131,16 +140,20 @@ def mamba_block(cfg: ArchConfig, params: dict, x: torch.Tensor, state: dict | No
     xh = xs.reshape(B, L, H, P)
     xh = constrain(xh, ("dp", None, "tp", None))  # SSM heads carry TP
 
+    # the scan runs on each rank's block of heads (B and C are shared by
+    # every head: their gradients come back as partial sums)
+    heads, shared = ("dp", None, "tp", None), ("dp", None, None)
+    roles = (heads, ("dp", None, "tp"), ("tp",), shared, shared, ("dp", "tp", None, None))
+    S0 = None if state is None else state["ssm"].float()
     if state is None or L > 1:
-        y, S = ssd_chunked(xh.float(), dt, A, Bm.float(), Cm.float(), cfg.ssm_chunk,
-                           None if state is None else state["ssm"].float())
+        y, S = local_blocks(lambda x, dt, A, Bm, Cm, S: ssd_chunked(x, dt, A, Bm, Cm,
+                                                                   cfg.ssm_chunk, S),
+                            roles, (heads, roles[-1]))(xh.float(), dt, A, Bm.float(),
+                                                       Cm.float(), S0)
     else:
         # recurrent decode (L == 1)
-        S = state["ssm"].float()  # (B, H, P, N)
-        dA = torch.exp(dt[:, 0] * A)  # (B, H)
-        inc = torch.einsum("bh,bm,bhp->bhpm", dt[:, 0], Bm[:, 0].float(), xh[:, 0].float())
-        S = S * dA[:, :, None, None] + inc
-        y = torch.einsum("bm,bhpm->bhp", Cm[:, 0].float(), S)[:, None]
+        y, S = local_blocks(_ssd_step, roles, (heads, roles[-1]))(xh.float(), dt, A,
+                                                                  Bm.float(), Cm.float(), S0)
     new_state = {"conv": conv_state, "ssm": S}
 
     y = y.to(dt_) + xh * params["D"].to(dt_)[None, None, :, None]

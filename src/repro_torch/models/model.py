@@ -35,7 +35,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common import resolve_device
 from repro_torch.configs.base import ArchConfig
-from repro_torch.distributed.act_sharding import constrain, pin, whole_tokens
+from repro_torch.distributed.act_sharding import constrain, mergeable, pin, whole_tokens
 from repro_torch.models.attention import cross_attention, gqa_attention, mla_attention
 from repro_torch.models.layers import gelu_mlp, layer_norm, rms_norm, sinusoidal_positions, swiglu
 from repro_torch.models.mamba import mamba_block
@@ -292,8 +292,12 @@ def _decoder_layer(cfg: ArchConfig, lp: dict, x: torch.Tensor, positions: torch.
     (x, new_cache)."""
     # the layer-boundary residual: the batch over the data axes and the
     # sequence over the model axis (Megatron-SP); norms and the FFN are
-    # token-pointwise, so the sequence shard flows through
-    x = constrain(x, ("dp", "tp", None))
+    # token-pointwise, so the sequence shard flows through.  Each
+    # sublayer's output takes that layout before the add (Megatron-SP's
+    # reduce-scatter), so its gradient comes back gathered over the
+    # sequence, as the products' views take it
+    sp = ("dp", "tp", None)
+    x = constrain(x, sp)
     h = _norm(cfg, x, lp["ln1"], lp.get("b1"))
     if "mixer" in lp:
         out, new_cache = mamba_block(cfg, lp["mixer"], h, cache)
@@ -301,10 +305,10 @@ def _decoder_layer(cfg: ArchConfig, lp: dict, x: torch.Tensor, positions: torch.
         out, new_cache = mla_attention(cfg, lp["attn"], h, positions, cache, cache_len)
     else:
         out, new_cache = gqa_attention(cfg, lp["attn"], h, positions, cache, cache_len)
-    x = x + out
-    x = constrain(x, ("dp", "tp", None))
+    x = x + constrain(out, sp)
+    x = constrain(x, sp)
     h = _norm(cfg, x, lp["ln2"], lp.get("b2"))
-    x = x + _apply_ffn(cfg, lp, h)
+    x = x + constrain(_apply_ffn(cfg, lp, h), sp)
     return x, new_cache
 
 
@@ -434,10 +438,13 @@ def _backbone(cfg: ArchConfig, params, x, positions):
 def _whisper_enc_layer(cfg: ArchConfig, lp: dict, h, positions):
     a = layer_norm(h, lp["ln1"], lp["b1"], cfg.norm_eps)
     out, _ = gqa_attention(cfg, lp["attn"], a, positions, causal=False)
-    h = h + out
-    f = layer_norm(h, lp["ln2"], lp["b2"], cfg.norm_eps)
-    return h + gelu_mlp(f, lp["ffn"]["w_in"], lp["ffn"]["b_in"], lp["ffn"]["w_out"],
-                        lp["ffn"]["b_out"])
+    # (each sublayer's output pinned: where the residual's sum splits the
+    # sequence, its gradient comes back gathered, as the products' views
+    # take it)
+    h = h + pin(out)
+    f = whole_tokens(layer_norm(h, lp["ln2"], lp["b2"], cfg.norm_eps))
+    return h + pin(gelu_mlp(f, lp["ffn"]["w_in"], lp["ffn"]["b_in"], lp["ffn"]["w_out"],
+                            lp["ffn"]["b_out"]))
 
 
 def _whisper_encode(cfg: ArchConfig, params, frames):
@@ -456,18 +463,27 @@ def _whisper_dec_layer(cfg: ArchConfig, lp: dict, h, positions, enc_out, cache, 
     H, hd = cfg.n_heads, cfg.head_dim_
     a = layer_norm(h, lp["ln1"], lp["b1"], cfg.norm_eps)
     out, new_c = gqa_attention(cfg, lp["attn"], a, positions, cache, cache_len)
-    h = h + out
+    h = h + pin(out)  # (as in the encoder's layers)
     xa = layer_norm(h, lp["ln_x"], lp["bx"], cfg.norm_eps)
     # the cross-attention's K / V from enc_out, in every layer: V takes bv,
     # K no bias
-    ek = (enc_out @ lp["xattn"]["wk"].to(h.dtype)).reshape(B, -1, H, hd)
-    ev = (enc_out @ lp["xattn"]["wv"].to(h.dtype) + lp["xattn"]["bv"].to(h.dtype)).reshape(
-        B, -1, H, hd)
-    h = h + cross_attention(cfg, lp["xattn"], xa, {"k": ek, "v": ev})
-    f = layer_norm(h, lp["ln2"], lp["b2"], cfg.norm_eps)
-    h = h + gelu_mlp(f, lp["ffn"]["w_in"], lp["ffn"]["b_in"], lp["ffn"]["w_out"],
-                     lp["ffn"]["b_out"])
+    ek = _enc_heads(enc_out @ lp["xattn"]["wk"].to(h.dtype), B, H, hd)
+    ev = _enc_heads(enc_out @ lp["xattn"]["wv"].to(h.dtype) + lp["xattn"]["bv"].to(h.dtype),
+                    B, H, hd)
+    h = h + pin(cross_attention(cfg, lp["xattn"], xa, {"k": ek, "v": ev}))
+    f = whole_tokens(layer_norm(h, lp["ln2"], lp["b2"], cfg.norm_eps))
+    h = h + pin(gelu_mlp(f, lp["ffn"]["w_in"], lp["ffn"]["b_in"], lp["ffn"]["w_out"],
+                         lp["ffn"]["b_out"]))
     return h, new_c
+
+
+def _enc_heads(y, B: int, H: int, hd: int):
+    """The encoder's K or V (B, T, n) as (B, -1, H, hd), the JAX package's
+    reshape.  Where n is not H·hd (a config with fewer KV heads than
+    heads) it folds T into the heads, so a split of n is gathered first."""
+    if y.shape[-1] != H * hd:
+        y = mergeable(y, 1, 2)
+    return y.reshape(B, -1, H, hd)
 
 
 def _whisper_decoder(cfg, params, x, positions, enc_out, caches, cache_len):

@@ -17,7 +17,10 @@ plus dense shared experts.
   the JAX package.
 
 The group layout is (B, nL, g, D): the batch dim keeps its ``"dp"``
-sharding and the group dim its ``"tp"`` sharding through every einsum.
+sharding and the group dim its ``"tp"`` sharding through routing, dispatch
+and combine, which run on each rank's groups; the experts' products run on
+each rank's experts (``act_sharding.local_blocks``), between the all-to-all
+from the group layout and the one back.
 """
 from __future__ import annotations
 
@@ -25,7 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.distributed.act_sharding import constrain, dense, tp_size
+from repro_torch.distributed.act_sharding import constrain, local_blocks, tp_size
 from repro_torch.models.layers import swiglu
 
 
@@ -35,12 +38,6 @@ def top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     no order among ties)."""
     vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
     return vals[..., :k], idx[..., :k]
-
-
-def _einsum(eq: str, *operands):
-    """``torch.einsum`` whose DTensor operands and result keep global
-    strides that describe their local blocks (``act_sharding.dense``)."""
-    return dense(torch.einsum(eq, *(dense(x) for x in operands)))
 
 
 def dispatch_combine(gate_vals: torch.Tensor, gate_idx: torch.Tensor, n_experts: int, cap: int):
@@ -60,6 +57,25 @@ def dispatch_combine(gate_vals: torch.Tensor, gate_idx: torch.Tensor, n_experts:
     return dispatch, combine, kept.any(dim=-1)
 
 
+def _route(xt: torch.Tensor, router: torch.Tensor, K: int, cap: int):
+    """Groups xt (B, nL, g, D) routed in fp32 to their top-K experts of
+    ``router`` (D, E): (combine (B, nL, g, E, cap) in xt's dtype, the
+    experts' inputs (B, nL, E, cap, D))."""
+    logits = torch.einsum("bngd,de->bnge", xt.float(), router.float())
+    probs = torch.softmax(logits, dim=-1)  # (B, nL, g, E)
+    gate_vals, gate_idx = top_k(probs, K)  # (B, nL, g, K)
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True), min=1e-9)
+    dispatch, combine, _ = dispatch_combine(gate_vals, gate_idx, router.shape[1], cap)
+    return combine.to(xt.dtype), torch.einsum("bngec,bngd->bnecd", dispatch.to(xt.dtype), xt)
+
+
+def _experts_in(x, w_gate, w_up):
+    """Each expert's gated hidden over its slots: x (B, nL, E, cap, D) ->
+    (B, nL, E, cap, F)."""
+    return F.silu(torch.einsum("bnecd,edf->bnecf", x, w_gate)) * \
+        torch.einsum("bnecd,edf->bnecf", x, w_up)
+
+
 def moe_ffn(cfg: ArchConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
     """x (B, L, D) -> (B, L, D)."""
     B, L, D = x.shape
@@ -77,28 +93,34 @@ def moe_ffn(cfg: ArchConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
 
     xt = x.reshape(B, nL, g, D)
     xt = constrain(xt, ("dp", "tp", None, None))
-    router_logits = _einsum("bngd,de->bnge", xt.float(), params["router"].float())
-    # the routing tensors keep the tokens' sharding
-    router_logits = constrain(router_logits, ("dp", "tp", None, None))
-    probs = torch.softmax(router_logits, dim=-1)  # (B, nL, g, E)
-    gate_vals, gate_idx = top_k(probs, K)  # (B, nL, g, K)
-    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True), min=1e-9)
-    dispatch, combine, _ = dispatch_combine(gate_vals, gate_idx, E, cap)
-
-    # group (blocks over tp) -> expert (E over tp): the MoE all-to-all, between
-    # these two constraints
-    expert_in = _einsum("bngec,bngd->bnecd", dispatch.to(dt), xt)
-    expert_in = constrain(expert_in, ("dp", None, "tp", None, None))
-    h = F.silu(_einsum("bnecd,edf->bnecf", expert_in, params["w_gate"].to(dt))) * \
-        _einsum("bnecd,edf->bnecf", expert_in, params["w_up"].to(dt))
-    expert_out = _einsum("bnecf,efd->bnecd", h, params["w_down"].to(dt))
-    expert_out = constrain(expert_out, ("dp", None, "tp", None, None))
-    y = _einsum("bngec,bnecd->bngd", combine.to(dt), expert_out)
-    y = constrain(y, ("dp", "tp", None, None))
+    # routing, dispatch and combine run on each rank's groups, the experts'
+    # products on each rank's experts (local blocks: no DTensor view folds a
+    # split dim)
+    groups, expert = ("dp", "tp", None, None), ("dp", None, "tp", None, None)
+    ggroups = ("dp", "tp", None, None, None)  # (B, nL, g, E, cap) / (B, nL, E, cap, D)
+    route = local_blocks(lambda xt, router: _route(xt, router, K, cap),
+                         (groups, (None, None)), (ggroups, ggroups))
+    combine, expert_in = route(xt, params["router"])
+    # group (blocks over tp) -> expert (E over tp): the MoE all-to-all
+    expert_in = constrain(expert_in, expert)
+    # (two regions: a rank holds two of the experts' matrices gathered at once)
+    w = ("tp", None, None)
+    h = local_blocks(_experts_in, (expert, w, w), expert)(
+        expert_in, params["w_gate"].to(dt), params["w_up"].to(dt))
+    expert_out = local_blocks(lambda h, w_down: torch.einsum("bnecf,efd->bnecd", h, w_down),
+                              (expert, w), expert)(h, params["w_down"].to(dt))
+    # and back: expert -> group
+    expert_out = constrain(expert_out, ggroups)
+    y = local_blocks(lambda combine, out: torch.einsum("bngec,bnecd->bngd", combine, out),
+                     (ggroups, ggroups), groups)(combine, expert_out)
+    y = constrain(y, groups)
 
     y = y.reshape(B, L + pad, D)
     if cfg.n_shared_experts:
-        y = y + swiglu(x, params["shared_gate"], params["shared_up"], params["shared_down"])
+        # in the groups' layout, the sequence split (its gradient comes back
+        # gathered, as the product's view takes it)
+        shared = swiglu(x, params["shared_gate"], params["shared_up"], params["shared_down"])
+        y = y + constrain(shared, ("dp", "tp", None))
     if pad:
         y = y[:, :L]
     return y

@@ -25,7 +25,15 @@ A job is a dict:
 - ``training``: train steps on DTensors placed by ``param_shardings``,
   each step's collectives counted, the state saved sharded and restored
   onto other meshes, and a MoE layer at a model axis of 2
-  (:func:`training`);
+  (:func:`training`); with ``refuse_folds`` all of it under
+  ``tests/_torch_fold_guard.py``'s mode, which refuses what torch 2.11's
+  DTensor refuses;
+- ``inference``: prefill and one decode step on DTensors against the
+  whole tensors (:func:`inference`);
+- ``gather``: the functional all-gather's repair for gloo on the card
+  (``gather_without_work``), installed here for CPU tensors, against
+  ``dist.all_gather_into_tensor`` and its gradient against
+  ``dist.reduce_scatter_tensor`` (:func:`gather`), after the others;
 - ``die_rank``: that rank exits before its first collective;
 - ``serve_dies``: after the cases, a second mesh server whose follower
   ``rank`` exits; every other rank records how it ended (``dies{r}.pt``).
@@ -33,6 +41,7 @@ A job is a dict:
 Children import the port alone (no JAX, no JAX package):
 tests/test_torch_isolation.py walks this file with the port.
 """
+import contextlib
 import datetime
 import hashlib
 import os
@@ -303,9 +312,15 @@ def training(tj: dict, meshes: dict) -> dict:
     restored onto each mesh named in ``restore_on``, whole-tensor equal and
     with the asked placements.  ``moe``: ``moe_ffn`` of a MoE layer on
     DTensors and on whole tensors inside the same context (the group count
-    rounded to the same ``tp_size()``), and ``tp_size()`` there."""
+    rounded to the same ``tp_size()``), and ``tp_size()`` and
+    ``splits_activations()`` there.  With ``refuse_folds`` every step and
+    the MoE layer run under :class:`RefuseSplitFolds`, and each case
+    records ``splits_activations()``."""
+    from _torch_fold_guard import RefuseSplitFolds
     from repro_torch.ckpt import checkpoint
-    from repro_torch.distributed.act_sharding import activation_sharding, tp_size
+    from repro_torch.distributed.act_sharding import (
+        activation_sharding, splits_activations, tp_size,
+    )
     from repro_torch.distributed.sharding import (
         batch_specs, distribute, param_shardings, shardings_of,
     )
@@ -314,21 +329,24 @@ def training(tj: dict, meshes: dict) -> dict:
     from repro_torch.tree import flatten_with_names, leaves_like
 
     out = {}
+    guard = RefuseSplitFolds if tj.get("refuse_folds") else contextlib.nullcontext
     for name, case in tj.get("cases", {}).items():
         mesh, cfg, policy = meshes[case["mesh"]], case["cfg"], case["policy"]
         state = init_train_state(cfg, seed=case["seed"], device="cpu")
         state = distribute(state, param_shardings(state, mesh, policy))
         step = make_train_step(cfg)
-        losses, colls = [], []
+        losses, colls, split = [], [], None
         for batch in case["batches"]:
             batch = distribute(batch, shardings_of(batch, batch_specs(batch, mesh, policy=policy),
                                                    mesh))
             counter = CostCounter(memory=False)
-            with activation_sharding(mesh, policy=policy), counter:
+            with activation_sharding(mesh, policy=policy), counter, guard():
+                split = splits_activations()
                 state, metrics = step(state, batch)
             losses.append(metrics["loss"].full_tensor())
             colls.append(counter.collectives())
-        res = {"losses": losses, "collectives": colls, "state": _full(state)}
+        res = {"losses": losses, "collectives": colls, "state": _full(state),
+               "tp_activations": split}
         if case.get("ckpt"):
             checkpoint.save(case["ckpt"], 1, state)
             res["restored"] = {}
@@ -353,8 +371,88 @@ def training(tj: dict, meshes: dict) -> dict:
         placed = distribute(params, param_shardings(params, mesh, "fsdp"))["moe"]
         xd = distribute({"x": x}, shardings_of({"x": x}, batch_specs({"x": x}, mesh), mesh))["x"]
         with activation_sharding(mesh, policy="fsdp"):
-            out["moe"] = {"tp_size": tp_size(), "sharded": moe_ffn(cfg, placed, xd).full_tensor(),
-                          "whole": moe_ffn(cfg, params["moe"], x)}
+            with guard():
+                sharded = moe_ffn(cfg, placed, xd).full_tensor()
+            out["moe"] = {"tp_size": tp_size(), "tp_activations": splits_activations(),
+                          "sharded": sharded, "whole": moe_ffn(cfg, params["moe"], x)}
+    return out
+
+
+def inference(ij: dict, meshes: dict) -> dict:
+    """The sharded-inference job.  Each case: ``prefill`` of ``batch`` into
+    caches of ``max_len`` placed by ``cache_specs``, then one
+    ``decode_step`` of ``next`` at the prompt's length, on DTensors placed
+    by ``param_shardings`` under ``fsdp`` inside ``activation_sharding``;
+    and the same on the whole tensors inside the same context (so a MoE
+    layer's group count is the same).  Both calls' logits, whole, and
+    ``splits_activations()``.  With ``refuse_folds`` the sharded calls run
+    under :class:`RefuseSplitFolds`."""
+    from _torch_fold_guard import RefuseSplitFolds
+    from repro_torch.distributed.act_sharding import activation_sharding, splits_activations
+    from repro_torch.distributed.sharding import (
+        batch_specs, cache_specs, distribute, param_shardings, shardings_of,
+    )
+    from repro_torch.models.model import decode_step, init_cache, init_params, prefill
+
+    out = {}
+    guard = RefuseSplitFolds if ij.get("refuse_folds") else contextlib.nullcontext
+    for name, case in ij["cases"].items():
+        mesh, cfg, max_len = meshes[case["mesh"]], case["cfg"], case["max_len"]
+        batch = {k: torch.as_tensor(v) for k, v in case["batch"].items()}
+        nxt = torch.as_tensor(case["next"])
+        B, L = batch["tokens"].shape
+        params = init_params(cfg, seed=case["seed"], device="cpu")
+        placed = distribute(params, param_shardings(params, mesh, "fsdp"))
+        bd = distribute(batch, shardings_of(batch, batch_specs(batch, mesh), mesh))
+        nd = distribute({"t": nxt}, shardings_of({"t": nxt}, batch_specs({"t": nxt}, mesh),
+                                                 mesh))["t"]
+        caches = init_cache(cfg, B, max_len, "cpu")
+        cd = distribute(caches, shardings_of(caches, cache_specs(caches, mesh, B, max_len), mesh))
+        with activation_sharding(mesh, policy="fsdp"):
+            with guard():
+                split = splits_activations()
+                first, cd = prefill(cfg, placed, bd, max_len=max_len, caches=cd)
+                second, _ = decode_step(cfg, placed, cd, nd, L)
+            whole_first, caches = prefill(cfg, params, batch, max_len=max_len, caches=caches)
+            whole_second, _ = decode_step(cfg, params, caches, nxt, L)
+        out[name] = {"tp_activations": split,
+                     "sharded": [first.full_tensor(), second.full_tensor()],
+                     "whole": [whole_first, whole_second]}
+    return out
+
+
+def gather(gj: dict, mesh) -> dict:
+    """The functional all-gather's repair on CPU tensors over the model
+    axis' group: this rank's block ``gj["x"][rank]`` gathered by
+    ``dist.all_gather_into_tensor``, then, with ``gather_without_work``
+    installed for the CPU, by the functional all-gather and by a DTensor's
+    Shard -> Replicate; and that redistribution's gradient, each rank's
+    ``gj["g"][rank]`` taken as a partial sum, against
+    ``dist.reduce_scatter_tensor`` of them."""
+    import torch.distributed as dist
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    from repro_torch.core.optimizers.distributed import install_gather_without_work
+
+    rank, group = dist.get_rank(), mesh.get_group("model")
+    x, g = torch.as_tensor(gj["x"][rank]), torch.as_tensor(gj["g"][rank])
+    n = dist.get_world_size(group)
+    want = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
+    dist.all_gather_into_tensor(want, x, group=group)
+    want_grad = x.new_empty(x.shape)
+    dist.reduce_scatter_tensor(want_grad, g.contiguous(), group=group)
+    install_gather_without_work("cpu")
+    out = {"installed": torch._C._dispatch_has_kernel_for_dispatch_key(
+        "_c10d_functional::all_gather_into_tensor", "CPU")}
+    got = funcol.all_gather_tensor(x, 0, group)
+    leaf = x.clone().requires_grad_()
+    t = DTensor.from_local(leaf, mesh, [Replicate(), Shard(0)], run_check=False)
+    whole = t.redistribute(mesh, [Replicate(), Replicate()]).to_local(
+        grad_placements=[Replicate(), Partial()])
+    (whole * g).sum().backward()
+    out.update(funcol_equal=torch.equal(got, want), dtensor_equal=torch.equal(whole, want),
+               grad_equal=torch.equal(leaf.grad, want_grad))
     return out
 
 
@@ -387,6 +485,10 @@ def _run(d: Path, rank: int, world: int) -> None:
                                              meshes[job["dryrun_step"]["mesh"]])
         if "training" in job:
             out["training"] = training(job["training"], meshes)
+        if "inference" in job:
+            out["inference"] = inference(job["inference"], meshes)
+        if "gather" in job:
+            out["gather"] = gather(job["gather"], meshes[job["gather"]["mesh"]])
         torch.save(out, d / f"result{rank}.pt")
         if "serve_dies" in job:
             serve_dies(job["serve_dies"], rank, d)

@@ -28,9 +28,17 @@ class StubMesh:
 
 
 def batches(cfg, n, B, L, seed):
+    """``n`` batches of ``B`` x ``L`` tokens (and an audio model's encoder
+    frames) from ``seed``."""
     rng = np.random.default_rng(seed)
-    return [{"tokens": torch.as_tensor(rng.integers(0, cfg.vocab, (B, L)).astype(np.int32))}
-            for _ in range(n)]
+    out = []
+    for _ in range(n):
+        b = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab, (B, L)).astype(np.int32))}
+        if cfg.family == "audio":
+            b["frames"] = torch.as_tensor(
+                rng.normal(size=(B, cfg.enc_positions, cfg.d_model)).astype(np.float32))
+        out.append(b)
+    return out
 
 
 def unsharded(cfg, batches, seed=0, tp=1):

@@ -263,35 +263,58 @@ def test_fewer_kv_heads_than_the_model_axis_trace_under_fsdp():
 
 
 def test_without_folding_split_dims_the_tp_roles_are_off(monkeypatch):
-    """Where DTensor cannot fold a split dim (torch 2.11), fsdp keeps its
-    parameter placements but splits no activation over the model axis: the
-    "tp" role is off, the record says so, and a train step traces on a fake
-    2x2 mesh.  tp_size() stays 2, so moe_ffn rounds its group count as on a
-    torch that folds: the same function, bit for bit."""
+    """Where DTensor cannot fold a split dim (torch 2.11's rule, which
+    ``tests/_torch_fold_guard.py``'s counter and mode enforce here), fsdp
+    still splits activations over the model axis, as the JAX package does:
+    a (2, 2) train cell of the reduced deepseek-v2 (MLA, MoE) traces with
+    ``tp_activations`` true and the MoE layer runs on DTensors, with no view
+    refused.  Only the dp policy turns the "tp" role off (tp_size() 1)."""
+    from _torch_fold_guard import RefuseSplitFolds, refusing_counter
     from _torch_mesh_cases import moe_inputs
 
     from repro_torch.distributed import act_sharding
+    from repro_torch.distributed.sharding import (
+        batch_specs, distribute, param_shardings, shardings_of,
+    )
     from repro_torch.models.moe import moe_ffn
 
+    monkeypatch.setattr(dryrun, "CostCounter", refusing_counter())
     cfg = get_config("deepseek-v2-236b").reduced()
+    cell = ShapeCell("t", "train", 32, 4)
     mcfg, params, x = moe_inputs()
-    params = {k: torch.as_tensor(v) for k, v in params.items()}
-    x = torch.as_tensor(x)
+    params = {"moe": {k: torch.as_tensor(v) for k, v in params.items()}}
+    x = {"x": torch.as_tensor(x)}
     with dryrun.fake_world(4):
         mesh = make_test_mesh((2, 2), device="cpu")
-        assert act_sharding.folds_split_dims(mesh)  # this torch folds them
-        with act_sharding.activation_sharding(mesh):
+        rec = dryrun.trace_cell(cfg, cell, mesh, "fsdp")
+        placed = distribute(params, param_shardings(params, mesh, "fsdp"))["moe"]
+        xd = distribute(x, shardings_of(x, batch_specs(x, mesh), mesh))["x"]
+        with act_sharding.activation_sharding(mesh), RefuseSplitFolds() as guard:
             assert act_sharding.tp_size() == 2 and act_sharding.splits_activations()
-            folded = moe_ffn(mcfg, params, x)
-        monkeypatch.setattr(act_sharding, "folds_split_dims", lambda mesh: False)
-        with act_sharding.activation_sharding(mesh):
-            assert act_sharding.tp_size() == 2 and not act_sharding.splits_activations()
-            unfolded = moe_ffn(mcfg, params, x)
+            y = moe_ffn(mcfg, placed, xd)
         with act_sharding.activation_sharding(mesh, policy="dp"):
             assert act_sharding.tp_size() == 1 and not act_sharding.splits_activations()
-        rec = dryrun.trace_cell(cfg, ShapeCell("t", "train", 32, 4), mesh, "fsdp")
-    assert torch.equal(folded, unfolded)
-    # 3 groups outside a mesh, 4 at tp_size 2: other pairs drop
-    assert not torch.equal(moe_ffn(mcfg, params, x), folded)
-    assert rec["tp_activations"] is False
+        rec_dp = dryrun.trace_cell(cfg, cell, mesh, "dp")
+    assert tuple(y.shape) == tuple(x["x"].shape) and guard.refused == []
+    assert rec["tp_activations"] is True and rec_dp["tp_activations"] is False
     assert rec["flops_per_device"] > 0 and rec["collectives"]["counts"]["all-gather"] > 0
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_every_cell_kind_splits_activations_under_fsdp_as_torch_2_11_allows(arch, monkeypatch):
+    """Each family's train, prefill and decode cells on a (2, 2) mesh under
+    fsdp, with the "tp" role on, trace under torch 2.11's view rule (the
+    refusing counter of ``tests/_torch_fold_guard.py``): no view folds a
+    split dim behind its group's first, forward or backward."""
+    from _torch_fold_guard import refusing_counter
+
+    monkeypatch.setattr(dryrun, "CostCounter", refusing_counter())
+    cfg = get_config(arch).reduced()
+    cells = [ShapeCell("t", "train", 32, 4), ShapeCell("p", "prefill", 32, 4),
+             ShapeCell("d", "decode", 32, 4)]
+    with dryrun.fake_world(4):
+        mesh = make_test_mesh((2, 2), device="cpu")
+        for cell in cells:
+            rec = dryrun.trace_cell(cfg, cell, mesh, "fsdp")
+            assert rec["tp_activations"] is True, (arch, cell.kind)
+            assert rec["flops_per_device"] > 0, (arch, cell.kind)

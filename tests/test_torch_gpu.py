@@ -1587,3 +1587,23 @@ def test_nccl_world_of_one_sharded_steps_equal_the_unsharded_steps(cuda, tmp_pat
             assert torch.equal(leaf.full_tensor(), ref[name]), name
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("case", ["funcol_all_gather", "dtensor_shard_to_replicate"])
+def test_gloo_functional_all_gather_of_card_tensors_comes_back_repaired(cuda, case):
+    """tools/gloo_cuda_probe.py's case with the port's repair installed
+    (``gather_without_work``, which ``make_mesh`` installs for gloo on the
+    card): four gloo ranks on this card gather CUDA tensors and exit 0,
+    where torch 2.11's own functional all-gather ends them with SIGSEGV."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    tool = Path(__file__).resolve().parent.parent / "tools" / "gloo_cuda_probe.py"
+    done = subprocess.run([sys.executable, str(tool), f"repaired_{case}"], capture_output=True,
+                          text=True, timeout=300)
+    assert done.returncode == 0, done.stderr[-2000:]
+    line = [json.loads(x) for x in done.stdout.splitlines() if x.startswith('{"case"')]
+    assert len(line) == 1 and line[0]["exit_codes"] == [0, 0, 0, 0], line
+    assert "ok" in line[0]["rank0"], line

@@ -3,11 +3,20 @@
 Each case runs in a world of its own, four ranks of this script over a file
 store with a 60 s process-group timeout, so a case that crashes a rank
 (SIGSEGV) ends only its own world; the parent prints one JSON line per case
-with the ranks' exit codes and rank 0's result or error.  It imports torch
-only.
+with the ranks' exit codes and rank 0's result or error.  A case named
+``repaired_<case>`` runs ``<case>`` with the port's repair installed
+(``repro_torch.core.optimizers.distributed.install_gather_without_work``,
+which ``make_mesh`` installs for gloo on the card); every other case
+imports torch only.
+
+``--folds`` prints instead, on a fake (2, 2) ("data", "model") mesh of this
+process, whether this torch's DTensor runs each view in ``FOLDS`` (a view
+that folds a split dim behind its group's first: torch 2.11 refuses it, a
+later torch makes a strided shard).
 
     python tools/gloo_cuda_probe.py                # every case
-    python tools/gloo_cuda_probe.py funcol_all_gather,dtensor_shard_to_replicate
+    python tools/gloo_cuda_probe.py funcol_all_gather,repaired_funcol_all_gather
+    python tools/gloo_cuda_probe.py --folds
 """
 import datetime
 import json
@@ -19,6 +28,12 @@ from pathlib import Path
 
 
 def _case(name: str, rank: int):
+    if name.startswith("repaired_"):
+        sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "src"))
+        from repro_torch.core.optimizers.distributed import install_gather_without_work
+
+        install_gather_without_work("cuda")
+        name = name[len("repaired_"):]
     import torch
     import torch.distributed as dist
     import torch.distributed._functional_collectives as funcol
@@ -61,7 +76,52 @@ def _case(name: str, rank: int):
 CASES = ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor", "all_to_all_single",
          "funcol_all_gather", "funcol_all_gather_mesh_dim", "funcol_reduce_scatter",
          "funcol_all_to_all", "dtensor_shard_to_replicate", "dtensor_partial_to_shard",
-         "dtensor_shard0_to_shard1")
+         "dtensor_shard0_to_shard1", "repaired_funcol_all_gather",
+         "repaired_funcol_all_gather_mesh_dim", "repaired_dtensor_shard_to_replicate",
+         "repaired_dtensor_shard0_to_shard1")
+
+# name: (global shape, placements on the (data, model) mesh as the split
+# tensor dim or None, the view's shape): each a view DTensor runs or refuses
+FOLDS = {
+    "batch_and_sequence_split_to_tokens": ((4, 8, 6), (0, 1), (32, 6)),
+    "batch_split_to_tokens": ((4, 8, 6), (0, None), (32, 6)),
+    "sequence_split_to_tokens": ((4, 8, 6), (None, 1), (32, 6)),
+    "sequence_split_to_sequence_by_width": ((4, 8, 6), (0, 1), (4, 48)),
+    "width_split_to_sequence_by_width": ((4, 8, 6), (0, 2), (4, 48)),
+    "width_split_to_heads": ((4, 8, 6), (0, 2), (4, 8, 2, 3)),
+    "kv_heads_split_merged": ((4, 8, 4, 2, 3), (0, 2), (4, 8, 24)),
+    "query_groups_split_merged": ((4, 8, 4, 2, 3), (0, 3), (4, 8, 24)),
+}
+
+
+def folds() -> dict:
+    """Each of ``FOLDS`` on this torch: "ok" or the error's first line."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=4)
+    try:
+        mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+        out = {}
+        for name, (shape, dims, view) in FOLDS.items():
+            local = list(shape)
+            for d in dims:
+                if d is not None:
+                    local[d] //= 2
+            x = DTensor.from_local(torch.zeros(local), mesh,
+                                   [Replicate() if d is None else Shard(d) for d in dims],
+                                   run_check=False)
+            try:
+                x.view(view)
+                out[name] = "ok"
+            except RuntimeError as e:
+                out[name] = str(e).splitlines()[0][:200]
+        return out
+    finally:
+        dist.destroy_process_group()
 
 
 def _rank(name: str, rank: int, d: Path) -> None:
@@ -103,5 +163,9 @@ def main(names) -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--rank"]:
         _rank(sys.argv[2], int(sys.argv[3]), Path(sys.argv[4]))
+    elif sys.argv[1:2] == ["--folds"]:
+        import torch
+
+        print(json.dumps({"torch": torch.__version__, "folds": folds()}))
     else:
         main(sys.argv[1].split(",") if len(sys.argv) > 1 else CASES)
